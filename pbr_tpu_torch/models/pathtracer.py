@@ -1,0 +1,272 @@
+"""Progressive path tracer on torch tensors.
+
+The counterpart of ``pbr_tpu/models/pathtracer.py``: each frame traces
+``samples`` paths per pixel and blends them into an accumulator that stays
+on the device, with weight n/(n+1) (PathTracer.cpp:44, pt_rgb.cl:17). Only
+``image()`` and ``depth_image()`` copy pixels to the host.
+
+The compaction schedule comes from the same occupancy probe as in the JAX
+version: here a plain call of ``trace_rays(..., with_stats=True)`` on a band
+of rows. The host-side helpers ``probe_subset_ids`` and ``schedule_cost``
+are NumPy, carried over unchanged so that both versions derive the same
+schedule.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pbr_tpu.scene.build import derive_static_flags
+from pbr_tpu.scene.types import CameraState, Scene
+from pbr_tpu.utils.config import RenderSettings
+from pbr_tpu.utils.log import Logger
+from pbr_tpu.utils.morton import morton_pixel_ids
+from pbr_tpu_torch.models.integrator import trace_rays
+from pbr_tpu_torch.ops.vec import Vec3
+from pbr_tpu_torch.scene import camera_to_torch, to_torch
+
+__all__ = [
+    "FrameState", "PathTracer", "init_frame_state", "probe_compact_schedule",
+    "probe_subset_ids", "render_frame", "schedule_cost",
+]
+
+
+class FrameState(NamedTuple):
+    """Progressive accumulation state on the device."""
+
+    rgb: Vec3  # (B,) accumulated color
+    depth: torch.Tensor  # (B,) previous frame's first-hit t (DoF focus source)
+    sample_count: torch.Tensor  # () int32
+
+
+def init_frame_state(num_pixels: int, device) -> FrameState:
+    return FrameState(
+        rgb=Vec3.full((num_pixels,), (0.0, 0.0, 0.0), device),
+        depth=torch.zeros((num_pixels,), dtype=torch.float32, device=device),
+        sample_count=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def render_frame(scene, cam, settings: RenderSettings, state: FrameState,
+                 pixel_ids, frame_seed, with_dropped: bool = False):
+    """One progressive frame: trace, then blend (setColors, pt_rgb.cl:9-21).
+    ``with_dropped`` also returns the compaction-overflow lane count (None
+    when no schedule is active)."""
+    res = trace_rays(scene, cam, settings, pixel_ids, frame_seed, prev_t=state.depth)
+    n = state.sample_count.to(torch.float32)
+    weight = n / (n + 1.0)  # pixelWeight = n/(n+1), PathTracer.cpp:44
+    rgb = Vec3(
+        res.color.x * (1.0 - weight) + state.rgb.x * weight,
+        res.color.y * (1.0 - weight) + state.rgb.y * weight,
+        res.color.z * (1.0 - weight) + state.rgb.z * weight,
+    )
+    new_state = FrameState(rgb=rgb, depth=res.focus_t, sample_count=state.sample_count + 1)
+    if with_dropped:
+        return new_state, res.n_dropped
+    return new_state
+
+
+def probe_subset_ids(ids: np.ndarray, block: int, target_lanes: int) -> np.ndarray:
+    """Evenly strided subset of whole ``block``-aligned lane blocks of a
+    pixel-id permutation, capped at about ``target_lanes`` lanes. Each
+    selected block stays contiguous and aligned, so the live-row shares
+    measured on the subset are at the production compaction granularity."""
+    block = max(1, int(block))
+    while ids.size % block:
+        block //= 2  # the integrator halves until it divides; mirror it
+    n_blocks = ids.size // block
+    target = max(1, min(n_blocks, target_lanes // block))
+    sel = np.unique(np.linspace(0, n_blocks - 1, target).round().astype(np.int64))
+    return ids.reshape(n_blocks, block)[sel].reshape(-1)
+
+
+def schedule_cost(schedule, max_total_depth: int) -> float:
+    """Estimated total bounce width, in frame widths, under a compaction
+    schedule: what the lane-order probe compares. Lower means less
+    intersect and shade work over the frame's bounces."""
+    total = 0.0
+    for kb in range(max_total_depth):
+        caps = [f for (b, f) in schedule if b <= kb]
+        total += min(1.0, min(caps) if caps else 1.0)
+    return total
+
+
+def probe_compact_schedule(scene, cam, settings: RenderSettings, headroom: float = 1.5,
+                           probe_rows: int = 64, pixel_ids=None):
+    """A compaction schedule from a cheap occupancy probe: trace a band of
+    rows (or, for a non-scanline lane order, a strided subset of whole
+    ``compact_block`` lane blocks of ``pixel_ids``), then place a cap at
+    every bounce whose live-row share (times ``headroom``) falls
+    meaningfully below the previous stage's width. Same rule as the JAX
+    version, so both derive the same schedule from the same occupancy."""
+    w, h = settings.width, settings.height
+    if pixel_ids is not None:
+        ids = probe_subset_ids(np.asarray(pixel_ids, dtype=np.int32),
+                               settings.compact_block, min(h, probe_rows) * w)
+    else:
+        n_rows = min(h, probe_rows)
+        rows = np.arange(0, h, max(1, h // n_rows))[:n_rows]
+        ids = (rows[:, None] * w + np.arange(w)[None, :]).reshape(-1).astype(np.int32)
+    ps = settings.replace(compact_schedule=(), samples=1)
+    res = trace_rays(scene, cam, ps, torch.as_tensor(ids, device=scene.device), 0,
+                     with_stats=True)
+    frac = res.bounce_row_live.cpu().numpy()
+    schedule = []
+    prev = 1.0
+    for kb in range(1, settings.max_total_depth):
+        f = min(1.0, float(frac[kb]) * headroom)
+        if f < prev * 0.8:  # a stage pays for its gather only if it cuts width
+            f = max(f, 1.0 / 512.0)
+            schedule.append((kb, round(f, 4)))
+            prev = f
+    return tuple(schedule)
+
+
+class PathTracer:
+    """Stateful progressive renderer around ``render_frame``.
+
+    ``scene`` is a NumPy ``Scene`` (``pbr_tpu.scene.build``), moved onto
+    ``device`` once; ``render`` takes a NumPy ``CameraState`` (or one made
+    by ``camera_to_torch``). ``lane_order``: 'scanline', 'morton', or
+    'auto', which probes both orders' occupancy at the first render and
+    keeps the one that schedules less bounce width.
+    """
+
+    def __init__(self, scene: Scene, settings: RenderSettings, device,
+                 lane_order: str = "auto"):
+        self.device = torch.device(device)
+        # Opaque-only scenes skip the refraction chain (bitwise-identical).
+        settings = derive_static_flags(scene, settings)
+        self.scene = to_torch(scene, self.device)
+        auto_compact = settings.compact_schedule == "auto"
+        if lane_order == "auto" and not auto_compact:
+            # A pinned (or no) schedule was tuned on the identity order.
+            lane_order = "scanline"
+        if lane_order == "morton":
+            perm = morton_pixel_ids(settings.width, settings.height)
+        elif lane_order in ("scanline", "auto"):
+            perm = None  # 'auto' may switch to morton at the probe
+        else:
+            raise ValueError(f"unknown lane_order {lane_order!r}")
+        self.lane_order = lane_order
+        self._auto_compact = auto_compact
+        self.settings = settings.replace(compact_schedule=()) if auto_compact else settings
+        self._set_lane_order(perm)
+        self.state = init_frame_state(settings.width * settings.height, self.device)
+        self._warned_drop = False
+        self._frame_no = -1
+        self._cam_src = None  # the last camera render() was given ...
+        self._cam = None  # ... and its tensors on the device
+
+    def _set_lane_order(self, perm) -> None:
+        """Lane i traces pixel ``perm[i]`` (identity when ``perm`` is None)."""
+        self._perm = perm
+        if perm is None:
+            npx = self.settings.width * self.settings.height
+            self.pixel_ids = torch.arange(npx, dtype=torch.int32, device=self.device)
+        else:
+            self.pixel_ids = torch.as_tensor(perm, device=self.device)
+
+    def _camera(self, cam: CameraState) -> CameraState:
+        """``cam`` on the device; converted once per camera object, so a
+        steady camera costs no host-to-device copy per frame."""
+        if isinstance(cam.eye.x, torch.Tensor):
+            return cam
+        if cam is not self._cam_src:
+            self._cam_src, self._cam = cam, camera_to_torch(cam, self.device)
+        return self._cam
+
+    def _resolve_auto_compact(self, cam: CameraState) -> None:
+        if not self._auto_compact:
+            return
+        self._auto_compact = False
+        if self.lane_order == "auto":
+            mperm = morton_pixel_ids(self.settings.width, self.settings.height)
+            sched_s = probe_compact_schedule(self.scene, cam, self.settings)
+            sched_m = probe_compact_schedule(self.scene, cam, self.settings, pixel_ids=mperm)
+            depth = self.settings.max_total_depth
+            cost_s = schedule_cost(sched_s, depth)
+            cost_m = schedule_cost(sched_m, depth)
+            if cost_m < cost_s:
+                self.lane_order = "morton"
+                self._set_lane_order(mperm)
+                schedule = sched_m
+            else:
+                self.lane_order = "scanline"
+                schedule = sched_s
+            Logger.info(
+                f"[pathtracer] lane-order probe: scanline width {cost_s:.2f}"
+                f" vs morton {cost_m:.2f} -> {self.lane_order}"
+            )
+        else:
+            schedule = probe_compact_schedule(self.scene, cam, self.settings,
+                                              pixel_ids=self._perm)
+        Logger.info(f"[pathtracer] auto compaction schedule: {schedule}")
+        self.settings = self.settings.replace(compact_schedule=schedule)
+
+    def reset_sample_count(self) -> None:
+        """Restart progressive accumulation (PathTracer.cpp:576-578)."""
+        self.state = init_frame_state(self.settings.width * self.settings.height, self.device)
+
+    def move_light(self, index: int, dx: float, dy: float, dz: float) -> None:
+        """Translate light ``index`` and restart accumulation. The position
+        is cloned and then updated in place, so tensors handed out before
+        keep the old position."""
+        pos = self.scene.light_pos.detach().clone()
+        pos[:, index] += torch.tensor((dx, dy, dz), dtype=pos.dtype, device=pos.device)
+        self.scene.light_pos = torch.nn.Parameter(
+            pos, requires_grad=self.scene.light_pos.requires_grad
+        )
+        self.reset_sample_count()
+
+    def render(self, cam: CameraState, frame_seed: int = 0) -> None:
+        """Trace one frame and fold it into the accumulator."""
+        cam = self._camera(cam)
+        self._resolve_auto_compact(cam)
+        self.state, n_dropped = render_frame(
+            self.scene, cam, self.settings, self.state, self.pixel_ids,
+            frame_seed, with_dropped=True,
+        )
+        # Compaction-overflow guard: a nonzero count means live lanes were
+        # cut short, a biased render. int() syncs the host, so it is read
+        # on the first frames and then every 32nd only.
+        self._frame_no += 1
+        if (
+            n_dropped is not None
+            and not self._warned_drop
+            and (self._frame_no <= 2 or self._frame_no % 32 == 0)
+            and int(n_dropped) > 0
+        ):
+            Logger.warning(
+                f"[pathtracer] compaction capacity overflow: {int(n_dropped)} "
+                f"live lanes terminated early this frame — raise "
+                f"compact_schedule caps (or use compact_schedule='auto'); "
+                f"the render is biased"
+            )
+            self._warned_drop = True
+
+    @property
+    def sample_count(self) -> int:
+        return int(self.state.sample_count)
+
+    def _to_pixels(self, lanes: np.ndarray) -> np.ndarray:
+        """Lane order -> pixel order, then rows flipped: pixel row 0 is the
+        camera-space bottom (+v is up), the image's top row comes first."""
+        if self._perm is not None:
+            img = np.empty_like(lanes)
+            img[self._perm] = lanes  # lane i holds pixel _perm[i]
+            lanes = img
+        h, w = self.settings.height, self.settings.width
+        return lanes.reshape(h, w, *lanes.shape[1:])[::-1]
+
+    def image(self) -> np.ndarray:
+        """The accumulated image as (H, W, 3) float32 on the host, top row
+        first."""
+        rgb = torch.stack([self.state.rgb.x, self.state.rgb.y, self.state.rgb.z], dim=-1)
+        return self._to_pixels(rgb.detach().cpu().numpy())
+
+    def depth_image(self) -> np.ndarray:
+        return self._to_pixels(self.state.depth.detach().cpu().numpy())

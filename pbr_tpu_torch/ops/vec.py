@@ -1,0 +1,184 @@
+"""Structure-of-arrays 3-vector math on torch tensors.
+
+The PyTorch counterpart of ``pbr_tpu/ops/vec.py``. A batch of N 3-vectors
+stays *three* ``(N,)`` tensors, the layout the JAX package uses at its public
+functions, so the two packages compare like with like. Every operation keeps
+the reference's operation order (``a.x*b.x + a.y*b.y + a.z*b.z``, ``1/sqrt``
+rather than ``rsqrt``), which is what keeps the port within ULPs of NumPy.
+
+Scalar constants are plain Python floats that are exact float32 values:
+torch treats a Python scalar as weakly typed, so ``f32_tensor * c`` stays
+float32 with ``c`` rounded to float32 first, as NumPy's ``np.float32(c)``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+def f32(x) -> float:
+    """``x`` rounded to float32, as a Python float (a weak torch scalar)."""
+    return float(np.float32(x))
+
+
+class Vec3(NamedTuple):
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+
+    # -- arithmetic ---------------------------------------------------------
+    def __add__(self, o):
+        if isinstance(o, Vec3):
+            return Vec3(self.x + o.x, self.y + o.y, self.z + o.z)
+        return Vec3(self.x + o, self.y + o, self.z + o)
+
+    def __radd__(self, o):
+        return self.__add__(o)
+
+    def __sub__(self, o):
+        if isinstance(o, Vec3):
+            return Vec3(self.x - o.x, self.y - o.y, self.z - o.z)
+        return Vec3(self.x - o, self.y - o, self.z - o)
+
+    def __rsub__(self, o):
+        return Vec3(o - self.x, o - self.y, o - self.z)
+
+    def __mul__(self, o):
+        if isinstance(o, Vec3):
+            return Vec3(self.x * o.x, self.y * o.y, self.z * o.z)
+        return Vec3(self.x * o, self.y * o, self.z * o)
+
+    def __rmul__(self, o):
+        return self.__mul__(o)
+
+    def __truediv__(self, o):
+        if isinstance(o, Vec3):
+            return Vec3(self.x / o.x, self.y / o.y, self.z / o.z)
+        return Vec3(self.x / o, self.y / o, self.z / o)
+
+    def __neg__(self):
+        return Vec3(-self.x, -self.y, -self.z)
+
+    # -- products -----------------------------------------------------------
+    def dot(self, o: "Vec3"):
+        return self.x * o.x + self.y * o.y + self.z * o.z
+
+    def cross(self, o: "Vec3") -> "Vec3":
+        return Vec3(
+            self.y * o.z - self.z * o.y,
+            self.z * o.x - self.x * o.z,
+            self.x * o.y - self.y * o.x,
+        )
+
+    def yzx(self) -> "Vec3":
+        return Vec3(self.y, self.z, self.x)
+
+    # -- norms --------------------------------------------------------------
+    def length2(self):
+        return self.dot(self)
+
+    def normalized(self) -> "Vec3":
+        # 1/sqrt, not rsqrt: IEEE sqrt and divide are correctly rounded on
+        # NumPy, XLA and CUDA alike (pbr_tpu/ops/vec.py:_rsqrt_like).
+        return self * (1.0 / torch.sqrt(self.length2()))
+
+    def max_component(self):
+        return torch.maximum(torch.maximum(self.x, self.y), self.z)
+
+    # -- construction -------------------------------------------------------
+    @staticmethod
+    def full(shape, vals, device, dtype=torch.float32) -> "Vec3":
+        vx, vy, vz = vals
+        return Vec3(
+            torch.full(shape, vx, dtype=dtype, device=device),
+            torch.full(shape, vy, dtype=dtype, device=device),
+            torch.full(shape, vz, dtype=dtype, device=device),
+        )
+
+    def stack(self):
+        """To an (..., 3) tensor (host-side convenience; not for hot paths)."""
+        return torch.stack([self.x, self.y, self.z], dim=-1)
+
+    def detach(self) -> "Vec3":
+        return Vec3(self.x.detach(), self.y.detach(), self.z.detach())
+
+
+# ---------------------------------------------------------------------------
+# Backward-safe math: forward-exact on the valid domain, zero (not NaN)
+# gradients at the boundary — the guarded input keeps autograd from ever
+# forming an infinite local derivative (pbr_tpu/ops/vec.py:142-148).
+# ---------------------------------------------------------------------------
+
+_PI = f32(np.pi)
+
+
+def safe_sqrt(x):
+    """sqrt(x) for x > 0, exactly; 0 at x <= 0 with zero gradient."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def safe_pow(x, e):
+    """x**e for x > 0, exactly; 0 at x <= 0 with zero gradient."""
+    pos = x > 0.0
+    return torch.where(pos, torch.pow(torch.where(pos, x, 1.0), e), 0.0)
+
+
+def safe_arccos(x):
+    """arccos with clamped domain and finite gradients at the endpoints."""
+    inside = torch.abs(x) < 1.0
+    core = torch.acos(torch.where(inside, x, 0.0))
+    ends = torch.where(x >= 1.0, 0.0, _PI)
+    return torch.where(inside, core, ends)
+
+
+def safe_div(num, den, eps=1e-12):
+    """num / den where |den| > eps, else 0 — with zero gradient there."""
+    ok = torch.abs(den) > eps
+    return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
+
+
+def safe_normalized(v: Vec3, eps=1e-20) -> Vec3:
+    """Unit vector; zero vector (zero grad) for degenerate input."""
+    l2 = v.length2()
+    ok = l2 > eps
+    inv = torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, l2, 1.0)), 0.0)
+    return v * inv
+
+
+def where3(mask, a: Vec3, b: Vec3) -> Vec3:
+    """Component-wise ``torch.where`` over Vec3."""
+    return Vec3(
+        torch.where(mask, a.x, b.x),
+        torch.where(mask, a.y, b.y),
+        torch.where(mask, a.z, b.z),
+    )
+
+
+def reflect(d: Vec3, n: Vec3) -> Vec3:
+    """Mirror reflection (reference ``reflect`` macro, pt_utils.cl:426)."""
+    return d - n * (2.0 * n.dot(d))
+
+
+def bisect(v: Vec3, w: Vec3) -> Vec3:
+    """Normalized half-vector; zero (not NaN) for opposite inputs."""
+    return safe_normalized(v + w)
+
+
+def orthonormal(n: Vec3) -> tuple:
+    """Tangent frame (u, v) for unit normal n, the reference's way
+    (pt_utils.cl:309-310)."""
+    u = safe_normalized(n.yzx().cross(n))
+    v = safe_normalized(n.cross(u))
+    return u, v
+
+
+def jitter(nl: Vec3, phi, sina, cosa) -> Vec3:
+    """Direction on the hemisphere around ``nl`` at angle (phi, alpha)
+    (reference pt_utils.cl:306-318)."""
+    u, v = orthonormal(nl)
+    azim = (u * torch.cos(phi) + v * torch.sin(phi)).normalized()
+    return (azim * sina + nl * cosa).normalized()

@@ -1,0 +1,123 @@
+"""NumPy scene and camera -> the port's tensors.
+
+The counterpart of ``pbr_tpu/scene/build.py::to_device``. Scenes are built
+by the JAX package's NumPy host layer (``pbr_tpu.scene.build``,
+``pbr_tpu.scene.procedural``, ``pbr_tpu.io``), which imports no JAX; this
+module only moves the result onto a torch device:
+
+- floats become float32 and indices int32;
+- the fields a gradient may later target (materials, lights) live in an
+  ``nn.Module``, ``SceneParams``, as parameters with ``requires_grad`` off —
+  switching it on is all a gradient pass needs. Geometry is held as
+  buffers: the renderer detaches it, as the JAX package does;
+- ``camera_to_torch`` turns the camera into 0-d tensors.
+
+The BVH, forest and cluster tables of a ``Scene`` are not carried over: the
+port's only intersector is the brute sweep (``ops/traverse.py``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from pbr_tpu.scene.types import CameraState, LightsSoA, MaterialsSoA, Scene, TrianglesSoA
+from pbr_tpu_torch.ops.vec import Vec3
+
+_TRI_VEC = ("v0", "e1", "e2", "n0", "n1", "n2")
+_MAT_SCALAR = ("d", "Ni", "rough", "p", "nu", "nv", "Rs", "Rd")
+_MAT_VEC = ("kd", "ks")
+
+
+# torch.tensor copies: the port never aliases the caller's NumPy arrays.
+def _f32(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
+def _i32(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.int32), device=device)
+
+
+def _stack3(v, device) -> torch.Tensor:
+    """(3, N) float32 tensor from a NumPy Vec3 of (N,) arrays."""
+    return _f32(np.stack([np.asarray(v.x), np.asarray(v.y), np.asarray(v.z)]), device)
+
+
+def _vec(t: torch.Tensor) -> Vec3:
+    """Vec3 of row views of a (3, N) tensor (views keep autograd links)."""
+    return Vec3(t[0], t[1], t[2])
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class SceneParams(nn.Module):
+    """A scene on one device.
+
+    Parameters (``requires_grad`` off until a gradient pass turns it on):
+    the material fields ``mat_<name>`` ((M,), and (3, M) for ``kd``/``ks``)
+    and the light fields ``light_pos`` / ``light_rgb`` (3, L) and
+    ``light_radius`` (L,). Buffers: the triangle table ``tri_<name>``
+    (3, F) and the integer fields ``tri_mtl``, ``mat_light``,
+    ``light_type``. The properties ``tris``, ``materials`` and ``lights``
+    give the SoA NamedTuples of ``pbr_tpu.scene.types`` over views of these
+    tensors, which is what the renderer consumes.
+    """
+
+    def __init__(self, scene: Scene, device):
+        super().__init__()
+        t = scene.tris
+        for name in _TRI_VEC:
+            self.register_buffer(f"tri_{name}", _stack3(getattr(t, name), device))
+        self.register_buffer("tri_mtl", _i32(t.mtl, device))
+        m = scene.materials
+        for name in _MAT_SCALAR:
+            setattr(self, f"mat_{name}", _param(_f32(getattr(m, name), device)))
+        for name in _MAT_VEC:
+            setattr(self, f"mat_{name}", _param(_stack3(getattr(m, name), device)))
+        self.register_buffer("mat_light", _i32(m.light, device))
+        li = scene.lights
+        self.light_pos = _param(_stack3(li.pos, device))
+        self.light_rgb = _param(_stack3(li.rgb, device))
+        self.light_radius = _param(_f32(li.radius, device))
+        self.register_buffer("light_type", _i32(li.type, device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_mtl.device
+
+    @property
+    def tris(self) -> TrianglesSoA:
+        vecs = {name: _vec(getattr(self, f"tri_{name}")) for name in _TRI_VEC}
+        return TrianglesSoA(mtl=self.tri_mtl, **vecs)
+
+    @property
+    def materials(self) -> MaterialsSoA:
+        fields = {name: getattr(self, f"mat_{name}") for name in _MAT_SCALAR}
+        fields.update({name: _vec(getattr(self, f"mat_{name}")) for name in _MAT_VEC})
+        return MaterialsSoA(light=self.mat_light, **fields)
+
+    @property
+    def lights(self) -> LightsSoA:
+        return LightsSoA(
+            pos=_vec(self.light_pos), rgb=_vec(self.light_rgb),
+            radius=self.light_radius, type=self.light_type,
+        )
+
+
+def to_torch(scene: Scene, device) -> SceneParams:
+    """Move a NumPy ``Scene`` onto ``device``."""
+    return SceneParams(scene, device)
+
+
+def camera_to_torch(cam: CameraState, device) -> CameraState:
+    """A NumPy ``CameraState`` as 0-d float32 tensors on ``device``."""
+    s = lambda a: _f32(a, device).reshape(())  # noqa: E731
+    v = lambda a: Vec3(s(a.x), s(a.y), s(a.z))  # noqa: E731
+    return CameraState(
+        eye=v(cam.eye), w=v(cam.w), u=v(cam.u), v=v(cam.v),
+        focal_length=s(cam.focal_length), aperture=s(cam.aperture),
+        focus=s(cam.focus),
+    )

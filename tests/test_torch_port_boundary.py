@@ -1,0 +1,88 @@
+"""The port never imports JAX: checked in fresh interpreters, since this
+test process has JAX loaded already, and in the sources, which import
+only the JAX package's NumPy host layer."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code: str) -> str:
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "pbr_tpu_torch",
+    "pbr_tpu_torch.ops.cuda_intersect",
+    "pbr_tpu_torch.models.pathtracer",
+])
+def test_import_leaves_jax_out(module):
+    out = _run(f"import sys, {module}; print('jax' in sys.modules)")
+    assert out.strip() == "False"
+
+
+HOST_LAYER = ("pbr_tpu.io", "pbr_tpu.accel.bvh", "pbr_tpu.scene.types",
+              "pbr_tpu.scene.build", "pbr_tpu.scene.procedural", "pbr_tpu.scene.camera",
+              "pbr_tpu.utils.config", "pbr_tpu.utils.log", "pbr_tpu.utils.image",
+              "pbr_tpu.utils.morton")
+PORT_FILES = sorted(
+    os.path.relpath(os.path.join(root, f), REPO)
+    for root, _, files in os.walk(os.path.join(REPO, "pbr_tpu_torch"))
+    for f in files if f.endswith(".py")
+) + ["chip_smoke.py"]
+
+
+def _imported_modules(path: str) -> list:
+    with open(os.path.join(REPO, path)) as fh:
+        tree = ast.parse(fh.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_imports_only_the_host_layer(path):
+    """Of the JAX package, the port and chip_smoke.py import only its NumPy
+    host layer (parsers, BVH builder, scene and camera, config, log,
+    image and Morton helpers), and nothing of JAX."""
+    for name in _imported_modules(path):
+        assert name.split(".")[0] != "jax", f"{path} imports {name}"
+        if name == "pbr_tpu" or name.startswith("pbr_tpu."):
+            assert any(name == h or name.startswith(h + ".") for h in HOST_LAYER), \
+                f"{path} imports {name}"
+
+
+def test_renders_with_jax_blocked():
+    """With ``sys.modules['jax'] = None`` any import of JAX raises; an 8x8
+    Cornell frame still renders on the CPU, finite and not black."""
+    out = _run(
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "from pbr_tpu.scene.build import scene_from_text\n"
+        "from pbr_tpu.scene.camera import make_camera_state\n"
+        "from pbr_tpu.scene.procedural import cornell_box\n"
+        "from pbr_tpu.utils.config import RenderSettings\n"
+        "from pbr_tpu_torch import PathTracer\n"
+        "scene, _ = scene_from_text(*cornell_box(), use_bvh=False)\n"
+        "cam = make_camera_state(eye=(0.0, 1.0, 3.2), center_dir=(0.0, 0.0, 1.0))\n"
+        "st = RenderSettings(width=8, height=8, max_depth=3, max_added_depth=5,\n"
+        "                    shadow_rays=1, compact_schedule='auto')\n"
+        "pt = PathTracer(scene, st, device='cpu')\n"
+        "pt.render(cam, frame_seed=1)\n"
+        "img = pt.image()\n"
+        "print(img.shape, bool(np.isfinite(img).all()), float(img.mean()) > 0.0)\n"
+    )
+    assert out.strip().splitlines()[-1] == "(8, 8, 3) True True"
