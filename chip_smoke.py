@@ -2,28 +2,53 @@
 """Smoke test of the PyTorch/CUDA port (pbr_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, one card
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one frame
+    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one frame per scene
 
-Run from the root of a checkout. It builds kernel K1 from the checkout's
-sources, then drives the port's main path — the procedural Cornell box at
-1024², one sample per pixel, 8 bounces, NEE, Shirley-Ashikhmin, compaction
-from the occupancy probe — through ``PathTracer(...).render(...)``:
+Run from the root of a checkout. It builds the port's kernels from the
+checkout's sources (one nvcc per source, all at once), then drives the
+port's paths through the entry points a user calls, at full size, with
+bench.py's settings (1024², 1 sample per pixel, 8 bounces, NEE,
+Shirley-Ashikhmin, compaction and lane order from the occupancy probes).
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after; a kernel of the path that did not launch fails the run.
 
 1. device: a CUDA card of compute capability 9.0, its name and power limit;
-2. build: K1 with nvcc, timed;
-3. K1 against its plain PyTorch version on the card, bitwise (t, face,
-   occluded), nearest and NEE, on the main path's camera rays, on a ragged
-   random batch and on a 4,000-face soup; faces also against the plain
-   sweep on the host's CPU;
-4. a 128² frame on the card, with the probed compaction schedule and lane
-   order, against the same frame rendered by the port on the CPU with
-   neither: no NaN and at least 99% of pixels within 1e-3 (the CPU path is
-   held to the JAX package's NumPy oracle by tests/test_torch_render.py);
-5. the full-size frame: its first frame, compacted, must equal bitwise the
-   same frame traced at full width in the same lane order; then 8 timed
-   progressive frames after 2 warm-up frames, in which K1 must launch
-   exactly 8 times a frame, no lane may be dropped by compaction, and the
-   image must be finite with a plausible mean.
+2. build: K1/K2 (csrc/brute_intersect.cu) and K3 (csrc/gated_intersect.cu)
+   with nvcc, in parallel, timed;
+3. Cornell box (34 faces; auto runs K1):
+   - K1 against its plain version on the card, bitwise (t, face,
+     occluded), nearest and NEE, on the path's camera rays, a ragged
+     random batch and a 4,000-face soup; faces also against the plain
+     sweep on the host's CPU;
+   - a 128² frame on the card against the port's CPU path: no NaN and at
+     least 99% of pixels within 1e-3 (the CPU tests hold the CPU path to
+     the JAX package's NumPy oracle);
+   - path "cornell": the first 1024² frame, compacted, equals bitwise the
+     same frame at full width; then 8 timed frames after 2 warm-up frames
+     (K1 launches once a bounce, 0 lanes dropped, a plausible image);
+   - path "cornell, NEE off" (shadow_rays=0): one frame through K1'
+     (nearest only);
+4. multiroom (bench.py --scene multiroom: 1,428 faces in 32 clusters of 64;
+   auto runs K3 over the cull verdicts of ops/cull.py):
+   - a 128² frame on the card against the port's CPU path (the gated
+     sweep's plain version), at least 99% of pixels within 1e-3;
+   - path "multiroom": the first 1024² frame, compacted, equals bitwise
+     the full-width frame; the auto frame against the same frame through
+     K1 (intersector='pallas') at least 99% of pixels within 1e-3 (the two
+     use different Moller-Trumbore forms); 8 timed frames after 2 warm-up
+     frames, in which K3 launches and K1 does not, 0 lanes dropped;
+   - K3 (nearest and any-hit passes) and K2 (NEE and nearest) against
+     their plain versions, bitwise, on the path's 1024² camera rays (in its
+     lane order) and on 1M bounce-like rays with an alive mask and NEE,
+     with K3's executed test counts equal; K3's faces against K2's on live
+     lanes; times per call of K3, K2 and K1 and of their plain versions;
+   - path "multiroom, forward+backward": bench.py's step (loss = sum of
+     the frame's colors; gradients to every material and light parameter
+     and to the eye) at 1024², timed, with its peak memory and finite
+     gradients; at 64², the card's gradients against the CPU's;
+   - path "linear form": K2's entry point (intersect_fused(variant='lin'),
+     which no render mode selects, as in the JAX package) on the path's
+     camera rays, NEE and nearest.
 
 Every failure raises, so the exit code is not 0. The last two lines of
 standard output are the kernels' JSON record and
@@ -39,28 +64,50 @@ sys.modules["jax"] = None  # the port must run where JAX is absent
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
+from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from pbr_tpu.scene.build import scene_from_text  # noqa: E402
 from pbr_tpu.scene.camera import make_camera_state  # noqa: E402
-from pbr_tpu.scene.procedural import cornell_box, random_soup  # noqa: E402
+from pbr_tpu.scene.procedural import cornell_box, multi_room, random_soup  # noqa: E402
 from pbr_tpu.utils.config import RenderSettings  # noqa: E402
 from pbr_tpu_torch import PathTracer, camera_to_torch, to_torch, trace_rays  # noqa: E402
 from pbr_tpu_torch.models.integrator import _gen_rays  # noqa: E402
+from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
 from pbr_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from pbr_tpu_torch.ops.rng import PixelRng  # noqa: E402
 from pbr_tpu_torch.ops.vec import Vec3  # noqa: E402
 
 SIZE = 1024
-WARMUP, FRAMES = 2, 8
-K1_SOURCE = "pbr_tpu_torch/csrc/brute_intersect.cu"
-K1_REPLACES = "pbr_tpu/ops/pallas_intersect.py:182"
+WARMUP, FRAMES, STEPS = 2, 8, 3
+BOUNCE_RAYS = 1 << 20
+K12_SOURCE = "pbr_tpu_torch/csrc/brute_intersect.cu"
+K3_SOURCE = "pbr_tpu_torch/csrc/gated_intersect.cu"
+# The TPU kernel each instance replaces (pbr_tpu/ops/...: the body's line).
+REPLACES = {
+    "K1": "pbr_tpu/ops/pallas_intersect.py:182",  # _kernel_nee around _sweep
+    "K1'": "pbr_tpu/ops/pallas_intersect.py:167",  # _kernel around _sweep
+    "K2": "pbr_tpu/ops/pallas_intersect.py:99",  # _sweep_lin in _kernel_nee
+    "K2'": "pbr_tpu/ops/pallas_intersect.py:99",  # _sweep_lin in _kernel
+    "K3": "pbr_tpu/ops/pallas_gated.py:73",  # _kernel, nearest and any-hit
+}
 
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+def counts() -> dict:
+    """Every kernel instance's launch count."""
+    return {**ci.launches, "K3": cg.launches["nearest"], "K3 any-hit": cg.launches["any-hit"]}
+
+
+def zero_counts() -> None:
+    for table in (ci.launches, cg.launches):
+        for k in table:
+            table[k] = 0
 
 
 def bench_settings(size: int, **kw) -> RenderSettings:
@@ -74,6 +121,15 @@ def bench_settings(size: int, **kw) -> RenderSettings:
 def cornell():
     scene, _ = scene_from_text(*cornell_box(), use_bvh=False)
     cam = make_camera_state(eye=(0.0, 1.0, 3.2), center_dir=(0.0, 0.0, 1.0))
+    return scene, cam
+
+
+def multiroom():
+    """bench.py --scene multiroom (bench.py:187-193)."""
+    scene, _ = scene_from_text(*multi_room(), use_bvh=True)
+    cam = make_camera_state(eye=(0.0, 1.0, 3.0), center_dir=(0.0, 0.0, 1.0))
+    if scene.clusters is None or scene.clusters.size != 64:
+        raise AssertionError("multiroom must carry a ClusterSet of 64-face clusters")
     return scene, cam
 
 
@@ -94,9 +150,22 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
+    """One nvcc per source, all started together."""
+    def timed(name):
+        t0 = time.perf_counter()
+        path = ci.build(name)
+        return name, time.perf_counter() - t0, path.name
+
     t0 = time.perf_counter()
-    path = ci.build()
-    phase("build", f"K1 built in {time.perf_counter() - t0:.3f} s -> {path.name}")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        done = list(pool.map(timed, ("brute_intersect", "gated_intersect")))
+    for name, sec, lib in done:
+        phase("build", f"{name}.cu built in {sec:.3f} s -> {lib}")
+    phase("build", f"all kernels built in {time.perf_counter() - t0:.3f} s")
+
+
+def _to_dev(a: np.ndarray, dev) -> Vec3:
+    return Vec3(*(torch.tensor(c, device=dev) for c in a))
 
 
 def _rays_in_box(n: int, seed: int, dev) -> tuple:
@@ -105,86 +174,33 @@ def _rays_in_box(n: int, seed: int, dev) -> tuple:
     o[1] += 1.0
     d = rng.normal(size=(3, n)).astype(np.float32)
     d /= np.linalg.norm(d, axis=0, keepdims=True)
-    return Vec3(*(torch.tensor(c, device=dev) for c in o)), Vec3(*(torch.tensor(c, device=dev) for c in d))
+    return _to_dev(o, dev), _to_dev(d, dev)
 
 
-def _camera_rays(cam_t, settings: RenderSettings, dev) -> tuple:
-    """The main path's first-bounce rays: all pixels of frame 0."""
-    ids = torch.arange(settings.width * settings.height, dtype=torch.int32, device=dev)
+def _rays_in_rooms(n: int, seed: int, dev) -> tuple:
+    """Bounce-like rays in multiroom: origins inside the rooms, random unit
+    directions."""
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.uniform(-2.9, 2.9, n), rng.uniform(0.05, 1.95, n),
+                  rng.uniform(-4.9, 0.9, n)]).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return _to_dev(o, dev), _to_dev(d, dev)
+
+
+def _camera_rays(cam_t, settings: RenderSettings, dev, ids=None) -> tuple:
+    """A path's first-bounce rays: all pixels of frame 0, in lane order
+    ``ids`` (scanline when None)."""
+    if ids is None:
+        ids = torch.arange(settings.width * settings.height, dtype=torch.int32, device=dev)
     px = (ids % settings.width).to(torch.float32)
     py = (ids // settings.width).to(torch.float32)
     prev_t = torch.full(px.shape, float("inf"), device=dev)
     return _gen_rays(cam_t, settings, px, py, PixelRng(0, ids), 0, prev_t)
 
 
-def kernel_phase(scene, cam, dev) -> dict:
-    """K1 against its plain version, bitwise; returns the largest |t| error
-    and the main-path-shape rays for timing."""
-    ts = to_torch(scene, dev)
-    light = torch.stack([ts.lights.pos.x[0], ts.lights.pos.y[0], ts.lights.pos.z[0]])
-    l0 = Vec3(*light)
-    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), bench_settings(SIZE), dev)
-    soup, _ = scene_from_text(random_soup(4000), use_bvh=False)
-    cases = [
-        ("cornell camera rays", ts.tris, cam_o, cam_d),
-        ("cornell random rays", ts.tris, *_rays_in_box(1_000_003, 1, dev)),
-        ("soup:4000", to_torch(soup, dev).tris, *_rays_in_box(65_536, 2, dev)),
-    ]
-    max_err = 0.0
-    for name, tris, o, d in cases:
-        t, f, occ = ci.intersect_fused(o, d, tris, light_pos=l0)
-        t1, f1 = ci.intersect_fused(o, d, tris)
-        tp, fp, op = ci.intersect_fused_plain(o, d, ci.face_table(tris), light)
-        torch.cuda.synchronize()
-        mism = {
-            "t": int((t != tp).sum()), "face": int((f != fp).sum()),
-            "occluded": int((occ != op).sum()),
-            "t (nearest-only)": int((t1 != tp).sum()), "face (nearest-only)": int((f1 != fp).sum()),
-        }
-        fin = torch.isfinite(tp)
-        if not torch.equal(torch.isfinite(t), fin):
-            raise AssertionError(f"{name}: kernel and plain disagree on which rays hit")
-        if fin.any():
-            max_err = max(max_err, float((t[fin] - tp[fin]).abs().max()))
-        phase("kernel", f"{name}: {o.x.shape[0]} rays x {tris.mtl.shape[0]} faces, "
-                        f"{int((f >= 0).sum())} hits, {int(occ.sum())} occluded; mismatches {mism}")
-        if any(mism.values()):
-            raise AssertionError(f"{name}: K1 differs from its plain version: {mism}")
-    # Faces against the plain sweep on the host's CPU, on a subset of camera
-    # rays (CPU tensors take the plain version and launch nothing).
-    sub = slice(0, 1 << 16)
-    o_s = Vec3(*(c[sub].contiguous() for c in cam_o))
-    d_s = Vec3(*(c[sub].contiguous() for c in cam_d))
-    t_h, f_h = ci.intersect_fused(Vec3(*(c.cpu() for c in o_s)), Vec3(*(c.cpu() for c in d_s)),
-                                  to_torch(scene, "cpu").tris)
-    t_k, f_k = ci.intersect_fused(o_s, d_s, ts.tris)
-    n_bad = int((f_k.cpu() != f_h).sum())
-    n_t = int((t_k.cpu() != t_h).sum())
-    phase("kernel", f"vs the plain sweep on the CPU, {f_h.numel()} camera rays: "
-                    f"{n_bad} face mismatches, {n_t} t mismatches")
-    if n_bad:
-        raise AssertionError("K1 faces differ from the plain sweep on the CPU")
-    return {"max_abs_err": max_err, "tris": ts.tris, "o": cam_o, "d": cam_d, "light": l0}
-
-
-def oracle_phase(scene, cam, dev) -> None:
-    """The card's path (K1, probed schedule and lane order, compaction on
-    the device) against the CPU's (plain sweep, full width, scanline)."""
-    pt = PathTracer(scene, bench_settings(128, compact_schedule="auto"), device=dev)
-    pt.render(cam, frame_seed=5)
-    got = pt.image()
-    host = PathTracer(scene, bench_settings(128), device="cpu", lane_order="scanline")
-    host.render(cam, frame_seed=5)
-    ref = host.image()
-    if np.isnan(got).any():
-        raise AssertionError("NaN in the 128² frame")
-    d = np.abs(got - ref).max(axis=-1)
-    within = float((d <= 1e-3).mean())
-    phase("oracle", f"128² frame ({pt.lane_order}, schedule {pt.settings.compact_schedule}) "
-                    f"vs the CPU path: {within:.4%} of pixels within 1e-3, "
-                    f"max |diff| {d.max():.3g}, means {got.mean():.6f} / {ref.mean():.6f}")
-    if within < 0.99:
-        raise AssertionError(f"only {within:.4%} of pixels within 1e-3 of the oracle")
+def _light0(ts) -> Vec3:
+    return Vec3(ts.lights.pos.x[0], ts.lights.pos.y[0], ts.lights.pos.z[0])
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -199,92 +215,424 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def full_size_phase(scene, cam, dev, k1: dict, profile: bool) -> dict:
-    settings = bench_settings(SIZE, compact_schedule="auto")
-    pt = PathTracer(scene, settings, device=dev)
+def _equal_or_raise(what: str, got, ref) -> dict:
+    """Bitwise comparison of two output tuples; raises on any mismatch."""
+    got, ref = (x if isinstance(x, tuple) else (x,) for x in (got, ref))
+    mism = {i: int((a != b).sum()) for i, (a, b) in enumerate(zip(got, ref))}
+    if any(mism.values()) or len(got) != len(ref):
+        raise AssertionError(f"{what}: kernel differs from its plain version: {mism}")
+    return mism
+
+
+def _max_err(a, b) -> float:
+    """Largest |a - b| over the finite entries of ``b`` (t = +inf on a
+    miss); bool outputs compare as 0/1."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        raise AssertionError("kernel and plain disagree on which rays hit")
+    fin = torch.isfinite(b)
+    return float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+
+
+# ---------------------------------------------------------------- Cornell --
+
+def cornell_kernel_phase(scene, cam, dev) -> dict:
+    """K1 against its plain version, bitwise; returns the largest |t|
+    errors and the path-shape rays for timing."""
+    ts = to_torch(scene, dev)
+    l0 = _light0(ts)
+    light = torch.stack(list(l0))
+    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), bench_settings(SIZE), dev)
+    soup, _ = scene_from_text(random_soup(4000), use_bvh=False)
+    cases = [
+        ("cornell camera rays", ts.tris, cam_o, cam_d),
+        ("cornell random rays", ts.tris, *_rays_in_box(1_000_003, 1, dev)),
+        ("soup:4000", to_torch(soup, dev).tris, *_rays_in_box(65_536, 2, dev)),
+    ]
+    errs = {"K1": 0.0, "K1'": 0.0}
+    for name, tris, o, d in cases:
+        t, f, occ = ci.intersect_fused(o, d, tris, light_pos=l0)
+        t1, f1 = ci.intersect_fused(o, d, tris)
+        tp, fp, op = ci.intersect_fused_plain(o, d, ci.face_table(tris), light)
+        torch.cuda.synchronize()
+        mism = _equal_or_raise(f"K1 on {name}", (t, f, occ, t1, f1), (tp, fp, op, tp, fp))
+        errs["K1"] = max(errs["K1"], _max_err(t, tp))
+        errs["K1'"] = max(errs["K1'"], _max_err(t1, tp))
+        phase("kernel", f"{name}: {o.x.shape[0]} rays x {tris.mtl.shape[0]} faces, "
+                        f"{int((f >= 0).sum())} hits, {int(occ.sum())} occluded; K1 and K1' "
+                        f"mismatches against plain (t, face, occ, t', face') {mism}")
+    # Faces against the plain sweep on the host's CPU, on a subset of camera
+    # rays (CPU tensors take the plain version and launch nothing).
+    sub = slice(0, 1 << 16)
+    o_s = Vec3(*(c[sub].contiguous() for c in cam_o))
+    d_s = Vec3(*(c[sub].contiguous() for c in cam_d))
+    t_h, f_h = ci.intersect_fused(Vec3(*(c.cpu() for c in o_s)), Vec3(*(c.cpu() for c in d_s)),
+                                  to_torch(scene, "cpu").tris)
+    t_k, f_k = ci.intersect_fused(o_s, d_s, ts.tris)
+    n_bad = int((f_k.cpu() != f_h).sum())
+    n_t = int((t_k.cpu() != t_h).sum())
+    phase("kernel", f"vs the plain sweep on the CPU, {f_h.numel()} camera rays: "
+                    f"{n_bad} face mismatches, {n_t} t mismatches")
+    if n_bad:
+        raise AssertionError("K1 faces differ from the plain sweep on the CPU")
+    return {"errs": errs, "tris": ts.tris, "o": cam_o, "d": cam_d, "light": l0}
+
+
+def oracle_phase(tag: str, scene, cam, dev) -> None:
+    """The card's path (auto, probed schedule and lane order, compaction on
+    the device) against the CPU's (plain versions, full width, scanline)."""
+    pt = PathTracer(scene, bench_settings(128, compact_schedule="auto"), device=dev)
+    pt.render(cam, frame_seed=5)
+    got = pt.image()
+    host = PathTracer(scene, bench_settings(128), device="cpu", lane_order="scanline")
+    host.render(cam, frame_seed=5)
+    ref = host.image()
+    if np.isnan(got).any():
+        raise AssertionError(f"{tag}: NaN in the 128² frame")
+    d = np.abs(got - ref).max(axis=-1)
+    within = float((d <= 1e-3).mean())
+    phase("oracle", f"{tag} 128² frame ({pt.lane_order}, schedule "
+                    f"{pt.settings.compact_schedule}) vs the CPU path: {within:.4%} of pixels "
+                    f"within 1e-3, max |diff| {d.max():.3g}, means {got.mean():.6f} / "
+                    f"{ref.mean():.6f}")
+    if within < 0.99:
+        raise AssertionError(f"{tag}: only {within:.4%} of pixels within 1e-3 of the CPU path")
+
+
+def _first_frame_checks(tag: str, scene, cam, dev) -> PathTracer:
+    """Probe, render frame 0, and hold it bitwise to the same frame traced
+    at full width in the same lane order."""
+    pt = PathTracer(scene, bench_settings(SIZE, compact_schedule="auto"), device=dev)
     pt.render(cam, frame_seed=0)
-    phase("full", f"lane order {pt.lane_order}, compaction schedule "
-                  f"{pt.settings.compact_schedule}")
-    # Compaction only permutes lanes: the first frame equals, bitwise, the
-    # same frame traced at full width in the same lane order.
+    phase(tag, f"lane order {pt.lane_order}, compaction schedule {pt.settings.compact_schedule}")
     wide = PathTracer(scene, bench_settings(SIZE), device=dev, lane_order=pt.lane_order)
     wide.render(cam, frame_seed=0)
     n_diff = int((pt.image() != wide.image()).any(axis=-1).sum())
-    phase("full", f"first frame compacted vs full width: {n_diff} pixels differ")
+    phase(tag, f"first frame compacted vs full width: {n_diff} pixels differ")
     if n_diff:
-        raise AssertionError(f"compaction changed {n_diff} pixels of the first frame")
-    del wide
+        raise AssertionError(f"{tag}: compaction changed {n_diff} pixels of the first frame")
+    return pt
+
+
+def _timed_frames(tag: str, pt: PathTracer, cam) -> tuple:
+    """2 warm-up frames (frame 0 already rendered), then FRAMES timed
+    frames with the launch counts zeroed just before and read just after."""
     for i in range(1, WARMUP):
         pt.render(cam, frame_seed=i)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ci.launches = 0
+    zero_counts()
     start.record()
     for i in range(WARMUP, WARMUP + FRAMES):
         pt.render(cam, frame_seed=i)
     end.record()
     end.synchronize()
-    launches = ci.launches
+    launched = counts()
     ms_frame = start.elapsed_time(end) / FRAMES
     peak = torch.cuda.max_memory_allocated()
-    expect = FRAMES * pt.settings.max_total_depth * pt.settings.samples
-    phase("full", f"K1 launches over {FRAMES} frames: {launches} (expected {expect})")
-    if launches != expect:
-        raise AssertionError(f"K1 launched {launches} times, expected {expect}")
-
     img = pt.image()
     mean = float(img.mean())
-    phase("full", f"image {img.shape}, finite {bool(np.isfinite(img).all())}, mean {mean:.6f}")
-    if not np.isfinite(img).all() or not 1.0 < mean < 5.0:
-        raise AssertionError(f"implausible image: mean {mean}")
-
+    phase(tag, f"launches over {FRAMES} frames: {launched}")
+    phase(tag, f"image {img.shape}, finite {bool(np.isfinite(img).all())}, mean {mean:.6f}")
+    if not np.isfinite(img).all() or not 0.05 < mean < 5.0:
+        raise AssertionError(f"{tag}: implausible image: mean {mean}")
     # Rays per frame from the counters (path segments + shadow rays, as
     # bench.py counts them), and the compaction drop count.
-    res = trace_rays(pt.scene, camera_to_torch(cam, dev), pt.settings, pt.pixel_ids, 0,
+    res = trace_rays(pt.scene, camera_to_torch(cam, pt.device), pt.settings, pt.pixel_ids, 0,
                      with_stats=True)
     n_path, n_shadow = int(res.n_path_rays), int(res.n_shadow_rays)
     n_drop = int(res.n_dropped) if res.n_dropped is not None else 0
     rays = n_path + n_shadow
-    phase("full", f"{n_path} path segments + {n_shadow} shadow rays = {rays} rays/frame; "
-                  f"{n_drop} lanes dropped by compaction")
+    phase(tag, f"{n_path} path segments + {n_shadow} shadow rays = {rays} rays/frame; "
+               f"{n_drop} lanes dropped by compaction")
     if n_drop:
-        raise AssertionError(f"compaction dropped {n_drop} live lanes")
+        raise AssertionError(f"{tag}: compaction dropped {n_drop} live lanes")
+    phase(tag, f"{ms_frame:.3f} ms/frame, {rays / ms_frame / 1e3:.3f} M rays/s forward, "
+               f"peak memory {peak / 2**20:.1f} MiB")
+    return launched, ms_frame
 
+
+def cornell_path_phase(scene, cam, dev, k1: dict, profile: bool) -> dict:
+    pt = _first_frame_checks("cornell", scene, cam, dev)
+    launched, _ = _timed_frames("cornell", pt, cam)
+    expect = FRAMES * pt.settings.max_total_depth * pt.settings.samples
+    if launched["K1"] != expect or sum(launched.values()) != expect:
+        raise AssertionError(f"cornell: expected {expect} K1 launches and no other, got {launched}")
     t, o, d, light = k1["tris"], k1["o"], k1["d"], k1["light"]
     table = ci.face_table(t)
     light3 = torch.stack(list(light))
-    k1_ms = _time_ms(lambda: ci.intersect_fused(o, d, t, light_pos=light), 20)
-    plain_ms = _time_ms(lambda: ci.intersect_fused_plain(o, d, table, light3), 5)
-    k1n_ms = _time_ms(lambda: ci.intersect_fused(o, d, t), 20)
-    plainn_ms = _time_ms(lambda: ci.intersect_fused_plain(o, d, table), 5)
-    phase("full", f"{ms_frame:.3f} ms/frame, {rays / ms_frame / 1e3:.3f} M rays/s forward, "
-                  f"peak memory {peak / 2**20:.1f} MiB")
-    phase("full", f"K1 per call at the main-path shape ({o.x.shape[0]} rays, NEE): "
-                  f"{k1_ms:.4f} ms; plain version {plain_ms:.4f} ms")
-    phase("full", f"K1 nearest-only instance, same rays: {k1n_ms:.4f} ms; "
-                  f"plain version {plainn_ms:.4f} ms")
+    out = {
+        "K1": (_time_ms(lambda: ci.intersect_fused(o, d, t, light_pos=light), 20),
+               _time_ms(lambda: ci.intersect_fused_plain(o, d, table, light3), 5)),
+        "K1'": (_time_ms(lambda: ci.intersect_fused(o, d, t), 20),
+                _time_ms(lambda: ci.intersect_fused_plain(o, d, table), 5)),
+    }
+    for name, (ms, plain) in out.items():
+        phase("cornell", f"{name} per call at the path's shape ({o.x.shape[0]} rays x "
+                         f"{table.shape[1]} faces): {ms:.4f} ms; plain version {plain:.4f} ms")
     if profile:
-        profile_phase(pt, cam)
-    return {"launches": launches, "ms": k1_ms, "plain_ms": plain_ms}
+        profile_phase("cornell", pt, cam)
+    return {"launches": launched, "times": out}
 
 
-def profile_phase(pt: PathTracer, cam) -> None:
-    """Device time by kernel over one frame (torch.profiler)."""
+def cornell_nee_off_phase(scene, cam, dev) -> dict:
+    """Path "cornell, NEE off": one 1024² frame with shadow_rays=0 runs K1'."""
+    pt = PathTracer(scene, bench_settings(SIZE, shadow_rays=0), device=dev,
+                    lane_order="scanline")
+    zero_counts()
+    pt.render(cam, frame_seed=0)
+    torch.cuda.synchronize()
+    launched = counts()
+    expect = pt.settings.max_total_depth
+    phase("cornell NEE off", f"launches over one frame: {launched}")
+    if launched["K1'"] != expect or sum(launched.values()) != expect:
+        raise AssertionError(f"NEE off: expected {expect} K1' launches and no other")
+    img = pt.image()
+    if not np.isfinite(img).all() or not img.mean() > 0.05:
+        raise AssertionError("NEE off: implausible image")
+    return launched
+
+
+# -------------------------------------------------------------- multiroom --
+
+def multiroom_path_phase(scene, cam, dev, profile: bool) -> dict:
+    pt = _first_frame_checks("multiroom", scene, cam, dev)
+    first = pt.image()
+    # The same frame through K1 (intersector 'pallas', the classic form):
+    # the two Moller-Trumbore forms round differently at shared edges, so
+    # the gate is the frame gate, not bitwise.
+    k1 = PathTracer(scene, pt.settings.replace(intersector="pallas"), device=dev,
+                    lane_order=pt.lane_order)
+    k1.render(cam, frame_seed=0)
+    d = np.abs(first - k1.image()).max(axis=-1)
+    within = float((d <= 1e-3).mean())
+    phase("multiroom", f"first frame, auto (K3) vs intersector='pallas' (K1): {within:.4%} of "
+                       f"pixels within 1e-3, means {first.mean():.6f} / {k1.image().mean():.6f}")
+    if within < 0.99:
+        raise AssertionError(f"multiroom: K3 and K1 frames agree on only {within:.4%}")
+    del k1
+    launched, ms_frame = _timed_frames("multiroom", pt, cam)
+    expect = FRAMES * pt.settings.max_total_depth * pt.settings.samples
+    if launched["K3"] != expect or launched["K3 any-hit"] != expect:
+        raise AssertionError(f"multiroom: expected {expect} K3 launches of each pass, "
+                             f"got {launched}")
+    if launched["K1"] or launched["K1'"] or launched["K2"] or launched["K2'"]:
+        raise AssertionError(f"multiroom: auto launched another kernel than K3: {launched}")
+    if profile:
+        profile_phase("multiroom", pt, cam)
+    return {"pt": pt, "launches": launched, "ms_frame": ms_frame}
+
+
+def _gated_passes(o, d, tris, clusters, light, alive):
+    """Run the gated wrapper with K3, recording each pass's kernel
+    arguments, so that each pass can be replayed alone."""
+    passes = []
+
+    def record(*args):
+        passes.append(args)
+        return cg._sweep_kernel(*args)
+
+    cg._gated(record, o, d, tris, clusters, light, alive, 8, True)
+    return passes
+
+
+def multiroom_kernel_phase(scene, cam, dev, pt: PathTracer) -> dict:
+    """K3 and K2 against their plain versions, bitwise; K3 against K2 on
+    live lanes; times per call of K3, K2 and K1 on the same rays."""
+    ts = pt.scene
+    tris, clusters, l0 = ts.tris, ts.clusters, _light0(ts)
+    light = torch.stack(list(l0))
+    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)
+    n = BOUNCE_RAYS
+    bo, bd = _rays_in_rooms(n, 3, dev)
+    b_alive = torch.tensor(np.random.default_rng(4).random(n) < 0.6, device=dev)
+    cases = [("camera rays, " + pt.lane_order, cam_o, cam_d, None),
+             (f"{n} bounce-like rays, 60% alive", bo, bd, b_alive)]
+    lin = ci.lin_table(tris)
+    errs = dict.fromkeys(("K2", "K2'", "K3", "K3 any-hit"), 0.0)
+    for name, o, d, alive in cases:
+        got = cg.intersect_gated(o, d, tris, clusters, light_pos=l0, alive=alive, with_counts=True)
+        ref = cg.intersect_gated_plain(o, d, tris, clusters, light_pos=l0, alive=alive,
+                                       with_counts=True)
+        nearest = cg.intersect_gated(o, d, tris, clusters, alive=alive)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"K3 on {name}", (*got, *nearest), (*ref, *ref[:2]))
+        k2 = ci.intersect_fused(o, d, tris, light_pos=l0, variant="lin")
+        k2n = ci.intersect_fused(o, d, tris, variant="lin")
+        k2p = ci.intersect_fused_plain(o, d, lin, light)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"K2 on {name}", (*k2, *k2n), (*k2p, *k2p[:2]))
+        for key, a, b in (("K3", got[0], ref[0]), ("K3", nearest[0], ref[0]),
+                          ("K3 any-hit", got[2], ref[2]), ("K2", k2[0], k2p[0]),
+                          ("K2'", k2n[0], k2p[0])):
+            errs[key] = max(errs[key], _max_err(a, b))
+        live = torch.ones_like(got[1], dtype=torch.bool) if alive is None else alive
+        vs_k2 = int((got[1][live] != k2[1][live]).sum())
+        hit = live & (got[1] >= 0)
+        occ_vs_k2 = int((got[2][hit] != k2[2][hit]).sum())
+        tests = got[3].to(torch.float64)
+        phase("kernels", f"multiroom {name}: K3 (nearest, any-hit, counts) and K2 (NEE, "
+                         f"nearest) equal their plain versions bitwise; {int(hit.sum())} of "
+                         f"{int(live.sum())} live lanes hit; K3 vs K2 on live lanes: {vs_k2} "
+                         f"face and {occ_vs_k2} occlusion mismatches; K3 tests a lane: mean "
+                         f"{float(tests[live].mean()):.1f} of the full sweeps' "
+                         f"{2 * tris.mtl.shape[0]}")
+    # Times on the path's camera rays: K3's two passes alone (recorded
+    # arguments replayed), the whole wrapper (cull + both passes), K2, K1.
+    p_near, p_any = _gated_passes(cam_o, cam_d, tris, clusters, l0, None)
+    for args in (p_near, p_any):
+        _equal_or_raise("K3 pass replay", cg._sweep_kernel(*args), cg._sweep_plain(*args))
+    phase("kernels", f"K3 verdicts on the camera rays: {float(p_near[3].double().mean()):.4f} "
+                     f"of (tile, cluster) pairs gated in for the nearest pass, "
+                     f"{float(p_any[3].double().mean()):.4f} for the any-hit pass")
+    table = ci.face_table(tris)
+    times = {
+        "K3": (_time_ms(lambda: cg._sweep_kernel(*p_near), 20),
+               _time_ms(lambda: cg._sweep_plain(*p_near), 3)),
+        "K3 any-hit": (_time_ms(lambda: cg._sweep_kernel(*p_any), 20),
+                       _time_ms(lambda: cg._sweep_plain(*p_any), 3)),
+        "K3 wrapper": (_time_ms(lambda: cg.intersect_gated(cam_o, cam_d, tris, clusters,
+                                                           light_pos=l0), 10),
+                       _time_ms(lambda: cg.intersect_gated_plain(cam_o, cam_d, tris, clusters,
+                                                                 light_pos=l0), 3)),
+        "K2": (_time_ms(lambda: ci.intersect_fused(cam_o, cam_d, tris, light_pos=l0,
+                                                   variant="lin"), 10),
+               _time_ms(lambda: ci.intersect_fused_plain(cam_o, cam_d, lin, light), 2)),
+        "K2'": (_time_ms(lambda: ci.intersect_fused(cam_o, cam_d, tris, variant="lin"), 10),
+                _time_ms(lambda: ci.intersect_fused_plain(cam_o, cam_d, lin), 2)),
+        "K1 (multiroom)": (_time_ms(lambda: ci.intersect_fused(cam_o, cam_d, tris,
+                                                               light_pos=l0), 10),
+                           _time_ms(lambda: ci.intersect_fused_plain(cam_o, cam_d, table,
+                                                                     light), 2)),
+    }
+    for name, (ms, plain) in times.items():
+        phase("kernels", f"{name} per call on the multiroom camera rays ({cam_o.x.shape[0]} "
+                         f"rays x {tris.mtl.shape[0]} faces): {ms:.4f} ms; plain version "
+                         f"{plain:.4f} ms")
+    return {"times": times, "errs": errs, "o": cam_o, "d": cam_d}
+
+
+def _grads(ts, cam_t, settings, ids, weights=None) -> tuple:
+    """bench.py's step (bench.py:350-378): loss = the sum of the frame's
+    colors (optionally weighted per pixel); gradients to every parameter of
+    ``ts`` and to the eye."""
+    params = [p for _, p in ts.named_parameters()] + list(cam_t.eye)
+    res = trace_rays(ts, cam_t, settings, ids, 1)
+    terms = res.color.x + res.color.y + res.color.z
+    if weights is not None:
+        terms = terms * weights
+    loss = terms.sum()
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return loss, grads, res.color.stack().detach()
+
+
+def multiroom_grad_phase(scene, cam, dev, pt: PathTracer, profile: bool) -> dict:
+    """Path "multiroom, forward+backward" at 1024², then the card's 64²
+    gradients against the CPU's."""
+    ts = pt.scene.requires_grad_()
+    cam_t = camera_to_torch(cam, dev)
+    for c in cam_t.eye:
+        c.requires_grad_()
+    loss, grads, _ = _grads(ts, cam_t, pt.settings, pt.pixel_ids)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(STEPS):
+        loss, grads, _ = _grads(ts, cam_t, pt.settings, pt.pixel_ids)
+    end.record()
+    end.synchronize()
+    launched = counts()
+    ms_step = start.elapsed_time(end) / STEPS
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    names = [n for n, _ in ts.named_parameters()] + ["eye.x", "eye.y", "eye.z"]
+    kd = dict(zip(names, grads))["mat_kd"]
+    phase("fwd+bwd", f"launches over {STEPS} steps: {launched}")
+    phase("fwd+bwd", f"{SIZE}² step: {ms_step:.3f} ms/step (forward+backward), peak memory "
+                     f"{peak / 2**20:.1f} MiB, loss {float(loss.detach()):.3f}, gradients finite "
+                     f"{finite}, |d loss/d kd| max {float(kd.abs().max()):.4f}")
+    expect = STEPS * pt.settings.max_total_depth
+    if not finite or launched["K3"] != expect or launched["K3 any-hit"] != expect:
+        raise AssertionError(f"fwd+bwd: finite {finite}, launches {launched}")
+    if profile:
+        profile_phase("multiroom forward+backward", pt, cam,
+                      lambda: _grads(ts, cam_t, pt.settings, pt.pixel_ids))
+    ts.requires_grad_(False)
+
+    # 64²: the card's gradients against the CPU path's, over the pixels
+    # whose colors agree within 1e-3 (a ULP of a transcendental can flip a
+    # path's discrete decision, and a flipped pixel has another gradient).
+    settings = bench_settings(64, no_transparency=pt.settings.no_transparency)
+    out = {}
+    for dv in (dev, "cpu"):
+        tsd = to_torch(scene, dv).requires_grad_()
+        cd = camera_to_torch(cam, dv)
+        for c in cd.eye:
+            c.requires_grad_()
+        out[str(dv)] = (tsd, cd, torch.arange(64 * 64, dtype=torch.int32, device=dv))
+    col = {k: _grads(*v[:2], settings, v[2])[2].cpu().numpy() for k, v in out.items()}
+    agree = (np.abs(col[str(dev)] - col["cpu"]).max(axis=1) <= 1e-3)
+    if agree.mean() < 0.99:
+        raise AssertionError(f"64² colors: only {agree.mean():.4%} of pixels agree")
+    w = torch.tensor(agree.astype(np.float32))
+    g_card = _grads(*out[str(dev)][:2], settings, out[str(dev)][2], w.to(dev))[1]
+    g_cpu = _grads(*out["cpu"][:2], settings, out["cpu"][2], w)[1]
+    worst = 0.0
+    for name, a, b in zip(names, g_card, g_cpu):
+        a, b = a.cpu().double(), b.double()
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        tol = 1e-3 * scale + 1e-5
+        worst = max(worst, err / tol if tol else 0.0)
+        if err > tol:
+            raise AssertionError(f"64² gradient {name}: card vs CPU max |diff| {err} > {tol}")
+    phase("fwd+bwd", f"64² gradients, card vs CPU, over the {agree.mean():.4%} of pixels "
+                     f"whose colors agree: every parameter within 1e-3 of its largest "
+                     f"magnitude (worst at {worst:.3f} of that bound)")
+    return {"launches": launched, "ms_step": ms_step, "peak": peak}
+
+
+def lin_path_phase(scene, dev, mk: dict) -> dict:
+    """Path "linear form": K2's entry point on the multiroom camera rays."""
+    ts = to_torch(scene, dev)
+    zero_counts()
+    ci.intersect_fused(mk["o"], mk["d"], ts.tris, light_pos=_light0(ts), variant="lin")
+    ci.intersect_fused(mk["o"], mk["d"], ts.tris, variant="lin")
+    torch.cuda.synchronize()
+    launched = counts()
+    phase("linear form", f"launches: {launched}")
+    if launched["K2"] != 1 or launched["K2'"] != 1 or sum(launched.values()) != 2:
+        raise AssertionError(f"linear form: expected one K2 and one K2' launch, got {launched}")
+    return launched
+
+
+def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
+    """Device time by kernel over one frame, or over one call of ``step``
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pt.render(cam, frame_seed=99)
+        if step is None:
+            pt.render(cam, frame_seed=99)
+        else:
+            step()
         torch.cuda.synchronize()
+    # Kernel rows only: an operator's row carries its kernels' time too.
     rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
-            if e.device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     total = sum(r[1] for r in rows)
-    k1 = sum(r[1] for r in rows if "brute_intersect" in r[0])
-    phase("profile", f"device time over one frame: {total / 1e3:.3f} ms in "
-                     f"{sum(r[2] for r in rows)} kernel launches; K1 {k1 / 1e3:.3f} ms")
+    ours = sum(r[1] for r in rows if "intersect" in r[0] or "gated" in r[0])
+    phase("profile", f"{tag}: device time over one {'frame' if step is None else 'step'}: "
+                     f"{total / 1e3:.3f} ms in {sum(r[2] for r in rows)} kernel launches; "
+                     f"the port's kernels {ours / 1e3:.3f} ms")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
-        phase("profile", f"{us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+        phase("profile", f"{us / 1e3:9.3f} ms {count:6d}x {key[:100]}")
 
 
 def main() -> None:
@@ -292,16 +640,36 @@ def main() -> None:
     smi = device_phase()
     dev = torch.device("cuda", 0)
     build_phase()
+
     scene, cam = cornell()
-    k1 = kernel_phase(scene, cam, dev)
-    oracle_phase(scene, cam, dev)
-    full = full_size_phase(scene, cam, dev, k1, profile)
+    k1 = cornell_kernel_phase(scene, cam, dev)
+    oracle_phase("cornell", scene, cam, dev)
+    corn = cornell_path_phase(scene, cam, dev, k1, profile)
+    nee_off = cornell_nee_off_phase(scene, cam, dev)
+
+    scene_m, cam_m = multiroom()
+    oracle_phase("multiroom", scene_m, cam_m, dev)
+    mr = multiroom_path_phase(scene_m, cam_m, dev, profile)
+    mk = multiroom_kernel_phase(scene_m, cam_m, dev, mr["pt"])
+    grad = multiroom_grad_phase(scene_m, cam_m, dev, mr["pt"], profile)
+    lin = lin_path_phase(scene_m, dev, mk)
     phase("done", f"all phases passed on {smi}")
+
+    t = {**corn["times"], **mk["times"]}
+    errs = {**k1["errs"], **mk["errs"]}
+    rows = [  # (instance, source, launches on its path)
+        ("K1", K12_SOURCE, corn["launches"]["K1"]),
+        ("K1'", K12_SOURCE, nee_off["K1'"]),
+        ("K2", K12_SOURCE, lin["K2"]),
+        ("K2'", K12_SOURCE, lin["K2'"]),
+        ("K3", K3_SOURCE, mr["launches"]["K3"]),
+        ("K3 any-hit", K3_SOURCE, mr["launches"]["K3 any-hit"]),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "brute_intersect (K1)", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": full["launches"],
-        "max_abs_err": k1["max_abs_err"], "ms": full["ms"], "plain_ms": full["plain_ms"],
-    }]}), flush=True)
+        "name": name, "route": "cuda", "source": src, "replaces": REPLACES[name.split()[0]],
+        "launches": n, "max_abs_err": errs[name],
+        "ms": t[name][0], "plain_ms": t[name][1],
+    } for name, src, n in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

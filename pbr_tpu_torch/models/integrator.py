@@ -2,9 +2,10 @@
 
 The counterpart of ``pbr_tpu/models/integrator.py::trace_rays``: the whole
 ray batch advances together through generate (camera rays, AA jitter,
-thin-lens DoF), intersect (``ops/traverse.py``; kernel K1 on a CUDA
-device), and shade (NEE, BRDF sample, throughput update, Russian
-roulette), with per-ray liveness as masks. Same estimator, same quirks,
+thin-lens DoF), intersect (``ops/traverse.py``: kernel K1, or kernel K3
+over the cluster verdicts on a scene in the gated band), and shade (NEE,
+BRDF sample, throughput update, Russian roulette), with per-ray liveness
+as masks. Same estimator, same quirks,
 same counter-based RNG, so the port's frame agrees with the NumPy oracle
 pixel by pixel (up to the ULPs of transcendentals).
 
@@ -190,12 +191,12 @@ def _orb_pass(o, d, lights, t_geom):
     return torch.where(torch.isfinite(t_geom), -1, orb_idx)
 
 
-def _shadow_occluded(tris, hit_p, l_dir, t_light, mode):
+def _shadow_occluded(tris, hit_p, l_dir, t_light, mode, clusters):
     """Any-hit shadow test as a second nearest-hit search
     (traverseShadows, pt_bvh.cl:133-177): occluded iff some geometry hit
     lies closer than the light. Used when the intersector has no fused
     shadow leg."""
-    t_sh, _ = intersect_scene(hit_p, l_dir, tris, mode=mode)
+    t_sh, _ = intersect_scene(hit_p, l_dir, tris, mode=mode, clusters=clusters)
     return t_sh < t_light
 
 
@@ -250,6 +251,7 @@ def trace_rays(
     # Geometry is not a gradient target: the whole integrator sees it
     # detached (the JAX version's stop_gradient on the triangle arrays).
     tris = detach_tris(scene.tris)
+    clusters = scene.clusters
     mats = scene.materials
     lights = scene.lights
     num_lights = lights.count
@@ -299,12 +301,12 @@ def trace_rays(
         occ_fused = None
         if nee_enabled:
             l0 = Vec3(lights.pos.x[0], lights.pos.y[0], lights.pos.z[0])
-            out = intersect_scene(o, d, tris, mode=settings.intersector,
-                                  light_pos=l0, with_counts=with_stats)
+            out = intersect_scene(o, d, tris, mode=settings.intersector, light_pos=l0,
+                                  alive=alive, clusters=clusters, with_counts=with_stats)
             t, face, occ_fused = out[:3]
         else:
-            out = intersect_scene(o, d, tris, mode=settings.intersector,
-                                  with_counts=with_stats)
+            out = intersect_scene(o, d, tris, mode=settings.intersector, alive=alive,
+                                  clusters=clusters, with_counts=with_stats)
             t, face = out[:2]
         if with_stats:
             heat_tests = heat_tests + torch.where(alive, out[-1], 0)
@@ -365,7 +367,7 @@ def trace_rays(
             occluded = occ_fused
             if occluded is None:
                 occluded = _shadow_occluded(tris, hit_p, l_dir, t_light,
-                                            settings.intersector)
+                                            settings.intersector, clusters)
             nee_ok = live & (m_d > 0.0) & ~occluded
             if with_stats:
                 n_shadow = n_shadow + (live & (m_d > 0.0)).sum()

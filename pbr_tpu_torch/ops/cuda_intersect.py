@@ -1,23 +1,28 @@
-"""Kernel K1: fused brute-force intersection, CUDA for Hopper, and its plain
-PyTorch version.
+"""Kernels K1 and K2: fused brute-force intersection, CUDA for Hopper, and
+their plain PyTorch versions; and the nvcc build every kernel of the port
+shares.
 
 K1 replaces ``pbr_tpu/ops/pallas_intersect.py::_kernel_nee`` (nearest hit +
-NEE shadow any-hit) and ``::_kernel`` (nearest hit only); the source is
-``pbr_tpu_torch/csrc/brute_intersect.cu``, whose header says what bounds it
-on the card and how its design answers that.
+NEE shadow any-hit) and ``::_kernel`` (nearest hit only) around ``_sweep``;
+K2 is the same pair with ``variant='lin'``, around ``_sweep_lin`` and its
+(16, F) table ``_lin_table``. Both are instances of one template in
+``pbr_tpu_torch/csrc/brute_intersect.cu``, whose header says what bounds
+them on the card and how the design answers that.
 
-- ``intersect_fused(o, d, tris, light_pos=None)`` is the wrapper: for CUDA
-  tensors it launches the kernel (or raises); for CPU tensors — and only
-  for them — it runs ``intersect_fused_plain``. ``launches`` counts kernel
-  launches.
-- ``intersect_fused_plain`` is the same function in torch ops: the face loop
-  of ``_sweep`` (run over chunks of faces at once, each element computing
-  exactly the per-face expression) plus the guarded NEE math. It follows
-  the kernel's operation order, so on the card the two agree bitwise.
-- ``build()`` compiles the source with ``nvcc`` into ``build/pbr_tpu_torch/``
-  of the checkout at first use, keyed by a hash of the source and the
-  flags, and loads it with ``ctypes``. Nothing is compiled or imported for
-  CUDA when this module is imported.
+- ``intersect_fused(o, d, tris, light_pos=None, variant='mt')`` is the
+  wrapper: for CUDA tensors it launches the kernel (or raises); for CPU
+  tensors — and only for them — it runs ``intersect_fused_plain``.
+  ``launches`` counts kernel launches per instance.
+- ``intersect_fused_plain`` is the same function in torch ops: the face
+  loop of ``_sweep`` (``variant='mt'``, (9, F) table) or ``_sweep_lin``
+  (``'lin'``, (16, F) table), run over chunks of faces at once, each
+  element computing exactly the per-face expression, plus the guarded NEE
+  math. It follows the kernel's operation order, so on the card the two
+  agree bitwise.
+- ``build(name)`` compiles ``csrc/<name>.cu`` with ``nvcc`` into
+  ``build/pbr_tpu_torch/`` of the checkout at first use, keyed by a hash of
+  the sources and the flags. Nothing is compiled or imported for CUDA when
+  this module is imported.
 """
 
 from __future__ import annotations
@@ -32,14 +37,14 @@ from pathlib import Path
 
 import torch
 
-from pbr_tpu_torch.ops.intersect import INF, moller_trumbore
+from pbr_tpu_torch.ops.intersect import EPS5, INF, moller_trumbore
 from pbr_tpu_torch.ops.vec import Vec3, safe_div, safe_sqrt
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "brute_intersect.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pbr_tpu_torch"
 
-# --fmad=false and no --use_fast_math: the kernel then rounds every
-# operation as the unfused plain version does (see the source's header).
+# --fmad=false and no --use_fast_math: a kernel then rounds every operation
+# as the unfused plain version does (see the sources' headers).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -49,8 +54,10 @@ NVCC_FLAGS = (
 # temporary holds at most this many elements.
 _PLAIN_ELEMS = 1 << 24
 
-launches = 0  # kernel launches by intersect_fused (CPU calls do not count)
-_lib = None
+# Kernel launches by intersect_fused, per instance: K1 (NEE), K1' (nearest
+# only), K2 and K2' (the linear form). CPU calls do not count.
+launches = {"K1": 0, "K1'": 0, "K2": 0, "K2'": 0}
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -61,43 +68,46 @@ def _nvcc() -> str:
         if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
             return cand
     raise RuntimeError(
-        f"nvcc not found (not on PATH, not under CUDA_HOME={home}): kernel "
-        f"K1 ({SOURCE.name}) is compiled at first use and needs the CUDA "
-        f"toolkit"
+        f"nvcc not found (not on PATH, not under CUDA_HOME={home}): the port's "
+        f"kernels (pbr_tpu_torch/csrc/*.cu) are compiled at first use and need "
+        f"the CUDA toolkit"
     )
 
 
-def build() -> Path:
-    """Compile K1 into a shared library (once per source and flag set) and
-    return its path."""
+def build(name: str = "brute_intersect") -> Path:
+    """Compile ``csrc/<name>.cu`` into a shared library (once per source,
+    headers and flag set) and return its path. Safe to call from several
+    threads at once: each build writes a temporary file and renames it."""
     nvcc = _nvcc()
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"brute_intersect_{key}.so"
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    out = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.pbr_brute_intersect
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 7 + [i32, ptr, i32, ptr, ptr, ptr, ptr]
-        fn.restype = i32
-        _lib = lib
-    return _lib
+def load(name: str, symbol: str, argtypes) -> ctypes.CDLL:
+    """The built library ``name`` with ``symbol``'s ctypes signature set
+    (int return: the launch's cudaError)."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build(name)))
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
 
 
 def face_table(tris) -> torch.Tensor:
@@ -109,53 +119,106 @@ def face_table(tris) -> torch.Tensor:
     ).contiguous()
 
 
-def _check(o: Vec3, d: Vec3, table: torch.Tensor, light) -> None:
+def lin_table(tris) -> torch.Tensor:
+    """(16, F) float32 linear-form table (pallas_intersect.py::_lin_table):
+    rows m = e2×e1, km = v0·m, w = e2×v0, q = v0×e1, e1, e2."""
+    v0, e1, e2 = tris.v0, tris.e1, tris.e2
+    m = e2.cross(e1)
+    w = e2.cross(v0)
+    q = v0.cross(e1)
+    km = v0.dot(m)
+    return torch.stack([m.x, m.y, m.z, km, w.x, w.y, w.z, q.x, q.y, q.z,
+                        e1.x, e1.y, e1.z, e2.x, e2.y, e2.z]).contiguous()
+
+
+def check_rays(who: str, o: Vec3, d: Vec3) -> None:
+    """Six contiguous 1-D float32 ray arrays of one shape on one device,
+    with a count that fits in int32; raises otherwise."""
     rays = (*o, *d)
-    dev = rays[0].device
-    n = rays[0].shape
+    dev, n = rays[0].device, rays[0].shape
     for a in rays:
         if a.device != dev or a.dtype != torch.float32 or a.dim() != 1 \
                 or a.shape != n or not a.is_contiguous():
             raise ValueError(
-                "intersect_fused takes six contiguous 1-D float32 ray "
-                f"arrays of one shape on one device; got {a.dtype} "
-                f"{tuple(a.shape)} on {a.device}"
+                f"{who} takes six contiguous 1-D float32 ray arrays of one "
+                f"shape on one device; got {a.dtype} {tuple(a.shape)} on {a.device}"
             )
+    if n[0] >= 2**31:
+        raise ValueError("ray counts must fit in int32")
+
+
+def _check(o: Vec3, d: Vec3, table: torch.Tensor, rows: int, light) -> None:
+    check_rays("intersect_fused", o, d)
+    dev = o.x.device
     if table.device != dev or table.dtype != torch.float32 or table.dim() != 2 \
-            or table.shape[0] != 9:
-        raise ValueError(f"face table must be (9, F) float32 on {dev}")
+            or table.shape[0] != rows:
+        raise ValueError(f"face table must be ({rows}, F) float32 on {dev}")
     if light is not None and (light.device != dev or light.dtype != torch.float32
                               or tuple(light.shape) != (3,)):
         raise ValueError(f"light position must be (3,) float32 on {dev}")
-    if n[0] >= 2**31 or table.shape[1] >= 2**31:
-        raise ValueError("ray and face counts must fit in int32")
+    if table.shape[1] >= 2**31:
+        raise ValueError("face counts must fit in int32")
+
+
+def cross_od(o: Vec3, d: Vec3) -> Vec3:
+    """c = o × d, the one cross product per ray of the linear form."""
+    return Vec3(o.y * d.z - o.z * d.y, o.z * d.x - o.x * d.z, o.x * d.y - o.y * d.x)
+
+
+def mt_lin(o: Vec3, d: Vec3, c: Vec3, tab: torch.Tensor):
+    """Linear-form Möller-Trumbore of rays (broadcast against the face
+    axis) and the faces of a (16, k) table, in the operation order of
+    ``pallas_gated.py::_mt_lin_update`` and ``csrc/mt_lin.cuh``. Returns
+    ``(t, valid)``."""
+    m0, m1, m2, km, w0, w1, w2, q0, q1, q2, e1x, e1y, e1z, e2x, e2y, e2z = tab
+    det = d.x * m0 + d.y * m1 + d.z * m2
+    inv = 1.0 / det
+    t = (km - (o.x * m0 + o.y * m1 + o.z * m2)) * inv
+    u = ((e2x * c.x + e2y * c.y + e2z * c.z) - (d.x * w0 + d.y * w1 + d.z * w2)) * inv
+    v = (-(e1x * c.x + e1y * c.y + e1z * c.z) - (d.x * q0 + d.y * q1 + d.z * q2)) * inv
+    valid = (t >= EPS5) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    return t, valid
+
+
+def first_min(t, valid, lo: int, big: int):
+    """Per row, the least valid t of a (rays, faces) block and the first
+    face (offset ``lo``) that attains it: the strict-< sweep in ascending
+    face order. Invalid faces count as +inf; ``big`` marks no face."""
+    t = torch.where(valid, t, INF)
+    t_min = t.amin(dim=1)
+    fidx = torch.arange(lo, lo + t.shape[1], dtype=torch.int32, device=t.device)
+    first = torch.where(t == t_min[:, None], fidx, big).amin(dim=1)
+    return t_min, first
 
 
 def _sweep_plain(o: Vec3, d: Vec3, table: torch.Tensor, t_limit=None):
-    """All-faces Möller-Trumbore, in ascending face order.
+    """All-faces Möller-Trumbore, in ascending face order, classic form
+    ((9, F) table) or linear form ((16, F) table).
 
     ``t_limit`` None: nearest hit — returns ``(t_best, f_best)``, strict-<
     so the first face in memory order wins ties. Otherwise any-hit with
     ``t < t_limit`` — returns a bool mask. Faces are swept a chunk at a
     time by broadcasting; each element runs the per-face expression."""
     n, nf = o.x.shape[0], table.shape[1]
+    lin = table.shape[0] == 16
     t_best = torch.full((n,), INF, dtype=torch.float32, device=o.x.device)
     f_best = torch.full((n,), -1, dtype=torch.int32, device=o.x.device)
     occ = torch.zeros((n,), dtype=torch.bool, device=o.x.device)
     step = max(1, _PLAIN_ELEMS // max(n, 1))
     ob = Vec3(o.x[:, None], o.y[:, None], o.z[:, None])
     db = Vec3(d.x[:, None], d.y[:, None], d.z[:, None])
+    cb = cross_od(ob, db) if lin else None
     for lo in range(0, nf, step):
         c = table[:, lo:lo + step]
-        t, valid = moller_trumbore(ob, db, Vec3(c[0], c[1], c[2]),
-                                   Vec3(c[3], c[4], c[5]), Vec3(c[6], c[7], c[8]))
+        if lin:
+            t, valid = mt_lin(ob, db, cb, c)
+        else:
+            t, valid = moller_trumbore(ob, db, Vec3(c[0], c[1], c[2]),
+                                       Vec3(c[3], c[4], c[5]), Vec3(c[6], c[7], c[8]))
         if t_limit is not None:
             occ = occ | (valid & (t < t_limit[:, None])).any(dim=1)
             continue
-        t = torch.where(valid, t, INF)
-        t_min = t.amin(dim=1)
-        fidx = torch.arange(lo, lo + c.shape[1], dtype=torch.int32, device=t.device)
-        first = torch.where(t == t_min[:, None], fidx, nf).amin(dim=1)
+        t_min, first = first_min(t, valid, lo, nf)
         better = t_min < t_best
         t_best = torch.where(better, t_min, t_best)
         f_best = torch.where(better, first, f_best)
@@ -173,8 +236,9 @@ def _shadow_ray(o: Vec3, d: Vec3, t_best, light: torch.Tensor):
 
 
 def intersect_fused_plain(o: Vec3, d: Vec3, table: torch.Tensor, light=None):
-    """K1's plain version. Returns ``(t, face)``, or ``(t, face, occluded)``
-    with ``light`` a (3,) tensor."""
+    """K1's plain version with a (9, F) table, K2's with a (16, F) one.
+    Returns ``(t, face)``, or ``(t, face, occluded)`` with ``light`` a (3,)
+    tensor."""
     t, face = _sweep_plain(o, d, table)
     if light is None:
         return t, face
@@ -182,26 +246,34 @@ def intersect_fused_plain(o: Vec3, d: Vec3, table: torch.Tensor, light=None):
     return t, face, _sweep_plain(hit_p, s_dir, table, t_limit=t_light)
 
 
-def intersect_fused(o: Vec3, d: Vec3, tris, light_pos=None):
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_PTR] * 7 + [_I32, _I32, _PTR, _I32, _PTR, _PTR, _PTR, _PTR]
+
+
+def intersect_fused(o: Vec3, d: Vec3, tris, light_pos=None, variant: str = "mt"):
     """Nearest hit over all triangles of ``tris`` (a TrianglesSoA of
     tensors) for the (B,) rays ``o``, ``d``; with ``light_pos`` (a Vec3 of
     0-d tensors, light 0) also the NEE shadow any-hit from the hit point.
+    ``variant``: 'mt' (classic Möller-Trumbore, kernel K1, the default as
+    in the JAX package) or 'lin' (the linear form, kernel K2).
 
     Returns ``(t, face)`` or ``(t, face, occluded)`` (occluded bool). A CUDA
-    tensor launches kernel K1 or raises; a CPU tensor runs the plain
+    tensor launches the kernel or raises; a CPU tensor runs the plain
     version. Not differentiable: callers re-evaluate the winner."""
-    global launches
-    table = face_table(tris)
+    if variant not in ("mt", "lin"):
+        raise ValueError(f"variant must be 'mt' or 'lin', not {variant!r}")
+    rows = 16 if variant == "lin" else 9
+    table = lin_table(tris) if variant == "lin" else face_table(tris)
     light = None
     if light_pos is not None:
         light = torch.stack([light_pos.x, light_pos.y, light_pos.z]).to(torch.float32)
-    _check(o, d, table, light)
+    _check(o, d, table, rows, light)
     dev = o.x.device
     if dev.type == "cpu":
         return intersect_fused_plain(o, d, table, light)
     if dev.type != "cuda":
         raise ValueError(f"intersect_fused runs on CUDA or CPU tensors, not {dev}")
-    lib = _load()
+    lib = load("brute_intersect", "pbr_brute_intersect", _ARGTYPES)
     n, nf = o.x.shape[0], table.shape[1]
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     face = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -209,13 +281,14 @@ def intersect_fused(o: Vec3, d: Vec3, tris, light_pos=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pbr_brute_intersect(
-            *(a.data_ptr() for a in (*o, *d)), table.data_ptr(), nf,
+            *(a.data_ptr() for a in (*o, *d)), table.data_ptr(), nf, rows,
             light.data_ptr() if light is not None else None, n,
             t.data_ptr(), face.data_ptr(), occ.data_ptr(), stream,
         )
+    name = ("K2" if variant == "lin" else "K1") + ("" if light is not None else "'")
     if err != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {err}")
-    launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[name] += 1
     if light is None:
         return t, face
     return t, face, occ != 0

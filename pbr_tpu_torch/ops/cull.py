@@ -1,0 +1,146 @@
+"""Cull verdicts: which face clusters a ray tile may hit.
+
+The counterpart of the three functions of ``pbr_tpu/ops/cull.py`` that the
+gated sweep (kernel K3, ``ops/cuda_gated.py``) consumes, with their
+operation order: ``frustum_hits``, ``frustum_hits_octants`` and
+``fine_hit_mask`` (with ``_tile_minmax``). In the JAX package this stage is
+plain XLA, not Pallas, so here it is plain torch ops on any device. Every
+verdict is conservative: a cluster that any live ray of a tile could hit
+is set; extra clusters cost sweep work, never a wrong answer.
+
+The candidate lists of the cull-and-sweep and row-sweep kernels
+(``candidates``, ``candidates_fine``, ``candidates_rows``,
+``row_hit_words``, ``coherence_keys``) wait for the slices that port
+kernels K4 and K5 (ROADMAP.md queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pbr_tpu.utils.config import EPSILON5
+from pbr_tpu_torch.ops.vec import Vec3, f32
+
+_BIG = f32(3.0e38)  # finite stand-in for +/-inf (keeps 0*inf NaNs out)
+_EPS5 = f32(EPSILON5)
+
+
+def _tile_minmax(a: torch.Tensor, tile: int):
+    a2 = a.reshape(-1, tile)
+    return a2.amin(dim=1), a2.amax(dim=1)
+
+
+def frustum_hits(o_lo: Vec3, o_hi: Vec3, d_lo: Vec3, d_hi: Vec3,
+                 bb_min: Vec3, bb_max: Vec3, t_cap=None):
+    """Conservative tile-frustum vs cluster-AABB test.
+
+    ``o_lo``/``o_hi``/``d_lo``/``d_hi``: Vec3s of (T,) per-tile component
+    bounds; ``bb_min``/``bb_max``: Vec3s of (C,). Per axis, a sign-pure
+    direction interval bounds the slab-crossing parameter by the eight
+    products of {slab - origin bound} x {1/d_lo, 1/d_hi}; an interval
+    spanning 0 constrains nothing. The entry bound also takes the
+    box-to-box distance (unit directions). ``t_cap`` (T,): optional upper
+    bound on useful t. Returns ``(hit, t_entry)``, both (T, C): hit bool,
+    t_entry a lower bound on any tile ray's entry, clamped up to 0.
+    """
+    t_entry = torch.full((o_lo.x.shape[0], bb_min.x.shape[0]), -_BIG,
+                         dtype=torch.float32, device=o_lo.x.device)
+    t_exit = torch.full_like(t_entry, _BIG)
+    for ol, oh, dl, dh, sl, sh in zip(o_lo, o_hi, d_lo, d_hi, bb_min, bb_max):
+        pure = (dl > 0.0) | (dh < 0.0)  # (T,)
+        # Guarded reciprocals (value unused when not pure).
+        inv_a = (1.0 / torch.where(pure, dl, 1.0))[:, None]
+        inv_b = (1.0 / torch.where(pure, dh, 1.0))[:, None]
+        e_ll = sl[None, :] - oh[:, None]  # slab lo minus origin hi, etc.
+        e_lh = sl[None, :] - ol[:, None]
+        e_hl = sh[None, :] - oh[:, None]
+        e_hh = sh[None, :] - ol[:, None]
+        p = [e_ll * inv_a, e_ll * inv_b, e_lh * inv_a, e_lh * inv_b,
+             e_hl * inv_a, e_hl * inv_b, e_hh * inv_a, e_hh * inv_b]
+        t_lo = p[0]
+        t_hi = p[0]
+        for v in p[1:]:
+            t_lo = torch.minimum(t_lo, v)
+            t_hi = torch.maximum(t_hi, v)
+        pure_c = pure[:, None]
+        t_entry = torch.maximum(t_entry, torch.where(pure_c, t_lo, -_BIG))
+        t_exit = torch.minimum(t_exit, torch.where(pure_c, t_hi, _BIG))
+
+    # Box-to-box distance lower bound (unit directions): per-axis gap,
+    # clamped before squaring so that the +/-BIG bounds of empty octant
+    # groups do not overflow (clamping down keeps the bound conservative).
+    d2 = torch.zeros_like(t_entry)
+    for ol, oh, sl, sh in zip(o_lo, o_hi, bb_min, bb_max):
+        gap = torch.maximum(sl[None, :] - oh[:, None], ol[:, None] - sh[None, :])
+        gap = gap.clamp_min(0.0).clamp_max(f32(1.0e18))
+        d2 = d2 + gap * gap
+    t_entry = torch.maximum(t_entry, torch.sqrt(d2))
+
+    hit = (t_entry <= t_exit) & (t_exit > _EPS5)
+    if t_cap is not None:
+        hit = hit & (t_entry <= t_cap[:, None])
+    # Inverted (empty) cluster AABBs never hit, even for a tile that no
+    # axis constrains.
+    nonempty = (bb_min.x <= bb_max.x)[None, :]
+    return hit & nonempty, t_entry.clamp_min(0.0)
+
+
+def frustum_hits_octants(o: Vec3, d: Vec3, g: int, bb_min: Vec3, bb_max: Vec3,
+                         t_cap=None, live=None):
+    """Octant-split group frustums vs cluster AABBs.
+
+    Each group of ``g`` consecutive rays (N a multiple of ``g``) is split
+    into eight sign-pure sub-frustums by direction octant, so that the slab
+    test constrains all three axes even for hemisphere-scattered bounce
+    rays; the verdicts are ORed. ``live`` (N,) bool: dead lanes add no
+    demand (a group with no live lane gets no cluster). ``t_cap``: optional
+    (T,) per-group bound. Returns ``(hit, t_entry)`` of (T, C): the OR over
+    octants and the min entry bound over hitting octants."""
+    t = o.x.shape[0] // g
+    oct_id = (d.x < 0).to(torch.int32) + 2 * (d.y < 0).to(torch.int32) \
+        + 4 * (d.z < 0).to(torch.int32)
+    octs = torch.arange(8, dtype=torch.int32, device=o.x.device)
+    m = oct_id.reshape(t, 1, g) == octs[None, :, None]  # (T, 8, g)
+    if live is not None:
+        m = m & live.reshape(t, 1, g)
+    occ = m.any(dim=2).reshape(-1)  # (T*8,)
+
+    def mm(a):
+        a3 = a.reshape(t, 1, g)
+        lo = torch.where(m, a3, _BIG).amin(dim=2).reshape(-1)
+        hi = torch.where(m, a3, -_BIG).amax(dim=2).reshape(-1)
+        return lo, hi
+
+    ox, oy, oz = mm(o.x), mm(o.y), mm(o.z)
+    dx, dy, dz = mm(d.x), mm(d.y), mm(d.z)
+    cap8 = None if t_cap is None else t_cap[:, None].expand(t, 8).reshape(-1)
+    hit8, te8 = frustum_hits(
+        Vec3(ox[0], oy[0], oz[0]), Vec3(ox[1], oy[1], oz[1]),
+        Vec3(dx[0], dy[0], dz[0]), Vec3(dx[1], dy[1], dz[1]),
+        bb_min, bb_max, cap8,
+    )  # (T*8, C)
+    hit8 = hit8 & occ[:, None]
+    c = bb_min.x.shape[0]
+    hit = hit8.reshape(t, 8, c).any(dim=1)
+    t_entry = torch.where(hit8, te8, _BIG).reshape(t, 8, c).amin(dim=1)
+    return hit, t_entry
+
+
+def fine_hit_mask(o: Vec3, d: Vec3, clusters, tile: int, t_cap=None,
+                  octants: bool = True, live=None) -> torch.Tensor:
+    """(T, C) bool fine-cluster verdicts for ray tiles of ``tile`` rays: the
+    gated sweep's input. ``clusters``: anything with ``bb_min``/``bb_max``
+    Vec3s of (C,) (``scene.ClusterTables``). ``octants`` (default): the
+    sign-pure sub-frustum verdicts of ``frustum_hits_octants``; otherwise
+    one interval frustum per tile (``live`` is then not used, as in the
+    JAX version)."""
+    if octants:
+        hit, _ = frustum_hits_octants(o, d, tile, clusters.bb_min, clusters.bb_max,
+                                      t_cap, live=live)
+        return hit
+    (oxl, oxh), (oyl, oyh), (ozl, ozh) = (_tile_minmax(a, tile) for a in o)
+    (dxl, dxh), (dyl, dyh), (dzl, dzh) = (_tile_minmax(a, tile) for a in d)
+    hit, _ = frustum_hits(Vec3(oxl, oyl, ozl), Vec3(oxh, oyh, ozh),
+                          Vec3(dxl, dyl, dzl), Vec3(dxh, dyh, dzh),
+                          clusters.bb_min, clusters.bb_max, t_cap)
+    return hit

@@ -1,24 +1,33 @@
-"""Scene intersection: the brute-force sweep and its dispatch.
+"""Scene intersection: the brute-force sweep, the gated sweep, and their
+dispatch.
 
-The counterpart of ``pbr_tpu/ops/traverse.py`` for the one intersector the
-port has so far, the all-faces sweep:
+The counterpart of ``pbr_tpu/ops/traverse.py`` for the intersectors the
+port has so far:
 
-- ``intersect_brute``: the plain sweep in torch ops (any device);
-- ``intersect_scene``: the dispatch the integrator calls. ``auto`` picks
-  kernel K1 (``ops/cuda_intersect.py``) for a CUDA tensor, whatever the face
-  count, and the plain sweep for a CPU tensor; ``brute`` on a CUDA tensor
-  raises rather than run the plain sweep on the card. The TPU's face-count
-  thresholds do not carry over: the CUDA kernel stages faces through shared
-  memory in chunks and takes any F.
+- ``intersect_brute``: the plain all-faces sweep in torch ops (any device);
+- ``intersect_scene``: the dispatch the integrator calls, with the JAX
+  version's contract (detached search, differentiable re-evaluation of the
+  winner, fused NEE leg, ``alive`` mask, executed test counts). Modes:
+  ``pallas`` is kernel K1 (``ops/cuda_intersect.py``); ``gated`` is kernel
+  K3 (``ops/cuda_gated.py``) over the scene's cluster verdicts; ``brute``
+  is the plain sweep for CPU tensors only (on a card the sweep is K1).
+  On a CPU tensor every kernel's wrapper runs its plain version.
+- ``auto`` mirrors the JAX package's TPU dispatch so that both packages run
+  the same algorithm on the same scene: a scene with clusters and
+  ``GATED_MIN_FACES`` < F <= ``GATED_MAX_FACES`` takes ``gated`` (on either
+  device); any other scene takes K1 on a CUDA tensor and the plain sweep on
+  a CPU tensor. Above ``GATED_MAX_FACES`` the JAX package picks ``cull``
+  (kernel K4), which is not ported yet: the port keeps K1 there.
 
-The other modes of the JAX dispatch (BVH walks, cull tables, the GEMM form)
-are not ported yet; asking for one raises ``NotImplementedError`` naming
-its ROADMAP item. Nothing is substituted silently.
+The other modes of the JAX dispatch (BVH walks, cull tables, the row sweep,
+the GEMM form) are not ported yet; asking for one raises
+``NotImplementedError`` naming its ROADMAP item. Nothing is substituted
+silently.
 """
 
 from __future__ import annotations
 
-from pbr_tpu_torch.ops import cuda_intersect
+from pbr_tpu_torch.ops import cuda_gated, cuda_intersect
 from pbr_tpu_torch.ops.intersect import INF, gather_vec3, moller_trumbore
 from pbr_tpu_torch.ops.vec import Vec3
 
@@ -30,10 +39,17 @@ _NOT_PORTED = {
     "pallas_bvh": "queue 2 kernel K6, the packet BVH walk",
     "pallas_bvh_forest": "queue 2 kernel K6, the BVH forest walk",
     "pallas_bvh_hbm": "queue 2 kernel K7, the HBM-slab BVH walk",
-    "gated": "queue 2 kernel K3, the gated brute sweep",
     "cull": "queue 2 kernel K4, the cull-and-sweep",
     "sweep": "queue 2 kernel K5, the row sweep",
 }
+
+# The gated band of ``auto``: the bounds of the JAX package's TPU dispatch
+# (pbr_tpu/ops/traverse.py:424, GATED_MAX_FACES of ops/pallas_gated.py),
+# mirrored so that both packages run the same algorithm on the same scene.
+# They are TPU measurements and a TPU SMEM budget, not H100 measurements:
+# moving them is the work of a PR that measures the band on the card.
+GATED_MIN_FACES = 1024  # exclusive
+GATED_MAX_FACES = 12_288
 
 
 def detach_tris(tris):
@@ -49,20 +65,23 @@ def intersect_brute(o: Vec3, d: Vec3, tris):
     return cuda_intersect.intersect_fused_plain(o, d, cuda_intersect.face_table(tris))
 
 
-def resolve_mode(mode: str, device) -> str:
+def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False) -> str:
     """What the ``RenderSettings.intersector`` value ``mode`` runs on
-    ``device``: 'pallas' (kernel K1, the port of the TPU kernel of that
-    name; on a CPU tensor its wrapper runs the plain version) or 'brute'
-    (the plain sweep, CPU tensors only: on a card the sweep is K1).
-    Raises for modes the port does not have."""
+    ``device`` for a scene of ``n_faces`` faces, with or without cluster
+    tables: 'gated' (kernel K3), 'pallas' (kernel K1, the port of the TPU
+    kernel of that name) — on a CPU tensor their wrappers run the plain
+    versions — or 'brute' (the plain sweep, CPU tensors only: on a card
+    the sweep is K1). Raises for modes the port does not have."""
     if mode == "auto":
+        if has_clusters and GATED_MIN_FACES < n_faces <= GATED_MAX_FACES:
+            return "gated"
         return "pallas" if device.type == "cuda" else "brute"
     if mode == "brute" and device.type != "cpu":
         raise ValueError(
             f"intersector 'brute' is the plain sweep for CPU tensors; on a "
             f"{device.type} device use 'auto' or 'pallas' (kernel K1)"
         )
-    if mode in ("brute", "pallas"):
+    if mode in ("brute", "pallas", "gated"):
         return mode
     if mode in _NOT_PORTED:
         raise NotImplementedError(
@@ -73,26 +92,49 @@ def resolve_mode(mode: str, device) -> str:
 
 
 def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
-                    light_pos=None, with_counts: bool = False):
+                    light_pos=None, alive=None, clusters=None,
+                    with_counts: bool = False):
     """Nearest-hit dispatch (``pbr_tpu.ops.traverse.intersect_scene``).
 
     The search for the nearest face runs detached; the winner's ``t`` is
     then re-evaluated with one Möller-Trumbore on live ``o``/``d`` and
-    detached geometry, which is where gradients would flow.
+    detached geometry, which is where gradients flow.
 
     ``light_pos`` (a Vec3 of 0-d tensors, light 0) asks for the NEE shadow
     any-hit fused into the search. Returns ``(t, face, occluded)``, where
     ``occluded`` is None when the mode has no fused leg (the plain sweep):
     the caller then traces the shadow ray itself.
 
+    ``alive``: optional (B,) bool liveness. The gated sweep closes dead
+    lanes out (they cost nothing, widen no frustum and return face -1);
+    the full sweeps ignore it. ``clusters``: the scene's
+    ``scene.ClusterTables`` or None; 'gated' needs them.
+
     ``with_counts``: also return ``tests`` last, the per-ray ray-face test
-    counts (F, or 2F with the fused shadow leg). A sweep visits no BVH
+    counts: F, or 2F with the fused shadow leg, on the full sweeps; the
+    exact executed real-face tests on 'gated'. A sweep visits no BVH
     nodes, so unlike the JAX version there is no visit count.
     """
-    mode = resolve_mode(mode, o.x.device)
+    mode = resolve_mode(mode, o.x.device, int(tris.mtl.shape[0]), clusters is not None)
     o_s, d_s, tris_s = o.detach(), d.detach(), detach_tris(tris)
-    occ = None
-    if mode == "pallas":
+    occ = counts = None
+    if mode == "gated":
+        if clusters is None:
+            raise ValueError(
+                "mode='gated' needs a scene with clusters (the fine AABBs are "
+                "the gate targets); build the scene with use_bvh=True "
+                "(scene/build.py attaches a ClusterSet above 256 faces)"
+            )
+        out = cuda_gated.intersect_gated(
+            o_s, d_s, tris_s, clusters, alive=alive, with_counts=with_counts,
+            light_pos=None if light_pos is None else light_pos.detach(),
+        )
+        face = out[1]
+        if light_pos is not None:
+            occ = out[2]
+        if with_counts:
+            counts = out[-1]
+    elif mode == "pallas":
         if light_pos is not None:
             _, face, occ = cuda_intersect.intersect_fused(
                 o_s, d_s, tris_s, light_pos=light_pos.detach()
@@ -112,6 +154,7 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
     if light_pos is not None:
         out.append(occ)
     if with_counts:
-        nf = int(tris.mtl.shape[0]) * (2 if occ is not None else 1)
-        out.append(face.new_full(face.shape, nf))
+        if counts is None:  # the full sweeps test every face, twice with NEE
+            counts = face.new_full(face.shape, int(tris.mtl.shape[0]) * (2 if occ is not None else 1))
+        out.append(counts)
     return tuple(out)

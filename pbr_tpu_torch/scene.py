@@ -12,11 +12,17 @@ module only moves the result onto a torch device:
   buffers: the renderer detaches it, as the JAX package does;
 - ``camera_to_torch`` turns the camera into 0-d tensors.
 
-The BVH, forest and cluster tables of a ``Scene`` are not carried over: the
-port's only intersector is the brute sweep (``ops/traverse.py``).
+Of a ``Scene``'s acceleration tables, only what the gated sweep (kernel K3,
+``ops/cuda_gated.py``) reads is carried over: the fine cluster AABBs and
+the cluster size of its ``ClusterSet`` (``SceneParams.clusters``). The
+other ``ClusterSet`` fields (``coeffs``, ``sup_*``, ``lin``, ``lbb_*``) feed
+kernels K4 and K5 and wait for the slices that port them; the BVH and the
+forest wait for the BVH walks (ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,6 +59,21 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class ClusterTables(NamedTuple):
+    """The part of a ``ClusterSet`` that the gated sweep reads: the fine
+    cluster AABBs (Vec3s of (C,) tensors; padding clusters are inverted
+    boxes) and the faces per cluster. Cluster ``c`` holds faces
+    ``[c * size, (c + 1) * size)``; C * size >= F."""
+
+    bb_min: Vec3
+    bb_max: Vec3
+    size: int
+
+    @property
+    def count(self) -> int:
+        return int(self.bb_min.x.shape[0])
+
+
 class SceneParams(nn.Module):
     """A scene on one device.
 
@@ -60,10 +81,14 @@ class SceneParams(nn.Module):
     the material fields ``mat_<name>`` ((M,), and (3, M) for ``kd``/``ks``)
     and the light fields ``light_pos`` / ``light_rgb`` (3, L) and
     ``light_radius`` (L,). Buffers: the triangle table ``tri_<name>``
-    (3, F) and the integer fields ``tri_mtl``, ``mat_light``,
-    ``light_type``. The properties ``tris``, ``materials`` and ``lights``
-    give the SoA NamedTuples of ``pbr_tpu.scene.types`` over views of these
-    tensors, which is what the renderer consumes.
+    (3, F), the integer fields ``tri_mtl``, ``mat_light``, ``light_type``
+    and, when the scene has a ``ClusterSet``, its fine AABBs
+    ``clu_bb_min`` / ``clu_bb_max`` (3, C). The properties ``tris``,
+    ``materials``, ``lights`` and ``clusters`` give the SoA NamedTuples of
+    ``pbr_tpu.scene.types`` (and ``ClusterTables``, or None) over views of
+    these tensors, which is what the renderer consumes.
+
+    For a gradient pass, ``requires_grad_()`` switches on every parameter.
     """
 
     def __init__(self, scene: Scene, device):
@@ -83,6 +108,11 @@ class SceneParams(nn.Module):
         self.light_rgb = _param(_stack3(li.rgb, device))
         self.light_radius = _param(_f32(li.radius, device))
         self.register_buffer("light_type", _i32(li.type, device))
+        cs = scene.clusters
+        self.cluster_size: Optional[int] = None if cs is None else cs.size
+        if cs is not None:
+            self.register_buffer("clu_bb_min", _stack3(cs.bb_min, device))
+            self.register_buffer("clu_bb_max", _stack3(cs.bb_max, device))
 
     @property
     def device(self) -> torch.device:
@@ -98,6 +128,12 @@ class SceneParams(nn.Module):
         fields = {name: getattr(self, f"mat_{name}") for name in _MAT_SCALAR}
         fields.update({name: _vec(getattr(self, f"mat_{name}")) for name in _MAT_VEC})
         return MaterialsSoA(light=self.mat_light, **fields)
+
+    @property
+    def clusters(self) -> Optional[ClusterTables]:
+        if self.cluster_size is None:
+            return None
+        return ClusterTables(_vec(self.clu_bb_min), _vec(self.clu_bb_max), self.cluster_size)
 
     @property
     def lights(self) -> LightsSoA:

@@ -1,11 +1,12 @@
-"""Kernel K1's module (pbr_tpu_torch/ops/cuda_intersect.py) and the
-brute-force dispatch, against the JAX package.
+"""Kernels K1 and K2's module (pbr_tpu_torch/ops/cuda_intersect.py) and
+the intersect dispatch, against the JAX package.
 
-On the CPU the wrapper runs the kernel's plain version; the tests hold it
-to ``pbr_tpu.ops.traverse.intersect_brute`` (NumPy) bitwise and to the
-Pallas kernel in interpret mode with the tolerances of
-tests/test_pallas_intersect.py. The kernel itself runs only on a card:
-``test_kernel_matches_plain_on_card`` is marked ``cuda`` and skips here.
+On the CPU the wrapper runs the kernels' plain versions; the tests hold
+K1's to ``pbr_tpu.ops.traverse.intersect_brute`` (NumPy) bitwise, and both
+to the Pallas kernel in interpret mode (``variant='mt'`` and ``'lin'``)
+with the tolerances of tests/test_pallas_intersect.py. The kernels
+themselves run only on a card: ``test_kernel_matches_plain_on_card`` is
+marked ``cuda`` and skips here.
 """
 
 import jax
@@ -14,24 +15,30 @@ import numpy as np
 import pytest
 import torch
 
-from pbr_tpu.ops.pallas_intersect import intersect_pallas
+from pbr_tpu.ops.pallas_intersect import _lin_table, intersect_pallas
 from pbr_tpu.ops.traverse import intersect_brute
 from pbr_tpu.ops.vec import Vec3 as JVec3
 from pbr_tpu.scene.build import scene_from_text
-from pbr_tpu.scene.procedural import cornell_box, random_soup
+from pbr_tpu.scene.procedural import cornell_box, multi_room, random_soup
+from pbr_tpu_torch.ops import cuda_gated as cg
 from pbr_tpu_torch.ops import cuda_intersect as ci
 from pbr_tpu_torch.ops import traverse as tt
 from pbr_tpu_torch.ops.vec import Vec3
 from pbr_tpu_torch.scene import to_torch
 
+# The suite runs in parallel worker processes; torch's default of one
+# thread per core in each of them oversubscribes the machine (measured: a
+# 3 s test took 180 s with four workers).
+torch.set_num_threads(1)
+
 LIGHT = (0.0, 1.8, 0.2)  # inside the box, near the ceiling
 
 
-def _scene(kind="cornell"):
+def _scene(kind="cornell", n_soup=300):
     if kind == "cornell":
         obj, mtl, li = cornell_box()
     else:
-        obj, mtl, li = random_soup(300, seed=1), "", ""
+        obj, mtl, li = random_soup(n_soup, seed=1), "", ""
     scene, _ = scene_from_text(obj, mtl, li, use_bvh=False)
     return scene
 
@@ -56,9 +63,9 @@ def _light(device="cpu"):
 
 @pytest.fixture(autouse=True)
 def _no_cuda_launch_counted():
-    before = ci.launches
+    before = dict(ci.launches), dict(cg.launches)
     yield
-    assert ci.launches == before  # CPU tensors never launch the kernel
+    assert (ci.launches, cg.launches) == before  # CPU tensors never launch a kernel
 
 
 @pytest.mark.parametrize("kind", ["cornell", "soup"])
@@ -96,6 +103,61 @@ def test_plain_matches_pallas_interpret():
     agree = (occ.numpy() == np.asarray(occ_p)).mean()
     assert agree >= 0.999, f"occlusion agreement {agree}"
     assert 0 < occ.numpy().mean() < 1
+
+
+@pytest.mark.parametrize("kind", ["cornell", "soup"])
+def test_lin_table_matches_numpy_bitwise(kind):
+    """K2's (16, F) table equals ``_lin_table`` built with NumPy."""
+    scene = _scene(kind)
+    ref = _lin_table(np, scene.tris)
+    np.testing.assert_array_equal(ci.lin_table(to_torch(scene, "cpu").tris).numpy(), ref)
+
+
+@pytest.mark.parametrize("kind", ["cornell", "soup"])
+@pytest.mark.parametrize("nee", [False, True])
+def test_lin_plain_matches_pallas_interpret(kind, nee):
+    """K2's plain version (``variant='lin'``) against the Pallas kernel's
+    linear form in interpret mode, nearest and fused NEE: faces equal, t
+    within 1e-6 (XLA on the CPU may round the regrouped dot products
+    differently), occluded agreeing on >= 99.9%. A 64-face soup keeps the
+    unrolled interpret program small."""
+    scene = _scene(kind, n_soup=64)
+    o, d = _rays(seed=5)
+    if kind == "soup":
+        o[1] -= 1.0  # the soup sits around the origin
+    jscene = jax.tree_util.tree_map(jnp.asarray, scene)
+    lp = JVec3(*(jnp.float32(v) for v in LIGHT)) if nee else None
+    ref = intersect_pallas(
+        jnp, JVec3(*map(jnp.asarray, o)), JVec3(*map(jnp.asarray, d)), jscene.tris,
+        light_pos=lp, interpret=True, variant="lin",
+    )
+    got = ci.intersect_fused(_t3(o), _t3(d), to_torch(scene, "cpu").tris,
+                             light_pos=_light() if nee else None, variant="lin")
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=1e-6, atol=1e-6)
+    assert (got[1] >= 0).sum() > 20
+    if nee:
+        agree = (got[2].numpy() == np.asarray(ref[2])).mean()
+        assert agree >= 0.999, f"occlusion agreement {agree}"
+
+
+def test_lin_and_classic_forms_agree():
+    """K2 and K1 compute the same quotients in another grouping: their
+    faces agree except where f32 rounding flips an edge or a tie (>= 99.9%
+    of 4,096 rays on the 300-face soup), and t agrees to rtol 1e-4 (the
+    tolerance of tests/test_gated.py: the regrouped dot products round
+    differently)."""
+    tris = to_torch(_scene("soup"), "cpu").tris
+    o, d = _rays(n=4096, seed=2)
+    o[1] -= 1.0
+    t_m, f_m = ci.intersect_fused(_t3(o), _t3(d), tris)
+    t_l, f_l = ci.intersect_fused(_t3(o), _t3(d), tris, variant="lin")
+    assert (f_m == f_l).float().mean() >= 0.999
+    both = (f_m == f_l) & (f_m >= 0)
+    assert both.sum() > 200
+    np.testing.assert_allclose(t_l[both].numpy(), t_m[both].numpy(), rtol=1e-4)
+    with pytest.raises(ValueError, match="variant"):
+        ci.intersect_fused(_t3(o), _t3(d), tris, variant="gemm")
 
 
 def test_fused_occlusion_matches_separate_shadow_sweep():
@@ -145,19 +207,72 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_dispatch_modes():
-    dev = torch.device("cpu")
+    dev, cuda = torch.device("cpu"), torch.device("cuda")
     assert tt.resolve_mode("auto", dev) == "brute"
-    assert tt.resolve_mode("auto", torch.device("cuda")) == "pallas"
+    assert tt.resolve_mode("auto", cuda) == "pallas"
+    # The gated band mirrors the JAX package's TPU dispatch, on either
+    # device: clusters and 1,024 < F <= 12,288 (multiroom has 1,428 faces).
+    for device in (dev, cuda):
+        assert tt.resolve_mode("auto", device, 1428, True) == "gated"
+        assert tt.resolve_mode("auto", device, 12_288, True) == "gated"
+    assert tt.resolve_mode("auto", dev, 1024, True) == "brute"
+    assert tt.resolve_mode("auto", cuda, 1024, True) == "pallas"
+    assert tt.resolve_mode("auto", cuda, 1428, False) == "pallas"
+    assert tt.resolve_mode("auto", cuda, 12_289, True) == "pallas"  # K1 stands in for K4
     assert tt.resolve_mode("pallas", dev) == "pallas"
     assert tt.resolve_mode("brute", dev) == "brute"
+    assert tt.resolve_mode("gated", cuda) == "gated"
     with pytest.raises(ValueError, match="'auto' or 'pallas'"):
-        tt.resolve_mode("brute", torch.device("cuda"))
-    for mode in ("bvh", "gemm", "gated", "cull", "sweep", "pallas_bvh",
+        tt.resolve_mode("brute", cuda)
+    for mode in ("bvh", "gemm", "cull", "sweep", "pallas_bvh",
                  "pallas_bvh_forest", "pallas_bvh_hbm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tt.resolve_mode(mode, dev)
     with pytest.raises(ValueError):
         tt.resolve_mode("nonsense", dev)
+
+
+def test_gated_without_clusters_raises():
+    tris = to_torch(_scene(), "cpu").tris
+    o, d = _rays(n=64)
+    with pytest.raises(ValueError, match="clusters"):
+        tt.intersect_scene(_t3(o), _t3(d), tris, mode="gated")
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_intersect_scene_gated_on_multiroom(nee):
+    """``auto`` on multiroom (1,428 faces, 32 clusters) runs the gated
+    sweep: faces equal the full linear-form sweep's (K2's plain version)
+    on live lanes and K1's on >= 99% of them (the forms round differently
+    at the shared edges of multiroom's boxes), dead lanes miss, the
+    re-evaluated t equals the classic form's, and the counts are the gated
+    sweep's executed tests."""
+    scene, _ = scene_from_text(*multi_room(), use_bvh=True)
+    ts = to_torch(scene, "cpu")
+    rs = np.random.default_rng(4)
+    n = 1000
+    o = np.stack([rs.uniform(-2.8, 2.8, n), rs.uniform(0.1, 1.9, n),
+                  rs.uniform(-4.8, 0.8, n)]).astype(np.float32)
+    d = rs.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    alive = torch.tensor(np.arange(n) % 4 != 0)
+    light = Vec3(*(torch.tensor(v, dtype=torch.float32) for v in (0.0, 1.75, 0.0)))
+    out = tt.intersect_scene(_t3(o), _t3(d), ts.tris, light_pos=light if nee else None,
+                             alive=alive, clusters=ts.clusters, with_counts=True)
+    t, f = out[0], out[1]
+    ref = cg.intersect_gated(_t3(o), _t3(d), ts.tris, ts.clusters,
+                             light_pos=light if nee else None, alive=alive, with_counts=True)
+    t_k1, f_k1 = ci.intersect_fused(_t3(o), _t3(d), ts.tris)
+    _, f_k2 = ci.intersect_fused(_t3(o), _t3(d), ts.tris, variant="lin")
+    assert torch.equal(f, ref[1]) and torch.equal(out[-1], ref[-1])
+    assert torch.equal(f[alive], f_k2[alive])
+    assert (f[alive] == f_k1[alive]).float().mean() >= 0.99
+    assert torch.all(f[~alive] == -1) and torch.all(t[~alive] == float("inf"))
+    same = alive & (f == f_k1)
+    assert torch.equal(t[same], t_k1[same])  # the winner is re-evaluated classically
+    if nee:
+        assert torch.equal(out[2], ref[2])
+    assert 0 < int(out[-1].max()) <= (2 if nee else 1) * scene.tris.count
 
 
 @pytest.mark.parametrize("mode", ["brute", "pallas"])
@@ -181,9 +296,9 @@ def test_intersect_scene_reeval_and_counts(mode):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """K1 against its plain version on the card: t, face and occluded
-    bitwise equal (both round every operation the same way: the kernel is
-    built with --fmad=false), over a ragged ray count and several
+    """K1 and K2 against their plain versions on the card: t, face and
+    occluded bitwise equal (both round every operation the same way: the
+    kernel is built with --fmad=false), over a ragged ray count and several
     shared-memory chunks of faces."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernel K1 has no CPU mode")
@@ -192,13 +307,14 @@ def test_kernel_matches_plain_on_card():
         scene, _ = scene_from_text(obj, mtl, li, use_bvh=False)
         tris = to_torch(scene, "cuda").tris
         o, d = (_t3(a, "cuda") for a in _rays(n=n))
-        before = ci.launches
-        t, f, occ = ci.intersect_fused(o, d, tris, light_pos=_light("cuda"))
-        t1, f1 = ci.intersect_fused(o, d, tris)
-        torch.cuda.synchronize()
-        assert ci.launches == before + 2
-        tp, fp, op = ci.intersect_fused_plain(o, d, ci.face_table(tris),
-                                              torch.tensor(LIGHT, device="cuda"))
-        for a, b in ((t, tp), (f, fp), (occ, op), (t1, tp), (f1, fp)):
-            assert torch.equal(a, b)
-        ci.launches = before  # the autouse check counts CPU launches only
+        for variant, table in (("mt", ci.face_table(tris)), ("lin", ci.lin_table(tris))):
+            before = dict(ci.launches)
+            t, f, occ = ci.intersect_fused(o, d, tris, light_pos=_light("cuda"), variant=variant)
+            t1, f1 = ci.intersect_fused(o, d, tris, variant=variant)
+            torch.cuda.synchronize()
+            assert sum(ci.launches.values()) == sum(before.values()) + 2
+            tp, fp, op = ci.intersect_fused_plain(o, d, table,
+                                                  torch.tensor(LIGHT, device="cuda"))
+            for a, b in ((t, tp), (f, fp), (occ, op), (t1, tp), (f1, fp)):
+                assert torch.equal(a, b)
+            ci.launches.update(before)  # the autouse check counts CPU launches only

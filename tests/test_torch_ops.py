@@ -27,6 +27,11 @@ from pbr_tpu_torch.ops import brdf as TB
 from pbr_tpu_torch.ops import intersect as TI
 from pbr_tpu_torch.ops import vec as TV
 
+# The suite runs in parallel worker processes; torch's default of one
+# thread per core in each of them oversubscribes the machine (measured: a
+# 3 s test took 180 s with four workers).
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 N = 4096
 

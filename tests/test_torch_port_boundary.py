@@ -13,7 +13,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(code: str) -> str:
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # One torch thread: the suite runs in parallel worker processes, and a
+    # thread per core in each of them oversubscribes the machine.
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -23,6 +25,8 @@ def _run(code: str) -> str:
 @pytest.mark.parametrize("module", [
     "pbr_tpu_torch",
     "pbr_tpu_torch.ops.cuda_intersect",
+    "pbr_tpu_torch.ops.cuda_gated",
+    "pbr_tpu_torch.ops.cull",
     "pbr_tpu_torch.models.pathtracer",
 ])
 def test_import_leaves_jax_out(module):
@@ -86,3 +90,29 @@ def test_renders_with_jax_blocked():
         "print(img.shape, bool(np.isfinite(img).all()), float(img.mean()) > 0.0)\n"
     )
     assert out.strip().splitlines()[-1] == "(8, 8, 3) True True"
+
+
+def test_multiroom_renders_with_jax_blocked():
+    """The mid-band path without JAX: multiroom built with its clusters
+    (the host layer's BVH and cluster builders are NumPy), rendered at 8x8
+    through the gated sweep's plain version on the CPU."""
+    out = _run(
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "from pbr_tpu.scene.build import scene_from_text\n"
+        "from pbr_tpu.scene.camera import make_camera_state\n"
+        "from pbr_tpu.scene.procedural import multi_room\n"
+        "from pbr_tpu.utils.config import RenderSettings\n"
+        "from pbr_tpu_torch import PathTracer\n"
+        "from pbr_tpu_torch.ops import traverse\n"
+        "scene, _ = scene_from_text(*multi_room(), use_bvh=True)\n"
+        "cam = make_camera_state(eye=(0.0, 1.0, 3.0), center_dir=(0.0, 0.0, 1.0))\n"
+        "st = RenderSettings(width=8, height=8, max_depth=3, max_added_depth=5,\n"
+        "                    shadow_rays=1, compact_schedule='auto')\n"
+        "pt = PathTracer(scene, st, device='cpu')\n"
+        "pt.render(cam, frame_seed=1)\n"
+        "img = pt.image()\n"
+        "mode = traverse.resolve_mode('auto', pt.device, scene.tris.count, True)\n"
+        "print(mode, img.shape, bool(np.isfinite(img).all()), float(img.mean()) > 0.0)\n"
+    )
+    assert out.strip().splitlines()[-1] == "gated (8, 8, 3) True True"

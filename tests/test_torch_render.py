@@ -19,9 +19,9 @@ import torch
 from pbr_tpu.models import integrator as jax_integrator
 from pbr_tpu.models import pathtracer as jax_pathtracer
 from pbr_tpu.reference.cpu import render_cpu
-from pbr_tpu.scene.build import scene_from_text
+from pbr_tpu.scene.build import bvh_max_leaf, derive_static_flags, scene_from_text
 from pbr_tpu.scene.camera import make_camera_state
-from pbr_tpu.scene.procedural import cornell_box, single_triangle
+from pbr_tpu.scene.procedural import cornell_box, multi_room, single_triangle
 from pbr_tpu.utils.config import BRDF_SCHLICK, BRDF_SHIRLEY_ASHIKHMIN, RenderSettings
 from pbr_tpu.utils.morton import morton_pixel_ids
 from pbr_tpu_torch import PathTracer, camera_to_torch, to_torch, trace_rays
@@ -30,6 +30,12 @@ from pbr_tpu_torch.models.pathtracer import (
     probe_subset_ids,
     schedule_cost,
 )
+from pbr_tpu_torch.ops import cuda_gated
+
+# The suite runs in parallel worker processes; torch's default of one
+# thread per core in each of them oversubscribes the machine (measured: a
+# 3 s test took 180 s with four workers).
+torch.set_num_threads(1)
 
 
 def _bench_settings(size, **kw):
@@ -70,11 +76,20 @@ def _assert_close(got, ref, flip_budget=0.01, mean_tol=1e-2):
     assert np.abs(got - ref)[agree].mean() < mean_tol
 
 
+@pytest.fixture(scope="module")
+def multiroom():
+    """bench.py's multiroom scene (bench.py:187-193): 1,428 faces with a
+    ClusterSet of 64-face clusters, so ``auto`` runs the gated sweep."""
+    scene, _ = scene_from_text(*multi_room(), use_bvh=True)
+    cam = make_camera_state(eye=(0.0, 1.0, 3.0), center_dir=(0.0, 0.0, 1.0))
+    return scene, cam
+
+
 def _render_jax(scene, cam, settings, seed):
     jscene = jax.tree_util.tree_map(jnp.asarray, scene)
     jcam = jax.tree_util.tree_map(jnp.asarray, cam)
     ids = jnp.arange(settings.width * settings.height, dtype=jnp.int32)
-    f = jax.jit(functools.partial(jax_integrator.trace_rays, jnp),
+    f = jax.jit(functools.partial(jax_integrator.trace_rays, jnp, max_leaf=bvh_max_leaf(scene)),
                 static_argnames=("settings",))
     res = f(jscene, jcam, settings=settings, pixel_ids=ids, frame_seed=jnp.uint32(seed))
     rgb = np.stack([np.asarray(res.color.x), np.asarray(res.color.y),
@@ -299,3 +314,79 @@ def test_unported_intersector_is_refused(cornell):
     scene, cam = cornell
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _trace(scene, cam, _bench_settings(8, intersector="bvh"), 0)
+
+
+def _gated_spy(monkeypatch):
+    """Record, for each gated-sweep call, whether it got an alive mask."""
+    calls = []
+    real = cuda_gated.intersect_gated
+
+    def spy(*args, **kw):
+        calls.append(kw.get("alive") is not None)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(cuda_gated, "intersect_gated", spy)
+    return calls
+
+
+def test_multiroom_matches_oracle_and_jax(multiroom, monkeypatch):
+    """bench.py's multiroom settings at 48² through the port's CPU path
+    (auto: the gated sweep's plain version at every bounce, with the alive
+    mask) against the NumPy oracle and JAX's jitted trace_rays (which walks
+    the BVH on the CPU)."""
+    scene, cam = multiroom
+    settings = derive_static_flags(scene, _bench_settings(48, no_transparency=False))
+    assert settings.no_transparency
+    calls = _gated_spy(monkeypatch)
+    got = _rgb(_trace(scene, cam, settings, 3), settings)
+    assert calls == [True] * settings.max_total_depth
+    assert np.isfinite(got).all() and got.mean() > 0.1
+    ref_np, _ = render_cpu(scene, cam, settings, frame_seed=3)
+    _assert_close(got, ref_np)
+    _assert_close(got, _render_jax(scene, cam, settings, 3))
+
+
+def test_multiroom_compaction_on_off_bitwise(multiroom):
+    """Compaction regroups lanes into other gated tiles: the verdicts
+    change, the answers do not (the gate is conservative). 0 dropped."""
+    scene, cam = multiroom
+    settings = _bench_settings(40, compact_block=16)
+    full = _trace(scene, cam, settings, 7, with_stats=True)
+    sched = settings.replace(compact_schedule=((4, 0.73), (5, 0.3), (6, 0.1)))
+    comp = _trace(scene, cam, sched, 7, with_stats=True)
+    assert int(comp.n_dropped) == 0
+    for a, b in zip(full.color, comp.color):
+        assert torch.equal(a, b)
+    assert torch.equal(full.focus_t, comp.focus_t)
+    for name in ("n_path_rays", "n_shadow_rays", "heat_bounces", "bounce_row_live"):
+        assert torch.equal(getattr(full, name), getattr(comp, name)), name
+    # The executed tests are the gated sweep's: fewer than the full sweep's
+    # 2F a bounce, and never more than it.
+    tests = full.heat_tests.numpy()
+    bounces = full.heat_bounces.numpy()
+    assert np.all(tests <= 2 * scene.tris.count * bounces)
+    assert tests.sum() < 2 * scene.tris.count * bounces.sum()
+
+
+def test_multiroom_pathtracer_probes_through_the_gated_sweep(multiroom, monkeypatch):
+    """PathTracer keeps the clusters: its schedule and lane-order probes
+    run the gated sweep, as the frames do; the probed schedule is the JAX
+    package's, and the frame drops no lane."""
+    scene, cam = multiroom
+    settings = _bench_settings(64, compact_block=32, compact_schedule="auto")
+    calls = _gated_spy(monkeypatch)
+    pt = PathTracer(scene, settings, device="cpu")
+    assert pt.scene.clusters is not None and pt.scene.clusters.count == 32
+    pt.render(cam, 2)
+    mtd = pt.settings.max_total_depth
+    assert calls == [True] * (3 * mtd)  # two probes, one frame
+    assert pt.lane_order in ("scanline", "morton")
+    perm = None if pt.lane_order == "scanline" else morton_pixel_ids(64, 64)
+    ref = jax_pathtracer.probe_compact_schedule(
+        scene, cam, settings.replace(compact_schedule=()), pixel_ids=perm)
+    assert pt.settings.compact_schedule == ref
+    img = pt.image()
+    assert img.shape == (64, 64, 3) and np.isfinite(img).all()
+    res = trace_rays(pt.scene, camera_to_torch(cam, "cpu"), pt.settings, pt.pixel_ids, 2,
+                     with_stats=True)
+    assert res.n_dropped is None or int(res.n_dropped) == 0

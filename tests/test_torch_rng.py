@@ -11,6 +11,11 @@ import torch
 from pbr_tpu.ops import rng as R
 from pbr_tpu_torch.ops import rng as T
 
+# The suite runs in parallel worker processes; torch's default of one
+# thread per core in each of them oversubscribes the machine (measured: a
+# 3 s test took 180 s with four workers).
+torch.set_num_threads(1)
+
 IDS = np.random.default_rng(0).integers(0, 1 << 22, size=2048).astype(np.int32)
 
 
