@@ -13,8 +13,9 @@ Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that did not launch fails the run.
 
 1. device: a CUDA card of compute capability 9.0, its name and power limit;
-2. build: K1/K2 (csrc/brute_intersect.cu) and K3 (csrc/gated_intersect.cu)
-   with nvcc, in parallel, timed;
+2. build: K1/K2 (csrc/brute_intersect.cu), K3 (csrc/gated_intersect.cu) and
+   K4/K4m (csrc/cull_intersect.cu) with nvcc, and the native BVH builder
+   (csrc/bvh_builder.cpp) with g++, all in parallel, timed;
 3. Cornell box (34 faces; auto runs K1):
    - K1 against its plain version on the card, bitwise (t, face,
      occluded), nearest and NEE, on the path's camera rays, a ragged
@@ -48,43 +49,89 @@ read just after; a kernel of the path that did not launch fails the run.
      gradients; at 64², the card's gradients against the CPU's;
    - path "linear form": K2's entry point (intersect_fused(variant='lin'),
      which no render mode selects, as in the JAX package) on the path's
-     camera rays, NEE and nearest.
+     camera rays, NEE and nearest;
+   - path "multiroom, cull" (intersector='cull': 32 clusters, so K4m, the
+     masked cull-and-sweep): one 1024² frame in which K4m launches once a
+     pass and bounce and no other kernel, within 1e-3 of the auto (K3)
+     frame on at least 99% of pixels; K4m against its plain version,
+     bitwise, on the path's camera rays, timed;
+5. soup:100000 (bench.py --scene soup:100000: 100,000 faces, 784 clusters of
+   128 in 49 superclusters; auto runs K4 over the candidate lists of
+   ops/cull.py, with the coherence sort and the early-out):
+   - a 64² frame on the card against the port's CPU path, at least 99% of
+     pixels within 1e-3;
+   - path "soup:100000": the first 1024² frame, compacted, equals bitwise
+     the full-width frame; the auto frame against the same frame through K1
+     (intersector='pallas') at least 99% of pixels within 1e-3; 8 timed
+     frames after 2 warm-up frames, in which K4's nearest and any-hit
+     instances launch once a bounce each and K1, K3 and K4m not, 0 lanes
+     dropped;
+   - K4 (nearest and any-hit) against its plain version, bitwise, on all
+     the path's 1024² camera rays (in its lane order) and on 1M bounce-like
+     rays with an alive mask and NEE; the candidate-slot share per tile;
+     times per call of K4's passes, of the whole wrapper, of its plain
+     version and of K1 on the camera rays.
 
 Every failure raises, so the exit code is not 0. The last two lines of
-standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. The script needs no JAX: any import of
-it fails (``sys.modules['jax'] = None``). Of the JAX package it imports only
-the NumPy host layer (scene building, camera, config).
+standard output are the kernels' JSON record (with each kernel's bound: the
+larger of its operations over 67 T op/s float32 and its bytes over
+3.35 TB/s, the H100's published peaks; ``launches`` counts the launches
+over ``frames`` frames of its path) and ``{"ok": true, "device":
+{...}}``. The script needs nothing of JAX: any import of it, or of the JAX
+package, fails (``sys.modules``); scenes are built by the port's own host
+layer.
 """
 
 import sys
 
-sys.modules["jax"] = None  # the port must run where JAX is absent
+sys.modules["jax"] = None  # the port must run where JAX is absent ...
+sys.modules["pbr_tpu"] = None  # ... and imports nothing of the JAX package
 
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 from concurrent.futures import ThreadPoolExecutor  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from pbr_tpu.scene.build import scene_from_text  # noqa: E402
-from pbr_tpu.scene.camera import make_camera_state  # noqa: E402
-from pbr_tpu.scene.procedural import cornell_box, multi_room, random_soup  # noqa: E402
-from pbr_tpu.utils.config import RenderSettings  # noqa: E402
 from pbr_tpu_torch import PathTracer, camera_to_torch, to_torch, trace_rays  # noqa: E402
+from pbr_tpu_torch.accel import native  # noqa: E402
 from pbr_tpu_torch.models.integrator import _gen_rays  # noqa: E402
+from pbr_tpu_torch.ops import cuda_cull as cc  # noqa: E402
 from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
 from pbr_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from pbr_tpu_torch.ops.rng import PixelRng  # noqa: E402
 from pbr_tpu_torch.ops.vec import Vec3  # noqa: E402
+from pbr_tpu_torch.scene.build import scene_from_text  # noqa: E402
+from pbr_tpu_torch.scene.camera import make_camera_state  # noqa: E402
+from pbr_tpu_torch.scene.procedural import (  # noqa: E402
+    cornell_box,
+    grey_soup,
+    multi_room,
+    random_soup,
+)
+from pbr_tpu_torch.utils.config import RenderSettings  # noqa: E402
 
 SIZE = 1024
 WARMUP, FRAMES, STEPS = 2, 8, 3
 BOUNCE_RAYS = 1 << 20
 K12_SOURCE = "pbr_tpu_torch/csrc/brute_intersect.cu"
 K3_SOURCE = "pbr_tpu_torch/csrc/gated_intersect.cu"
+K4_SOURCE = "pbr_tpu_torch/csrc/cull_intersect.cu"
+# The H100's published peaks (SXM, at its 700 W limit): float32 outside the
+# tensor cores, and device memory. --fmad=false halves the issue ceiling
+# the kernels can reach (33.5 T op/s), which the bound does not assume.
+PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
+# Floating-point operations of one ray-face test, as the function needs
+# them. Classic Moller-Trumbore (K1): p = d x e2 9, det 5, 1/det 1,
+# o - v0 3, q = (o - v0) x e1 9, t, u, v 6 each, the gates 5, the minimum
+# 1: 51. Linear form (K2, K3, and K4, whose coefficient blocks hold the
+# same form with zeros): det 5, 1/det 1, t 7, u 12, v 13, the gates 5, the
+# minimum 1: 44. K4 sums all 11 feature rows (84 multiplies and adds
+# where the form needs 34), so its time cannot reach this bound.
+OPS_CLASSIC, OPS_LIN = 51, 44
 # The TPU kernel each instance replaces (pbr_tpu/ops/...: the body's line).
 REPLACES = {
     "K1": "pbr_tpu/ops/pallas_intersect.py:182",  # _kernel_nee around _sweep
@@ -92,6 +139,8 @@ REPLACES = {
     "K2": "pbr_tpu/ops/pallas_intersect.py:99",  # _sweep_lin in _kernel_nee
     "K2'": "pbr_tpu/ops/pallas_intersect.py:99",  # _sweep_lin in _kernel
     "K3": "pbr_tpu/ops/pallas_gated.py:73",  # _kernel, nearest and any-hit
+    "K4": "pbr_tpu/ops/pallas_cull.py:89",  # _kernel (slotted), nearest and any-hit
+    "K4m": "pbr_tpu/ops/pallas_cull.py:183",  # _kernel_masked, nearest and any-hit
 }
 
 
@@ -101,11 +150,12 @@ def phase(name: str, msg: str) -> None:
 
 def counts() -> dict:
     """Every kernel instance's launch count."""
-    return {**ci.launches, "K3": cg.launches["nearest"], "K3 any-hit": cg.launches["any-hit"]}
+    return {**ci.launches, "K3": cg.launches["nearest"], "K3 any-hit": cg.launches["any-hit"],
+            **cc.launches}
 
 
 def zero_counts() -> None:
-    for table in (ci.launches, cg.launches):
+    for table in (ci.launches, cg.launches, cc.launches):
         for k in table:
             table[k] = 0
 
@@ -133,6 +183,31 @@ def multiroom():
     return scene, cam
 
 
+def soup():
+    """bench.py --scene soup:100000 (bench.py:134-154), built by the port's
+    host layer (the native BVH builder) and timed."""
+    t0 = time.perf_counter()
+    scene, _ = scene_from_text(*grey_soup(100_000), use_bvh=True)
+    sec = time.perf_counter() - t0
+    cs = scene.clusters
+    if cs is None or cs.size != 128:
+        raise AssertionError("soup:100000 must carry a ClusterSet of 128-face clusters")
+    phase("soup:100000", f"scene built in {sec:.3f} s: {scene.tris.count} faces, "
+                         f"{cs.coeffs.shape[0]} clusters of {cs.size} in "
+                         f"{cs.sup_min.x.shape[0]} superclusters, coefficient table "
+                         f"{tuple(cs.coeffs.shape)} ({cs.coeffs.nbytes / 2**20:.1f} MiB)")
+    cam = make_camera_state(eye=(0.0, 0.0, 3.5), center_dir=(0.0, 0.0, 1.0))
+    return scene, cam
+
+
+def _bound(ops: float, nbytes: float) -> tuple:
+    """The least time the card could take for work of ``ops`` float32
+    operations and ``nbytes`` moved, in ms, and which of the two bounds
+    it."""
+    t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -149,18 +224,27 @@ def device_phase() -> str:
     return smi
 
 
+def _build_native():
+    """The native BVH builder, compiled with g++; raises where it does not
+    build (the host layer would fall back to its NumPy builder)."""
+    if native.load_library(rebuild=True) is None:
+        raise RuntimeError("the native BVH builder (csrc/bvh_builder.cpp) did not build")
+    return Path(native._LIB)
+
+
 def build_phase() -> None:
-    """One nvcc per source, all started together."""
+    """One nvcc per kernel source and one g++, all started together."""
     def timed(name):
         t0 = time.perf_counter()
-        path = ci.build(name)
+        path = _build_native() if name == "bvh_builder" else ci.build(name)
         return name, time.perf_counter() - t0, path.name
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        done = list(pool.map(timed, ("brute_intersect", "gated_intersect")))
+    names = ("brute_intersect", "gated_intersect", "cull_intersect", "bvh_builder")
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        done = list(pool.map(timed, names))
     for name, sec, lib in done:
-        phase("build", f"{name}.cu built in {sec:.3f} s -> {lib}")
+        phase("build", f"{name} built in {sec:.3f} s -> {lib}")
     phase("build", f"all kernels built in {time.perf_counter() - t0:.3f} s")
 
 
@@ -278,20 +362,21 @@ def cornell_kernel_phase(scene, cam, dev) -> dict:
     return {"errs": errs, "tris": ts.tris, "o": cam_o, "d": cam_d, "light": l0}
 
 
-def oracle_phase(tag: str, scene, cam, dev) -> None:
+def oracle_phase(tag: str, scene, cam, dev, size: int = 128) -> None:
     """The card's path (auto, probed schedule and lane order, compaction on
-    the device) against the CPU's (plain versions, full width, scanline)."""
-    pt = PathTracer(scene, bench_settings(128, compact_schedule="auto"), device=dev)
+    the device) against the CPU's (plain versions, full width, scanline),
+    at ``size``²."""
+    pt = PathTracer(scene, bench_settings(size, compact_schedule="auto"), device=dev)
     pt.render(cam, frame_seed=5)
     got = pt.image()
-    host = PathTracer(scene, bench_settings(128), device="cpu", lane_order="scanline")
+    host = PathTracer(scene, bench_settings(size), device="cpu", lane_order="scanline")
     host.render(cam, frame_seed=5)
     ref = host.image()
     if np.isnan(got).any():
-        raise AssertionError(f"{tag}: NaN in the 128² frame")
+        raise AssertionError(f"{tag}: NaN in the {size}² frame")
     d = np.abs(got - ref).max(axis=-1)
     within = float((d <= 1e-3).mean())
-    phase("oracle", f"{tag} 128² frame ({pt.lane_order}, schedule "
+    phase("oracle", f"{tag} {size}² frame ({pt.lane_order}, schedule "
                     f"{pt.settings.compact_schedule}) vs the CPU path: {within:.4%} of pixels "
                     f"within 1e-3, max |diff| {d.max():.3g}, means {got.mean():.6f} / "
                     f"{ref.mean():.6f}")
@@ -368,12 +453,29 @@ def cornell_path_phase(scene, cam, dev, k1: dict, profile: bool) -> dict:
         "K1'": (_time_ms(lambda: ci.intersect_fused(o, d, t), 20),
                 _time_ms(lambda: ci.intersect_fused_plain(o, d, table), 5)),
     }
+    bounds = _full_sweep_bounds("K1", OPS_CLASSIC, o, d, t, light, table.shape[0])
     for name, (ms, plain) in out.items():
         phase("cornell", f"{name} per call at the path's shape ({o.x.shape[0]} rays x "
-                         f"{table.shape[1]} faces): {ms:.4f} ms; plain version {plain:.4f} ms")
+                         f"{table.shape[1]} faces): {ms:.4f} ms; plain version {plain:.4f} ms; "
+                         f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
     if profile:
         profile_phase("cornell", pt, cam)
-    return {"launches": launched, "times": out}
+    return {"launches": launched, "times": out, "bounds": bounds}
+
+
+def _full_sweep_bounds(name: str, ops_test: int, o, d, tris, light, rows: int) -> dict:
+    """Bounds of a full sweep (K1 or K2) and its nearest-only instance on
+    rays ``o``, ``d``: every ray tests every face; a shadow ray needs every
+    face only when nothing occludes it (an occluded one may stop at its
+    first occluder, counted as nothing). Bytes: the rays, the (rows, F)
+    table, t, face and occluded."""
+    n, nf = o.x.shape[0], int(tris.mtl.shape[0])
+    variant = "lin" if rows == 16 else "mt"
+    _, _, occ = ci.intersect_fused(o, d, tris, light_pos=light, variant=variant)
+    unocc = int((~occ).sum())
+    table = 4 * rows * nf
+    return {name: _bound(ops_test * nf * (n + unocc), 24 * n + table + 12 + 12 * n),
+            name + "'": _bound(ops_test * nf * n, 24 * n + table + 8 * n)}
 
 
 def cornell_nee_off_phase(scene, cam, dev) -> dict:
@@ -487,6 +589,9 @@ def multiroom_kernel_phase(scene, cam, dev, pt: PathTracer) -> dict:
                      f"of (tile, cluster) pairs gated in for the nearest pass, "
                      f"{float(p_any[3].double().mean()):.4f} for the any-hit pass")
     table = ci.face_table(tris)
+    real = cg.real_faces(int(tris.mtl.shape[0]), clusters.count, dev)
+    bounds = {**_full_sweep_bounds("K2", OPS_LIN, cam_o, cam_d, tris, l0, 16),
+              "K3": _gated_bound(p_near, real), "K3 any-hit": _gated_bound(p_any, real)}
     times = {
         "K3": (_time_ms(lambda: cg._sweep_kernel(*p_near), 20),
                _time_ms(lambda: cg._sweep_plain(*p_near), 3)),
@@ -507,10 +612,24 @@ def multiroom_kernel_phase(scene, cam, dev, pt: PathTracer) -> dict:
                                                                      light), 2)),
     }
     for name, (ms, plain) in times.items():
+        b = f"; bound {bounds[name][0]:.4f} ms ({bounds[name][1]})" if name in bounds else ""
         phase("kernels", f"{name} per call on the multiroom camera rays ({cam_o.x.shape[0]} "
                          f"rays x {tris.mtl.shape[0]} faces): {ms:.4f} ms; plain version "
-                         f"{plain:.4f} ms")
-    return {"times": times, "errs": errs, "o": cam_o, "d": cam_d}
+                         f"{plain:.4f} ms{b}")
+    return {"times": times, "errs": errs, "bounds": bounds, "o": cam_o, "d": cam_d}
+
+
+def _gated_bound(args, real) -> tuple:
+    """Bound of one K3 pass from its recorded arguments: the gated-in
+    clusters' real faces for every ray of the tile."""
+    o, _, tab, verdict, tile, _, _, t_limit = args
+    n = o.x.shape[0]
+    tests = int((verdict.to(torch.int64) * real).sum()) * tile
+    any_hit = t_limit is not None
+    # rays, the seeds (nearest: t and face; any-hit: occlusion and t_limit),
+    # table, verdicts, outputs
+    nbytes = 24 * n + 8 * n + 4 * tab.numel() + verdict.numel() + (4 if any_hit else 8) * n
+    return _bound(OPS_LIN * tests, nbytes)
 
 
 def _grads(ts, cam_t, settings, ids, weights=None) -> tuple:
@@ -610,6 +729,230 @@ def lin_path_phase(scene, dev, mk: dict) -> dict:
     return launched
 
 
+# ------------------------------------------------------ cull-and-sweep --
+
+def _cull_passes(o, d, clusters, light, alive):
+    """Run the cull wrapper with the kernels, recording each pass's
+    arguments (K4's or K4m's), so that each pass can be replayed alone."""
+    passes = []
+
+    def slotted(*args):
+        passes.append(("K4", args))
+        return cc._slotted_kernel(*args)
+
+    def masked(*args):
+        passes.append(("K4m", args))
+        return cc._masked_kernel(*args)
+
+    out = cc._cull(slotted, masked, o, d, clusters, light, alive, "highest")
+    return passes, out
+
+
+def _plain_pass(kind: str, args) -> tuple:
+    """A recorded pass through the plain version, with the real-face tests
+    it executed (per (tile, slot or cluster) pair that runs: the cluster's
+    real faces for every ray of the tile)."""
+    coeffs = args[1]
+    # det's coefficients (rows 3-5, m = e2 x e1) are 0 on padding faces
+    real = (coeffs[:, 3:6, :coeffs.shape[2] // 4] != 0).any(dim=1).sum(dim=1)
+    tests = [0]
+    sweep = cc._SweepState.sweep
+
+    def counted(self, coeffs_, tiles, cids):
+        tests[0] += int(real[cids].sum()) * cc.TILE
+        return sweep(self, coeffs_, tiles, cids)
+
+    cc._SweepState.sweep = counted
+    try:
+        out = (cc._slotted_plain if kind == "K4" else cc._masked_plain)(*args)
+        torch.cuda.synchronize()
+    finally:
+        cc._SweepState.sweep = sweep
+    return out, tests[0]
+
+
+def _cull_pass_bound(kind: str, args, tests: int) -> tuple:
+    """Bound of one K4 or K4m pass: ``tests`` real-face tests in the linear
+    form; bytes: the rays, the seeds (and t_limit), the coefficient blocks,
+    the candidate tables or verdict bytes, the outputs."""
+    feats, coeffs = args[0], args[1]
+    n = feats[0].shape[0]
+    any_hit = args[-1]
+    gate = sum(a.numel() * a.element_size() for a in args[2:5]) if kind == "K4" \
+        else args[2].numel()
+    nbytes = 24 * n + 8 * n + coeffs.numel() * 4 + gate + (4 if any_hit else 8) * n
+    return _bound(OPS_LIN * tests, nbytes)
+
+
+def _cull_kernel_checks(tag: str, cases, clusters, light, tris) -> dict:
+    """The cull wrapper with the kernels against its plain version,
+    bitwise (t, face, occluded, and the nearest-only call's t and face),
+    on each case; per pass of the first case, the plain replay, its
+    executed tests and the pass's bound. Prints the candidate-slot share."""
+    first = []
+    errs = {}
+    for i_case, (name, o, d, alive) in enumerate(cases):
+        passes, got = _cull_passes(o, d, clusters, light, alive)
+        nearest = cc.intersect_cull(o, d, clusters, alive=alive)
+        ref = cc.intersect_cull_plain(o, d, clusters, light_pos=light, alive=alive)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"{tag} cull on {name}", (*got, *nearest), (*ref, *ref[:2]))
+        kind = passes[0][0]
+        errs[kind] = max(errs.get(kind, 0.0), _max_err(got[0], ref[0]), _max_err(nearest[0], ref[0]))
+        errs[kind + " any-hit"] = max(errs.get(kind + " any-hit", 0.0), _max_err(got[2], ref[2]))
+        live = torch.ones_like(got[1], dtype=torch.bool) if alive is None else alive
+        k1 = ci.intersect_fused(o, d, tris, light_pos=light)
+        hit = live & (got[1] >= 0)
+        phase(tag, f"{name}: {o.x.shape[0]} rays; {kind} (nearest, any-hit) and the nearest-only "
+                   f"call equal the plain version bitwise; {int(hit.sum())} of "
+                   f"{int(live.sum())} live lanes hit; against K1 on live lanes "
+                   f"{int((got[1][live] != k1[1][live]).sum())} face and "
+                   f"{int((got[2][hit] != k1[2][hit]).sum())} occlusion mismatches")
+        shares = []
+        for kind_i, args in passes:
+            pass_name = kind_i + (" any-hit" if args[-1] else "")
+            out, tests = _plain_pass(kind_i, args)
+            _equal_or_raise(f"{pass_name} replay on {name}", cc._slotted_kernel(*args)
+                            if kind_i == "K4" else cc._masked_kernel(*args), out)
+            c = args[1].shape[0]
+            if kind_i == "K4":
+                cand, cnt = args[2], args[3]
+                listed = (cand < cc.CAND_MISS) & (
+                    torch.arange(c, device=cand.device)[None, :] < cnt[:, None])
+            else:
+                listed = args[2]
+            share = listed.sum(dim=1).double() / c
+            full = tests / (share.numel() * cc.TILE * c * (args[1].shape[2] // 4))
+            shares.append(f"{pass_name}: listed {float(share.mean()):.4f} (tile min "
+                          f"{float(share.min()):.4f}, max {float(share.max()):.4f}), executed "
+                          f"{full:.4f} of all (tile, face) pairs")
+            if i_case == 0:
+                first.append((pass_name, kind_i, args, tests))
+        phase(tag, f"{name}: candidate-slot share per tile (slots listed without the miss "
+                   f"bit, over C); " + "; ".join(shares))
+    return {"errs": errs, "passes": first}
+
+
+def _time_passes(tag: str, passes, what: str) -> dict:
+    """Times of each recorded pass (kernel, and plain version), with its
+    bound."""
+    out = {}
+    for pass_name, kind, args, tests in passes:
+        kern = cc._slotted_kernel if kind == "K4" else cc._masked_kernel
+        plain = cc._slotted_plain if kind == "K4" else cc._masked_plain
+        ms = _time_ms(lambda: kern(*args), 10)
+        plain_ms = _time_ms(lambda: plain(*args), 1)
+        bound = _cull_pass_bound(kind, args, tests)
+        out[pass_name] = (ms, plain_ms, bound)
+        phase(tag, f"{pass_name} per pass on {what}: {ms:.4f} ms; plain version "
+                   f"{plain_ms:.4f} ms; {tests} real-face tests, bound {bound[0]:.4f} ms "
+                   f"({bound[1]})")
+    return out
+
+
+def multiroom_cull_phase(scene, cam, dev, mr_pt: PathTracer) -> dict:
+    """Path "multiroom, cull": one 1024² frame with intersector='cull'
+    (K4m, 32 clusters), against the auto (K3) frame; K4m against its plain
+    version on the path's camera rays, timed."""
+    settings = mr_pt.settings.replace(intersector="cull")
+    pt = PathTracer(scene, settings, device=dev, lane_order=mr_pt.lane_order)
+    zero_counts()
+    pt.render(cam, frame_seed=0)
+    torch.cuda.synchronize()
+    launched = counts()
+    expect = settings.max_total_depth * settings.samples
+    phase("multiroom cull", f"launches over one frame: {launched}")
+    if launched["K4m"] != expect or launched["K4m any-hit"] != expect \
+            or sum(launched.values()) != 2 * expect:
+        raise AssertionError(f"multiroom cull: expected {expect} K4m launches of each pass "
+                             f"and no other, got {launched}")
+    ref = PathTracer(scene, mr_pt.settings, device=dev, lane_order=mr_pt.lane_order)
+    ref.render(cam, frame_seed=0)
+    img = pt.image()
+    d = np.abs(img - ref.image()).max(axis=-1)
+    within = float((d <= 1e-3).mean())
+    phase("multiroom cull", f"frame 0, intersector='cull' (K4m) vs auto (K3): {within:.4%} of "
+                            f"pixels within 1e-3, means {img.mean():.6f} / "
+                            f"{ref.image().mean():.6f}")
+    if within < 0.99 or not np.isfinite(img).all():
+        raise AssertionError(f"multiroom cull: K4m and K3 frames agree on only {within:.4%}")
+    ts = pt.scene
+    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), settings, dev, pt.pixel_ids)
+    chk = _cull_kernel_checks("multiroom cull", [("camera rays, " + pt.lane_order, cam_o,
+                                                  cam_d, None)],
+                              ts.clusters, _light0(ts), ts.tris)
+    times = _time_passes("multiroom cull", chk["passes"],
+                         f"the multiroom camera rays ({cam_o.x.shape[0]})")
+    return {"launches": launched, "times": times, "errs": chk["errs"]}
+
+
+def _rays_in_soup(n: int, seed: int, dev) -> tuple:
+    """Bounce-like rays in the soup: origins inside its box, random unit
+    directions."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.1, 1.1, (3, n)).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return _to_dev(o, dev), _to_dev(d, dev)
+
+
+def soup_path_phase(scene, cam, dev, profile: bool) -> dict:
+    """Path "soup:100000": auto (K4) at 1024²."""
+    tag = "soup:100000"
+    pt = _first_frame_checks(tag, scene, cam, dev)
+    first = pt.image()
+    k1 = PathTracer(scene, pt.settings.replace(intersector="pallas"), device=dev,
+                    lane_order=pt.lane_order)
+    k1.render(cam, frame_seed=0)
+    d = np.abs(first - k1.image()).max(axis=-1)
+    within = float((d <= 1e-3).mean())
+    phase(tag, f"first frame, auto (K4) vs intersector='pallas' (K1): {within:.4%} of pixels "
+               f"within 1e-3, means {first.mean():.6f} / {k1.image().mean():.6f}")
+    if within < 0.99:
+        raise AssertionError(f"{tag}: K4 and K1 frames agree on only {within:.4%}")
+    del k1
+    launched, ms_frame = _timed_frames(tag, pt, cam)
+    expect = FRAMES * pt.settings.max_total_depth * pt.settings.samples
+    if launched["K4"] != expect or launched["K4 any-hit"] != expect \
+            or sum(launched.values()) != 2 * expect:
+        raise AssertionError(f"{tag}: expected {expect} K4 launches of each pass and no "
+                             f"other, got {launched}")
+    if profile:
+        profile_phase(tag, pt, cam)
+    return {"pt": pt, "launches": launched, "ms_frame": ms_frame}
+
+
+def soup_kernel_phase(dev, pt: PathTracer, cam) -> dict:
+    """K4 against its plain version on all the path's camera rays (in its
+    lane order) and on bounce-like rays with an alive mask and NEE; times
+    of K4's passes, of the wrapper, of its plain version and of K1 on the
+    camera rays."""
+    tag = "soup kernels"
+    ts = pt.scene
+    tris, clusters, l0 = ts.tris, ts.clusters, _light0(ts)
+    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)
+    n, nb = cam_o.x.shape[0], BOUNCE_RAYS
+    bo, bd = _rays_in_soup(nb, 5, dev)
+    b_alive = torch.tensor(np.random.default_rng(6).random(nb) < 0.6, device=dev)
+    t0 = time.perf_counter()
+    chk = _cull_kernel_checks(tag, [(f"all {n} camera rays, {pt.lane_order}", cam_o, cam_d,
+                                     None),
+                                    (f"{nb} bounce-like rays, 60% alive", bo, bd, b_alive)],
+                              clusters, l0, tris)
+    phase(tag, f"both comparisons with the plain version took "
+               f"{time.perf_counter() - t0:.1f} s")
+    what = f"all {n} camera rays x {tris.mtl.shape[0]} faces"
+    times = _time_passes(tag, chk["passes"], what)
+    times["K4 wrapper"] = (
+        _time_ms(lambda: cc.intersect_cull(cam_o, cam_d, clusters, light_pos=l0), 5),
+        _time_ms(lambda: cc.intersect_cull_plain(cam_o, cam_d, clusters, light_pos=l0), 1))
+    k1 = _time_ms(lambda: ci.intersect_fused(cam_o, cam_d, tris, light_pos=l0), 2)
+    phase(tag, f"on {what}: wrapper (sort, candidates, both passes) "
+               f"{times['K4 wrapper'][0]:.4f} ms, plain {times['K4 wrapper'][1]:.4f} ms; "
+               f"K1 (NEE) {k1:.4f} ms")
+    return {"times": times, "errs": chk["errs"]}
+
+
 def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
     """Device time by kernel over one frame, or over one call of ``step``
     (torch.profiler)."""
@@ -627,7 +970,8 @@ def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
     rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     total = sum(r[1] for r in rows)
-    ours = sum(r[1] for r in rows if "intersect" in r[0] or "gated" in r[0])
+    names = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel")
+    ours = sum(r[1] for r in rows if any(k in r[0] for k in names))
     phase("profile", f"{tag}: device time over one {'frame' if step is None else 'step'}: "
                      f"{total / 1e3:.3f} ms in {sum(r[2] for r in rows)} kernel launches; "
                      f"the port's kernels {ours / 1e3:.3f} ms")
@@ -651,25 +995,46 @@ def main() -> None:
     oracle_phase("multiroom", scene_m, cam_m, dev)
     mr = multiroom_path_phase(scene_m, cam_m, dev, profile)
     mk = multiroom_kernel_phase(scene_m, cam_m, dev, mr["pt"])
+    mr_launches, mk_times, mk_errs, mk_bounds = (mr["launches"], mk["times"], mk["errs"],
+                                                 mk["bounds"])
     grad = multiroom_grad_phase(scene_m, cam_m, dev, mr["pt"], profile)
     lin = lin_path_phase(scene_m, dev, mk)
+    mc = multiroom_cull_phase(scene_m, cam_m, dev, mr["pt"])
+    del mr, mk
+
+    scene_s, cam_s = soup()
+    oracle_phase("soup:100000", scene_s, cam_s, dev, size=64)
+    sp = soup_path_phase(scene_s, cam_s, dev, profile)
+    sk = soup_kernel_phase(dev, sp["pt"], cam_s)
     phase("done", f"all phases passed on {smi}")
 
-    t = {**corn["times"], **mk["times"]}
-    errs = {**k1["errs"], **mk["errs"]}
-    rows = [  # (instance, source, launches on its path)
-        ("K1", K12_SOURCE, corn["launches"]["K1"]),
-        ("K1'", K12_SOURCE, nee_off["K1'"]),
-        ("K2", K12_SOURCE, lin["K2"]),
-        ("K2'", K12_SOURCE, lin["K2'"]),
-        ("K3", K3_SOURCE, mr["launches"]["K3"]),
-        ("K3 any-hit", K3_SOURCE, mr["launches"]["K3 any-hit"]),
+    t = {**corn["times"], **mk_times, **mc["times"], **sk["times"]}
+    bounds = {**corn["bounds"], **mk_bounds, **{k: v[2] for k, v in mc["times"].items()},
+              **{k: v[2] for k, v in sk["times"].items() if len(v) == 3}}
+    errs = {**k1["errs"], **mk_errs, **mc["errs"], **sk["errs"]}
+    # (instance, source, launches on its path, frames of the path's run
+    # that the count covers: the timed frames, or one frame; the linear
+    # form's path is one call of its entry point, counted as one frame)
+    rows = [
+        ("K1", K12_SOURCE, corn["launches"]["K1"], FRAMES),
+        ("K1'", K12_SOURCE, nee_off["K1'"], 1),
+        ("K2", K12_SOURCE, lin["K2"], 1),
+        ("K2'", K12_SOURCE, lin["K2'"], 1),
+        ("K3", K3_SOURCE, mr_launches["K3"], FRAMES),
+        ("K3 any-hit", K3_SOURCE, mr_launches["K3 any-hit"], FRAMES),
+        ("K4", K4_SOURCE, sp["launches"]["K4"], FRAMES),
+        ("K4 any-hit", K4_SOURCE, sp["launches"]["K4 any-hit"], FRAMES),
+        ("K4m", K4_SOURCE, mc["launches"]["K4m"], 1),
+        ("K4m any-hit", K4_SOURCE, mc["launches"]["K4m any-hit"], 1),
     ]
+    # No one PyTorch call computes a nearest-hit search: library_ms is null.
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": REPLACES[name.split()[0]],
-        "launches": n, "max_abs_err": errs[name],
+        "launches": n, "frames": frames, "launches_per_frame": n / frames,
+        "max_abs_err": errs[name],
         "ms": t[name][0], "plain_ms": t[name][1],
-    } for name, src, n in rows]}), flush=True)
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+    } for name, src, n, frames in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

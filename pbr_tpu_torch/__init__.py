@@ -2,20 +2,27 @@
 
 The render path of the JAX package on torch tensors, forward and under
 autograd, with its intersect kernels written in CUDA for Hopper (sm_90a):
-the fused brute-force sweep (K1, and its linear form K2) and the gated
-sweep over per-tile cluster verdicts (K3) for scenes in the mid band.
-It imports ``torch`` and NumPy, never JAX; scenes come from the JAX
-package's NumPy host layer (``pbr_tpu.scene``, ``pbr_tpu.io``,
-``pbr_tpu.utils``), which imports no JAX either.
+the fused brute-force sweep (K1, and its linear form K2), the gated sweep
+over per-tile cluster verdicts (K3) for scenes in the mid band, and the
+cull-and-sweep over near-to-far candidate clusters (K4, and its masked
+variant K4m) for big scenes.
+It imports ``torch`` and NumPy, never JAX and nothing of ``pbr_tpu``:
+scenes come from the port's own NumPy host layer (``scene/``, ``io/``,
+``accel/``, ``utils/``), copies of the JAX package's.
 
 Package layout (each module mirrors its ``pbr_tpu`` counterpart)
 ----------------------------------------------------------------
 - ``ops/``     SoA vec math, counter RNG, intersection math, BRDFs, the
-               intersect dispatch, the cull verdicts, and the kernels'
-               wrappers and plain versions
-- ``csrc/``    kernel sources (CUDA C++), built with nvcc at first use
+               intersect dispatch, the cull verdicts and candidate lists,
+               and the kernels' wrappers and plain versions
+- ``csrc/``    kernel sources (CUDA C++), built with nvcc at first use, and
+               the native BVH builder (C++, built with g++ at first use)
 - ``models/``  the wavefront integrator and the progressive ``PathTracer``
-- ``scene.py`` NumPy scene and camera -> tensors on a device
+- ``scene/``   scene types, OBJ assembly, procedural scenes, the camera,
+               and ``device.py``: NumPy scene and camera -> tensors
+- ``io/``      OBJ/MTL/.lights parsing and ``load_model``
+- ``accel/``   BVH builders (NumPy and native) and the cluster tables
+- ``utils/``   settings, logging, Morton pixel order
 """
 
 from pbr_tpu_torch.models.integrator import trace_rays  # noqa: F401

@@ -2,8 +2,9 @@
 
 The counterpart of ``pbr_tpu/models/integrator.py::trace_rays``: the whole
 ray batch advances together through generate (camera rays, AA jitter,
-thin-lens DoF), intersect (``ops/traverse.py``: kernel K1, or kernel K3
-over the cluster verdicts on a scene in the gated band), and shade (NEE,
+thin-lens DoF), intersect (``ops/traverse.py``: kernel K1, kernel K3
+over the cluster verdicts on a scene in the gated band, or kernel K4 over
+the candidate lists above it), and shade (NEE,
 BRDF sample, throughput update, Russian roulette), with per-ray liveness
 as masks. Same estimator, same quirks,
 same counter-based RNG, so the port's frame agrees with the NumPy oracle
@@ -28,8 +29,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from pbr_tpu.scene.camera import pixel_dim
-from pbr_tpu.utils.config import BRDF_SCHLICK, RenderSettings
 from pbr_tpu_torch.ops.brdf import (
     PI_X2,
     fresnel,
@@ -56,8 +55,11 @@ from pbr_tpu_torch.ops.rng import (
 )
 from pbr_tpu_torch.ops.traverse import detach_tris, intersect_scene
 from pbr_tpu_torch.ops.vec import Vec3, f32, jitter, safe_div, safe_sqrt, where3
+from pbr_tpu_torch.scene.camera import pixel_dim
+from pbr_tpu_torch.utils.config import BRDF_SCHLICK, RenderSettings
 
 _I32 = torch.int32
+_ZERO, _ONE = torch.tensor(0.0), torch.tensor(1.0)  # 0-d: broadcast on any device
 
 
 class TraceResult(NamedTuple):
@@ -103,7 +105,18 @@ def _sanitize3(v: Vec3) -> Vec3:
 
 
 def _clip01(v: Vec3) -> Vec3:
-    return Vec3(v.x.clamp(0.0, 1.0), v.y.clamp(0.0, 1.0), v.z.clamp(0.0, 1.0))
+    """``jnp.clip(c, 0, 1)``, which is ``minimum(maximum(c, 0), 1)``: a
+    component exactly at a bound gets half the gradient, as in JAX (``clamp``
+    would pass all of it). A grey material's normalised colour sits exactly
+    at 1 in every component."""
+    f = lambda c: torch.minimum(torch.maximum(c, _ZERO), _ONE)  # noqa: E731
+    return Vec3(f(v.x), f(v.y), f(v.z))
+
+
+def _norm_rgb(bc: Vec3) -> Vec3:
+    """``bc / maximum(1, max component)``, the tie splitting the gradient as
+    ``jnp.maximum`` does."""
+    return bc / torch.maximum(_ONE, bc.max_component())
 
 
 def _gather_materials(mats, midx):
@@ -308,7 +321,7 @@ def trace_rays(
             out = intersect_scene(o, d, tris, mode=settings.intersector, alive=alive,
                                   clusters=clusters, with_counts=with_stats)
             t, face = out[:2]
-        if with_stats:
+        if with_stats and out[-1] is not None:  # 'cull' counts no tests
             heat_tests = heat_tests + torch.where(alive, out[-1], 0)
         if num_lights:
             orb_idx = _orb_pass(o, d, lights, t)
@@ -415,7 +428,7 @@ def trace_rays(
                 b_s = (spec_l / pdf_ls) * fresnel(hk1_l, m_rs)
                 b_d = (diff_l * m_rd / pdf_ls) * (1.0 - m_rs)
                 bc = (m_ks * b_s + m_kd * b_d) * m_d + (1.0 - m_d)
-                bc = _clip01(bc / bc.max_component().clamp_min(1.0))
+                bc = _clip01(_norm_rgb(bc))
                 l_rgb = Vec3(lights.rgb.x[0], lights.rgb.y[0], lights.rgb.z[0])
                 contrib = bc * l_rgb * m_d + (1.0 - m_d)
                 final_color = final_color + _sanitize3(where3(ok, contrib, zero3))
@@ -425,7 +438,7 @@ def trace_rays(
             b_s = (spec_b / pdf_bs) * fresnel(hk1_b, m_rs)
             b_d = (diff_b * m_rd / pdf_bs) * (1.0 - m_rs)
             bc = (m_ks * b_s + m_kd * b_d) * m_d + (1.0 - m_d)
-            bc = _sanitize3(_clip01(bc / bc.max_component().clamp_min(1.0)))
+            bc = _sanitize3(_clip01(_norm_rgb(bc)))
             color = where3(live, color * bc, color)
 
         # ---- extend the depth budget, loop bound, Russian roulette ---------

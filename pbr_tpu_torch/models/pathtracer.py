@@ -19,14 +19,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pbr_tpu.scene.build import derive_static_flags
-from pbr_tpu.scene.types import CameraState, Scene
-from pbr_tpu.utils.config import RenderSettings
-from pbr_tpu.utils.log import Logger
-from pbr_tpu.utils.morton import morton_pixel_ids
 from pbr_tpu_torch.models.integrator import trace_rays
 from pbr_tpu_torch.ops.vec import Vec3
-from pbr_tpu_torch.scene import camera_to_torch, to_torch
+from pbr_tpu_torch.scene.build import derive_static_flags
+from pbr_tpu_torch.scene.device import camera_to_torch, to_torch
+from pbr_tpu_torch.scene.types import CameraState, Scene
+from pbr_tpu_torch.utils.config import RenderSettings
+from pbr_tpu_torch.utils.log import Logger
+from pbr_tpu_torch.utils.morton import morton_pixel_ids
 
 __all__ = [
     "FrameState", "PathTracer", "init_frame_state", "probe_compact_schedule",
@@ -128,7 +128,7 @@ def probe_compact_schedule(scene, cam, settings: RenderSettings, headroom: float
 class PathTracer:
     """Stateful progressive renderer around ``render_frame``.
 
-    ``scene`` is a NumPy ``Scene`` (``pbr_tpu.scene.build``), moved onto
+    ``scene`` is a NumPy ``Scene`` (``pbr_tpu_torch.scene.build``), moved onto
     ``device`` once; ``render`` takes a NumPy ``CameraState`` (or one made
     by ``camera_to_torch``). ``lane_order``: 'scanline', 'morton', or
     'auto', which probes both orders' occupancy at the first render and

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbr_tpu.utils.config import NI_AIR
+from pbr_tpu_torch.utils.config import NI_AIR
 from pbr_tpu_torch.ops.vec import (
     Vec3,
     bisect,

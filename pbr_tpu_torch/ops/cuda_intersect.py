@@ -100,13 +100,14 @@ def build(name: str = "brute_intersect") -> Path:
 
 def load(name: str, symbol: str, argtypes) -> ctypes.CDLL:
     """The built library ``name`` with ``symbol``'s ctypes signature set
-    (int return: the launch's cudaError)."""
+    (int return: the launch's cudaError). A library may hold several
+    symbols, so the signature is set on every call, not only on the first
+    load."""
     if name not in _libs:
-        lib = ctypes.CDLL(str(build(name)))
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[name] = ctypes.CDLL(str(build(name)))
+    fn = getattr(_libs[name], symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
     return _libs[name]
 
 

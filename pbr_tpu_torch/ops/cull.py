@@ -1,33 +1,79 @@
-"""Cull verdicts: which face clusters a ray tile may hit.
+"""Cull verdicts and candidate lists: which face clusters a ray tile may
+hit, and in what order to sweep them.
 
-The counterpart of the three functions of ``pbr_tpu/ops/cull.py`` that the
-gated sweep (kernel K3, ``ops/cuda_gated.py``) consumes, with their
-operation order: ``frustum_hits``, ``frustum_hits_octants`` and
-``fine_hit_mask`` (with ``_tile_minmax``). In the JAX package this stage is
-plain XLA, not Pallas, so here it is plain torch ops on any device. Every
+The counterpart of ``pbr_tpu/ops/cull.py`` for the functions that the gated
+sweep (kernel K3, ``ops/cuda_gated.py``) and the cull-and-sweep (kernels K4
+and K4m, ``ops/cuda_cull.py``) consume, with their operation order:
+``frustum_hits``, ``frustum_hits_octants`` and ``fine_hit_mask`` (with
+``_tile_minmax``), the coherence sort keys ``coherence_keys`` (with
+``_part1by2`` of ``pbr_tpu/ops/traverse.py``) and the near-to-far
+candidate lists ``candidates``. In the JAX package this stage is plain
+XLA, not Pallas, so here it is plain torch ops on any device. Every
 verdict is conservative: a cluster that any live ray of a tile could hit
 is set; extra clusters cost sweep work, never a wrong answer.
 
-The candidate lists of the cull-and-sweep and row-sweep kernels
-(``candidates``, ``candidates_fine``, ``candidates_rows``,
-``row_hit_words``, ``coherence_keys``) wait for the slices that port
-kernels K4 and K5 (ROADMAP.md queue 1 item 8).
+The candidate lists of the row sweep and the Phong-tessellated path
+(``candidates_fine``, ``candidates_rows``, ``row_hit_words``) wait for the
+slices that port kernel K5 and Phong tessellation (ROADMAP.md queue 1
+item 8).
 """
 
 from __future__ import annotations
 
 import torch
 
-from pbr_tpu.utils.config import EPSILON5
+from pbr_tpu_torch.accel.clusters import SUPER
 from pbr_tpu_torch.ops.vec import Vec3, f32
+from pbr_tpu_torch.utils.config import EPSILON5
 
 _BIG = f32(3.0e38)  # finite stand-in for +/-inf (keeps 0*inf NaNs out)
 _EPS5 = f32(EPSILON5)
 
 
+# Candidate entries are fine-cluster ids with this bit set when the tile's
+# frustum misses that fine cluster (pbr_tpu/ops/cull.py:32): the sweep
+# skips the slot.
+CAND_MISS = 1 << 20
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread 10 bits over 30 (Morton interleave helper), in int64."""
+    x = x.to(torch.int64) & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def coherence_keys(o: Vec3, d: Vec3, lo: Vec3, hi: Vec3) -> torch.Tensor:
+    """(N,) int32 octant+Morton sort keys of rays against the scene bounds
+    ``lo``/``hi`` (Vec3s of 0-d tensors): direction octant in bits 27-29,
+    then the top 27 bits of the 30-bit Morton code of the origin quantized
+    to 1,024 steps an axis."""
+    def q(c, mn, mx):
+        inv = 1.0 / torch.clamp_min(mx - mn, f32(1e-9))
+        return torch.clamp((c - mn) * inv * 1023.0, 0.0, 1023.0).to(torch.int64)
+
+    morton = (_part1by2(q(o.x, lo.x, hi.x))
+              | (_part1by2(q(o.y, lo.y, hi.y)) << 1)
+              | (_part1by2(q(o.z, lo.z, hi.z)) << 2))
+    octant = ((d.x < 0).to(torch.int64) + 2 * (d.y < 0).to(torch.int64)
+              + 4 * (d.z < 0).to(torch.int64))
+    return ((octant << 27) | (morton >> 3)).to(torch.int32)
+
+
 def _tile_minmax(a: torch.Tensor, tile: int):
     a2 = a.reshape(-1, tile)
     return a2.amin(dim=1), a2.amax(dim=1)
+
+
+def _tile_bounds(o: Vec3, d: Vec3, tile: int):
+    """Per-tile interval frustum: ``(o_lo, o_hi, d_lo, d_hi)`` Vec3s of (T,)."""
+    (oxl, oxh), (oyl, oyh), (ozl, ozh) = (_tile_minmax(a, tile) for a in o)
+    (dxl, dxh), (dyl, dyh), (dzl, dzh) = (_tile_minmax(a, tile) for a in d)
+    return (Vec3(oxl, oyl, ozl), Vec3(oxh, oyh, ozh),
+            Vec3(dxl, dyl, dzl), Vec3(dxh, dyh, dzh))
 
 
 def frustum_hits(o_lo: Vec3, o_hi: Vec3, d_lo: Vec3, d_hi: Vec3,
@@ -138,9 +184,43 @@ def fine_hit_mask(o: Vec3, d: Vec3, clusters, tile: int, t_cap=None,
         hit, _ = frustum_hits_octants(o, d, tile, clusters.bb_min, clusters.bb_max,
                                       t_cap, live=live)
         return hit
-    (oxl, oxh), (oyl, oyh), (ozl, ozh) = (_tile_minmax(a, tile) for a in o)
-    (dxl, dxh), (dyl, dyh), (dzl, dzh) = (_tile_minmax(a, tile) for a in d)
-    hit, _ = frustum_hits(Vec3(oxl, oyl, ozl), Vec3(oxh, oyh, ozh),
-                          Vec3(dxl, dyl, dzl), Vec3(dxh, dyh, dzh),
-                          clusters.bb_min, clusters.bb_max, t_cap)
+    hit, _ = frustum_hits(*_tile_bounds(o, d, tile), clusters.bb_min, clusters.bb_max, t_cap)
     return hit
+
+
+def candidates(o: Vec3, d: Vec3, clusters, tile: int, t_cap=None):
+    """Per-tile candidate cluster lists, supercluster near-to-far: the
+    slotted cull-and-sweep's input (``pbr_tpu/ops/cull.py::candidates``).
+
+    ``o``/``d``: flat (N,) rays (sorted, in the wrapper), N a multiple of
+    ``tile``; ``clusters``: a ``scene.ClusterTables``. The interval frustum
+    of each tile is tested against the supercluster AABBs, hit
+    superclusters are ordered by their entry bound with a stable argsort
+    (ties keep ascending ids), and each expands to its ``SUPER``
+    consecutive fine clusters. Returns ``(cand, counts, tent)``:
+
+    - ``cand`` (T, C) int32: fine cluster ids, padding slots repeating the
+      last valid entry; ``CAND_MISS`` is added where the tile's frustum
+      misses that fine cluster;
+    - ``counts`` (T,) int32: valid entries per tile;
+    - ``tent`` (T, C) float32: each slot's entry lower bound, inherited from
+      its supercluster; 3e38 on padding slots.
+    """
+    c2 = clusters.sup_min.x.shape[0]
+    c = c2 * SUPER
+    bounds = _tile_bounds(o, d, tile)
+    hit, t_entry = frustum_hits(*bounds, clusters.sup_min, clusters.sup_max, t_cap)
+    counts2 = hit.sum(dim=1, dtype=torch.int32)
+    key = torch.where(hit, t_entry, _BIG)
+    order = torch.argsort(key, dim=1, stable=True)
+    j2 = torch.arange(c2, dtype=torch.int32, device=o.x.device)[None, :]
+    take = torch.minimum(j2, torch.clamp_min(counts2[:, None] - 1, 0))
+    sup = torch.gather(order, 1, take.long())  # (T, C2) int64
+    tent2 = torch.where(j2 < counts2[:, None], torch.gather(t_entry, 1, sup), _BIG)
+    fine_off = torch.arange(SUPER, dtype=torch.int64, device=o.x.device)[None, None, :]
+    cand = (sup[:, :, None] * SUPER + fine_off).reshape(-1, c)
+    tent = tent2[:, :, None].expand(*tent2.shape, SUPER).reshape(-1, c)
+    hit_f, _ = frustum_hits(*bounds, clusters.bb_min, clusters.bb_max, t_cap)
+    ok = torch.gather(hit_f, 1, cand)
+    cand = torch.where(ok, cand, cand + CAND_MISS).to(torch.int32)
+    return cand, counts2 * SUPER, tent

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from pbr_tpu.utils.config import EPSILON5
+from pbr_tpu_torch.utils.config import EPSILON5
 from pbr_tpu_torch.ops.vec import Vec3, f32
 
 INF = float("inf")

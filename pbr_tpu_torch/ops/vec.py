@@ -1,6 +1,9 @@
 """Structure-of-arrays 3-vector math on torch tensors.
 
-The PyTorch counterpart of ``pbr_tpu/ops/vec.py``. A batch of N 3-vectors
+The PyTorch counterpart of ``pbr_tpu/ops/vec.py``. The same class also
+serves the port's NumPy host layer (``scene/``, ``io/``, ``accel/``): its
+components may be NumPy arrays there, where only construction,
+``from_array``, ``stack(np)`` and the arithmetic are used. A batch of N 3-vectors
 stays *three* ``(N,)`` tensors, the layout the JAX package uses at its public
 functions, so the two packages compare like with like. Every operation keeps
 the reference's operation order (``a.x*b.x + a.y*b.y + a.z*b.z``, ``1/sqrt``
@@ -98,9 +101,17 @@ class Vec3(NamedTuple):
             torch.full(shape, vz, dtype=dtype, device=device),
         )
 
-    def stack(self):
-        """To an (..., 3) tensor (host-side convenience; not for hot paths)."""
-        return torch.stack([self.x, self.y, self.z], dim=-1)
+    @staticmethod
+    def from_array(a) -> "Vec3":
+        """From an (..., 3) array or tensor (host-side convenience)."""
+        return Vec3(a[..., 0], a[..., 1], a[..., 2])
+
+    def stack(self, xp=torch):
+        """To an (..., 3) tensor, or with ``xp=np`` an (..., 3) NumPy array
+        (host-side convenience; not for hot paths)."""
+        if xp is torch:
+            return torch.stack([self.x, self.y, self.z], dim=-1)
+        return xp.stack([self.x, self.y, self.z], axis=-1)
 
     def detach(self) -> "Vec3":
         return Vec3(self.x.detach(), self.y.detach(), self.z.detach())

@@ -1,9 +1,9 @@
 """NumPy scene and camera -> the port's tensors.
 
 The counterpart of ``pbr_tpu/scene/build.py::to_device``. Scenes are built
-by the JAX package's NumPy host layer (``pbr_tpu.scene.build``,
-``pbr_tpu.scene.procedural``, ``pbr_tpu.io``), which imports no JAX; this
-module only moves the result onto a torch device:
+by the port's NumPy host layer (``pbr_tpu_torch.scene.build``,
+``pbr_tpu_torch.scene.procedural``, ``pbr_tpu_torch.io``); this module only
+moves the result onto a torch device:
 
 - floats become float32 and indices int32;
 - the fields a gradient may later target (materials, lights) live in an
@@ -12,12 +12,13 @@ module only moves the result onto a torch device:
   buffers: the renderer detaches it, as the JAX package does;
 - ``camera_to_torch`` turns the camera into 0-d tensors.
 
-Of a ``Scene``'s acceleration tables, only what the gated sweep (kernel K3,
-``ops/cuda_gated.py``) reads is carried over: the fine cluster AABBs and
-the cluster size of its ``ClusterSet`` (``SceneParams.clusters``). The
-other ``ClusterSet`` fields (``coeffs``, ``sup_*``, ``lin``, ``lbb_*``) feed
-kernels K4 and K5 and wait for the slices that port them; the BVH and the
-forest wait for the BVH walks (ROADMAP.md queue 2).
+Of a ``Scene``'s acceleration tables, what the gated sweep (kernel K3,
+``ops/cuda_gated.py``) and the cull-and-sweep (kernels K4 and K4m,
+``ops/cuda_cull.py``) read is carried over: the fine cluster AABBs, the
+coefficient blocks, the supercluster AABBs, the scene bounds and the
+cluster size of its ``ClusterSet`` (``SceneParams.clusters``). The row-sweep
+tables (``lin``, ``lbb_*``) wait for kernel K5; the BVH and the forest wait
+for the BVH walks (ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -28,8 +29,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from pbr_tpu.scene.types import CameraState, LightsSoA, MaterialsSoA, Scene, TrianglesSoA
 from pbr_tpu_torch.ops.vec import Vec3
+from pbr_tpu_torch.scene.types import (
+    CameraState,
+    LightsSoA,
+    MaterialsSoA,
+    Scene,
+    TrianglesSoA,
+)
 
 _TRI_VEC = ("v0", "e1", "e2", "n0", "n1", "n2")
 _MAT_SCALAR = ("d", "Ni", "rough", "p", "nu", "nv", "Rs", "Rd")
@@ -60,14 +67,28 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class ClusterTables(NamedTuple):
-    """The part of a ``ClusterSet`` that the gated sweep reads: the fine
-    cluster AABBs (Vec3s of (C,) tensors; padding clusters are inverted
-    boxes) and the faces per cluster. Cluster ``c`` holds faces
-    ``[c * size, (c + 1) * size)``; C * size >= F."""
+    """The part of a ``ClusterSet`` that the gated sweep and the
+    cull-and-sweep read. Cluster ``c`` holds faces ``[c * size, (c + 1) *
+    size)``; C * size >= F, and C is a multiple of ``SUPER`` (16):
+
+    - ``bb_min``/``bb_max``: fine cluster AABBs, Vec3s of (C,) (padding
+      clusters are inverted boxes);
+    - ``size``: faces per cluster, 64 or 128;
+    - ``coeffs``: (C, 16, 4 * size) float32 coefficient blocks
+      (``accel/clusters.py``: ``[det | tnum | unum | vnum]`` against the ray
+      features ``[o, d, o x d, 1, t_limit]``; row 11 carries the AABB);
+    - ``sup_min``/``sup_max``: supercluster AABBs, Vec3s of (C / 16,);
+    - ``scene_min``/``scene_max``: Vec3s of 0-d tensors, the Morton bounds
+      of the coherence sort."""
 
     bb_min: Vec3
     bb_max: Vec3
     size: int
+    coeffs: torch.Tensor
+    sup_min: Vec3
+    sup_max: Vec3
+    scene_min: Vec3
+    scene_max: Vec3
 
     @property
     def count(self) -> int:
@@ -82,11 +103,13 @@ class SceneParams(nn.Module):
     and the light fields ``light_pos`` / ``light_rgb`` (3, L) and
     ``light_radius`` (L,). Buffers: the triangle table ``tri_<name>``
     (3, F), the integer fields ``tri_mtl``, ``mat_light``, ``light_type``
-    and, when the scene has a ``ClusterSet``, its fine AABBs
-    ``clu_bb_min`` / ``clu_bb_max`` (3, C). The properties ``tris``,
-    ``materials``, ``lights`` and ``clusters`` give the SoA NamedTuples of
-    ``pbr_tpu.scene.types`` (and ``ClusterTables``, or None) over views of
-    these tensors, which is what the renderer consumes.
+    and, when the scene has a ``ClusterSet``, its tables ``clu_bb_min`` /
+    ``clu_bb_max`` (3, C), ``clu_coeffs`` (C, 16, 4S), ``clu_sup_min`` /
+    ``clu_sup_max`` (3, C / 16) and ``clu_scene_min`` / ``clu_scene_max``
+    (3,). The properties ``tris``, ``materials``, ``lights`` and
+    ``clusters`` give the SoA NamedTuples of ``pbr_tpu_torch.scene.types``
+    (and ``ClusterTables``, or None) over views of these tensors, which is
+    what the renderer consumes.
 
     For a gradient pass, ``requires_grad_()`` switches on every parameter.
     """
@@ -113,6 +136,11 @@ class SceneParams(nn.Module):
         if cs is not None:
             self.register_buffer("clu_bb_min", _stack3(cs.bb_min, device))
             self.register_buffer("clu_bb_max", _stack3(cs.bb_max, device))
+            self.register_buffer("clu_coeffs", _f32(cs.coeffs, device))
+            self.register_buffer("clu_sup_min", _stack3(cs.sup_min, device))
+            self.register_buffer("clu_sup_max", _stack3(cs.sup_max, device))
+            self.register_buffer("clu_scene_min", _stack3(cs.scene_min, device))
+            self.register_buffer("clu_scene_max", _stack3(cs.scene_max, device))
 
     @property
     def device(self) -> torch.device:
@@ -133,7 +161,11 @@ class SceneParams(nn.Module):
     def clusters(self) -> Optional[ClusterTables]:
         if self.cluster_size is None:
             return None
-        return ClusterTables(_vec(self.clu_bb_min), _vec(self.clu_bb_max), self.cluster_size)
+        return ClusterTables(
+            _vec(self.clu_bb_min), _vec(self.clu_bb_max), self.cluster_size,
+            self.clu_coeffs, _vec(self.clu_sup_min), _vec(self.clu_sup_max),
+            _vec(self.clu_scene_min), _vec(self.clu_scene_max),
+        )
 
     @property
     def lights(self) -> LightsSoA:

@@ -10,6 +10,7 @@ rtol 1e-6. Conservativeness is checked on its own: every cluster that a
 live ray of a tile really hits is set.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,3 +178,86 @@ def test_tile_minmax():
     ref_lo, ref_hi = jcull._tile_minmax(np, a.numpy(), 128)
     np.testing.assert_array_equal(lo.numpy(), ref_lo)
     np.testing.assert_array_equal(hi.numpy(), ref_hi)
+
+
+def _big_soup():
+    """A 6,400-face soup: 112 clusters in 7 superclusters."""
+    scene, _ = scene_from_text(random_soup(6400, seed=11), use_bvh=True)
+    return scene
+
+
+@pytest.mark.parametrize("backend", ["numpy", "jax"])
+def test_coherence_keys_match_jax_package(backend):
+    """Octant + Morton keys, integer-exact, including origins outside the
+    scene bounds (clamped) and zero direction components."""
+    scene = _big_soup()
+    cs = scene.clusters
+    o, d = _rays("soup", 4096, seed=17)
+    o[:, :256] *= 3.0  # outside the bounds on some axes
+    xp = np if backend == "numpy" else jnp
+    ref = np.asarray(jcull.coherence_keys(xp, JVec3(*map(xp.asarray, o)),
+                                          JVec3(*map(xp.asarray, d)),
+                                          cs.scene_min, cs.scene_max))
+    tc = to_torch(scene, "cpu").clusters
+    got = cull.coherence_keys(_t3(o), _t3(d), tc.scene_min, tc.scene_max)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert len(np.unique(ref)) > 1000 and len(np.unique(ref >> 27)) == 8
+
+
+def _sorted_rays(scene, n, seed):
+    o, d = _rays("soup", n, seed=seed)
+    cs = scene.clusters
+    keys = jcull.coherence_keys(np, JVec3(*o), JVec3(*d), cs.scene_min, cs.scene_max)
+    perm = np.argsort(keys, kind="stable")
+    return o[:, perm], d[:, perm]
+
+
+@pytest.mark.parametrize("kind", ["big_soup", "multiroom"])
+@pytest.mark.parametrize("backend", ["numpy", "jax"])
+@pytest.mark.parametrize("capped", [False, True])
+def test_candidates_match_jax_package(kind, backend, capped):
+    """Counts equal; each tile's listed entries (fine cluster ids with their
+    CAND_MISS bits) equal as sets, since argsort ties may order differently
+    across backends (tests/test_cull.py:112-116); entry bounds within 1e-6."""
+    scene = _big_soup() if kind == "big_soup" else _scene("multiroom")
+    cs = scene.clusters
+    tile = 256
+    o, d = _sorted_rays(scene, 8 * tile, seed=23)
+    cap = np.random.RandomState(3).uniform(0.2, 3.0, 8).astype(np.float32) if capped else None
+    xp = np if backend == "numpy" else jnp
+    jcs = cs if xp is np else jax.tree_util.tree_map(jnp.asarray, cs)
+    with np.errstate(all="ignore"):
+        ref = [np.asarray(a) for a in jcull.candidates(
+            xp, JVec3(*map(xp.asarray, o)), JVec3(*map(xp.asarray, d)), jcs, tile,
+            t_cap=None if cap is None else xp.asarray(cap))]
+    tc = to_torch(scene, "cpu").clusters
+    got = [a.numpy() for a in cull.candidates(_t3(o), _t3(d), tc, tile,
+                                              t_cap=None if cap is None else torch.tensor(cap))]
+    assert got[0].dtype == np.int32 and got[1].dtype == np.int32
+    assert got[2].dtype == np.float32 and got[0].shape == ref[0].shape
+    np.testing.assert_array_equal(got[1], ref[1])
+    for t in range(got[0].shape[0]):
+        assert set(got[0][t, : got[1][t]]) == set(ref[0][t, : ref[1][t]]), t
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-6, atol=1e-6)
+    listed = np.arange(got[0].shape[1])[None, :] < got[1][:, None]
+    miss = got[0] >= cull.CAND_MISS
+    assert listed.any() and (listed & miss).any() and (listed & ~miss).any()
+
+
+def test_candidates_are_near_to_far_and_conservative():
+    """Listed slots come in non-decreasing entry bound, and every cluster
+    holding a ray's nearest hit is listed without its miss bit."""
+    scene = _big_soup()
+    tile = 256
+    o, d = _sorted_rays(scene, 8 * tile, seed=29)
+    tc = to_torch(scene, "cpu").clusters
+    cand, cnt, tent = (a.numpy() for a in cull.candidates(_t3(o), _t3(d), tc, tile))
+    with np.errstate(all="ignore"):
+        _, face = intersect_brute(np, JVec3(*o), JVec3(*d), scene.tris)
+    for t in range(cand.shape[0]):
+        row = tent[t, : cnt[t]]
+        assert np.all(np.diff(row) >= 0)
+        need = face[t * tile:(t + 1) * tile]
+        need = np.unique(need[need >= 0] // tc.size)
+        assert set(need) <= set(cand[t, : cnt[t]])

@@ -29,7 +29,9 @@ from pbr_tpu.scene.camera import make_camera_state
 from pbr_tpu.scene.procedural import cornell_box, multi_room, single_triangle
 from pbr_tpu.utils.config import RenderSettings
 from pbr_tpu_torch import camera_to_torch, to_torch, trace_rays
+from pbr_tpu_torch.ops import cuda_cull as cc
 from pbr_tpu_torch.ops import cuda_gated as cg
+from pbr_tpu_torch.scene.procedural import grey_soup
 
 # The suite runs in parallel worker processes; torch's default of one
 # thread per core in each of them oversubscribes the machine (measured: a
@@ -69,7 +71,23 @@ def _multiroom():
     return scene, cam, settings
 
 
-SETUPS = {"cornell": _cornell, "triangle": _triangle, "multiroom": _multiroom}
+def _soup():
+    """bench.py's soup scene (grey material, orb light, eye at z = 3.5) at
+    6,400 faces, 112 clusters, at 16², both packages through
+    intersector='cull' (the JAX package's in interpret mode, its bounce loop
+    a scan to keep the compile short): the port's big-band path, sorted and
+    early-out, at a size the CPU takes."""
+    scene, _ = scene_from_text(*grey_soup(6400), use_bvh=True)
+    cam = make_camera_state(eye=(0.0, 0.0, 3.5), center_dir=(0.0, 0.0, 1.0))
+    settings = derive_static_flags(scene, RenderSettings(
+        width=16, height=16, samples=1, max_depth=3, max_added_depth=5, shadow_rays=1,
+        anti_aliasing=0.7, sky_light=(0.85, 0.9, 1.0), intersector="cull",
+        bounce_loop="scan"))
+    return scene, cam, settings
+
+
+SETUPS = {"cornell": _cornell, "triangle": _triangle, "multiroom": _multiroom,
+          "soup": _soup}
 
 
 def _pixel_loss(color, squared):
@@ -165,7 +183,7 @@ def _close(got, ref):
 
 
 @pytest.mark.parametrize("name, squared", [
-    ("cornell", True), ("triangle", True), ("multiroom", False),
+    ("cornell", True), ("triangle", True), ("multiroom", False), ("soup", False),
 ])
 def test_grads_match_jax_grad(name, squared):
     """Every parameter of SceneParams (materials and lights) and the eye,
@@ -257,3 +275,20 @@ def test_light_pos_grad_matches_jax_and_is_finite():
     g, r = got["light_pos"][1, 0], ref["light_pos"][1, 0]
     assert np.isfinite(g) and abs(g) > 1.0
     assert abs(g - r) <= 1e-4 * abs(r)
+
+
+def test_soup_grads_run_through_the_cull_sweep(monkeypatch):
+    """The soup loss is traced through the cull-and-sweep at every bounce,
+    and kd, the light's rgb and the eye get finite, nonzero gradients."""
+    calls = []
+    real = cc.intersect_cull
+
+    def spy(*args, **kw):
+        calls.append(kw.get("alive") is not None)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(cc, "intersect_cull", spy)
+    _, grads, _ = _port_grads("soup", False, None)
+    assert calls == [True] * SETUPS["soup"]()[2].max_total_depth
+    for name in ("mat_kd", "light_rgb", "eye"):
+        assert np.isfinite(grads[name]).all() and np.abs(grads[name]).max() > 0, name

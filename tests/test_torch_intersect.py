@@ -218,13 +218,17 @@ def test_dispatch_modes():
     assert tt.resolve_mode("auto", dev, 1024, True) == "brute"
     assert tt.resolve_mode("auto", cuda, 1024, True) == "pallas"
     assert tt.resolve_mode("auto", cuda, 1428, False) == "pallas"
-    assert tt.resolve_mode("auto", cuda, 12_289, True) == "pallas"  # K1 stands in for K4
+    # Above the band, clusters take the cull-and-sweep (K4), on either device.
+    for device in (dev, cuda):
+        assert tt.resolve_mode("auto", device, 12_289, True) == "cull"
+    assert tt.resolve_mode("auto", cuda, 12_289, False) == "pallas"
     assert tt.resolve_mode("pallas", dev) == "pallas"
     assert tt.resolve_mode("brute", dev) == "brute"
     assert tt.resolve_mode("gated", cuda) == "gated"
+    assert tt.resolve_mode("cull", cuda) == "cull"
     with pytest.raises(ValueError, match="'auto' or 'pallas'"):
         tt.resolve_mode("brute", cuda)
-    for mode in ("bvh", "gemm", "cull", "sweep", "pallas_bvh",
+    for mode in ("bvh", "gemm", "sweep", "pallas_bvh",
                  "pallas_bvh_forest", "pallas_bvh_hbm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tt.resolve_mode(mode, dev)
