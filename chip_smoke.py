@@ -13,8 +13,9 @@ Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that did not launch fails the run.
 
 1. device: a CUDA card of compute capability 9.0, its name and power limit;
-2. build: K1/K2 (csrc/brute_intersect.cu), K3 (csrc/gated_intersect.cu) and
-   K4/K4m (csrc/cull_intersect.cu) with nvcc, and the native BVH builder
+2. build: K1/K2 (csrc/brute_intersect.cu), K3 (csrc/gated_intersect.cu),
+   K4/K4m (csrc/cull_intersect.cu), K6/K7 (csrc/bvh_packet.cu) and K8
+   (csrc/bvh_walk.cu) with nvcc, and the native BVH builder
    (csrc/bvh_builder.cpp) with g++, all in parallel, timed;
 3. Cornell box (34 faces; auto runs K1):
    - K1 against its plain version on the card, bitwise (t, face,
@@ -70,7 +71,32 @@ read just after; a kernel of the path that did not launch fails the run.
      the path's 1024² camera rays (in its lane order) and on 1M bounce-like
      rays with an alive mask and NEE; the candidate-slot share per tile;
      times per call of K4's passes, of the whole wrapper, of its plain
-     version and of K1 on the camera rays.
+     version and of K1 on the camera rays;
+6. the tree walks on soup:100000 (4,523 nodes, 64-face leaves, and a forest
+   from accel.forest.build_forest: 13 sub-trees of 8,192 faces) and on
+   soup:10000 (bench.py --scene soup:10000: 11,953 nodes, 2-face leaves):
+   - 64² card frames through 'pallas_bvh_hbm' (K7), 'bvh' (K8) and
+     'pallas_bvh_forest' (K6's chain) against one CPU frame through 'bvh'
+     (the three plain versions are one function), at least 99% of pixels
+     within 1e-3;
+   - path "soup:100000, pallas_bvh_hbm": the first 1024² frame, compacted,
+     equals bitwise the full-width frame and is within 1e-3 of the auto
+     (K4) frame on at least 99% of pixels; 8 timed frames in which K7 NEE
+     launches once a bounce and nothing else launches, 0 lanes dropped;
+     one frame with NEE off through K7's nearest instance;
+   - path "soup:100000, bvh": the same checks, 8 timed frames with K8
+     launching twice a bounce (the nearest walk and the shadow walk), and
+     the frame's ray-face tests and node visits (with_stats);
+   - path "soup:100000, forest": the first-frame checks and one frame of
+     K6's chain (nearest and any-hit on sub-tree 0, seeded on the rest);
+   - path "soup:10000, pallas_bvh": one 1024² frame through K6 with NEE
+     against its auto (K3) frame;
+   - every instance of K6, K7 and K8 against its plain version, bitwise,
+     on all the 1024² camera rays of its path (K7 and K8 also on 1M
+     bounce-like rays with an alive mask; K8 also against
+     intersect_bvh_chunked), with its kernel time, plain time and bound
+     (the per-ray walk's node steps x 25 operations and face tests x 51,
+     against the tables' and rays' bytes).
 
 Every failure raises, so the exit code is not 0. The last two lines of
 standard output are the kernels' JSON record (with each kernel's bound: the
@@ -98,10 +124,13 @@ import torch  # noqa: E402
 
 from pbr_tpu_torch import PathTracer, camera_to_torch, to_torch, trace_rays  # noqa: E402
 from pbr_tpu_torch.accel import native  # noqa: E402
+from pbr_tpu_torch.accel.forest import build_forest  # noqa: E402
 from pbr_tpu_torch.models.integrator import _gen_rays  # noqa: E402
+from pbr_tpu_torch.ops import cuda_bvh as cb  # noqa: E402
 from pbr_tpu_torch.ops import cuda_cull as cc  # noqa: E402
 from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
 from pbr_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
+from pbr_tpu_torch.ops import traverse as tt  # noqa: E402
 from pbr_tpu_torch.ops.rng import PixelRng  # noqa: E402
 from pbr_tpu_torch.ops.vec import Vec3  # noqa: E402
 from pbr_tpu_torch.scene.build import scene_from_text  # noqa: E402
@@ -120,6 +149,8 @@ BOUNCE_RAYS = 1 << 20
 K12_SOURCE = "pbr_tpu_torch/csrc/brute_intersect.cu"
 K3_SOURCE = "pbr_tpu_torch/csrc/gated_intersect.cu"
 K4_SOURCE = "pbr_tpu_torch/csrc/cull_intersect.cu"
+K67_SOURCE = "pbr_tpu_torch/csrc/bvh_packet.cu"
+K8_SOURCE = "pbr_tpu_torch/csrc/bvh_walk.cu"
 # The H100's published peaks (SXM, at its 700 W limit): float32 outside the
 # tensor cores, and device memory. --fmad=false halves the issue ceiling
 # the kernels can reach (33.5 T op/s), which the bound does not assume.
@@ -132,6 +163,11 @@ PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 # minimum 1: 44. K4 sums all 11 feature rows (84 multiplies and adds
 # where the form needs 34), so its time cannot reach this bound.
 OPS_CLASSIC, OPS_LIN = 51, 44
+# Floating-point operations of one ray-box slab test, as the tree walks
+# need them: (bound - o) * inv for 6 bounds 12, a min and a max per axis 6,
+# t_near and t_far 4, the gates t_near <= t_far, t_far > EPSILON5 and
+# t_best > t_near 3.
+OPS_SLAB = 25
 # The TPU kernel each instance replaces (pbr_tpu/ops/...: the body's line).
 REPLACES = {
     "K1": "pbr_tpu/ops/pallas_intersect.py:182",  # _kernel_nee around _sweep
@@ -141,6 +177,14 @@ REPLACES = {
     "K3": "pbr_tpu/ops/pallas_gated.py:73",  # _kernel, nearest and any-hit
     "K4": "pbr_tpu/ops/pallas_cull.py:89",  # _kernel (slotted), nearest and any-hit
     "K4m": "pbr_tpu/ops/pallas_cull.py:183",  # _kernel_masked, nearest and any-hit
+    "K6 nearest": "pbr_tpu/ops/pallas_bvh.py:181",  # _kernel around _traverse_tile
+    "K6 NEE": "pbr_tpu/ops/pallas_bvh.py:197",  # _kernel_nee
+    "K6 any-hit": "pbr_tpu/ops/pallas_bvh.py:248",  # _kernel_shadow
+    "K6 seeded": "pbr_tpu/ops/pallas_bvh.py:263",  # _kernel_seeded
+    "K6 seeded any-hit": "pbr_tpu/ops/pallas_bvh.py:276",  # _kernel_shadow_seeded
+    "K7 nearest": "pbr_tpu/ops/pallas_bvh.py:589",  # _kernel_hbm around _traverse_tile_hbm
+    "K7 NEE": "pbr_tpu/ops/pallas_bvh.py:600",  # _kernel_hbm_nee
+    "K8": "pbr_tpu/ops/traverse.py:276",  # the XLA while_loop body of intersect_bvh
 }
 
 
@@ -151,11 +195,11 @@ def phase(name: str, msg: str) -> None:
 def counts() -> dict:
     """Every kernel instance's launch count."""
     return {**ci.launches, "K3": cg.launches["nearest"], "K3 any-hit": cg.launches["any-hit"],
-            **cc.launches}
+            **cc.launches, **cb.launches}
 
 
 def zero_counts() -> None:
-    for table in (ci.launches, cg.launches, cc.launches):
+    for table in (ci.launches, cg.launches, cc.launches, cb.launches):
         for k in table:
             table[k] = 0
 
@@ -240,7 +284,8 @@ def build_phase() -> None:
         return name, time.perf_counter() - t0, path.name
 
     t0 = time.perf_counter()
-    names = ("brute_intersect", "gated_intersect", "cull_intersect", "bvh_builder")
+    names = ("brute_intersect", "gated_intersect", "cull_intersect", "bvh_packet", "bvh_walk",
+             "bvh_builder")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         done = list(pool.map(timed, names))
     for name, sec, lib in done:
@@ -384,13 +429,14 @@ def oracle_phase(tag: str, scene, cam, dev, size: int = 128) -> None:
         raise AssertionError(f"{tag}: only {within:.4%} of pixels within 1e-3 of the CPU path")
 
 
-def _first_frame_checks(tag: str, scene, cam, dev) -> PathTracer:
+def _first_frame_checks(tag: str, scene, cam, dev, **kw) -> PathTracer:
     """Probe, render frame 0, and hold it bitwise to the same frame traced
-    at full width in the same lane order."""
-    pt = PathTracer(scene, bench_settings(SIZE, compact_schedule="auto"), device=dev)
+    at full width in the same lane order (``kw``: settings, such as the
+    intersector)."""
+    pt = PathTracer(scene, bench_settings(SIZE, compact_schedule="auto", **kw), device=dev)
     pt.render(cam, frame_seed=0)
     phase(tag, f"lane order {pt.lane_order}, compaction schedule {pt.settings.compact_schedule}")
-    wide = PathTracer(scene, bench_settings(SIZE), device=dev, lane_order=pt.lane_order)
+    wide = PathTracer(scene, bench_settings(SIZE, **kw), device=dev, lane_order=pt.lane_order)
     wide.render(cam, frame_seed=0)
     n_diff = int((pt.image() != wide.image()).any(axis=-1).sum())
     phase(tag, f"first frame compacted vs full width: {n_diff} pixels differ")
@@ -425,7 +471,7 @@ def _timed_frames(tag: str, pt: PathTracer, cam) -> tuple:
     # Rays per frame from the counters (path segments + shadow rays, as
     # bench.py counts them), and the compaction drop count.
     res = trace_rays(pt.scene, camera_to_torch(cam, pt.device), pt.settings, pt.pixel_ids, 0,
-                     with_stats=True)
+                     with_stats=True, max_leaf=pt.max_leaf)
     n_path, n_shadow = int(res.n_path_rays), int(res.n_shadow_rays)
     n_drop = int(res.n_dropped) if res.n_dropped is not None else 0
     rays = n_path + n_shadow
@@ -919,7 +965,7 @@ def soup_path_phase(scene, cam, dev, profile: bool) -> dict:
                              f"other, got {launched}")
     if profile:
         profile_phase(tag, pt, cam)
-    return {"pt": pt, "launches": launched, "ms_frame": ms_frame}
+    return {"pt": pt, "launches": launched, "ms_frame": ms_frame, "first": first}
 
 
 def soup_kernel_phase(dev, pt: PathTracer, cam) -> dict:
@@ -953,6 +999,238 @@ def soup_kernel_phase(dev, pt: PathTracer, cam) -> dict:
     return {"times": times, "errs": chk["errs"]}
 
 
+# ------------------------------------------------------------ tree walks --
+
+def _frame_vs(tag: str, what: str, img: np.ndarray, ref: np.ndarray) -> float:
+    """At least 99% of pixels within 1e-3, no NaN; returns the share."""
+    d = np.abs(img - ref).max(axis=-1)
+    within = float((d <= 1e-3).mean())
+    phase(tag, f"{what}: {within:.4%} of pixels within 1e-3, max |diff| {d.max():.3g}, means "
+               f"{img.mean():.6f} / {ref.mean():.6f}")
+    if within < 0.99 or np.isnan(img).any():
+        raise AssertionError(f"{tag}: {what}: only {within:.4%} of pixels within 1e-3")
+    return within
+
+
+def tree_oracle_phase(scene, cam, dev, size: int = 64) -> None:
+    """The card's 64² frames through K7 ('pallas_bvh_hbm'), K8 ('bvh') and
+    the forest ('pallas_bvh_forest') against one frame of the port's CPU
+    path through 'bvh': the three plain versions are one function (the
+    per-ray walk with the classic Moller-Trumbore)."""
+    t0 = time.perf_counter()
+    host = PathTracer(scene, bench_settings(size, intersector="bvh"), device="cpu",
+                      lane_order="scanline")
+    host.render(cam, frame_seed=5)
+    ref = host.image()
+    phase("tree oracle", f"soup:100000 {size}² CPU frame through 'bvh' (the plain walk) in "
+                         f"{time.perf_counter() - t0:.1f} s")
+    for mode in ("pallas_bvh_hbm", "bvh", "pallas_bvh_forest"):
+        pt = PathTracer(scene, bench_settings(size, compact_schedule="auto", intersector=mode),
+                        device=dev)
+        pt.render(cam, frame_seed=5)
+        _frame_vs("tree oracle", f"{size}² card frame through {mode!r} vs the CPU path",
+                  pt.image(), ref)
+
+
+def _one_frame_launches(tag: str, pt: PathTracer, cam, seed: int = 1) -> dict:
+    """The launch counts of one more frame of ``pt``."""
+    zero_counts()
+    pt.render(cam, frame_seed=seed)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    phase(tag, f"launches over one frame: {launched}")
+    return launched
+
+
+def _expect(tag: str, launched: dict, expect: dict) -> None:
+    got = {k: v for k, v in launched.items() if v}
+    if got != expect:
+        raise AssertionError(f"{tag}: expected launches {expect} and no other, got {got}")
+
+
+def tree_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dict:
+    """Paths "soup:100000, pallas_bvh_hbm" (K7, timed), "..., K7 NEE off",
+    "soup:100000, bvh" (K8, timed, with the frame's counters) and
+    "soup:100000, forest" (K6's chain, one frame), each first frame against
+    the auto (K4) frame."""
+    out = {}
+    mtd = bench_settings(SIZE).max_total_depth
+    tag = "soup:100000 K7"
+    pt = _first_frame_checks(tag, scene, cam, dev, intersector="pallas_bvh_hbm")
+    _frame_vs(tag, "first frame, 'pallas_bvh_hbm' (K7) vs auto (K4)", pt.image(), k4_first)
+    launched, ms = _timed_frames(tag, pt, cam)
+    _expect(tag, launched, {"K7 NEE": FRAMES * mtd})
+    if profile:
+        profile_phase(tag, pt, cam)
+    out["k7"] = {"pt": pt, "launches": launched, "ms_frame": ms}
+    off = PathTracer(scene, bench_settings(SIZE, shadow_rays=0, intersector="pallas_bvh_hbm"),
+                     device=dev, lane_order="scanline")
+    out["k7 off"] = _one_frame_launches("soup:100000 K7, NEE off", off, cam, 0)
+    _expect("K7, NEE off", out["k7 off"], {"K7 nearest": mtd})
+    del off
+
+    tag = "soup:100000 K8"
+    pt8 = _first_frame_checks(tag, scene, cam, dev, intersector="bvh")
+    _frame_vs(tag, "first frame, 'bvh' (K8) vs auto (K4)", pt8.image(), k4_first)
+    launched, ms = _timed_frames(tag, pt8, cam)
+    _expect(tag, launched, {"K8": 2 * FRAMES * mtd})  # the nearest walk and the shadow walk
+    res = trace_rays(pt8.scene, camera_to_torch(cam, dev), pt8.settings, pt8.pixel_ids, 0,
+                     with_stats=True, max_leaf=pt8.max_leaf)
+    n_tests, n_visits = int(res.heat_tests.sum()), int(res.heat_visits.sum())
+    phase(tag, f"frame 0 counters (path rays; shadow walks are not counted, as in the JAX "
+               f"package): {n_tests} ray-face tests, {n_visits} node visits, "
+               f"{n_tests / int(res.n_path_rays):.1f} tests and "
+               f"{n_visits / int(res.n_path_rays):.1f} visits a path segment")
+    if not (n_tests > 0 and n_visits > 0):
+        raise AssertionError(f"{tag}: empty counters")
+    if profile:
+        profile_phase(tag, pt8, cam)
+    out["k8"] = {"launches": launched, "ms_frame": ms, "tests": n_tests, "visits": n_visits}
+    del pt8
+
+    tag = "soup:100000 forest"
+    ptf = _first_frame_checks(tag, scene, cam, dev, intersector="pallas_bvh_forest")
+    _frame_vs(tag, "first frame, 'pallas_bvh_forest' (K6 chain) vs auto (K4)", ptf.image(),
+              k4_first)
+    k = ptf.scene.forest.count
+    launched = _one_frame_launches(tag, ptf, cam)
+    _expect(tag, launched, {"K6 nearest": mtd, "K6 seeded": (k - 1) * mtd,
+                            "K6 any-hit": mtd, "K6 seeded any-hit": (k - 1) * mtd})
+    out["forest"] = {"launches": launched}
+    return out
+
+
+def soup10k_phase(dev) -> dict:
+    """Path "soup:10000, pallas_bvh" (bench.py --scene soup:10000: 10,000
+    faces, 2-face leaves, 11,953 nodes: the single-tree packet walk K6
+    with NEE): one 1024² frame against its auto (K3) frame."""
+    tag = "soup:10000 K6"
+    scene, _ = scene_from_text(*grey_soup(10_000), use_bvh=True)
+    cam = make_camera_state(eye=(0.0, 0.0, 3.5), center_dir=(0.0, 0.0, 1.0))
+    phase(tag, f"{scene.tris.count} faces, {scene.bvh.count} nodes; packet_fits "
+               f"{cb.packet_fits(scene.bvh, scene.tris)}")
+    auto = PathTracer(scene, bench_settings(SIZE, compact_schedule="auto"), device=dev)
+    auto.render(cam, frame_seed=0)
+    pt = _first_frame_checks(tag, scene, cam, dev, intersector="pallas_bvh")
+    _frame_vs(tag, "first frame, 'pallas_bvh' (K6) vs auto (K3)", pt.image(), auto.image())
+    launched = _one_frame_launches(tag, pt, cam)
+    _expect(tag, launched, {"K6 NEE": pt.settings.max_total_depth})
+    return {"pt": pt, "cam": cam, "launches": launched}
+
+
+def _recorded(call) -> list:
+    """The tree walks ``call`` launches (``cuda_bvh.run``'s arguments)."""
+    walks = []
+    real = cb.run
+
+    def record(w):
+        walks.append(w)
+        return real(w)
+
+    cb.run = record
+    try:
+        call()
+    finally:
+        cb.run = real
+    return walks
+
+
+def _walk_bound(w, work: list) -> tuple:
+    """Bound of one walk: the per-ray walk's node steps and leaf-face tests
+    on these rays (what the plain version counted: each hit leaf's faces
+    whole, both legs of NEE); bytes: the rays, the per-ray inputs and
+    outputs, the tree's nodes (9 words each) and its faces (9 words)."""
+    tests = sum(int(t.sum()) for t, _ in work)
+    visits = sum(int(v.sum()) for _, v in work)
+    n = w.o.x.shape[0]
+    per_ray = 24 + sum(a.element_size() for a in (w.alive, w.order, w.t_limit, w.t_seed,
+                                                  w.f_seed, w.occ_seed) if a is not None)
+    per_ray += 1 if w.t_limit is not None else 8 + (1 if w.light is not None else 0)
+    per_ray += 8 if w.with_counts else 0
+    nbytes = per_ray * n + 36 * w.tree.count + 36 * w.faces.shape[1]
+    return _bound(OPS_SLAB * visits + OPS_CLASSIC * tests, nbytes), tests, visits
+
+
+def _check_walks(tag: str, walks: list, what: str, timed: bool) -> dict:
+    """Each recorded walk replayed by its kernel and by the plain version,
+    bitwise; per instance, summed over its walks: kernel ms (CUDA events,
+    3 launches each), plain ms (one run), bound, largest |t| error."""
+    res = {}
+    for w in walks:
+        work = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = cb._run_plain(w, work)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = cb._run_kernel(w)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"{w.kernel} on {what}", got, ref)
+        err = 0.0 if w.t_limit is not None else _max_err(got[0], ref[0])
+        ms = _time_ms(lambda: cb._run_kernel(w), 3) if timed else None
+        (b_ms, b_by), tests, visits = _walk_bound(w, work)
+        r = res.setdefault(w.kernel, {"walks": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                      "bound_by": b_by, "err": 0.0, "tests": 0, "visits": 0})
+        r["walks"] += 1
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += b_ms
+        r["ms"] = r["ms"] + ms if timed else None
+        r["err"] = max(r["err"], err)
+        r["tests"] += tests
+        r["visits"] += visits
+    for name, r in res.items():
+        n = walks[0].o.x.shape[0]
+        t = f"{r['ms']:.4f} ms" if timed else "not timed"
+        phase(tag, f"{name} on {what} ({r['walks']} launch(es)): equal to the plain version "
+                   f"bitwise; {r['visits'] / n:.1f} node steps and {r['tests'] / n:.1f} face "
+                   f"tests a ray; kernel {t}; plain {r['plain_ms']:.1f} ms; bound "
+                   f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res
+
+
+def tree_kernel_phase(dev, pt, cam, pt10k, cam10k) -> dict:
+    """K7 and K8 against their plain versions, bitwise, on all 1M camera
+    rays of the K7 path (its lane order) and on 1M bounce-like rays with an
+    alive mask; the forest's K6 chain on the camera rays; K6's single-tree
+    instances on soup:10000's camera rays; K8 also against
+    ``intersect_bvh_chunked``. Times, plain times and bounds on the camera
+    rays."""
+    tag = "tree kernels"
+    ts = pt.scene
+    bvh, tris, l0 = ts.bvh, ts.tris, _light0(ts)
+    ml = pt.max_leaf
+    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)
+    n = cam_o.x.shape[0]
+    t0 = time.perf_counter()
+    cam_walks = _recorded(lambda: (
+        cb.intersect_bvh_packet_hbm(cam_o, cam_d, bvh, tris, ml, light_pos=l0),
+        cb.intersect_bvh_packet_hbm(cam_o, cam_d, bvh, tris, ml),
+        cb.intersect_bvh_walk(cam_o, cam_d, bvh, tris, ml),
+        cb.intersect_bvh_forest(cam_o, cam_d, ts.forest, bvh, light_pos=l0)))
+    res = _check_walks(tag, cam_walks, f"all {n} soup:100000 camera rays, {pt.lane_order}", True)
+    got = cb.intersect_bvh_walk(cam_o, cam_d, bvh, tris, ml, with_counts=True)
+    ref = tt.intersect_bvh_chunked(cam_o, cam_d, bvh, tris, ml, with_counts=True)
+    _equal_or_raise("K8 vs intersect_bvh_chunked", got, ref)
+    phase(tag, "K8 with counters equals intersect_bvh_chunked (sorted, 8,192-ray chunks) "
+               "bitwise on the camera rays")
+    nb = BOUNCE_RAYS
+    bo, bd = _rays_in_soup(nb, 7, dev)
+    alive = torch.tensor(np.random.default_rng(8).random(nb) < 0.6, device=dev)
+    _check_walks(tag, _recorded(lambda: (
+        cb.intersect_bvh_packet_hbm(bo, bd, bvh, tris, ml, light_pos=l0, alive=alive),
+        cb.intersect_bvh_walk(bo, bd, bvh, tris, ml, alive=alive, with_counts=True))),
+        f"{nb} bounce-like rays, 60% alive", False)
+    t10 = pt10k.scene
+    o10, d10 = _camera_rays(camera_to_torch(cam10k, dev), pt10k.settings, dev, pt10k.pixel_ids)
+    res.update(_check_walks(tag, _recorded(lambda: (
+        cb.intersect_bvh_packet(o10, d10, t10.bvh, t10.tris, pt10k.max_leaf,
+                                light_pos=_light0(t10)),)),
+        f"all {o10.x.shape[0]} soup:10000 camera rays", True))
+    phase(tag, f"all comparisons and timings took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+
 def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
     """Device time by kernel over one frame, or over one call of ``step``
     (torch.profiler)."""
@@ -970,7 +1248,8 @@ def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
     rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     total = sum(r[1] for r in rows)
-    names = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel")
+    names = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "packet_kernel",
+             "walk_kernel")
     ours = sum(r[1] for r in rows if any(k in r[0] for k in names))
     phase("profile", f"{tag}: device time over one {'frame' if step is None else 'step'}: "
                      f"{total / 1e3:.3f} ms in {sum(r[2] for r in rows)} kernel launches; "
@@ -1006,12 +1285,30 @@ def main() -> None:
     oracle_phase("soup:100000", scene_s, cam_s, dev, size=64)
     sp = soup_path_phase(scene_s, cam_s, dev, profile)
     sk = soup_kernel_phase(dev, sp["pt"], cam_s)
+    k4_first, sp_launches = sp["first"], sp["launches"]
+    del sp
+
+    t0 = time.perf_counter()
+    scene_t = scene_s._replace(forest=build_forest(scene_s.tris))
+    phase("soup:100000", f"forest built in {time.perf_counter() - t0:.3f} s: "
+                         f"{len(scene_t.forest.bvhs)} sub-trees of {scene_t.forest.chunk_size} "
+                         f"faces, {scene_t.forest.bvhs[0].count} nodes each (padded); main tree "
+                         f"{scene_t.bvh.count} nodes, packet_hbm_fits "
+                         f"{cb.packet_hbm_fits(scene_t.bvh)}")
+    tree_oracle_phase(scene_t, cam_s, dev)
+    tp = tree_path_phase(scene_t, cam_s, dev, k4_first, profile)
+    s10 = soup10k_phase(dev)
+    tk = tree_kernel_phase(dev, tp["k7"]["pt"], cam_s, s10["pt"], s10["cam"])
     phase("done", f"all phases passed on {smi}")
 
-    t = {**corn["times"], **mk_times, **mc["times"], **sk["times"]}
+    t = {**corn["times"], **mk_times, **mc["times"], **sk["times"],
+         **{k: (v["ms"], v["plain_ms"]) for k, v in tk.items()}}
     bounds = {**corn["bounds"], **mk_bounds, **{k: v[2] for k, v in mc["times"].items()},
-              **{k: v[2] for k, v in sk["times"].items() if len(v) == 3}}
-    errs = {**k1["errs"], **mk_errs, **mc["errs"], **sk["errs"]}
+              **{k: v[2] for k, v in sk["times"].items() if len(v) == 3},
+              **{k: (v["bound_ms"], v["bound_by"]) for k, v in tk.items()}}
+    errs = {**k1["errs"], **mk_errs, **mc["errs"], **sk["errs"],
+            **{k: v["err"] for k, v in tk.items()}}
+    fo = tp["forest"]["launches"]
     # (instance, source, launches on its path, frames of the path's run
     # that the count covers: the timed frames, or one frame; the linear
     # form's path is one call of its entry point, counted as one frame)
@@ -1022,14 +1319,24 @@ def main() -> None:
         ("K2'", K12_SOURCE, lin["K2'"], 1),
         ("K3", K3_SOURCE, mr_launches["K3"], FRAMES),
         ("K3 any-hit", K3_SOURCE, mr_launches["K3 any-hit"], FRAMES),
-        ("K4", K4_SOURCE, sp["launches"]["K4"], FRAMES),
-        ("K4 any-hit", K4_SOURCE, sp["launches"]["K4 any-hit"], FRAMES),
+        ("K4", K4_SOURCE, sp_launches["K4"], FRAMES),
+        ("K4 any-hit", K4_SOURCE, sp_launches["K4 any-hit"], FRAMES),
         ("K4m", K4_SOURCE, mc["launches"]["K4m"], 1),
         ("K4m any-hit", K4_SOURCE, mc["launches"]["K4m any-hit"], 1),
+        ("K6 nearest", K67_SOURCE, fo["K6 nearest"], 1),
+        ("K6 NEE", K67_SOURCE, s10["launches"]["K6 NEE"], 1),
+        ("K6 any-hit", K67_SOURCE, fo["K6 any-hit"], 1),
+        ("K6 seeded", K67_SOURCE, fo["K6 seeded"], 1),
+        ("K6 seeded any-hit", K67_SOURCE, fo["K6 seeded any-hit"], 1),
+        ("K7 nearest", K67_SOURCE, tp["k7 off"]["K7 nearest"], 1),
+        ("K7 NEE", K67_SOURCE, tp["k7"]["launches"]["K7 NEE"], FRAMES),
+        ("K8", K8_SOURCE, tp["k8"]["launches"]["K8"], FRAMES),
     ]
-    # No one PyTorch call computes a nearest-hit search: library_ms is null.
+    # No one PyTorch call computes a nearest-hit search or a BVH walk:
+    # library_ms is null.
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": src, "replaces": REPLACES[name.split()[0]],
+        "name": name, "route": "cuda", "source": src,
+        "replaces": REPLACES[name] if name in REPLACES else REPLACES[name.split()[0]],
         "launches": n, "frames": frames, "launches_per_frame": n / frames,
         "max_abs_err": errs[name],
         "ms": t[name][0], "plain_ms": t[name][1],

@@ -1,0 +1,54 @@
+// Classic Moller-Trumbore, the per-face test shared by kernel K1
+// (brute_intersect.cu) and the tree walks K6, K7 (bvh_packet.cu) and K8
+// (bvh_walk.cu).
+//
+// The operation order is the one of pbr_tpu/ops/intersect.py::
+// moller_trumbore and of the plain torch versions
+// (ops/intersect.py::moller_trumbore); built with --fmad=false and the
+// default IEEE division, each operation rounds as theirs does, so the
+// kernels and their plain versions agree bitwise. A face is valid when
+// t >= EPSILON5, u >= 0, v >= 0 and u + v <= 1.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pbr {
+
+constexpr float kMtEps5 = 1.0e-5f;
+
+struct Face {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+};
+
+// Face f of a (9, stride) float32 table in global memory, rows v0, e1, e2
+// (ops/cuda_intersect.py::face_table), read through the read-only cache.
+__device__ __forceinline__ Face load_face(const float* __restrict__ tab, int stride, int f) {
+  return Face{__ldg(tab + f),              __ldg(tab + stride + f),
+              __ldg(tab + 2 * stride + f), __ldg(tab + 3 * stride + f),
+              __ldg(tab + 4 * stride + f), __ldg(tab + 5 * stride + f),
+              __ldg(tab + 6 * stride + f), __ldg(tab + 7 * stride + f),
+              __ldg(tab + 8 * stride + f)};
+}
+
+__device__ __forceinline__ bool moller_trumbore(const Face& f, float ox, float oy, float oz,
+                                                float dx, float dy, float dz, float* t_out) {
+  const float px = dy * f.e2z - dz * f.e2y;
+  const float py = dz * f.e2x - dx * f.e2z;
+  const float pz = dx * f.e2y - dy * f.e2x;
+  const float det = f.e1x * px + f.e1y * py + f.e1z * pz;
+  const float inv_det = 1.0f / det;
+  const float tx = ox - f.v0x;
+  const float ty = oy - f.v0y;
+  const float tz = oz - f.v0z;
+  const float qx = ty * f.e1z - tz * f.e1y;
+  const float qy = tz * f.e1x - tx * f.e1z;
+  const float qz = tx * f.e1y - ty * f.e1x;
+  const float t = (f.e2x * qx + f.e2y * qy + f.e2z * qz) * inv_det;
+  const float u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
+  *t_out = t;
+  return (t >= kMtEps5) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
+}
+
+}  // namespace pbr

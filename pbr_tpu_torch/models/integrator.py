@@ -3,8 +3,8 @@
 The counterpart of ``pbr_tpu/models/integrator.py::trace_rays``: the whole
 ray batch advances together through generate (camera rays, AA jitter,
 thin-lens DoF), intersect (``ops/traverse.py``: kernel K1, kernel K3
-over the cluster verdicts on a scene in the gated band, or kernel K4 over
-the candidate lists above it), and shade (NEE,
+over the cluster verdicts on a scene in the gated band, kernel K4 over
+the candidate lists above it, or a BVH walk, K6, K7 or K8), and shade (NEE,
 BRDF sample, throughput update, Russian roulette), with per-ray liveness
 as masks. Same estimator, same quirks,
 same counter-based RNG, so the port's frame agrees with the NumPy oracle
@@ -73,7 +73,7 @@ class TraceResult(NamedTuple):
     n_dropped: Optional[torch.Tensor] = None  # () lanes lost to compaction overflow
     bounce_row_live: Optional[torch.Tensor] = None  # (max_total_depth,) live-row share
     heat_tests: Optional[torch.Tensor] = None  # (B,) ray-face tests per pixel
-    heat_visits: Optional[torch.Tensor] = None  # (B,) BVH node visits: 0, a sweep has none
+    heat_visits: Optional[torch.Tensor] = None  # (B,) BVH node visits (0 where none are counted)
 
 
 class _Carry(NamedTuple):
@@ -91,6 +91,7 @@ class _Carry(NamedTuple):
     focus_t: torch.Tensor
     heat: Optional[torch.Tensor]
     heat_tests: Optional[torch.Tensor]
+    heat_visits: Optional[torch.Tensor]
 
 
 def _zeros3(like) -> Vec3:
@@ -204,12 +205,12 @@ def _orb_pass(o, d, lights, t_geom):
     return torch.where(torch.isfinite(t_geom), -1, orb_idx)
 
 
-def _shadow_occluded(tris, hit_p, l_dir, t_light, mode, clusters):
+def _shadow_occluded(tris, hit_p, l_dir, t_light, mode, tables):
     """Any-hit shadow test as a second nearest-hit search
     (traverseShadows, pt_bvh.cl:133-177): occluded iff some geometry hit
     lies closer than the light. Used when the intersector has no fused
-    shadow leg."""
-    t_sh, _ = intersect_scene(hit_p, l_dir, tris, mode=mode, clusters=clusters)
+    shadow leg (the plain sweep, and the per-ray BVH walk K8)."""
+    t_sh, _ = intersect_scene(hit_p, l_dir, tris, mode=mode, **tables)
     return t_sh < t_light
 
 
@@ -239,6 +240,7 @@ def trace_rays(
     frame_seed,
     prev_t: Optional[torch.Tensor] = None,
     with_stats: bool = False,
+    max_leaf: int = 2,
 ) -> TraceResult:
     """Trace ``settings.samples`` paths for each pixel id.
 
@@ -246,7 +248,9 @@ def trace_rays(
     ``cam``: a ``CameraState`` of 0-d tensors (``camera_to_torch``);
     ``pixel_ids``: (B,) int32 global pixel indices (y * width + x) on the
     scene's device; ``frame_seed``: a Python int or a 0-d integer tensor;
-    ``prev_t``: the previous frame's first-hit distances, or None.
+    ``prev_t``: the previous frame's first-hit distances, or None;
+    ``max_leaf``: the faces a leaf of the scene's BVH may hold
+    (``scene/build.py::bvh_max_leaf``), for the tree walks.
     """
     if settings.phong_tessellation > 0.0:
         raise NotImplementedError(
@@ -264,7 +268,9 @@ def trace_rays(
     # Geometry is not a gradient target: the whole integrator sees it
     # detached (the JAX version's stop_gradient on the triangle arrays).
     tris = detach_tris(scene.tris)
-    clusters = scene.clusters
+    # The acceleration tables every intersect call of the frame takes.
+    tables = dict(clusters=scene.clusters, bvh=scene.bvh, forest=scene.forest,
+                  max_leaf=max_leaf)
     mats = scene.materials
     lights = scene.lights
     num_lights = lights.count
@@ -289,17 +295,18 @@ def trace_rays(
     row_frac = torch.zeros((mtd,), dtype=torch.float32, device=dev) if with_stats else None
 
     def lane_stats(like):
+        """Zeroed per-lane counters: bounces, tests, visits."""
         if not with_stats:
-            return None, None
+            return None, None, None
         z = torch.zeros(like.shape, dtype=_I32, device=dev)
-        return z, z.clone()
+        return z, z.clone(), z.clone()
 
     def bounce(px, rng, s, depth, c: _Carry) -> _Carry:
         nonlocal n_path, n_shadow, row_frac
         o, d, color, alive = c.o, c.d, c.color, c.alive
         light_found, light_val, depth_added = c.light_found, c.light_val, c.depth_added
         final_color, secondary, focus_t = c.final_color, c.secondary, c.focus_t
-        heat, heat_tests = c.heat, c.heat_tests
+        heat, heat_tests, heat_visits = c.heat, c.heat_tests, c.heat_visits
         zero3 = _zeros3(px)
         if with_stats:
             n_path = n_path + alive.sum()
@@ -315,14 +322,18 @@ def trace_rays(
         if nee_enabled:
             l0 = Vec3(lights.pos.x[0], lights.pos.y[0], lights.pos.z[0])
             out = intersect_scene(o, d, tris, mode=settings.intersector, light_pos=l0,
-                                  alive=alive, clusters=clusters, with_counts=with_stats)
+                                  alive=alive, with_counts=with_stats, **tables)
             t, face, occ_fused = out[:3]
         else:
             out = intersect_scene(o, d, tris, mode=settings.intersector, alive=alive,
-                                  clusters=clusters, with_counts=with_stats)
+                                  with_counts=with_stats, **tables)
             t, face = out[:2]
-        if with_stats and out[-1] is not None:  # 'cull' counts no tests
-            heat_tests = heat_tests + torch.where(alive, out[-1], 0)
+        if with_stats:  # a mode without a counter gives None and adds nothing
+            tests, visits = out[-1]
+            if tests is not None:
+                heat_tests = heat_tests + torch.where(alive, tests, 0)
+            if visits is not None:
+                heat_visits = heat_visits + torch.where(alive, visits, 0)
         if num_lights:
             orb_idx = _orb_pass(o, d, lights, t)
         else:
@@ -380,7 +391,7 @@ def trace_rays(
             occluded = occ_fused
             if occluded is None:
                 occluded = _shadow_occluded(tris, hit_p, l_dir, t_light,
-                                            settings.intersector, clusters)
+                                            settings.intersector, tables)
             nee_ok = live & (m_d > 0.0) & ~occluded
             if with_stats:
                 n_shadow = n_shadow + (live & (m_d > 0.0)).sum()
@@ -452,13 +463,13 @@ def trace_rays(
         return _Carry(
             where3(live, hit_p, o), where3(live, new_d, d), color, alive,
             light_found, light_val, depth_added, final_color, secondary,
-            focus_t, heat, heat_tests,
+            focus_t, heat, heat_tests, heat_visits,
         )
 
     final_color = _zeros3(px)
     secondary = torch.ones(px.shape, dtype=_I32, device=dev)  # pathtracing.cl:249
     focus_t = torch.full(px.shape, INF, dtype=torch.float32, device=dev)
-    heat, heat_tests = lane_stats(px)
+    heat, heat_tests, heat_visits = lane_stats(px)
 
     for s in range(settings.samples):
         o, d = _gen_rays(cam, settings, px, py, rng, s, prev_t)
@@ -468,7 +479,7 @@ def trace_rays(
             torch.ones(px.shape, dtype=torch.bool, device=dev),
             torch.zeros(px.shape, dtype=torch.bool, device=dev), _zeros3(px),
             torch.zeros(px.shape, dtype=_I32, device=dev),
-            final_color, secondary, focus_t, heat, heat_tests,
+            final_color, secondary, focus_t, heat, heat_tests, heat_visits,
         )
         # Stage 0 is the full batch with the real accumulators. Each
         # schedule entry ends a stage (folding in the emission of lanes that
@@ -488,8 +499,8 @@ def trace_rays(
                 focus_t = carry.focus_t  # only the full-width stage sets focus
             src, slot, n_ok, n_drop = _compact_rows(carry.alive, block, cap)
             n_drop_total = n_drop_total + n_drop
-            folds.append((slot, cap, fc, carry.secondary, carry.heat,
-                          carry.heat_tests, _zeros3(stage_px)))
+            folds.append((slot, cap, fc, carry.secondary,
+                          (carry.heat, carry.heat_tests, carry.heat_visits), _zeros3(stage_px)))
             tr = lambda v: _take_rows(v, src, block)  # noqa: E731
             g3 = lambda v: Vec3(tr(v.x), tr(v.y), tr(v.z))  # noqa: E731
             stage_px = tr(stage_px)
@@ -497,12 +508,11 @@ def trace_rays(
             # Slots past the live count hold row 0's data: mask them dead.
             valid_row = torch.arange(cap, dtype=_I32, device=dev) < n_ok
             alive_s = tr(carry.alive) & valid_row[:, None].expand(cap, block).reshape(-1)
-            h_s, t_s = lane_stats(stage_px)
             carry = _Carry(
                 g3(carry.o), g3(carry.d), g3(carry.color), alive_s,
                 torch.zeros_like(alive_s), _zeros3(stage_px), tr(carry.depth_added),
                 _zeros3(stage_px), torch.zeros(stage_px.shape, dtype=_I32, device=dev),
-                torch.zeros_like(stage_px), h_s, t_s,
+                torch.zeros_like(stage_px), *lane_stats(stage_px),
             )
             lo = kb
         for depth in range(lo, mtd):
@@ -510,10 +520,10 @@ def trace_rays(
         fc_s = carry.final_color + where3(
             carry.light_found, carry.color * carry.light_val, _zeros3(stage_px)
         )
-        sec_s, heat_s, tests_s = carry.secondary, carry.heat, carry.heat_tests
+        sec_s, stats_s = carry.secondary, (carry.heat, carry.heat_tests, carry.heat_visits)
         if not schedule:
             focus_t = carry.focus_t
-        for slot, cap, fc_prev, sec_prev, heat_prev, tests_prev, zero3_prev in reversed(folds):
+        for slot, cap, fc_prev, sec_prev, stats_prev, zero3_prev in reversed(folds):
             ok_row = slot < cap
             sc = slot.clamp_max(cap - 1)
             tk = lambda v: _take_rows(v, sc, block)  # noqa: E731
@@ -522,9 +532,10 @@ def trace_rays(
                                     zero3_prev)
             sec_s = sec_prev + torch.where(ok_lane, tk(sec_s), 0)
             if with_stats:
-                heat_s = heat_prev + torch.where(ok_lane, tk(heat_s), 0)
-                tests_s = tests_prev + torch.where(ok_lane, tk(tests_s), 0)
-        final_color, secondary, heat, heat_tests = fc_s, sec_s, heat_s, tests_s
+                stats_s = tuple(prev + torch.where(ok_lane, tk(cur), 0)
+                                for prev, cur in zip(stats_prev, stats_s))
+        final_color, secondary = fc_s, sec_s
+        heat, heat_tests, heat_visits = stats_s
 
     final_color = final_color / secondary.to(torch.float32)
     if settings.samples > 1:
@@ -540,5 +551,5 @@ def trace_rays(
         n_dropped=n_drop_total,
         bounce_row_live=row_frac,
         heat_tests=heat_tests,
-        heat_visits=torch.zeros_like(heat_tests) if with_stats else None,
+        heat_visits=heat_visits,
     )

@@ -21,7 +21,7 @@ import torch
 
 from pbr_tpu_torch.models.integrator import trace_rays
 from pbr_tpu_torch.ops.vec import Vec3
-from pbr_tpu_torch.scene.build import derive_static_flags
+from pbr_tpu_torch.scene.build import bvh_max_leaf, derive_static_flags
 from pbr_tpu_torch.scene.device import camera_to_torch, to_torch
 from pbr_tpu_torch.scene.types import CameraState, Scene
 from pbr_tpu_torch.utils.config import RenderSettings
@@ -51,11 +51,12 @@ def init_frame_state(num_pixels: int, device) -> FrameState:
 
 
 def render_frame(scene, cam, settings: RenderSettings, state: FrameState,
-                 pixel_ids, frame_seed, with_dropped: bool = False):
+                 pixel_ids, frame_seed, with_dropped: bool = False, max_leaf: int = 2):
     """One progressive frame: trace, then blend (setColors, pt_rgb.cl:9-21).
     ``with_dropped`` also returns the compaction-overflow lane count (None
     when no schedule is active)."""
-    res = trace_rays(scene, cam, settings, pixel_ids, frame_seed, prev_t=state.depth)
+    res = trace_rays(scene, cam, settings, pixel_ids, frame_seed, prev_t=state.depth,
+                     max_leaf=max_leaf)
     n = state.sample_count.to(torch.float32)
     weight = n / (n + 1.0)  # pixelWeight = n/(n+1), PathTracer.cpp:44
     rgb = Vec3(
@@ -95,7 +96,7 @@ def schedule_cost(schedule, max_total_depth: int) -> float:
 
 
 def probe_compact_schedule(scene, cam, settings: RenderSettings, headroom: float = 1.5,
-                           probe_rows: int = 64, pixel_ids=None):
+                           probe_rows: int = 64, pixel_ids=None, max_leaf: int = 2):
     """A compaction schedule from a cheap occupancy probe: trace a band of
     rows (or, for a non-scanline lane order, a strided subset of whole
     ``compact_block`` lane blocks of ``pixel_ids``), then place a cap at
@@ -112,7 +113,7 @@ def probe_compact_schedule(scene, cam, settings: RenderSettings, headroom: float
         ids = (rows[:, None] * w + np.arange(w)[None, :]).reshape(-1).astype(np.int32)
     ps = settings.replace(compact_schedule=(), samples=1)
     res = trace_rays(scene, cam, ps, torch.as_tensor(ids, device=scene.device), 0,
-                     with_stats=True)
+                     with_stats=True, max_leaf=max_leaf)
     frac = res.bounce_row_live.cpu().numpy()
     schedule = []
     prev = 1.0
@@ -129,15 +130,21 @@ class PathTracer:
     """Stateful progressive renderer around ``render_frame``.
 
     ``scene`` is a NumPy ``Scene`` (``pbr_tpu_torch.scene.build``), moved onto
-    ``device`` once; ``render`` takes a NumPy ``CameraState`` (or one made
-    by ``camera_to_torch``). ``lane_order``: 'scanline', 'morton', or
-    'auto', which probes both orders' occupancy at the first render and
-    keeps the one that schedules less bounce width.
+    ``device`` once (the card unless the caller names another device);
+    ``render`` takes a NumPy ``CameraState`` (or one made by
+    ``camera_to_torch``). ``max_leaf``: the faces a leaf of the scene's BVH
+    may hold, for the tree walks; None derives it from the scene
+    (``bvh_max_leaf``). ``lane_order``: 'scanline', 'morton', or 'auto',
+    which probes both orders' occupancy at the first render and keeps the
+    one that schedules less bounce width.
     """
 
-    def __init__(self, scene: Scene, settings: RenderSettings, device,
-                 lane_order: str = "auto"):
+    def __init__(self, scene: Scene, settings: RenderSettings, device="cuda",
+                 lane_order: str = "auto", max_leaf=None):
         self.device = torch.device(device)
+        # The traversal bound follows the scene's BVH (big scenes build
+        # 64-face leaves, scene/build.py).
+        self.max_leaf = bvh_max_leaf(scene) if max_leaf is None else max_leaf
         # Opaque-only scenes skip the refraction chain (bitwise-identical).
         settings = derive_static_flags(scene, settings)
         self.scene = to_torch(scene, self.device)
@@ -185,8 +192,10 @@ class PathTracer:
         self._auto_compact = False
         if self.lane_order == "auto":
             mperm = morton_pixel_ids(self.settings.width, self.settings.height)
-            sched_s = probe_compact_schedule(self.scene, cam, self.settings)
-            sched_m = probe_compact_schedule(self.scene, cam, self.settings, pixel_ids=mperm)
+            sched_s = probe_compact_schedule(self.scene, cam, self.settings,
+                                             max_leaf=self.max_leaf)
+            sched_m = probe_compact_schedule(self.scene, cam, self.settings, pixel_ids=mperm,
+                                             max_leaf=self.max_leaf)
             depth = self.settings.max_total_depth
             cost_s = schedule_cost(sched_s, depth)
             cost_m = schedule_cost(sched_m, depth)
@@ -203,7 +212,7 @@ class PathTracer:
             )
         else:
             schedule = probe_compact_schedule(self.scene, cam, self.settings,
-                                              pixel_ids=self._perm)
+                                              pixel_ids=self._perm, max_leaf=self.max_leaf)
         Logger.info(f"[pathtracer] auto compaction schedule: {schedule}")
         self.settings = self.settings.replace(compact_schedule=schedule)
 
@@ -228,7 +237,7 @@ class PathTracer:
         self._resolve_auto_compact(cam)
         self.state, n_dropped = render_frame(
             self.scene, cam, self.settings, self.state, self.pixel_ids,
-            frame_seed, with_dropped=True,
+            frame_seed, with_dropped=True, max_leaf=self.max_leaf,
         )
         # Compaction-overflow guard: a nonzero count means live lanes were
         # cut short, a biased render. int() syncs the host, so it is read

@@ -1,0 +1,414 @@
+"""Kernels K6, K7 and K8: the BVH tree walks, CUDA for Hopper, and their
+plain PyTorch version.
+
+- **K6**, the packet walk (``csrc/bvh_packet.cu``, slab off), replaces
+  ``pbr_tpu/ops/pallas_bvh.py``'s ``_kernel`` (instance "K6 nearest"),
+  ``_kernel_nee`` ("K6 NEE"), ``_kernel_shadow`` ("K6 any-hit"),
+  ``_kernel_seeded`` ("K6 seeded") and ``_kernel_shadow_seeded`` ("K6
+  seeded any-hit"), around ``_traverse_tile``: a node cursor shared by a
+  warp of 32 rays. ``intersect_bvh_packet`` runs it on a scene's tree (the
+  ``pallas_bvh`` mode); ``intersect_bvh_forest`` chains it over the
+  sub-trees of a ``BVHForest`` (``pallas_bvh_forest``).
+- **K7**, the leaf-slab walk (same source, slab on), replaces
+  ``_kernel_hbm`` ("K7 nearest") and ``_kernel_hbm_nee`` ("K7 NEE"),
+  around ``_traverse_tile_hbm``: the same walk, each visited leaf's faces
+  staged in shared memory (``intersect_bvh_packet_hbm``, the
+  ``pallas_bvh_hbm`` mode).
+- **K8**, the per-ray walk (``csrc/bvh_walk.cu``), is the H100 form of the
+  ``bvh`` mode, which the JAX package runs as an XLA while_loop
+  (``pbr_tpu/ops/traverse.py::intersect_bvh``), with its exact ``tests``
+  and ``visits`` counters (``intersect_bvh_walk``).
+
+The sources' headers say what bounds the kernels on the card and how the
+designs answer that. Every wrapper takes its rays as six (B,) float32
+tensors and an optional (B,) bool ``alive``: a dead lane walks nothing
+(``t`` +inf, face -1, not occluded, counts 0). On a CUDA tensor it sorts
+the rays by ``ops/cull.py::coherence_keys`` against the tree's root box
+(dead lanes last) and launches the kernel over that order, or raises; on a
+CPU tensor, and only there, it runs the plain version.
+
+**The plain version** is one function, ``walk_plain``: the per-ray walk in
+torch ops, every ray with its own cursor, compacted to the rays still
+walking at each step, the leaf faces tested only for the rays that stand
+at a hit leaf. It is K8's plain version, and K6's and K7's too: a node's
+box holds its children's, so a ray that hits a node hit every node above
+it, and a packet visits every node its rays' own walks visit, in the same
+order; a ray's answer does not depend on its packet. It follows the
+kernels' operation order, so on the card they agree bitwise. Every walk
+applies the empty-box guard of ``pallas_bvh.py:110-116`` (bb_min.x <=
+bb_max.x), which only the forest's padding nodes fail, so K8's counters
+equal the JAX package's on every tree the builders make.
+
+The capacity rules of the TPU kernels are kept, and checked here rather
+than found by a crash: a packet walk needs ``packet_fits`` (nodes + faces
+<= ``PALLAS_BVH_MAX_ROWS``), a slab walk ``packet_hbm_fits`` (nodes <=
+``PACKET_HBM_MAX_NODES``) and ``max_leaf`` <= ``SLAB_MAX_LEAF``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from pbr_tpu_torch.accel.forest import FOREST_MAX_LEAF
+from pbr_tpu_torch.ops.cuda_intersect import _shadow_ray, check_rays, face_table, load
+from pbr_tpu_torch.ops.cull import coherence_keys
+from pbr_tpu_torch.ops.intersect import EPS5, INF, moller_trumbore, slab_box
+from pbr_tpu_torch.ops.vec import Vec3
+
+# The TPU kernels' table budgets (pallas_bvh.py:39 and :460), kept so that
+# both packages take the same scenes in the same modes.
+PALLAS_BVH_MAX_ROWS = 24_576
+PACKET_HBM_MAX_NODES = 12_288
+# K7 stages up to this many faces a leaf, 9 KB a warp (csrc/bvh_packet.cu).
+SLAB_MAX_LEAF = 256
+# Plain version: leaf tests per step are cut so that a (rays, faces)
+# temporary holds at most this many elements.
+_PLAIN_ELEMS = 1 << 22
+
+# Kernel launches per instance. CPU calls do not count.
+launches = {"K6 nearest": 0, "K6 NEE": 0, "K6 any-hit": 0, "K6 seeded": 0,
+            "K6 seeded any-hit": 0, "K7 nearest": 0, "K7 NEE": 0, "K8": 0}
+# bvh_packet.cu's (mode, slab) of each instance.
+_PACKET_MODES = {"K6 nearest": (0, 0), "K6 NEE": (1, 0), "K6 any-hit": (2, 0),
+                 "K6 seeded": (3, 0), "K6 seeded any-hit": (4, 0), "K7 nearest": (0, 1),
+                 "K7 NEE": (1, 1)}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# mode, slab, rays (6), order, alive, n, tree (5), n_nodes, faces, stride,
+# face_base, max_leaf, light, t_limit, t_seed, f_seed, occ_seed, t_out,
+# f_out, occ_out, stream
+_PACKET_ARGTYPES = [_I, _I] + [_P] * 8 + [_I] + [_P] * 5 + [_I, _P, _I, _I, _I] + [_P] * 9
+# rays (6), order, alive, n, tree (5), n_nodes, faces, stride, max_leaf,
+# t_out, f_out, tests, visits, stream
+_WALK_ARGTYPES = [_P] * 8 + [_I] + [_P] * 5 + [_I, _P, _I, _I] + [_P] * 5
+
+
+def packet_fits(bvh, tris) -> bool:
+    """True when the tree's nodes and the faces fit the packet walk's row
+    budget (a ``LinearBVH`` or ``BVHTables``, and the triangles)."""
+    return bvh.count + int(tris.mtl.shape[0]) <= PALLAS_BVH_MAX_ROWS
+
+
+def packet_hbm_fits(bvh) -> bool:
+    """True when the tree's nodes fit the slab walk's node budget."""
+    return bvh.count <= PACKET_HBM_MAX_NODES
+
+
+class Walk(NamedTuple):
+    """One launch of a tree-walk instance, or the same call of the plain
+    version (what ``run`` executes; chip_smoke.py replays them).
+
+    ``kernel``: the instance, a key of ``launches``; ``tree``: a
+    ``BVHTables``; ``faces``: the (9, F) face table the tree indexes (a
+    column slice of a wider table for a forest's sub-tree), face ids
+    written offset by ``face_base``; ``order``: the launch order (CUDA
+    only; the plain version walks each ray alone); ``light`` (3,) for the
+    NEE instances; ``t_limit`` for the any-hit ones; ``t_seed``/``f_seed``
+    and ``occ_seed`` for the seeded ones; ``with_counts`` for K8."""
+
+    kernel: str
+    o: Vec3
+    d: Vec3
+    tree: object
+    faces: torch.Tensor
+    max_leaf: int
+    alive: Optional[torch.Tensor] = None
+    order: Optional[torch.Tensor] = None
+    face_base: int = 0
+    light: Optional[torch.Tensor] = None
+    t_limit: Optional[torch.Tensor] = None
+    t_seed: Optional[torch.Tensor] = None
+    f_seed: Optional[torch.Tensor] = None
+    occ_seed: Optional[torch.Tensor] = None
+    with_counts: bool = False
+
+
+def _leaf_tests(o, d, faces, rays, first, cnt, face_base, t_best, f_best, occ, t_limit):
+    """The leaf faces ``first .. first + cnt - 1`` of each ray in ``rays``
+    (1-D int64), in ascending order, a cut of rays at a time: nearest
+    (strict '<', so the first face wins ties) into ``t_best``/``f_best``,
+    or any-hit against ``t_limit`` into ``occ``."""
+    kmax = int(cnt.max())
+    nf = faces.shape[1]
+    k = torch.arange(kmax, device=first.device)
+    step = max(1, _PLAIN_ELEMS // kmax)
+    for lo in range(0, rays.shape[0], step):
+        r, fi, ct = rays[lo:lo + step], first[lo:lo + step], cnt[lo:lo + step]
+        fidx = (fi[:, None] + k).clamp_max(nf - 1)
+        tab = faces[:, fidx]  # (9, m, kmax)
+        ob = Vec3(o.x[r, None], o.y[r, None], o.z[r, None])
+        db = Vec3(d.x[r, None], d.y[r, None], d.z[r, None])
+        t, valid = moller_trumbore(ob, db, Vec3(tab[0], tab[1], tab[2]),
+                                   Vec3(tab[3], tab[4], tab[5]), Vec3(tab[6], tab[7], tab[8]))
+        valid = valid & (k < ct[:, None])
+        if t_limit is not None:
+            occ[r] = occ[r] | (valid & (t < t_limit[r, None])).any(dim=1)
+            continue
+        tt = torch.where(valid, t, INF)
+        t_min = tt.amin(dim=1)
+        k_first = torch.where(tt == t_min[:, None], k, kmax).amin(dim=1)
+        better = t_min < t_best[r]
+        t_best[r] = torch.where(better, t_min, t_best[r])
+        f_best[r] = torch.where(better, (face_base + fi + k_first).to(torch.int32), f_best[r])
+
+
+def walk_plain(o: Vec3, d: Vec3, tree, faces: torch.Tensor, max_leaf: int, alive=None,
+               face_base: int = 0, t_seed=None, f_seed=None, t_limit=None, occ_seed=None):
+    """The per-ray stackless walk in torch ops (any device): K8's plain
+    version, and K6's and K7's (module docstring).
+
+    Nearest (``t_limit`` None), optionally from ``t_seed``/``f_seed``; or
+    any-hit against ``t_limit``, optionally from ``occ_seed``. Returns
+    ``(t, face, occluded, tests, visits)``: the exact per-ray counters of
+    ``pbr_tpu/ops/traverse.py:302-314`` (node steps; min(leaf_count,
+    max_leaf) per hit leaf) for the walk that ran."""
+    n, dev = o.x.shape[0], o.x.device
+    any_hit = t_limit is not None
+    inv = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
+    t_best = torch.full((n,), INF, device=dev) if t_seed is None else t_seed.clone()
+    f_best = (torch.full((n,), -1, dtype=torch.int32, device=dev) if f_seed is None
+              else f_seed.clone())
+    occ = torch.zeros((n,), dtype=torch.bool, device=dev) if occ_seed is None \
+        else occ_seed.clone()
+    tests = torch.zeros((n,), dtype=torch.int32, device=dev)
+    visits = torch.zeros_like(tests)
+    idx = torch.zeros((n,), dtype=torch.int64, device=dev)
+    walking = torch.ones_like(occ) if alive is None else alive.clone()
+    if any_hit:
+        walking &= ~occ
+    act = torch.nonzero(walking).flatten() if tree.count else idx[:0]
+    while act.numel():
+        i = idx[act]
+        lo, hi = tree.bb_min[:, i], tree.bb_max[:, i]
+        t_near, t_far, hit = slab_box(Vec3(o.x[act], o.y[act], o.z[act]),
+                                      Vec3(inv.x[act], inv.y[act], inv.z[act]),
+                                      Vec3(lo[0], lo[1], lo[2]), Vec3(hi[0], hi[1], hi[2]))
+        gate = t_limit[act] if any_hit else t_best[act]
+        hit = hit & (t_far > EPS5) & (lo[0] <= hi[0]) & (gate > t_near)
+        visits[act] += 1
+        lf = tree.leaf_first[i]
+        leaf = hit & (lf >= 0)
+        if bool(leaf.any()):
+            rays = act[leaf]
+            cnt = tree.leaf_count[i][leaf].clamp_max(max_leaf)
+            tests[rays] += cnt
+            _leaf_tests(o, d, faces, rays, lf[leaf].long(), cnt.long(), face_base, t_best,
+                        f_best, occ, t_limit)
+        nxt = torch.where(hit, i + 1, tree.exit[i].long())
+        idx[act] = nxt
+        keep = nxt < tree.count
+        if any_hit:
+            keep &= ~occ[act]
+        act = act[keep]
+    return t_best, f_best, occ, tests, visits
+
+
+def _run_plain(w: Walk, work: Optional[list] = None):
+    """``w`` through the plain version: (t, face), (t, face, occluded),
+    occluded, or K8's (t, face[, tests, visits]). ``work``: a list to which
+    each walk run appends its per-ray ``(tests, visits)`` (chip_smoke.py's
+    bounds count them)."""
+    def walk(o, d, **kw):
+        out = walk_plain(o, d, w.tree, w.faces, w.max_leaf, w.alive, w.face_base, **kw)
+        if work is not None:
+            work.append(out[3:])
+        return out
+    if w.t_limit is not None:
+        return walk(w.o, w.d, t_limit=w.t_limit, occ_seed=w.occ_seed)[2]
+    t, f, _, tests, visits = walk(w.o, w.d, t_seed=w.t_seed, f_seed=w.f_seed)
+    if w.kernel == "K8":
+        return (t, f, tests, visits) if w.with_counts else (t, f)
+    if w.light is None:
+        return t, f
+    hit_p, s_dir, t_light = _shadow_ray(w.o, w.d, t, w.light)
+    return t, f, walk(hit_p, s_dir, t_limit=t_light)[2]
+
+
+def _ptr(a: Optional[torch.Tensor]):
+    return None if a is None else a.data_ptr()
+
+
+def _check(w: Walk) -> None:
+    check_rays(w.kernel, w.o, w.d)
+    dev, n = w.o.x.device, w.o.x.shape[0]
+    tr = w.tree
+    for a, dt in ((tr.bb_min, torch.float32), (tr.bb_max, torch.float32),
+                  (tr.leaf_first, torch.int32), (tr.leaf_count, torch.int32),
+                  (tr.exit, torch.int32)):
+        if a.device != dev or a.dtype != dt or not a.is_contiguous() \
+                or a.shape[-1] != tr.count or a.dim() != (2 if dt == torch.float32 else 1):
+            raise ValueError(f"{w.kernel}: the tree's tables must be contiguous (3, N) float32 "
+                             f"bounds and (N,) int32 indices on {dev}")
+    f = w.faces
+    if f.device != dev or f.dtype != torch.float32 or f.dim() != 2 or f.shape[0] != 9 \
+            or f.stride(1) != 1 or f.shape[1] < 1 or 9 * f.stride(0) >= 2**31:
+        raise ValueError(f"{w.kernel}: the face table must be (9, F) float32 on {dev}, rows "
+                         f"contiguous")
+    for a, dt in ((w.alive, torch.bool), (w.t_limit, torch.float32),
+                  (w.t_seed, torch.float32), (w.f_seed, torch.int32),
+                  (w.occ_seed, torch.bool), (w.order, torch.int32)):
+        if a is not None and (a.device != dev or a.dtype != dt or a.shape != (n,)
+                              or not a.is_contiguous()):
+            raise ValueError(f"{w.kernel}: per-ray inputs must be contiguous ({n},) tensors "
+                             f"on {dev}, got {a.dtype} {tuple(a.shape)}")
+    if w.light is not None and (w.light.device != dev or w.light.dtype != torch.float32
+                                or tuple(w.light.shape) != (3,)):
+        raise ValueError(f"light position must be (3,) float32 on {dev}")
+    if w.max_leaf < 1:
+        raise ValueError(f"max_leaf must be at least 1, not {w.max_leaf}")
+
+
+def _run_kernel(w: Walk):
+    """``w`` by one kernel launch: ``_run_plain``'s outputs."""
+    dev, n = w.o.x.device, w.o.x.shape[0]
+    tr = w.tree
+    tables = (tr.bb_min.data_ptr(), tr.bb_max.data_ptr(), tr.leaf_first.data_ptr(),
+              tr.leaf_count.data_ptr(), tr.exit.data_ptr(), tr.count,
+              w.faces.data_ptr(), w.faces.stride(0))
+    rays = (*(a.data_ptr() for a in (*w.o, *w.d)), _ptr(w.order), _ptr(w.alive), n)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    f = torch.empty((n,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if w.kernel == "K8":
+            counts = [torch.empty((n,), dtype=torch.int32, device=dev)
+                      for _ in range(2 if w.with_counts else 0)]
+            lib = load("bvh_walk", "pbr_bvh_walk", _WALK_ARGTYPES)
+            err = lib.pbr_bvh_walk(*rays, *tables, w.max_leaf, t.data_ptr(), f.data_ptr(),
+                                   *(_ptr(c) for c in counts or (None, None)), stream)
+            out = (t, f, *counts)
+        else:
+            any_hit = w.t_limit is not None
+            occ = torch.empty((n,) if any_hit or w.light is not None else (0,),
+                              dtype=torch.bool, device=dev)
+            mode, slab = _PACKET_MODES[w.kernel]
+            lib = load("bvh_packet", "pbr_bvh_packet", _PACKET_ARGTYPES)
+            err = lib.pbr_bvh_packet(mode, slab, *rays, *tables, w.face_base, w.max_leaf,
+                                     _ptr(w.light), _ptr(w.t_limit), _ptr(w.t_seed),
+                                     _ptr(w.f_seed), _ptr(w.occ_seed), t.data_ptr(),
+                                     f.data_ptr(), occ.data_ptr(), stream)
+            out = occ if any_hit else (t, f) if w.light is None else (t, f, occ)
+    if err != 0:
+        raise RuntimeError(f"{w.kernel} launch failed: cudaError {err}")
+    launches[w.kernel] += 1
+    return out
+
+
+def run(w: Walk):
+    """``w`` by its kernel on a CUDA tensor (or raise), by the plain
+    version on a CPU tensor."""
+    _check(w)
+    dev = w.o.x.device
+    if dev.type == "cpu":
+        return _run_plain(w)
+    if dev.type != "cuda":
+        raise ValueError(f"{w.kernel} runs on CUDA or CPU tensors, not {dev}")
+    return _run_kernel(w)
+
+
+def ray_order(o: Vec3, d: Vec3, tree, alive=None) -> Optional[torch.Tensor]:
+    """The kernels' launch order on a CUDA tensor: rays sorted by octant
+    and Morton code of the origin in the tree's root box, dead lanes last;
+    None on a CPU tensor (the plain version walks each ray alone)."""
+    if o.x.device.type != "cuda" or o.x.shape[0] == 0:
+        return None
+    keys = coherence_keys(o, d, *tree.root)
+    if alive is not None:
+        keys = torch.where(alive, keys, torch.iinfo(torch.int32).max)
+    return torch.argsort(keys).to(torch.int32)
+
+
+def _light(light_pos) -> Optional[torch.Tensor]:
+    if light_pos is None:
+        return None
+    return torch.stack([light_pos.x, light_pos.y, light_pos.z]).to(torch.float32)
+
+
+def intersect_bvh_walk(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2, alive=None,
+                       with_counts: bool = False):
+    """Nearest hit by the per-ray walk, kernel K8
+    (``pbr_tpu/ops/traverse.py::intersect_bvh``'s contract).
+
+    ``bvh``: the scene's ``BVHTables``; ``tris``: its triangles (leaf
+    order); ``max_leaf``: the faces a leaf may hold
+    (``scene/build.py::bvh_max_leaf``). Returns ``(t, face)``, or ``(t,
+    face, tests, visits)`` with the exact int32 counters."""
+    w = Walk("K8", o, d, bvh, face_table(tris), max_leaf, alive,
+             ray_order(o, d, bvh, alive), with_counts=with_counts)
+    return run(w)
+
+
+def intersect_bvh_packet(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2, light_pos=None,
+                         alive=None):
+    """Nearest hit by the packet walk, kernel K6
+    (``pallas_bvh.py::intersect_bvh_packet``'s contract): ``(t, face)``,
+    or with ``light_pos`` (a Vec3 of 0-d tensors, light 0) ``(t, face,
+    occluded)`` from the fused NEE shadow leg. Needs ``packet_fits``."""
+    if not packet_fits(bvh, tris):
+        raise ValueError(
+            f"the packet BVH walk takes at most {PALLAS_BVH_MAX_ROWS} node + face rows; this "
+            f"scene has {bvh.count} + {int(tris.mtl.shape[0])} (use 'pallas_bvh_hbm', "
+            f"'pallas_bvh_forest' or 'bvh')")
+    light = _light(light_pos)
+    w = Walk("K6 NEE" if light is not None else "K6 nearest", o, d, bvh, face_table(tris),
+             max_leaf, alive, ray_order(o, d, bvh, alive), light=light)
+    return run(w)
+
+
+def intersect_bvh_packet_hbm(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 64,
+                             light_pos=None, alive=None):
+    """Nearest hit by the leaf-slab packet walk, kernel K7
+    (``pallas_bvh.py::intersect_bvh_packet_hbm``'s contract): as
+    ``intersect_bvh_packet``. Needs ``packet_hbm_fits`` and ``max_leaf`` <=
+    ``SLAB_MAX_LEAF``."""
+    if not packet_hbm_fits(bvh):
+        raise ValueError(
+            f"the slab BVH walk takes at most {PACKET_HBM_MAX_NODES} nodes; this tree has "
+            f"{bvh.count} (build 64-face leaves: scene/build.py does above 20,000 faces)")
+    if not 1 <= max_leaf <= SLAB_MAX_LEAF:
+        raise ValueError(f"the slab BVH walk stages at most {SLAB_MAX_LEAF} faces a leaf; "
+                         f"max_leaf is {max_leaf}")
+    light = _light(light_pos)
+    w = Walk("K7 NEE" if light is not None else "K7 nearest", o, d, bvh, face_table(tris),
+             max_leaf, alive, ray_order(o, d, bvh, alive), light=light)
+    return run(w)
+
+
+def _forest(execute, o: Vec3, d: Vec3, forest, order, max_leaf, light, alive):
+    """The forest walk with each launch made by ``execute(Walk)``: the
+    nearest walk chained over the K sub-trees, each seeded with the best so
+    far (sub-tree 0 unseeded); faces mapped to main order; with a light,
+    the shadow rays from the combined hit (the guarded math of
+    ``_kernel_nee``) and the any-hit walk chained the same way."""
+    chunk = forest.chunk
+    t = f = None
+    for i in range(forest.count):
+        t, f = execute(Walk(
+            "K6 seeded" if i else "K6 nearest", o, d, forest.tree(i),
+            forest.faces[:, i * chunk:(i + 1) * chunk], max_leaf, alive, order,
+            face_base=i * chunk, t_seed=t, f_seed=f))
+    face = torch.where(f >= 0, forest.face_ids[f.clamp_min(0).long()], -1)
+    if light is None:
+        return t, face
+    hit_p, s_dir, t_light = _shadow_ray(o, d, t, light)
+    occ = None
+    for i in range(forest.count):
+        occ = execute(Walk(
+            "K6 seeded any-hit" if i else "K6 any-hit", hit_p, s_dir, forest.tree(i),
+            forest.faces[:, i * chunk:(i + 1) * chunk], max_leaf, alive, order,
+            face_base=i * chunk, t_limit=t_light, occ_seed=occ))
+    return t, face, occ
+
+
+def intersect_bvh_forest(o: Vec3, d: Vec3, forest, bvh, max_leaf: int = FOREST_MAX_LEAF,
+                         light_pos=None, alive=None):
+    """Nearest hit over a ``ForestTables`` by K6's instances
+    (``pallas_bvh.py::intersect_bvh_forest``'s contract): main-order faces,
+    ``bvh`` (the scene's main tree) giving the root box of the coherence
+    sort. Returns ``(t, face)`` or, with ``light_pos``, ``(t, face,
+    occluded)``. 2K launches a call with NEE, K without."""
+    return _forest(run, o, d, forest, ray_order(o, d, bvh, alive), max_leaf,
+                   _light(light_pos), alive)

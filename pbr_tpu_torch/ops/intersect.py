@@ -35,6 +35,38 @@ def moller_trumbore(o: Vec3, d: Vec3, v0: Vec3, e1: Vec3, e2: Vec3):
     return t, valid
 
 
+def _slab_lo(a, b):
+    m = torch.minimum(a, b)
+    return torch.where(m == m, m, -INF)
+
+
+def _slab_hi(a, b):
+    m = torch.maximum(a, b)
+    return torch.where(m == m, m, INF)
+
+
+def slab_box(o: Vec3, inv_d: Vec3, bb_min: Vec3, bb_max: Vec3):
+    """Ray-AABB slab test (reference intersectBox, pt_intersect.cl:11-25).
+
+    Returns ``(t_near, t_far, hit)`` with hit = (t_near <= t_far). The
+    caller applies the reference's extra gates ``t_far > EPSILON5`` and
+    ``t_best > t_near`` (pt_bvh.cl:107-110).
+
+    NaN-conservative, as ``pbr_tpu/ops/intersect.py::slab_box``: a ray in a
+    slab plane with a zero direction component gives 0 * inf = NaN, and a
+    NaN slab bound means "no constraint from this slab" (-inf for the near
+    bound, +inf for the far one). ``torch.minimum`` propagates a NaN operand
+    as NumPy and XLA do; CUDA's ``fminf`` drops it, so the kernels test for
+    NaN explicitly (``csrc/bvh.cuh``)."""
+    t1 = (bb_min - o) * inv_d
+    t2 = (bb_max - o) * inv_d
+    t_near = torch.maximum(torch.maximum(_slab_lo(t1.x, t2.x), _slab_lo(t1.y, t2.y)),
+                           _slab_lo(t1.z, t2.z))
+    t_far = torch.minimum(torch.minimum(_slab_hi(t1.x, t2.x), _slab_hi(t1.y, t2.y)),
+                          _slab_hi(t1.z, t2.z))
+    return t_near, t_far, t_near <= t_far
+
+
 def sphere(o: Vec3, d: Vec3, center: Vec3, r_sq):
     """Geometric ray-sphere test (reference intersectSphere,
     pt_intersect.cl:37-77). ``r_sq`` plays the reference's ``r`` role, which

@@ -1,35 +1,47 @@
-"""Scene intersection: the brute-force sweep, the gated sweep, the
-cull-and-sweep, and their dispatch.
+"""Scene intersection: the sweeps, the BVH walks, and their dispatch.
 
 The counterpart of ``pbr_tpu/ops/traverse.py`` for the intersectors the
 port has so far:
 
 - ``intersect_brute``: the plain all-faces sweep in torch ops (any device);
+- ``intersect_bvh`` and ``intersect_bvh_chunked``: the per-ray stackless
+  BVH walk in torch ops (kernel K8's plain version,
+  ``ops/cuda_bvh.py::walk_plain``), with the exact ``tests``/``visits``
+  counters; the chunked form sorts the rays and walks them a chunk at a
+  time, bitwise equal to the unchunked walk;
 - ``intersect_scene``: the dispatch the integrator calls, with the JAX
   version's contract (detached search, differentiable re-evaluation of the
-  winner, fused NEE leg, ``alive`` mask, executed test counts). Modes:
-  ``pallas`` is kernel K1 (``ops/cuda_intersect.py``); ``gated`` is kernel
-  K3 (``ops/cuda_gated.py``) over the scene's cluster verdicts; ``cull`` is
-  kernel K4 (more than 48 clusters) or K4m (``ops/cuda_cull.py``) over the
-  scene's candidate lists; ``brute`` is the plain sweep for CPU tensors
-  only (on a card the sweep is K1). On a CPU tensor every kernel's wrapper
+  winner, fused NEE leg, ``alive`` mask, ``(tests, visits)`` counters).
+  Modes: ``pallas`` is kernel K1 (``ops/cuda_intersect.py``); ``gated`` is
+  kernel K3 (``ops/cuda_gated.py``) over the scene's cluster verdicts;
+  ``cull`` is kernel K4 (more than 48 clusters) or K4m
+  (``ops/cuda_cull.py``) over the scene's candidate lists; ``bvh`` is
+  kernel K8, ``pallas_bvh`` kernel K6, ``pallas_bvh_forest`` K6's seeded
+  chain over the scene's forest and ``pallas_bvh_hbm`` kernel K7
+  (``ops/cuda_bvh.py``); ``brute`` is the plain sweep for CPU tensors only
+  (on a card the sweep is K1). On a CPU tensor every kernel's wrapper
   runs its plain version.
-- ``auto`` mirrors the JAX package's TPU dispatch so that both packages run
-  the same algorithm on the same scene: a scene with clusters and
-  ``GATED_MIN_FACES`` < F <= ``GATED_MAX_FACES`` takes ``gated``, and one
-  with clusters and F > ``GATED_MAX_FACES`` takes ``cull`` (on either
-  device); any other scene takes K1 on a CUDA tensor and the plain sweep on
-  a CPU tensor.
+- ``auto`` mirrors the JAX package's TPU dispatch
+  (``pbr_tpu/ops/traverse.py:424-435``) so that both packages run the same
+  algorithm on the same scene, on either device: clusters and
+  ``GATED_MIN_FACES`` < F <= ``GATED_MAX_FACES`` take ``gated``; clusters
+  and F > ``GATED_MAX_FACES`` take ``cull``; F <= ``BRUTE_SMEM_MAX_FACES``
+  takes K1 (the plain sweep on a CPU tensor); above it a scene with a
+  forest takes ``pallas_bvh_forest`` and one with a BVH and no forest
+  ``bvh``. K1 serves the rest: a big scene with neither.
 
-The other modes of the JAX dispatch (BVH walks, cull tables, the row sweep,
-the GEMM form) are not ported yet; asking for one raises
-``NotImplementedError`` naming its ROADMAP item. Nothing is substituted
-silently.
+The row sweep (``sweep``, kernel K5) and the GEMM form (``gemm``) are not
+ported yet; asking for one raises ``NotImplementedError`` naming its
+ROADMAP item. Nothing is substituted silently.
 """
 
 from __future__ import annotations
 
-from pbr_tpu_torch.ops import cuda_cull, cuda_gated, cuda_intersect
+import torch
+
+from pbr_tpu_torch.accel.forest import FOREST_MAX_LEAF
+from pbr_tpu_torch.ops import cuda_bvh, cuda_cull, cuda_gated, cuda_intersect
+from pbr_tpu_torch.ops.cull import coherence_keys
 from pbr_tpu_torch.ops.intersect import INF, gather_vec3, moller_trumbore
 from pbr_tpu_torch.ops.vec import Vec3
 
@@ -37,12 +49,9 @@ from pbr_tpu_torch.ops.vec import Vec3
 # ports each.
 _NOT_PORTED = {
     "gemm": "queue 1 item 9, ops/gemm_intersect.py",
-    "bvh": "queue 1 item 9 and queue 2 kernel K8, the per-ray BVH walk",
-    "pallas_bvh": "queue 2 kernel K6, the packet BVH walk",
-    "pallas_bvh_forest": "queue 2 kernel K6, the BVH forest walk",
-    "pallas_bvh_hbm": "queue 2 kernel K7, the HBM-slab BVH walk",
     "sweep": "queue 2 kernel K5, the row sweep",
 }
+_TREE_MODES = ("bvh", "pallas_bvh", "pallas_bvh_forest", "pallas_bvh_hbm")
 
 # The gated band of ``auto``, and ``cull`` above it: the bounds of the JAX
 # package's TPU dispatch (pbr_tpu/ops/traverse.py:424-427, GATED_MAX_FACES
@@ -52,6 +61,12 @@ _NOT_PORTED = {
 # moving them is the work of a PR that measures the band on the card.
 GATED_MIN_FACES = 1024  # exclusive
 GATED_MAX_FACES = 12_288
+# Above this many faces a scene without clusters leaves K1 for a tree walk
+# (pbr_tpu/ops/pallas_intersect.py::BRUTE_SMEM_MAX_FACES, a TPU SMEM
+# budget), mirrored like the two above.
+BRUTE_SMEM_MAX_FACES = 10_000
+# Rays a chunk of intersect_bvh_chunked (pbr_tpu/ops/traverse.py:170).
+BVH_CHUNK = 8_192
 
 
 def detach_tris(tris):
@@ -67,26 +82,70 @@ def intersect_brute(o: Vec3, d: Vec3, tris):
     return cuda_intersect.intersect_fused_plain(o, d, cuda_intersect.face_table(tris))
 
 
-def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False) -> str:
+def intersect_bvh(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2, with_counts: bool = False):
+    """Nearest hit via the stackless linear BVH, in torch ops
+    (``pbr_tpu.ops.traverse.intersect_bvh``; kernel K8's plain version).
+
+    ``bvh``: a ``BVHTables``; ``max_leaf`` >= the builder's leaf size.
+    Returns ``(t, face)``, or ``(t, face, tests, visits)``: the exact
+    per-ray int32 counters of ray-face tests and node steps (the
+    reference's debug channels, pt_bvh.cl:23 and :89)."""
+    t, face, _, tests, visits = cuda_bvh.walk_plain(o, d, bvh, cuda_intersect.face_table(tris),
+                                                    max_leaf)
+    return (t, face, tests, visits) if with_counts else (t, face)
+
+
+def intersect_bvh_chunked(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2,
+                          chunk: int = BVH_CHUNK, with_counts: bool = False):
+    """``intersect_bvh`` over the rays sorted by the coherence key of the
+    root box (``pbr_tpu.ops.traverse._coherence_keys``; the formula of
+    ``ops/cull.py::coherence_keys``), ``chunk`` rays at a time: a bounded
+    working set (chip_smoke.py holds K8 to it on a million rays). Results
+    are per ray, so it is bitwise equal to the unchunked walk."""
+    n = o.x.shape[0]
+    perm = torch.argsort(coherence_keys(o, d, *bvh.root), stable=True)
+    table = cuda_intersect.face_table(tris)
+    outs = []
+    for lo in range(0, max(n, 1), chunk):
+        p = perm[lo:lo + chunk]
+        t, face, _, tests, visits = cuda_bvh.walk_plain(
+            Vec3(o.x[p], o.y[p], o.z[p]), Vec3(d.x[p], d.y[p], d.z[p]), bvh, table, max_leaf)
+        outs.append((t, face, tests, visits))
+    res = []
+    for j in range(4 if with_counts else 2):
+        a = torch.cat([c[j] for c in outs])
+        out = torch.empty_like(a)
+        out[perm] = a
+        res.append(out)
+    return tuple(res)
+
+
+def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False,
+                 has_bvh: bool = False, has_forest: bool = False) -> str:
     """What the ``RenderSettings.intersector`` value ``mode`` runs on
-    ``device`` for a scene of ``n_faces`` faces, with or without cluster
-    tables: 'gated' (kernel K3), 'cull' (kernel K4 or K4m), 'pallas'
-    (kernel K1, the port of the TPU kernel of that name) — on a CPU tensor
-    their wrappers run the plain versions — or 'brute' (the plain sweep,
-    CPU tensors only: on a card the sweep is K1). Raises for modes the port
-    does not have."""
+    ``device`` for a scene of ``n_faces`` faces with or without cluster
+    tables, a BVH and a forest: 'gated' (kernel K3), 'cull' (kernel K4 or
+    K4m), 'pallas' (kernel K1, the port of the TPU kernel of that name),
+    'bvh' (K8), 'pallas_bvh' (K6), 'pallas_bvh_forest' (K6 seeded),
+    'pallas_bvh_hbm' (K7) — on a CPU tensor their wrappers run the plain
+    versions — or 'brute' (the plain sweep, CPU tensors only: on a card the
+    sweep is K1). Raises for modes the port does not have."""
     if mode == "auto":
         if has_clusters and GATED_MIN_FACES < n_faces <= GATED_MAX_FACES:
             return "gated"
         if has_clusters and n_faces > GATED_MAX_FACES:
             return "cull"
+        if n_faces > BRUTE_SMEM_MAX_FACES and has_forest:
+            return "pallas_bvh_forest"
+        if n_faces > BRUTE_SMEM_MAX_FACES and has_bvh:
+            return "bvh"
         return "pallas" if device.type == "cuda" else "brute"
     if mode == "brute" and device.type != "cpu":
         raise ValueError(
             f"intersector 'brute' is the plain sweep for CPU tensors; on a "
             f"{device.type} device use 'auto' or 'pallas' (kernel K1)"
         )
-    if mode in ("brute", "pallas", "gated", "cull"):
+    if mode in ("brute", "pallas", "gated", "cull", *_TREE_MODES):
         return mode
     if mode in _NOT_PORTED:
         raise NotImplementedError(
@@ -98,7 +157,7 @@ def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False
 
 def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
                     light_pos=None, alive=None, clusters=None,
-                    with_counts: bool = False):
+                    with_counts: bool = False, bvh=None, forest=None, max_leaf: int = 2):
     """Nearest-hit dispatch (``pbr_tpu.ops.traverse.intersect_scene``).
 
     The search for the nearest face runs detached; the winner's ``t`` is
@@ -107,26 +166,57 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
 
     ``light_pos`` (a Vec3 of 0-d tensors, light 0) asks for the NEE shadow
     any-hit fused into the search. Returns ``(t, face, occluded)``, where
-    ``occluded`` is None when the mode has no fused leg (the plain sweep):
-    the caller then traces the shadow ray itself.
+    ``occluded`` is None when the mode has no fused leg (the plain sweep
+    and ``bvh``): the caller then traces the shadow ray itself.
 
-    ``alive``: optional (B,) bool liveness. The gated sweep and the
-    cull-and-sweep close dead lanes out (they cost nothing and return
-    face -1); the full sweeps ignore it. ``clusters``: the scene's
-    ``scene.ClusterTables`` or None; 'gated' and 'cull' need them.
+    ``alive``: optional (B,) bool liveness. The gated sweep, the
+    cull-and-sweep and the tree walks close dead lanes out (they cost
+    nothing and return face -1); the full sweeps ignore it. ``clusters``:
+    the scene's ``scene.ClusterTables`` or None ('gated' and 'cull' need
+    them); ``bvh``/``forest``: its ``BVHTables``/``ForestTables`` or None
+    (the tree walks need them); ``max_leaf``: the faces a leaf may hold
+    (``scene/build.py::bvh_max_leaf``); the forest's sub-trees have their
+    own, ``FOREST_MAX_LEAF``.
 
-    ``with_counts``: also return ``tests`` last, the per-ray ray-face test
-    counts: F, or 2F with the fused shadow leg, on the full sweeps; the
-    exact executed real-face tests on 'gated'; None on 'cull', whose
-    tile-dynamic early-out the wrapper does not count (as in the JAX
-    package), so a frame that auto sends to 'cull' has no test counts. A
-    sweep visits no BVH nodes, so unlike the JAX version there is no visit
-    count.
+    ``with_counts``: also return ``(tests, visits)`` last, per-ray int32
+    counters, as in the JAX package: ``tests`` is F, or 2F with the fused
+    shadow leg, on the full sweeps, and the exact executed real-face tests
+    on 'gated'; on 'bvh' both are exact (the reference's two debug
+    channels); a sweep visits no nodes, so its ``visits`` is None; 'cull',
+    the packet walks and the forest count nothing (None, None): their
+    tile- or warp-dynamic work is not a per-ray count.
     """
-    mode = resolve_mode(mode, o.x.device, int(tris.mtl.shape[0]), clusters is not None)
+    mode = resolve_mode(mode, o.x.device, int(tris.mtl.shape[0]), clusters is not None,
+                        bvh is not None, forest is not None)
     o_s, d_s, tris_s = o.detach(), d.detach(), detach_tris(tris)
-    occ = counts = None
-    if mode == "gated":
+    light_s = None if light_pos is None else light_pos.detach()
+    occ = counts = visits = None
+    if mode in _TREE_MODES and (bvh is None or (mode == "pallas_bvh_forest" and forest is None)):
+        what = "a BVH forest" if bvh is not None else "a BVH"
+        raise ValueError(
+            f"mode={mode!r} needs a scene with {what}; this scene has none (a BVH is "
+            f"built with use_bvh=True; forests are built only when the single-tree "
+            f"packet walk cannot hold a scene without clusters — scene/build.py — or "
+            f"explicitly via accel.forest.build_forest)"
+        )
+    if mode == "bvh":
+        out = cuda_bvh.intersect_bvh_walk(o_s, d_s, bvh, tris_s, max_leaf=max_leaf,
+                                          alive=alive, with_counts=with_counts)
+        face = out[1]
+        if with_counts:
+            counts, visits = out[2], out[3]
+    elif mode in ("pallas_bvh", "pallas_bvh_hbm", "pallas_bvh_forest"):
+        if mode == "pallas_bvh_forest":
+            out = cuda_bvh.intersect_bvh_forest(o_s, d_s, forest, bvh, FOREST_MAX_LEAF,
+                                                light_pos=light_s, alive=alive)
+        else:
+            walk = (cuda_bvh.intersect_bvh_packet if mode == "pallas_bvh"
+                    else cuda_bvh.intersect_bvh_packet_hbm)
+            out = walk(o_s, d_s, bvh, tris_s, max_leaf=max_leaf, light_pos=light_s, alive=alive)
+        face = out[1]
+        if light_pos is not None:
+            occ = out[2]
+    elif mode == "gated":
         if clusters is None:
             raise ValueError(
                 "mode='gated' needs a scene with clusters (the fine AABBs are "
@@ -135,7 +225,7 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
             )
         out = cuda_gated.intersect_gated(
             o_s, d_s, tris_s, clusters, alive=alive, with_counts=with_counts,
-            light_pos=None if light_pos is None else light_pos.detach(),
+            light_pos=light_s,
         )
         face = out[1]
         if light_pos is not None:
@@ -149,18 +239,13 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
                 "coefficient blocks); build the scene with use_bvh=True "
                 "(scene/build.py attaches a ClusterSet above 256 faces)"
             )
-        out = cuda_cull.intersect_cull(
-            o_s, d_s, clusters, alive=alive,
-            light_pos=None if light_pos is None else light_pos.detach(),
-        )
+        out = cuda_cull.intersect_cull(o_s, d_s, clusters, alive=alive, light_pos=light_s)
         face = out[1]
         if light_pos is not None:
             occ = out[2]
     elif mode == "pallas":
         if light_pos is not None:
-            _, face, occ = cuda_intersect.intersect_fused(
-                o_s, d_s, tris_s, light_pos=light_pos.detach()
-            )
+            _, face, occ = cuda_intersect.intersect_fused(o_s, d_s, tris_s, light_pos=light_s)
         else:
             _, face = cuda_intersect.intersect_fused(o_s, d_s, tris_s)
     else:
@@ -178,5 +263,5 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
     if with_counts:
         if mode in ("brute", "pallas"):  # the full sweeps test every face, twice with NEE
             counts = face.new_full(face.shape, int(tris.mtl.shape[0]) * (2 if occ is not None else 1))
-        out.append(counts)
+        out.append((counts, visits))
     return tuple(out)

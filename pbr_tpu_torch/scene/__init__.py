@@ -7,7 +7,9 @@ from pbr_tpu_torch.scene.types import (  # noqa: F401
     TrianglesSoA,
 )
 from pbr_tpu_torch.scene.device import (  # noqa: F401
+    BVHTables,
     ClusterTables,
+    ForestTables,
     SceneParams,
     camera_to_torch,
     to_torch,

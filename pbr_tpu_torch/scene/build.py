@@ -9,12 +9,9 @@ so the caller can fix them into ``RenderSettings`` — the jit-static
 equivalent of the reference's ``#SKY_LIGHT#`` / ``#NUM_LIGHTS#``
 substitutions (PathTracer.cpp:209-210,468-474,514-516).
 
-The port's copy of ``pbr_tpu/scene/build.py``. Two things differ: a build
-never makes a BVH forest (the JAX package makes one only for a scene
-without clusters whose tree does not fit its packet kernel, and the port
-has no BVH walk yet), and ``phong_tess_alpha`` > 0 raises
-``NotImplementedError`` (ROADMAP.md queue 1 item 10). ``to_device`` is
-``pbr_tpu_torch.scene.to_torch``.
+The port's copy of ``pbr_tpu/scene/build.py``. One thing differs:
+``phong_tess_alpha`` > 0 raises ``NotImplementedError`` (ROADMAP.md queue 1
+item 10). ``to_device`` is ``pbr_tpu_torch.scene.to_torch``.
 """
 
 from __future__ import annotations
@@ -89,7 +86,17 @@ def build_scene(
         # sizes (chosen from TPU measurements), kept so that both packages
         # build the same tables.
         clusters = build_clusters(tris, size=128 if tris.count > 50_000 else 64)
-    forest = None  # no BVH forest in the port (module docstring)
+    forest = None
+    if bvh is not None and clusters is None:
+        from pbr_tpu_torch.accel.forest import build_forest
+        from pbr_tpu_torch.ops.cuda_bvh import packet_fits
+
+        # The forest is the big-scene fallback when no ClusterSet exists
+        # (auto prefers the cull-and-sweep); building one next to clusters
+        # would duplicate geometry that is never walked. Explicit builds go
+        # through accel.forest.build_forest.
+        if not packet_fits(bvh, tris):
+            forest = build_forest(tris)
     materials = obj.mtl.to_soa()
     lights = lights_to_soa(obj.lights) if obj.lights else no_lights()
     return Scene(

@@ -12,13 +12,15 @@ moves the result onto a torch device:
   buffers: the renderer detaches it, as the JAX package does;
 - ``camera_to_torch`` turns the camera into 0-d tensors.
 
-Of a ``Scene``'s acceleration tables, what the gated sweep (kernel K3,
-``ops/cuda_gated.py``) and the cull-and-sweep (kernels K4 and K4m,
-``ops/cuda_cull.py``) read is carried over: the fine cluster AABBs, the
-coefficient blocks, the supercluster AABBs, the scene bounds and the
-cluster size of its ``ClusterSet`` (``SceneParams.clusters``). The row-sweep
-tables (``lin``, ``lbb_*``) wait for kernel K5; the BVH and the forest wait
-for the BVH walks (ROADMAP.md queue 2).
+Of a ``Scene``'s acceleration tables, what the kernels read is carried
+over: for the gated sweep (kernel K3, ``ops/cuda_gated.py``) and the
+cull-and-sweep (kernels K4 and K4m, ``ops/cuda_cull.py``) the fine cluster
+AABBs, the coefficient blocks, the supercluster AABBs, the scene bounds and
+the cluster size of its ``ClusterSet`` (``SceneParams.clusters``); for the
+tree walks (kernels K6, K7 and K8, ``ops/cuda_bvh.py``) the ``LinearBVH``
+(``SceneParams.bvh``) and the ``BVHForest`` (``SceneParams.forest``). The
+row-sweep tables (``lin``, ``lbb_*``) wait for kernel K5 (ROADMAP.md queue
+2).
 """
 
 from __future__ import annotations
@@ -95,6 +97,63 @@ class ClusterTables(NamedTuple):
         return int(self.bb_min.x.shape[0])
 
 
+class BVHTables(NamedTuple):
+    """A ``LinearBVH`` on the device, as the tree walks read it:
+    ``bb_min``/``bb_max`` (3, N) float32 node bounds (rows x, y, z) and
+    ``leaf_first``/``leaf_count``/``exit`` (N,) int32 (the TPU kernels' f32
+    packing of the indices was a Pallas workaround). A forest's
+    ``ForestTables.trees`` has the same fields with a leading (K,) axis."""
+
+    bb_min: torch.Tensor
+    bb_max: torch.Tensor
+    leaf_first: torch.Tensor
+    leaf_count: torch.Tensor
+    exit: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return int(self.exit.shape[-1])
+
+    @property
+    def root(self) -> tuple:
+        """The root's bounds, two Vec3s of 0-d tensors (the coherence sort's
+        box)."""
+        return _vec(self.bb_min[:, 0]), _vec(self.bb_max[:, 0])
+
+
+class ForestTables(NamedTuple):
+    """A ``BVHForest`` on the device: ``trees``, the K sub-trees' node
+    tables stacked (all padded to one node count, so (K, 3, N) and (K, N));
+    ``faces``, the (9, K * chunk) float32 forest-order table, rows v0, e1,
+    e2 (``ops/cuda_intersect.py::face_table``'s layout); ``face_ids``,
+    (K * chunk,) int32 forest slot -> main-order face."""
+
+    trees: BVHTables
+    faces: torch.Tensor
+    face_ids: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return int(self.trees.exit.shape[0])
+
+    @property
+    def chunk(self) -> int:
+        return int(self.faces.shape[1]) // self.count
+
+    def tree(self, i: int) -> BVHTables:
+        """Sub-tree ``i``'s node tables."""
+        return BVHTables(*(f[i] for f in self.trees))
+
+
+def _bvh_tensors(bvhs, device) -> list:
+    """A ``BVHTables``' fields from LinearBVHs, stacked on a new leading
+    axis when there are several."""
+    fields = [[_stack3(b.bb_min, device) for b in bvhs], [_stack3(b.bb_max, device) for b in bvhs],
+              [_i32(b.leaf_first, device) for b in bvhs], [_i32(b.leaf_count, device) for b in bvhs],
+              [_i32(b.exit, device) for b in bvhs]]
+    return [torch.stack(f) if len(bvhs) > 1 else f[0] for f in fields]
+
+
 class SceneParams(nn.Module):
     """A scene on one device.
 
@@ -106,10 +165,14 @@ class SceneParams(nn.Module):
     and, when the scene has a ``ClusterSet``, its tables ``clu_bb_min`` /
     ``clu_bb_max`` (3, C), ``clu_coeffs`` (C, 16, 4S), ``clu_sup_min`` /
     ``clu_sup_max`` (3, C / 16) and ``clu_scene_min`` / ``clu_scene_max``
-    (3,). The properties ``tris``, ``materials``, ``lights`` and
-    ``clusters`` give the SoA NamedTuples of ``pbr_tpu_torch.scene.types``
-    (and ``ClusterTables``, or None) over views of these tensors, which is
-    what the renderer consumes.
+    (3,); when it has a BVH, ``bvh_bb_min`` / ``bvh_bb_max`` (3, N) and
+    ``bvh_leaf_first`` / ``bvh_leaf_count`` / ``bvh_exit`` (N,); when it has
+    a forest, ``forest_<field>`` for the K sub-trees' stacked node tables,
+    ``forest_faces`` (9, K * chunk) and ``forest_face_ids``. The properties
+    ``tris``, ``materials``, ``lights``, ``clusters``, ``bvh`` and ``forest``
+    give the SoA NamedTuples of ``pbr_tpu_torch.scene.types`` (and
+    ``ClusterTables``, ``BVHTables``, ``ForestTables``, or None) over views
+    of these tensors, which is what the renderer consumes.
 
     For a gradient pass, ``requires_grad_()`` switches on every parameter.
     """
@@ -141,6 +204,20 @@ class SceneParams(nn.Module):
             self.register_buffer("clu_sup_max", _stack3(cs.sup_max, device))
             self.register_buffer("clu_scene_min", _stack3(cs.scene_min, device))
             self.register_buffer("clu_scene_max", _stack3(cs.scene_max, device))
+        self.has_bvh = scene.bvh is not None
+        if self.has_bvh:
+            for name, t in zip(BVHTables._fields, _bvh_tensors([scene.bvh], device)):
+                self.register_buffer(f"bvh_{name}", t)
+        fo = scene.forest
+        self.has_forest = fo is not None
+        if self.has_forest:
+            k = len(fo.bvhs)
+            trees = _bvh_tensors(fo.bvhs, device)
+            for name, t in zip(BVHTables._fields, trees):
+                self.register_buffer(f"forest_{name}", t if k > 1 else t[None])
+            self.register_buffer("forest_faces", torch.cat(
+                [_stack3(fo.v0, device), _stack3(fo.e1, device), _stack3(fo.e2, device)]))
+            self.register_buffer("forest_face_ids", _i32(fo.face_ids, device))
 
     @property
     def device(self) -> torch.device:
@@ -168,6 +245,19 @@ class SceneParams(nn.Module):
         )
 
     @property
+    def bvh(self) -> Optional[BVHTables]:
+        if not self.has_bvh:
+            return None
+        return BVHTables(*(getattr(self, f"bvh_{n}") for n in BVHTables._fields))
+
+    @property
+    def forest(self) -> Optional[ForestTables]:
+        if not self.has_forest:
+            return None
+        trees = BVHTables(*(getattr(self, f"forest_{n}") for n in BVHTables._fields))
+        return ForestTables(trees, self.forest_faces, self.forest_face_ids)
+
+    @property
     def lights(self) -> LightsSoA:
         return LightsSoA(
             pos=_vec(self.light_pos), rgb=_vec(self.light_rgb),
@@ -175,13 +265,15 @@ class SceneParams(nn.Module):
         )
 
 
-def to_torch(scene: Scene, device) -> SceneParams:
-    """Move a NumPy ``Scene`` onto ``device``."""
+def to_torch(scene: Scene, device="cuda") -> SceneParams:
+    """Move a NumPy ``Scene`` onto ``device`` (the card unless the caller
+    names another device)."""
     return SceneParams(scene, device)
 
 
-def camera_to_torch(cam: CameraState, device) -> CameraState:
-    """A NumPy ``CameraState`` as 0-d float32 tensors on ``device``."""
+def camera_to_torch(cam: CameraState, device="cuda") -> CameraState:
+    """A NumPy ``CameraState`` as 0-d float32 tensors on ``device`` (the
+    card unless the caller names another device)."""
     s = lambda a: _f32(a, device).reshape(())  # noqa: E731
     v = lambda a: Vec3(s(a.x), s(a.y), s(a.z))  # noqa: E731
     return CameraState(

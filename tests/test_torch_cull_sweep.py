@@ -255,12 +255,12 @@ def test_dispatch_sends_big_clustered_scenes_to_cull():
 
 
 def test_intersect_scene_cull_counts_nothing_and_needs_clusters():
-    """'cull' returns None in the counts slot (its early-out is not
-    counted, as in the JAX package), and raises without clusters."""
+    """'cull' returns (None, None) in the counts slot (its early-out is
+    not counted, as in the JAX package), and raises without clusters."""
     (o, d, clusters), kw, (_, _, live), ts = _inputs("masked-alive-nee")
     out = traverse.intersect_scene(o, d, ts.tris, mode="cull", clusters=clusters,
                                    with_counts=True, **kw)
-    assert len(out) == 4 and out[-1] is None
+    assert len(out) == 4 and out[-1] == (None, None)
     np.testing.assert_array_equal(out[1].numpy(), _port_result("masked-alive-nee")[1])
     with pytest.raises(ValueError, match="clusters"):
         traverse.intersect_scene(o, d, ts.tris, mode="cull")

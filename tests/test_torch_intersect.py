@@ -226,10 +226,21 @@ def test_dispatch_modes():
     assert tt.resolve_mode("brute", dev) == "brute"
     assert tt.resolve_mode("gated", cuda) == "gated"
     assert tt.resolve_mode("cull", cuda) == "cull"
+    for mode in ("bvh", "pallas_bvh", "pallas_bvh_forest", "pallas_bvh_hbm"):
+        assert tt.resolve_mode(mode, dev) == tt.resolve_mode(mode, cuda) == mode
+    # The tree branches of pbr_tpu/ops/traverse.py:428-435, on either
+    # device: no clusters and F > 10,000 walk the forest if there is one,
+    # else the BVH; K1 keeps a scene with neither, and every scene of at
+    # most 10,000 faces.
+    for device in (dev, cuda):
+        assert tt.resolve_mode("auto", device, 10_001, False, True, True) == "pallas_bvh_forest"
+        assert tt.resolve_mode("auto", device, 10_001, False, True, False) == "bvh"
+        assert tt.resolve_mode("auto", device, 12_289, True, True, True) == "cull"
+    assert tt.resolve_mode("auto", cuda, 10_000, False, True, True) == "pallas"
+    assert tt.resolve_mode("auto", dev, 10_000, False, True, False) == "brute"
     with pytest.raises(ValueError, match="'auto' or 'pallas'"):
         tt.resolve_mode("brute", cuda)
-    for mode in ("bvh", "gemm", "sweep", "pallas_bvh",
-                 "pallas_bvh_forest", "pallas_bvh_hbm"):
+    for mode in ("gemm", "sweep"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tt.resolve_mode(mode, dev)
     with pytest.raises(ValueError):
@@ -268,7 +279,8 @@ def test_intersect_scene_gated_on_multiroom(nee):
                              light_pos=light if nee else None, alive=alive, with_counts=True)
     t_k1, f_k1 = ci.intersect_fused(_t3(o), _t3(d), ts.tris)
     _, f_k2 = ci.intersect_fused(_t3(o), _t3(d), ts.tris, variant="lin")
-    assert torch.equal(f, ref[1]) and torch.equal(out[-1], ref[-1])
+    assert torch.equal(f, ref[1]) and torch.equal(out[-1][0], ref[-1])
+    assert out[-1][1] is None  # a sweep visits no nodes
     assert torch.equal(f[alive], f_k2[alive])
     assert (f[alive] == f_k1[alive]).float().mean() >= 0.99
     assert torch.all(f[~alive] == -1) and torch.all(t[~alive] == float("inf"))
@@ -276,7 +288,7 @@ def test_intersect_scene_gated_on_multiroom(nee):
     assert torch.equal(t[same], t_k1[same])  # the winner is re-evaluated classically
     if nee:
         assert torch.equal(out[2], ref[2])
-    assert 0 < int(out[-1].max()) <= (2 if nee else 1) * scene.tris.count
+    assert 0 < int(out[-1][0].max()) <= (2 if nee else 1) * scene.tris.count
 
 
 @pytest.mark.parametrize("mode", ["brute", "pallas"])
@@ -289,8 +301,8 @@ def test_intersect_scene_reeval_and_counts(mode):
     t_sweep, f_sweep = ci.intersect_fused(_t3(o), _t3(d), tris)
     out = tt.intersect_scene(_t3(o), _t3(d), tris, mode=mode, light_pos=_light(),
                              with_counts=True)
-    t, f, occ, tests = out
-    assert torch.equal(f, f_sweep) and torch.equal(t, t_sweep)
+    t, f, occ, (tests, visits) = out
+    assert torch.equal(f, f_sweep) and torch.equal(t, t_sweep) and visits is None
     nf = scene.tris.count
     if mode == "brute":
         assert occ is None and torch.all(tests == nf)

@@ -32,6 +32,8 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.ops.cuda_cull",
     "pbr_tpu_torch.scene.build",
     "pbr_tpu_torch.io",
+    "pbr_tpu_torch.ops.cuda_bvh",
+    "pbr_tpu_torch.accel.forest",
 ])
 def test_import_leaves_jax_out(module):
     out = _run(f"import sys, {module}; print('jax' in sys.modules, 'pbr_tpu' in sys.modules)")
