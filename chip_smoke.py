@@ -14,9 +14,9 @@ read just after; a kernel of the path that did not launch fails the run.
 
 1. device: a CUDA card of compute capability 9.0, its name and power limit;
 2. build: K1/K2 (csrc/brute_intersect.cu), K3 (csrc/gated_intersect.cu),
-   K4/K4m (csrc/cull_intersect.cu), K6/K7 (csrc/bvh_packet.cu) and K8
-   (csrc/bvh_walk.cu) with nvcc, and the native BVH builder
-   (csrc/bvh_builder.cpp) with g++, all in parallel, timed;
+   K4/K4m (csrc/cull_intersect.cu), K5/K5m (csrc/row_sweep.cu), K6/K7
+   (csrc/bvh_packet.cu) and K8 (csrc/bvh_walk.cu) with nvcc, and the native
+   BVH builder (csrc/bvh_builder.cpp) with g++, all in parallel, timed;
 3. Cornell box (34 faces; auto runs K1):
    - K1 against its plain version on the card, bitwise (t, face,
      occluded), nearest and NEE, on the path's camera rays, a ragged
@@ -56,6 +56,12 @@ read just after; a kernel of the path that did not launch fails the run.
      pass and bounce and no other kernel, within 1e-3 of the auto (K3)
      frame on at least 99% of pixels; K4m against its plain version,
      bitwise, on the path's camera rays, timed;
+   - path "multiroom, sweep" (intersector='sweep': 16 lin clusters of 128,
+     so K5m, the masked row sweep): one 1024² frame in which K5m launches
+     once a pass and bounce and no other kernel, within 1e-3 of the auto
+     (K3) frame on at least 99% of pixels; K5m (nearest and any-hit)
+     against its plain version, bitwise, on the path's camera rays and on
+     1M bounce-like rays with an alive mask, timed, with its bound;
 5. soup:100000 (bench.py --scene soup:100000: 100,000 faces, 784 clusters of
    128 in 49 superclusters; auto runs K4 over the candidate lists of
    ops/cull.py, with the coherence sort and the early-out):
@@ -72,12 +78,25 @@ read just after; a kernel of the path that did not launch fails the run.
      rays with an alive mask and NEE; the candidate-slot share per tile;
      times per call of K4's passes, of the whole wrapper, of its plain
      version and of K1 on the camera rays;
+   - path "soup:100000, sweep" (bench.py --scene soup:100000 --intersector
+     sweep: 784 lin clusters of 128, so K5, the slotted row sweep, with the
+     coherence sort and the row early-out): a 64² card frame against the
+     CPU frame of the tree phase below; the first 1024² frame, compacted,
+     equals bitwise the full-width frame and is within 1e-3 of the auto
+     (K4) frame on at least 99% of pixels; 8 timed frames in which K5's
+     nearest and any-hit instances launch once a bounce each and nothing
+     else, 0 lanes dropped, with the frame's test counter; K5 against its
+     plain version, bitwise (with the counters), on all 1M camera rays and
+     on 1M bounce-like rays with an alive mask and NEE; the executed share
+     of (row, slot) pairs; times per call of K5's passes, of the wrapper
+     and of its plain version, with the bound;
 6. the tree walks on soup:100000 (4,523 nodes, 64-face leaves, and a forest
    from accel.forest.build_forest: 13 sub-trees of 8,192 faces) and on
    soup:10000 (bench.py --scene soup:10000: 11,953 nodes, 2-face leaves):
-   - 64² card frames through 'pallas_bvh_hbm' (K7), 'bvh' (K8) and
-     'pallas_bvh_forest' (K6's chain) against one CPU frame through 'bvh'
-     (the three plain versions are one function), at least 99% of pixels
+   - 64² card frames through 'pallas_bvh_hbm' (K7), 'bvh' (K8),
+     'pallas_bvh_forest' (K6's chain) and 'sweep' (K5) against one CPU
+     frame through 'bvh' (the three walks' plain versions are one function;
+     every intersector returns the same faces), at least 99% of pixels
      within 1e-3;
    - path "soup:100000, pallas_bvh_hbm": the first 1024² frame, compacted,
      equals bitwise the full-width frame and is within 1e-3 of the auto
@@ -130,6 +149,7 @@ from pbr_tpu_torch.ops import cuda_bvh as cb  # noqa: E402
 from pbr_tpu_torch.ops import cuda_cull as cc  # noqa: E402
 from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
 from pbr_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
+from pbr_tpu_torch.ops import cuda_sweep as cs  # noqa: E402
 from pbr_tpu_torch.ops import traverse as tt  # noqa: E402
 from pbr_tpu_torch.ops.rng import PixelRng  # noqa: E402
 from pbr_tpu_torch.ops.vec import Vec3  # noqa: E402
@@ -149,6 +169,7 @@ BOUNCE_RAYS = 1 << 20
 K12_SOURCE = "pbr_tpu_torch/csrc/brute_intersect.cu"
 K3_SOURCE = "pbr_tpu_torch/csrc/gated_intersect.cu"
 K4_SOURCE = "pbr_tpu_torch/csrc/cull_intersect.cu"
+K5_SOURCE = "pbr_tpu_torch/csrc/row_sweep.cu"
 K67_SOURCE = "pbr_tpu_torch/csrc/bvh_packet.cu"
 K8_SOURCE = "pbr_tpu_torch/csrc/bvh_walk.cu"
 # The H100's published peaks (SXM, at its 700 W limit): float32 outside the
@@ -161,7 +182,8 @@ PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 # 1: 51. Linear form (K2, K3, and K4, whose coefficient blocks hold the
 # same form with zeros): det 5, 1/det 1, t 7, u 12, v 13, the gates 5, the
 # minimum 1: 44. K4 sums all 11 feature rows (84 multiplies and adds
-# where the form needs 34), so its time cannot reach this bound.
+# where the form needs 34), so its time cannot reach this bound. K5 and
+# K5m run the linear form itself.
 OPS_CLASSIC, OPS_LIN = 51, 44
 # Floating-point operations of one ray-box slab test, as the tree walks
 # need them: (bound - o) * inv for 6 bounds 12, a min and a max per axis 6,
@@ -177,6 +199,8 @@ REPLACES = {
     "K3": "pbr_tpu/ops/pallas_gated.py:73",  # _kernel, nearest and any-hit
     "K4": "pbr_tpu/ops/pallas_cull.py:89",  # _kernel (slotted), nearest and any-hit
     "K4m": "pbr_tpu/ops/pallas_cull.py:183",  # _kernel_masked, nearest and any-hit
+    "K5": "pbr_tpu/ops/pallas_sweep.py:153",  # _kernel_rows, nearest and any-hit
+    "K5m": "pbr_tpu/ops/pallas_sweep.py:204",  # _kernel_masked_rows, nearest and any-hit
     "K6 nearest": "pbr_tpu/ops/pallas_bvh.py:181",  # _kernel around _traverse_tile
     "K6 NEE": "pbr_tpu/ops/pallas_bvh.py:197",  # _kernel_nee
     "K6 any-hit": "pbr_tpu/ops/pallas_bvh.py:248",  # _kernel_shadow
@@ -195,11 +219,11 @@ def phase(name: str, msg: str) -> None:
 def counts() -> dict:
     """Every kernel instance's launch count."""
     return {**ci.launches, "K3": cg.launches["nearest"], "K3 any-hit": cg.launches["any-hit"],
-            **cc.launches, **cb.launches}
+            **cc.launches, **cs.launches, **cb.launches}
 
 
 def zero_counts() -> None:
-    for table in (ci.launches, cg.launches, cc.launches, cb.launches):
+    for table in (ci.launches, cg.launches, cc.launches, cs.launches, cb.launches):
         for k in table:
             table[k] = 0
 
@@ -284,8 +308,8 @@ def build_phase() -> None:
         return name, time.perf_counter() - t0, path.name
 
     t0 = time.perf_counter()
-    names = ("brute_intersect", "gated_intersect", "cull_intersect", "bvh_packet", "bvh_walk",
-             "bvh_builder")
+    names = ("brute_intersect", "gated_intersect", "cull_intersect", "row_sweep", "bvh_packet",
+             "bvh_walk", "bvh_builder")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         done = list(pool.map(timed, names))
     for name, sec, lib in done:
@@ -999,6 +1023,213 @@ def soup_kernel_phase(dev, pt: PathTracer, cam) -> dict:
     return {"times": times, "errs": chk["errs"]}
 
 
+# -------------------------------------------------------------- row sweep --
+
+def _sweep_passes(o, d, clusters, light, alive):
+    """Run the sweep wrapper with the kernels and its counters, recording
+    each pass's arguments (K5's or K5m's), so that each pass can be
+    replayed alone."""
+    passes = []
+
+    def slotted(*args):
+        passes.append(("K5", args))
+        return cs._slotted_kernel(*args)
+
+    def masked(*args):
+        passes.append(("K5m", args))
+        return cs._masked_kernel(*args)
+
+    out = cs._sweep(slotted, masked, o, d, clusters, light, alive, True)
+    return passes, out
+
+
+def _sweep_pass_plain(kind: str, args) -> tuple:
+    """A recorded pass through the plain version, with what it ran: the
+    (row, lin cluster) pairs, their real-face tests (32 rays x the lin
+    cluster's real faces a pair) and the (tile, lin cluster) tables the
+    kernel stages (one where any row of the tile runs)."""
+    lin = args[3]
+    # m = e2 x e1 (rows 0-2) is 0 on padding faces
+    real = (lin[:, 0:3, :] != 0).any(dim=1).sum(dim=1)
+    work = []
+    out = (cs._slotted_plain if kind == "K5" else cs._masked_plain)(*args, work=work)
+    torch.cuda.synchronize()
+    pairs = sum(int(r.numel()) for r, _ in work)
+    tests = sum(int(real[c].sum()) for _, c in work) * cs.ROW
+    staged = sum(int(torch.unique(r // cs.GROUPS).numel()) for r, _ in work)
+    return out, {"pairs": pairs, "tests": tests, "staged": staged}
+
+
+def _sweep_pass_bound(kind: str, args, work: dict) -> tuple:
+    """Bound of one K5 or K5m pass: its real-face tests in the linear form;
+    bytes, each input read once and each output written once: the rays
+    (and t_limit), the seeds, the lin tables, the candidate tables or
+    verdict words, the outputs. Also returns the time of the bytes the
+    kernel stages (8 KB a staged table), which come from L2 and are printed
+    beside the bound, not taken into it."""
+    o, lin, any_hit = args[0], args[3], args[2] is not None
+    n = o.x.shape[0]
+    gate = sum(a.numel() * a.element_size() for a in args[4:7]) if kind == "K5" \
+        else args[4].numel() * 4
+    nbytes = (28 if any_hit else 24) * n + 8 * n + lin.numel() * 4 + gate \
+        + (4 if any_hit else 8) * n
+    staged = 8192 * work["staged"] / PEAK_BYTES * 1e3
+    return _bound(OPS_LIN * work["tests"], nbytes), staged
+
+
+def _sweep_kernel_checks(tag: str, cases, clusters, light) -> dict:
+    """The sweep wrapper with the kernels against its plain version,
+    bitwise (t, face, occluded, the counters, and the nearest-only call's
+    t and face), on each case; per pass of the first case, the plain
+    replay, its executed pairs and tests, and the pass's bound. Prints the
+    listed and executed shares of (row, slot) pairs."""
+    first = []
+    errs = {}
+    for i_case, (name, o, d, alive) in enumerate(cases):
+        passes, got = _sweep_passes(o, d, clusters, light, alive)
+        nearest = cs.intersect_sweep(o, d, clusters, alive=alive)
+        ref = cs.intersect_sweep_plain(o, d, clusters, light_pos=light, alive=alive,
+                                       with_counts=True)
+        torch.cuda.synchronize()
+        _equal_or_raise(f"{tag} sweep on {name}", (*got, *nearest), (*ref, *ref[:2]))
+        kind = passes[0][0]
+        errs[kind] = max(errs.get(kind, 0.0), _max_err(got[0], ref[0]), _max_err(nearest[0], ref[0]))
+        errs[kind + " any-hit"] = max(errs.get(kind + " any-hit", 0.0), _max_err(got[2], ref[2]))
+        live = torch.ones_like(got[1], dtype=torch.bool) if alive is None else alive
+        hit = live & (got[1] >= 0)
+        phase(tag, f"{name}: {o.x.shape[0]} rays; {kind} (nearest, any-hit, counters) and the "
+                   f"nearest-only call equal the plain version bitwise; {int(hit.sum())} of "
+                   f"{int(live.sum())} live lanes hit, {int(got[2][hit].sum())} occluded; the "
+                   f"verdicts ask for {float(got[3][live].double().mean()):.1f} face tests a live "
+                   f"lane (both passes)")
+        shares = []
+        for kind_i, args in passes:
+            pass_name = kind_i + (" any-hit" if args[2] is not None else "")
+            out, work = _sweep_pass_plain(kind_i, args)
+            _equal_or_raise(f"{pass_name} replay on {name}", cs._slotted_kernel(*args)
+                            if kind_i == "K5" else cs._masked_kernel(*args), out)
+            cl = args[3].shape[0]
+            rows = args[0].x.shape[0] // cs.ROW
+            if kind_i == "K5":
+                cand, cnt = args[4], args[5]
+                listed_slots = torch.arange(cl, device=cand.device)[None, :] < cnt[:, None]
+                listed = sum(int((((cand >> (16 + g)) & 1) * listed_slots).sum())
+                             for g in range(cs.GROUPS))
+            else:
+                w = args[4]
+                listed = sum(int(((w >> b) & 1).sum()) for b in range(16))
+            shares.append(f"{pass_name}: listed {listed / (rows * cl):.4f}, executed "
+                          f"{work['pairs'] / (rows * cl):.4f} of the {rows} x {cl} (row, lin "
+                          f"cluster) pairs ({work['pairs']} pairs, {work['tests']} real-face "
+                          f"tests, {work['staged']} tables staged)")
+            if i_case == 0:
+                first.append((pass_name, kind_i, args, work))
+        phase(tag, f"{name}: " + "; ".join(shares))
+    return {"errs": errs, "passes": first}
+
+
+def _time_sweep_passes(tag: str, passes, what: str) -> dict:
+    """Times of each recorded pass (kernel, and plain version), with its
+    bound."""
+    out = {}
+    for pass_name, kind, args, work in passes:
+        kern = cs._slotted_kernel if kind == "K5" else cs._masked_kernel
+        plain = cs._slotted_plain if kind == "K5" else cs._masked_plain
+        ms = _time_ms(lambda: kern(*args), 10)
+        plain_ms = _time_ms(lambda: plain(*args), 1)
+        bound, staged = _sweep_pass_bound(kind, args, work)
+        out[pass_name] = (ms, plain_ms, bound)
+        phase(tag, f"{pass_name} per pass on {what}: {ms:.4f} ms; plain version "
+                   f"{plain_ms:.4f} ms; {work['tests']} real-face tests, bound {bound[0]:.4f} ms "
+                   f"({bound[1]}); staged tables {staged:.4f} ms at 3.35 TB/s")
+    return out
+
+
+def multiroom_sweep_phase(scene, cam, dev, mr_pt: PathTracer) -> dict:
+    """Path "multiroom, sweep": one 1024² frame with intersector='sweep'
+    (K5m, 16 lin clusters), against the auto (K3) frame; K5m against its
+    plain version on the path's camera rays and on 1M bounce-like rays,
+    timed on the camera rays."""
+    tag = "multiroom sweep"
+    settings = mr_pt.settings.replace(intersector="sweep")
+    pt = PathTracer(scene, settings, device=dev, lane_order=mr_pt.lane_order)
+    ts = pt.scene
+    phase(tag, f"{ts.clusters.lin.shape[0]} lin clusters of {cs.LIN}")
+    zero_counts()
+    pt.render(cam, frame_seed=0)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    mtd = settings.max_total_depth * settings.samples
+    phase(tag, f"launches over one frame: {launched}")
+    _expect(tag, launched, {"K5m": mtd, "K5m any-hit": mtd})
+    ref = PathTracer(scene, mr_pt.settings, device=dev, lane_order=mr_pt.lane_order)
+    ref.render(cam, frame_seed=0)
+    _frame_vs(tag, "frame 0, intersector='sweep' (K5m) vs auto (K3)", pt.image(), ref.image())
+    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), settings, dev, pt.pixel_ids)
+    nb = BOUNCE_RAYS
+    bo, bd = _rays_in_rooms(nb, 9, dev)
+    b_alive = torch.tensor(np.random.default_rng(10).random(nb) < 0.6, device=dev)
+    chk = _sweep_kernel_checks(tag, [("camera rays, " + pt.lane_order, cam_o, cam_d, None),
+                                     (f"{nb} bounce-like rays, 60% alive", bo, bd, b_alive)],
+                               ts.clusters, _light0(ts))
+    times = _time_sweep_passes(tag, chk["passes"],
+                               f"the multiroom camera rays ({cam_o.x.shape[0]})")
+    return {"launches": launched, "times": times, "errs": chk["errs"]}
+
+
+def sweep_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dict:
+    """Path "soup:100000, sweep" (K5 with the sort and the row early-out):
+    the first frame against the full-width frame and the auto (K4) frame,
+    8 timed frames with only K5 launching, and frame 0's test counter."""
+    tag = "soup:100000 K5"
+    pt = _first_frame_checks(tag, scene, cam, dev, intersector="sweep")
+    _frame_vs(tag, "first frame, 'sweep' (K5) vs auto (K4)", pt.image(), k4_first)
+    launched, ms = _timed_frames(tag, pt, cam)
+    mtd = pt.settings.max_total_depth * pt.settings.samples
+    _expect(tag, launched, {"K5": FRAMES * mtd, "K5 any-hit": FRAMES * mtd})
+    res = trace_rays(pt.scene, camera_to_torch(cam, dev), pt.settings, pt.pixel_ids, 0,
+                     with_stats=True, max_leaf=pt.max_leaf)
+    n_tests = int(res.heat_tests.sum())
+    n_rays = int(res.n_path_rays)
+    phase(tag, f"frame 0 counter (the faces the rows' verdicts ask for, both passes, "
+               f"early-out savings not subtracted): {n_tests} ray-face tests, "
+               f"{n_tests / n_rays:.1f} a path segment")
+    if not n_tests > 0:
+        raise AssertionError(f"{tag}: empty test counter")
+    if profile:
+        profile_phase(tag, pt, cam)
+    return {"pt": pt, "launches": launched, "ms_frame": ms, "tests": n_tests}
+
+
+def sweep_kernel_phase(dev, pt: PathTracer, cam) -> dict:
+    """K5 against its plain version on all the path's camera rays (in its
+    lane order) and on bounce-like rays with an alive mask and NEE; times
+    of K5's passes, of the wrapper and of its plain version on the camera
+    rays."""
+    tag = "sweep kernels"
+    ts = pt.scene
+    clusters, l0 = ts.clusters, _light0(ts)
+    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)
+    n, nb = cam_o.x.shape[0], BOUNCE_RAYS
+    bo, bd = _rays_in_soup(nb, 11, dev)
+    b_alive = torch.tensor(np.random.default_rng(12).random(nb) < 0.6, device=dev)
+    t0 = time.perf_counter()
+    chk = _sweep_kernel_checks(tag, [(f"all {n} camera rays, {pt.lane_order}", cam_o, cam_d,
+                                      None),
+                                     (f"{nb} bounce-like rays, 60% alive", bo, bd, b_alive)],
+                               clusters, l0)
+    phase(tag, f"both comparisons with the plain version took "
+               f"{time.perf_counter() - t0:.1f} s")
+    what = f"all {n} camera rays x {ts.tris.mtl.shape[0]} faces"
+    times = _time_sweep_passes(tag, chk["passes"], what)
+    times["K5 wrapper"] = (
+        _time_ms(lambda: cs.intersect_sweep(cam_o, cam_d, clusters, light_pos=l0), 5),
+        _time_ms(lambda: cs.intersect_sweep_plain(cam_o, cam_d, clusters, light_pos=l0), 1))
+    phase(tag, f"on {what}: wrapper (sort, lists, both passes) "
+               f"{times['K5 wrapper'][0]:.4f} ms, plain {times['K5 wrapper'][1]:.4f} ms")
+    return {"times": times, "errs": chk["errs"]}
+
+
 # ------------------------------------------------------------ tree walks --
 
 def _frame_vs(tag: str, what: str, img: np.ndarray, ref: np.ndarray) -> float:
@@ -1013,10 +1244,12 @@ def _frame_vs(tag: str, what: str, img: np.ndarray, ref: np.ndarray) -> float:
 
 
 def tree_oracle_phase(scene, cam, dev, size: int = 64) -> None:
-    """The card's 64² frames through K7 ('pallas_bvh_hbm'), K8 ('bvh') and
-    the forest ('pallas_bvh_forest') against one frame of the port's CPU
-    path through 'bvh': the three plain versions are one function (the
-    per-ray walk with the classic Moller-Trumbore)."""
+    """The card's 64² frames through K7 ('pallas_bvh_hbm'), K8 ('bvh'), the
+    forest ('pallas_bvh_forest') and K5 ('sweep') against one frame of the
+    port's CPU path through 'bvh': the walks' three plain versions are one
+    function (the per-ray walk with the classic Moller-Trumbore), and every
+    intersector returns the same faces, so no plain K5 frame is needed on
+    the CPU."""
     t0 = time.perf_counter()
     host = PathTracer(scene, bench_settings(size, intersector="bvh"), device="cpu",
                       lane_order="scanline")
@@ -1024,7 +1257,7 @@ def tree_oracle_phase(scene, cam, dev, size: int = 64) -> None:
     ref = host.image()
     phase("tree oracle", f"soup:100000 {size}² CPU frame through 'bvh' (the plain walk) in "
                          f"{time.perf_counter() - t0:.1f} s")
-    for mode in ("pallas_bvh_hbm", "bvh", "pallas_bvh_forest"):
+    for mode in ("pallas_bvh_hbm", "bvh", "pallas_bvh_forest", "sweep"):
         pt = PathTracer(scene, bench_settings(size, compact_schedule="auto", intersector=mode),
                         device=dev)
         pt.render(cam, frame_seed=5)
@@ -1248,8 +1481,8 @@ def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
     rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     total = sum(r[1] for r in rows)
-    names = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "packet_kernel",
-             "walk_kernel")
+    names = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "rows_kernel",
+             "packet_kernel", "walk_kernel")
     ours = sum(r[1] for r in rows if any(k in r[0] for k in names))
     phase("profile", f"{tag}: device time over one {'frame' if step is None else 'step'}: "
                      f"{total / 1e3:.3f} ms in {sum(r[2] for r in rows)} kernel launches; "
@@ -1279,6 +1512,7 @@ def main() -> None:
     grad = multiroom_grad_phase(scene_m, cam_m, dev, mr["pt"], profile)
     lin = lin_path_phase(scene_m, dev, mk)
     mc = multiroom_cull_phase(scene_m, cam_m, dev, mr["pt"])
+    msw = multiroom_sweep_phase(scene_m, cam_m, dev, mr["pt"])
     del mr, mk
 
     scene_s, cam_s = soup()
@@ -1287,6 +1521,9 @@ def main() -> None:
     sk = soup_kernel_phase(dev, sp["pt"], cam_s)
     k4_first, sp_launches = sp["first"], sp["launches"]
     del sp
+    sw = sweep_path_phase(scene_s, cam_s, dev, k4_first, profile)
+    swk = sweep_kernel_phase(dev, sw["pt"], cam_s)
+    del sw["pt"]
 
     t0 = time.perf_counter()
     scene_t = scene_s._replace(forest=build_forest(scene_s.tris))
@@ -1301,12 +1538,13 @@ def main() -> None:
     tk = tree_kernel_phase(dev, tp["k7"]["pt"], cam_s, s10["pt"], s10["cam"])
     phase("done", f"all phases passed on {smi}")
 
-    t = {**corn["times"], **mk_times, **mc["times"], **sk["times"],
-         **{k: (v["ms"], v["plain_ms"]) for k, v in tk.items()}}
-    bounds = {**corn["bounds"], **mk_bounds, **{k: v[2] for k, v in mc["times"].items()},
-              **{k: v[2] for k, v in sk["times"].items() if len(v) == 3},
+    t = {**corn["times"], **mk_times, **mc["times"], **sk["times"], **msw["times"],
+         **swk["times"], **{k: (v["ms"], v["plain_ms"]) for k, v in tk.items()}}
+    bounds = {**corn["bounds"], **mk_bounds,
+              **{k: v[2] for times in (mc["times"], sk["times"], msw["times"], swk["times"])
+                 for k, v in times.items() if len(v) == 3},
               **{k: (v["bound_ms"], v["bound_by"]) for k, v in tk.items()}}
-    errs = {**k1["errs"], **mk_errs, **mc["errs"], **sk["errs"],
+    errs = {**k1["errs"], **mk_errs, **mc["errs"], **sk["errs"], **msw["errs"], **swk["errs"],
             **{k: v["err"] for k, v in tk.items()}}
     fo = tp["forest"]["launches"]
     # (instance, source, launches on its path, frames of the path's run
@@ -1323,6 +1561,10 @@ def main() -> None:
         ("K4 any-hit", K4_SOURCE, sp_launches["K4 any-hit"], FRAMES),
         ("K4m", K4_SOURCE, mc["launches"]["K4m"], 1),
         ("K4m any-hit", K4_SOURCE, mc["launches"]["K4m any-hit"], 1),
+        ("K5", K5_SOURCE, sw["launches"]["K5"], FRAMES),
+        ("K5 any-hit", K5_SOURCE, sw["launches"]["K5 any-hit"], FRAMES),
+        ("K5m", K5_SOURCE, msw["launches"]["K5m"], 1),
+        ("K5m any-hit", K5_SOURCE, msw["launches"]["K5m any-hit"], 1),
         ("K6 nearest", K67_SOURCE, fo["K6 nearest"], 1),
         ("K6 NEE", K67_SOURCE, s10["launches"]["K6 NEE"], 1),
         ("K6 any-hit", K67_SOURCE, fo["K6 any-hit"], 1),
@@ -1334,6 +1576,8 @@ def main() -> None:
     ]
     # No one PyTorch call computes a nearest-hit search or a BVH walk:
     # library_ms is null.
+    if len(rows) != 22:
+        raise AssertionError(f"expected 22 kernel rows, got {len(rows)}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src,
         "replaces": REPLACES[name] if name in REPLACES else REPLACES[name.split()[0]],

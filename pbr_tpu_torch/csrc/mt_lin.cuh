@@ -1,8 +1,10 @@
 // Linear-form Moller-Trumbore, the per-face test shared by kernel K2
-// (brute_intersect.cu, LIN instances) and kernel K3 (gated_intersect.cu).
+// (brute_intersect.cu, LIN instances), kernel K3 (gated_intersect.cu) and
+// kernels K5 and K5m (row_sweep.cu).
 //
 // Ports pbr_tpu/ops/pallas_gated.py::_mt_lin_update, which is term for
-// term the face loop of pbr_tpu/ops/pallas_intersect.py::_sweep_lin. Each
+// term the face loop of pbr_tpu/ops/pallas_intersect.py::_sweep_lin and
+// pbr_tpu/ops/pallas_sweep.py::_section. Each
 // MT quantity is a scalar triple product, (bi)linear in the ray, so with
 // per-face constants hoisted into a 16-float table (_lin_table: m = e2 x e1,
 // km = v0 . m, w = e2 x v0, q = v0 x e1, e1, e2) and one c = o x d per ray:

@@ -2,20 +2,21 @@
 hit, and in what order to sweep them.
 
 The counterpart of ``pbr_tpu/ops/cull.py`` for the functions that the gated
-sweep (kernel K3, ``ops/cuda_gated.py``) and the cull-and-sweep (kernels K4
-and K4m, ``ops/cuda_cull.py``) consume, with their operation order:
+sweep (kernel K3, ``ops/cuda_gated.py``), the cull-and-sweep (kernels K4
+and K4m, ``ops/cuda_cull.py``) and the row sweep (kernels K5 and K5m,
+``ops/cuda_sweep.py``) consume, with their operation order:
 ``frustum_hits``, ``frustum_hits_octants`` and ``fine_hit_mask`` (with
 ``_tile_minmax``), the coherence sort keys ``coherence_keys`` (with
-``_part1by2`` of ``pbr_tpu/ops/traverse.py``) and the near-to-far
-candidate lists ``candidates``. In the JAX package this stage is plain
-XLA, not Pallas, so here it is plain torch ops on any device. Every
-verdict is conservative: a cluster that any live ray of a tile could hit
-is set; extra clusters cost sweep work, never a wrong answer.
+``_part1by2`` of ``pbr_tpu/ops/traverse.py``), the near-to-far candidate
+lists ``candidates``, and the row sweep's per-row lists
+``candidates_rows`` and verdict words ``row_hit_words`` (with
+``_row_minmax_v``, here ``_tile_bounds``). In the JAX package this stage
+is plain XLA, not Pallas, so here it is plain torch ops on any device.
+Every verdict is conservative: a cluster that any live ray of a tile could
+hit is set; extra clusters cost sweep work, never a wrong answer.
 
-The candidate lists of the row sweep and the Phong-tessellated path
-(``candidates_fine``, ``candidates_rows``, ``row_hit_words``) wait for the
-slices that port kernel K5 and Phong tessellation (ROADMAP.md queue 1
-item 8).
+Only ``candidates_fine``, the lists of the Phong-tessellated path, waits
+for the slice that ports Phong tessellation (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -224,3 +225,86 @@ def candidates(o: Vec3, d: Vec3, clusters, tile: int, t_cap=None):
     ok = torch.gather(hit_f, 1, cand)
     cand = torch.where(ok, cand, cand + CAND_MISS).to(torch.int32)
     return cand, counts2 * SUPER, tent
+
+
+def _row_verdicts(o: Vec3, d: Vec3, rg: int, bb_min: Vec3, bb_max: Vec3, t_cap, octants: bool,
+                  live):
+    """(hit, t_entry) of every ``rg``-ray row against the boxes: the
+    octant-split frustums, or one interval frustum a row (``live`` then not
+    used, as in the JAX version)."""
+    if octants:
+        return frustum_hits_octants(o, d, rg, bb_min, bb_max, t_cap, live=live)
+    return frustum_hits(*_tile_bounds(o, d, rg), bb_min, bb_max, t_cap)
+
+
+def candidates_rows(o: Vec3, d: Vec3, clusters, tile: int, groups: int, t_cap=None,
+                    octants: bool = True, live=None):
+    """Per-tile candidate lists at lin-cluster granularity with per-row
+    verdict bits: the slotted row sweep's input
+    (``pbr_tpu/ops/cull.py::candidates_rows``).
+
+    ``o``/``d``: flat (N,) rays (sorted, in the wrapper), N a multiple of
+    ``tile``; each tile is ``groups`` rows of ``tile // groups`` rays.
+    ``clusters``: a ``scene.ClusterTables`` with lin tables. ``t_cap``:
+    optional (T * groups,) per-row upper bound on useful t; ``live``: (N,)
+    bool, dead lanes add no demand (octant verdicts only). The row
+    frustums are tested against the supercluster AABBs; a tile lists the
+    superclusters any of its rows hits, ordered by the least entry bound
+    of its hitting rows (stable argsort: ties keep ascending ids), each
+    expanding to its ``lps = CL / C2`` consecutive lin clusters. Returns
+    ``(cand, counts, tent)``:
+
+    - ``cand`` (T, CL) int32: lin cluster id in bits 0-15, the tile's rows
+      whose frustum hits that lin cluster in bits 16-23 (row g at bit
+      16 + g); padding slots repeat the last valid entry;
+    - ``counts`` (T,) int32: valid entries per tile;
+    - ``tent`` (T, CL) float32: each slot's entry lower bound, inherited
+      from its supercluster; 3e38 on padding slots.
+    """
+    rg = tile // groups
+    cl = clusters.lin.shape[0]
+    c2 = clusters.sup_min.x.shape[0]
+    lps = cl // c2
+    dev = o.x.device
+    hit8s, te8s = _row_verdicts(o, d, rg, clusters.sup_min, clusters.sup_max, t_cap, octants,
+                                live)  # (T * groups, C2)
+    t = hit8s.shape[0] // groups
+    hit_s = hit8s.reshape(t, groups, c2).any(dim=1)
+    # the least entry bound over hitting rows: a sound per-tile bound
+    te_s = torch.where(hit8s, te8s, _BIG).reshape(t, groups, c2).amin(dim=1)
+    counts2 = hit_s.sum(dim=1, dtype=torch.int32)
+    order = torch.argsort(torch.where(hit_s, te_s, _BIG), dim=1, stable=True)
+    j2 = torch.arange(c2, dtype=torch.int32, device=dev)[None, :]
+    take = torch.minimum(j2, torch.clamp_min(counts2[:, None] - 1, 0))
+    sup = torch.gather(order, 1, take.long())  # (T, C2) int64
+    tent2 = torch.where(j2 < counts2[:, None], torch.gather(te_s, 1, sup), _BIG)
+    fine_off = torch.arange(lps, dtype=torch.int64, device=dev)[None, None, :]
+    cand = (sup[:, :, None] * lps + fine_off).reshape(-1, cl)
+    tent = tent2[:, :, None].expand(*tent2.shape, lps).reshape(-1, cl)
+    hit8l, _ = _row_verdicts(o, d, rg, clusters.lbb_min, clusters.lbb_max, t_cap, octants,
+                             live)  # (T * groups, CL)
+    bits = torch.gather(hit8l.reshape(t, groups, cl), 2,
+                        cand[:, None, :].expand(t, groups, cl)).to(torch.int32)
+    shifts = torch.arange(groups, dtype=torch.int32, device=dev)[None, :, None]
+    mask = (bits << shifts).sum(dim=1, dtype=torch.int32)
+    return cand.to(torch.int32) | (mask << 16), counts2 * lps, tent
+
+
+def row_hit_words(o: Vec3, d: Vec3, clusters, tile: int, groups: int, t_cap=None,
+                  octants: bool = True, live=None) -> torch.Tensor:
+    """(T, ceil(CL / 2)) int32 per-row lin-cluster verdicts, the masked row
+    sweep's input (``pbr_tpu/ops/cull.py::row_hit_words``): cluster ``c``,
+    row ``g`` is bit ``(c % 2) * 8 + g`` of word ``c // 2``. Arguments as in
+    ``candidates_rows``."""
+    rg = tile // groups
+    cl = clusters.lin.shape[0]
+    hit8, _ = _row_verdicts(o, d, rg, clusters.lbb_min, clusters.lbb_max, t_cap, octants,
+                            live)  # (T * groups, CL)
+    t = hit8.shape[0] // groups
+    shifts = torch.arange(groups, dtype=torch.int32, device=o.x.device)[None, :, None]
+    per_c = (hit8.reshape(t, groups, cl).to(torch.int32) << shifts).sum(dim=1,
+                                                                         dtype=torch.int32)
+    if cl % 2:
+        per_c = torch.cat([per_c, per_c.new_zeros((t, 1))], dim=1)
+    pc = per_c.reshape(t, -1, 2)
+    return pc[:, :, 0] | (pc[:, :, 1] << 8)

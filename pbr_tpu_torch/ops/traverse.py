@@ -15,7 +15,9 @@ port has so far:
   Modes: ``pallas`` is kernel K1 (``ops/cuda_intersect.py``); ``gated`` is
   kernel K3 (``ops/cuda_gated.py``) over the scene's cluster verdicts;
   ``cull`` is kernel K4 (more than 48 clusters) or K4m
-  (``ops/cuda_cull.py``) over the scene's candidate lists; ``bvh`` is
+  (``ops/cuda_cull.py``) over the scene's candidate lists; ``sweep`` is
+  kernel K5 (more than 48 lin clusters) or K5m (``ops/cuda_sweep.py``)
+  over the per-row lists and verdict words; ``bvh`` is
   kernel K8, ``pallas_bvh`` kernel K6, ``pallas_bvh_forest`` K6's seeded
   chain over the scene's forest and ``pallas_bvh_hbm`` kernel K7
   (``ops/cuda_bvh.py``); ``brute`` is the plain sweep for CPU tensors only
@@ -28,11 +30,12 @@ port has so far:
   and F > ``GATED_MAX_FACES`` take ``cull``; F <= ``BRUTE_SMEM_MAX_FACES``
   takes K1 (the plain sweep on a CPU tensor); above it a scene with a
   forest takes ``pallas_bvh_forest`` and one with a BVH and no forest
-  ``bvh``. K1 serves the rest: a big scene with neither.
+  ``bvh``. K1 serves the rest: a big scene with neither. ``auto`` never
+  picks ``sweep``, as in the JAX package.
 
-The row sweep (``sweep``, kernel K5) and the GEMM form (``gemm``) are not
-ported yet; asking for one raises ``NotImplementedError`` naming its
-ROADMAP item. Nothing is substituted silently.
+The GEMM form (``gemm``) is not ported yet; asking for it raises
+``NotImplementedError`` naming its ROADMAP item. Nothing is substituted
+silently.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from pbr_tpu_torch.accel.forest import FOREST_MAX_LEAF
-from pbr_tpu_torch.ops import cuda_bvh, cuda_cull, cuda_gated, cuda_intersect
+from pbr_tpu_torch.ops import cuda_bvh, cuda_cull, cuda_gated, cuda_intersect, cuda_sweep
 from pbr_tpu_torch.ops.cull import coherence_keys
 from pbr_tpu_torch.ops.intersect import INF, gather_vec3, moller_trumbore
 from pbr_tpu_torch.ops.vec import Vec3
@@ -49,7 +52,6 @@ from pbr_tpu_torch.ops.vec import Vec3
 # ports each.
 _NOT_PORTED = {
     "gemm": "queue 1 item 9, ops/gemm_intersect.py",
-    "sweep": "queue 2 kernel K5, the row sweep",
 }
 _TREE_MODES = ("bvh", "pallas_bvh", "pallas_bvh_forest", "pallas_bvh_hbm")
 
@@ -125,7 +127,8 @@ def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False
     """What the ``RenderSettings.intersector`` value ``mode`` runs on
     ``device`` for a scene of ``n_faces`` faces with or without cluster
     tables, a BVH and a forest: 'gated' (kernel K3), 'cull' (kernel K4 or
-    K4m), 'pallas' (kernel K1, the port of the TPU kernel of that name),
+    K4m), 'sweep' (kernel K5 or K5m; never picked by 'auto'), 'pallas'
+    (kernel K1, the port of the TPU kernel of that name),
     'bvh' (K8), 'pallas_bvh' (K6), 'pallas_bvh_forest' (K6 seeded),
     'pallas_bvh_hbm' (K7) — on a CPU tensor their wrappers run the plain
     versions — or 'brute' (the plain sweep, CPU tensors only: on a card the
@@ -145,7 +148,7 @@ def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False
             f"intersector 'brute' is the plain sweep for CPU tensors; on a "
             f"{device.type} device use 'auto' or 'pallas' (kernel K1)"
         )
-    if mode in ("brute", "pallas", "gated", "cull", *_TREE_MODES):
+    if mode in ("brute", "pallas", "gated", "cull", "sweep", *_TREE_MODES):
         return mode
     if mode in _NOT_PORTED:
         raise NotImplementedError(
@@ -170,18 +173,21 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
     and ``bvh``): the caller then traces the shadow ray itself.
 
     ``alive``: optional (B,) bool liveness. The gated sweep, the
-    cull-and-sweep and the tree walks close dead lanes out (they cost
-    nothing and return face -1); the full sweeps ignore it. ``clusters``:
-    the scene's ``scene.ClusterTables`` or None ('gated' and 'cull' need
-    them); ``bvh``/``forest``: its ``BVHTables``/``ForestTables`` or None
+    cull-and-sweep, the row sweep and the tree walks close dead lanes out
+    (they cost nothing and return face -1); the full sweeps ignore it.
+    ``clusters``: the scene's ``scene.ClusterTables`` or None ('gated',
+    'cull' and 'sweep' need them, 'sweep' with its lin tables);
+    ``bvh``/``forest``: its ``BVHTables``/``ForestTables`` or None
     (the tree walks need them); ``max_leaf``: the faces a leaf may hold
     (``scene/build.py::bvh_max_leaf``); the forest's sub-trees have their
     own, ``FOREST_MAX_LEAF``.
 
     ``with_counts``: also return ``(tests, visits)`` last, per-ray int32
     counters, as in the JAX package: ``tests`` is F, or 2F with the fused
-    shadow leg, on the full sweeps, and the exact executed real-face tests
-    on 'gated'; on 'bvh' both are exact (the reference's two debug
+    shadow leg, on the full sweeps, the exact executed real-face tests
+    on 'gated', and on 'sweep' the faces its rows' verdicts ask for
+    (``cuda_sweep.intersect_sweep``, both passes; early-out savings not
+    subtracted); on 'bvh' both are exact (the reference's two debug
     channels); a sweep visits no nodes, so its ``visits`` is None; 'cull',
     the packet walks and the forest count nothing (None, None): their
     tile- or warp-dynamic work is not a per-ray count.
@@ -243,6 +249,14 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
         face = out[1]
         if light_pos is not None:
             occ = out[2]
+    elif mode == "sweep":
+        out = cuda_sweep.intersect_sweep(o_s, d_s, clusters, light_pos=light_s, alive=alive,
+                                         with_counts=with_counts)
+        face = out[1]
+        if light_pos is not None:
+            occ = out[2]
+        if with_counts:
+            counts = out[-1]
     elif mode == "pallas":
         if light_pos is not None:
             _, face, occ = cuda_intersect.intersect_fused(o_s, d_s, tris_s, light_pos=light_s)

@@ -17,10 +17,10 @@ over: for the gated sweep (kernel K3, ``ops/cuda_gated.py``) and the
 cull-and-sweep (kernels K4 and K4m, ``ops/cuda_cull.py``) the fine cluster
 AABBs, the coefficient blocks, the supercluster AABBs, the scene bounds and
 the cluster size of its ``ClusterSet`` (``SceneParams.clusters``); for the
-tree walks (kernels K6, K7 and K8, ``ops/cuda_bvh.py``) the ``LinearBVH``
-(``SceneParams.bvh``) and the ``BVHForest`` (``SceneParams.forest``). The
-row-sweep tables (``lin``, ``lbb_*``) wait for kernel K5 (ROADMAP.md queue
-2).
+row sweep (kernels K5 and K5m, ``ops/cuda_sweep.py``) its lin tables and
+lin-cluster AABBs as well; for the tree walks (kernels K6, K7 and K8,
+``ops/cuda_bvh.py``) the ``LinearBVH`` (``SceneParams.bvh``) and the
+``BVHForest`` (``SceneParams.forest``).
 """
 
 from __future__ import annotations
@@ -81,7 +81,13 @@ class ClusterTables(NamedTuple):
       features ``[o, d, o x d, 1, t_limit]``; row 11 carries the AABB);
     - ``sup_min``/``sup_max``: supercluster AABBs, Vec3s of (C / 16,);
     - ``scene_min``/``scene_max``: Vec3s of 0-d tensors, the Morton bounds
-      of the coherence sort."""
+      of the coherence sort;
+    - ``lin``: the row sweep's (CL, 16, 128) float32 lin tables, lin
+      cluster ``c`` holding faces ``[c * 128, (c + 1) * 128)`` (rows m, km,
+      w, q, e1, e2 of the linear form; padding faces all zero), and
+      ``lbb_min``/``lbb_max`` their AABBs, Vec3s of (CL,) (padding clusters
+      inverted). A supercluster covers CL / (C / 16) consecutive lin
+      clusters. None where the ``ClusterSet`` carries no lin tables."""
 
     bb_min: Vec3
     bb_max: Vec3
@@ -91,6 +97,9 @@ class ClusterTables(NamedTuple):
     sup_max: Vec3
     scene_min: Vec3
     scene_max: Vec3
+    lin: Optional[torch.Tensor] = None
+    lbb_min: Optional[Vec3] = None
+    lbb_max: Optional[Vec3] = None
 
     @property
     def count(self) -> int:
@@ -204,6 +213,11 @@ class SceneParams(nn.Module):
             self.register_buffer("clu_sup_max", _stack3(cs.sup_max, device))
             self.register_buffer("clu_scene_min", _stack3(cs.scene_min, device))
             self.register_buffer("clu_scene_max", _stack3(cs.scene_max, device))
+        self.has_lin = cs is not None and cs.lin is not None
+        if self.has_lin:
+            self.register_buffer("clu_lin", _f32(cs.lin, device))
+            self.register_buffer("clu_lbb_min", _stack3(cs.lbb_min, device))
+            self.register_buffer("clu_lbb_max", _stack3(cs.lbb_max, device))
         self.has_bvh = scene.bvh is not None
         if self.has_bvh:
             for name, t in zip(BVHTables._fields, _bvh_tensors([scene.bvh], device)):
@@ -238,10 +252,12 @@ class SceneParams(nn.Module):
     def clusters(self) -> Optional[ClusterTables]:
         if self.cluster_size is None:
             return None
+        lin = (self.clu_lin, _vec(self.clu_lbb_min), _vec(self.clu_lbb_max)) \
+            if self.has_lin else ()
         return ClusterTables(
             _vec(self.clu_bb_min), _vec(self.clu_bb_max), self.cluster_size,
             self.clu_coeffs, _vec(self.clu_sup_min), _vec(self.clu_sup_max),
-            _vec(self.clu_scene_min), _vec(self.clu_scene_max),
+            _vec(self.clu_scene_min), _vec(self.clu_scene_max), *lin,
         )
 
     @property

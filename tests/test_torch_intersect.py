@@ -240,9 +240,9 @@ def test_dispatch_modes():
     assert tt.resolve_mode("auto", dev, 10_000, False, True, False) == "brute"
     with pytest.raises(ValueError, match="'auto' or 'pallas'"):
         tt.resolve_mode("brute", cuda)
-    for mode in ("gemm", "sweep"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.resolve_mode(mode, dev)
+    assert tt.resolve_mode("sweep", dev) == tt.resolve_mode("sweep", cuda) == "sweep"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tt.resolve_mode("gemm", dev)
     with pytest.raises(ValueError):
         tt.resolve_mode("nonsense", dev)
 

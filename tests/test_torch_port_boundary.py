@@ -30,6 +30,7 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.ops.cull",
     "pbr_tpu_torch.models.pathtracer",
     "pbr_tpu_torch.ops.cuda_cull",
+    "pbr_tpu_torch.ops.cuda_sweep",
     "pbr_tpu_torch.scene.build",
     "pbr_tpu_torch.io",
     "pbr_tpu_torch.ops.cuda_bvh",

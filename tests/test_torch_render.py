@@ -313,7 +313,7 @@ def test_phong_tessellation_is_refused(cornell):
 def test_unported_intersector_is_refused(cornell):
     scene, cam = cornell
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trace(scene, cam, _bench_settings(8, intersector="sweep"), 0)
+        _trace(scene, cam, _bench_settings(8, intersector="gemm"), 0)
 
 
 def _gated_spy(monkeypatch):
