@@ -75,7 +75,8 @@ read just after; a kernel of the path that did not launch fails the run.
      dropped;
    - K4 (nearest and any-hit) against its plain version, bitwise, on all
      the path's 1024² camera rays (in its lane order) and on 1M bounce-like
-     rays with an alive mask and NEE; the candidate-slot share per tile;
+     rays with an alive mask and NEE; the candidate-slot share per tile and
+     the executed slots a tile (max, mean, the top 1% of tiles' share);
      times per call of K4's passes, of the whole wrapper, of its plain
      version and of K1 on the camera rays;
    - path "soup:100000, sweep" (bench.py --scene soup:100000 --intersector
@@ -181,9 +182,10 @@ PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 # o - v0 3, q = (o - v0) x e1 9, t, u, v 6 each, the gates 5, the minimum
 # 1: 51. Linear form (K2, K3, and K4, whose coefficient blocks hold the
 # same form with zeros): det 5, 1/det 1, t 7, u 12, v 13, the gates 5, the
-# minimum 1: 44. K4 sums all 11 feature rows (84 multiplies and adds
-# where the form needs 34), so its time cannot reach this bound. K5 and
-# K5m run the linear form itself.
+# minimum 1: 44. K4 and K4m read the form's nonzero entries from a compact
+# table (18 multiplies, 15 adds; km's feature is 1), about 49 operations
+# with the division and the gates, and K5 and K5m run the form itself:
+# the bound counts what the function needs, whatever implements it.
 OPS_CLASSIC, OPS_LIN = 51, 44
 # Floating-point operations of one ray-box slab test, as the tree walks
 # need them: (bound - o) * inv for 6 bounds 12, a min and a max per axis 6,
@@ -821,16 +823,21 @@ def _cull_passes(o, d, clusters, light, alive):
 def _plain_pass(kind: str, args) -> tuple:
     """A recorded pass through the plain version, with the real-face tests
     it executed (per (tile, slot or cluster) pair that runs: the cluster's
-    real faces for every ray of the tile)."""
-    coeffs = args[1]
-    # det's coefficients (rows 3-5, m = e2 x e1) are 0 on padding faces
-    real = (coeffs[:, 3:6, :coeffs.shape[2] // 4] != 0).any(dim=1).sum(dim=1)
+    real faces for every ray of the tile) and the slots (or clusters) each
+    tile executed."""
+    table = args[1]
+    # det's entries (m = e2 x e1, the compact table's first three) are 0 on
+    # padding faces
+    real = (table[:, :, 0:3] != 0).any(dim=2).sum(dim=1)
+    n_tiles = args[2].shape[0]
+    slots = torch.zeros(n_tiles, dtype=torch.int64, device=table.device)
     tests = [0]
     sweep = cc._SweepState.sweep
 
-    def counted(self, coeffs_, tiles, cids):
+    def counted(self, table_, tiles, cids):
         tests[0] += int(real[cids].sum()) * cc.TILE
-        return sweep(self, coeffs_, tiles, cids)
+        slots[tiles] += 1
+        return sweep(self, table_, tiles, cids)
 
     cc._SweepState.sweep = counted
     try:
@@ -838,19 +845,28 @@ def _plain_pass(kind: str, args) -> tuple:
         torch.cuda.synchronize()
     finally:
         cc._SweepState.sweep = sweep
-    return out, tests[0]
+    return out, tests[0], slots
+
+
+def _slot_stats(slots: torch.Tensor) -> str:
+    """Executed slots a tile: max, mean, and the top 1% of tiles' share of
+    all executed slots."""
+    top = torch.sort(slots.double(), descending=True).values
+    k = max(1, -(-top.numel() // 100))
+    return (f"executed slots a tile max {int(top[0])}, mean {float(top.mean()):.2f}, top 1% of "
+            f"tiles {float(top[:k].sum() / top.sum().clamp_min(1)):.4f} of them")
 
 
 def _cull_pass_bound(kind: str, args, tests: int) -> tuple:
     """Bound of one K4 or K4m pass: ``tests`` real-face tests in the linear
-    form; bytes: the rays, the seeds (and t_limit), the coefficient blocks,
-    the candidate tables or verdict bytes, the outputs."""
-    feats, coeffs = args[0], args[1]
+    form; bytes: the rays, the seeds (and t_limit), the compact table, the
+    candidate tables or verdict bytes, the outputs."""
+    feats, table = args[0], args[1]
     n = feats[0].shape[0]
     any_hit = args[-1]
     gate = sum(a.numel() * a.element_size() for a in args[2:5]) if kind == "K4" \
         else args[2].numel()
-    nbytes = 24 * n + 8 * n + coeffs.numel() * 4 + gate + (4 if any_hit else 8) * n
+    nbytes = 24 * n + 8 * n + table.numel() * 4 + gate + (4 if any_hit else 8) * n
     return _bound(OPS_LIN * tests, nbytes)
 
 
@@ -881,10 +897,10 @@ def _cull_kernel_checks(tag: str, cases, clusters, light, tris) -> dict:
         shares = []
         for kind_i, args in passes:
             pass_name = kind_i + (" any-hit" if args[-1] else "")
-            out, tests = _plain_pass(kind_i, args)
+            out, tests, slots = _plain_pass(kind_i, args)
             _equal_or_raise(f"{pass_name} replay on {name}", cc._slotted_kernel(*args)
                             if kind_i == "K4" else cc._masked_kernel(*args), out)
-            c = args[1].shape[0]
+            c, s = args[1].shape[:2]
             if kind_i == "K4":
                 cand, cnt = args[2], args[3]
                 listed = (cand < cc.CAND_MISS) & (
@@ -892,10 +908,10 @@ def _cull_kernel_checks(tag: str, cases, clusters, light, tris) -> dict:
             else:
                 listed = args[2]
             share = listed.sum(dim=1).double() / c
-            full = tests / (share.numel() * cc.TILE * c * (args[1].shape[2] // 4))
+            full = tests / (share.numel() * cc.TILE * c * s)
             shares.append(f"{pass_name}: listed {float(share.mean()):.4f} (tile min "
                           f"{float(share.min()):.4f}, max {float(share.max()):.4f}), executed "
-                          f"{full:.4f} of all (tile, face) pairs")
+                          f"{full:.4f} of all (tile, face) pairs, {_slot_stats(slots)}")
             if i_case == 0:
                 first.append((pass_name, kind_i, args, tests))
         phase(tag, f"{name}: candidate-slot share per tile (slots listed without the miss "

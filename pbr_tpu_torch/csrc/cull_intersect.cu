@@ -6,12 +6,11 @@
 //   - the scene's faces, in memory order, are cut into C clusters of S = 64
 //     or 128 faces; cluster c holds faces [c * S, (c + 1) * S). Its (16, 4S)
 //     f32 coefficient block (accel/clusters.py) contracted with a ray's
-//     features f = [o, d, o x d, 1, t_limit] gives, in lane group g of the
-//     block, det (g 0), tnum (1), unum (2) and vnum (3) of the linear-form
-//     Moller-Trumbore for each of the S faces; then inv = 1 / det,
-//     t = tnum * inv, u = unum * inv, v = vnum * inv, and the face is valid
-//     iff t >= 1e-5, u >= 0, v >= 0 and u + v <= 1 (a padding face has
-//     det 0, so t is NaN and never valid);
+//     features f = [o, d, o x d, 1, t_limit] gives det, tnum, unum and vnum
+//     of the linear-form Moller-Trumbore for each of the S faces; then
+//     inv = 1 / det, t = tnum * inv, u = unum * inv, v = vnum * inv, and the
+//     face is valid iff t >= 1e-5, u >= 0, v >= 0 and u + v <= 1 (a padding
+//     face has det 0, so t is NaN and never valid);
 //   - K4, per ray tile and slot l in order: the tile's candidate
 //     cand[t, l] runs unless l >= cnt[t], its CAND_MISS bit (1 << 20) is
 //     set, or the tile is done. With early_out, after each executed slot
@@ -28,43 +27,63 @@
 //     t = -3e38 never updates;
 //   - any-hit mode: occ = max(occ_seed, valid & (t < t_limit)).
 // The wrapper (ops/cuda_cull.py) sorts the rays, computes the candidate
-// lists or verdicts (ops/cull.py), the seeds and the NEE shadow rays, and
-// pads the batch to whole tiles, so every thread holds a real (maybe dead)
-// ray.
+// lists or verdicts (ops/cull.py), the seeds, the NEE shadow rays and K4's
+// tile order, and pads the batch to whole tiles, so every ray slot holds a
+// real (maybe dead) ray.
 //
-// What bounds it on this card: per executed (ray, face) pair, the four
-// 11-term sums (44 multiplies, 40 adds), one IEEE division, three
-// multiplies and the gates, about 95 f32 operations, against 28 B read per
-// ray (six f32 and a seed, t_limit in the any-hit pass) and 8 B written,
-// plus 11 x 4S x 4 B of coefficients per executed slot, which each block
-// reads once from device memory (mostly L2: the scene's blocks are 24.5 MiB
-// at 100,000 faces). A tile that runs k slots does ~95 x S x k operations a
-// ray: FP32 issue bounds it, at 33.5 T op/s without FMA (132 SMs x 128
-// lanes x 1.98 GHz; --fmad=false), and the candidate lists and the
-// early-out set how much of it there is.
+// The compact linear form. Of a block's 44 entries a face in rows 0-10,
+// only 19 can be nonzero (accel/clusters.py): det = d.m (rows 3-5),
+// tnum = -o.m + km (rows 0-2 and row 9, whose feature is 1), unum =
+// -d.w + c.e2 (rows 3-8), vnum = -d.q - c.e1 (rows 3-8). The wrapper repacks
+// them once a scene (ops/cuda_cull.py::compact_table) into a (C, S, 20) f32
+// table, face-major, five float4s a face. Each sum keeps ascending row
+// order and leaves out only zero terms; for finite features a zero term
+// c * f is +-0, and acc + (+-0) == acc up to the sign of a zero result,
+// which no gate sees (a det of +-0 is never valid, a tnum of +-0 gives
+// t < 1e-5, a unum or vnum of +-0 passes u >= 0 and u + v <= 1 as either
+// sign). So validity and every winning t are what the 11-row sums give.
+//
+// What bounds it on this card: per executed (ray, face) pair, 18 multiplies,
+// 15 adds, one IEEE division, three multiplies and the gates: about 49 f32
+// operations (95 with the 11-row sums), against 28 B read per ray and 8 B
+// written, plus 80 B of table a face per executed slot, read from L2 (the
+// scene's table is 7.7 MiB at 100,000 faces). FP32 issue bounds it, at
+// 33.5 T op/s without FMA (132 SMs x 128 lanes x 1.98 GHz; --fmad=false);
+// the candidate lists and the early-out set how much work there is, and
+// the unequal tiles how much of the card it keeps busy: on soup:100000's
+// camera rays a tile runs 57 slots on average and the heaviest 782. With
+// one thread a ray that tile alone outlasted the rest of the launch; with
+// two the launch lasts as long as its blocks' balanced share, and issue
+// bounds it (~69% of the no-FMA ceiling on an H100 at 700 W); four lose,
+// one 1,024-thread block an SM idling at every barrier
+// (pbr_tpu_torch/tools/k4_tiles.py measures the blocks, PERF.md has the
+// numbers).
 //
 // The design, for that bound and for this card (not the TPU's block by
 // block):
-//   - one thread block per ray tile, one ray a thread: the TPU grid's
-//     sequential slot axis is a loop inside the block, and each block reads
-//     its own cand/cnt/tent row (the TPU's scalar prefetch). A skipped slot
-//     is a branch uniform over the block, so no warp diverges on it;
-//   - each executed cluster's rows 0-10 (11 x 4S floats, 11 KB at S = 64,
-//     22.5 KB at S = 128) are staged into shared memory by the whole block,
-//     face-major: face j's 44 constants (det, tnum, unum, vnum groups of 11
-//     rows) are 11 float4 broadcast loads. Row 11, the AABB lanes, is left
-//     out: its feature is 0, but a padding cluster's infinite bounds times
-//     0 would be NaN;
-//   - the contraction is written out here in f32 without FMA contraction,
-//     each sum in ascending row order, left to right: not a matrix unit and
-//     not TF32 (reduced-precision passes flip the t ~ 0 self-hit gate,
-//     pallas_cull.py:59-69, docs/PERF.md round 3). The plain version
-//     (ops/cuda_cull.py::_face_test) sums in the same order;
-//   - the early-out is one __syncthreads_and over the block per executed
-//     slot.
-// Later work: skip the zero coefficients of the layout (the linear form
-// needs ~49 operations, not ~95), several rays a thread, cp.async/TMA
-// double-buffering of the blocks.
+//   - one thread block per ray tile, K threads a ray (K4: kThreadsPerRay =
+//     2; K4m: 1): thread k of a ray takes faces k, k + K, ... of each
+//     cluster, and the K partial (t, face) minima are merged by shuffles on
+//     the same lexicographic rule, which does not depend on the order of
+//     the merge, so the answer is the same for any K. More threads a tile
+//     shorten the heavy tiles, which bound the launch;
+//   - K4's blocks take the tiles heaviest first (the wrapper's `order`:
+//     tiles by listed slots, descending), so the longest lists start in the
+//     first wave and the light tiles fill in behind them;
+//   - the TPU grid's sequential slot axis is a loop inside the block, which
+//     reads its own cand/cnt/tent row (the TPU's scalar prefetch). A skipped
+//     slot is a branch uniform over the block;
+//   - staged ahead: the block knows its whole list, so while it sweeps one
+//     cluster's table in shared memory, cp.async copies the next listed
+//     cluster's table (10 KB at S = 128) into the other of two buffers. A
+//     slot costs one __syncthreads (the table it sweeps has landed, and no
+//     thread still reads the buffer the next copy overwrites) and, with the
+//     early-out, one __syncthreads_and after the sweep. The early-out
+//     decides only whether the prefetched table is used;
+//   - the sums are written out here in f32 without FMA contraction: not a
+//     matrix unit and not TF32 (reduced-precision passes flip the t ~ 0
+//     self-hit gate, pallas_cull.py:59-69, docs/PERF.md round 3). The plain
+//     version (ops/cuda_cull.py::_face_test) sums in the same order.
 //
 // Numerics: built with --fmad=false, no --use_fast_math and IEEE division,
 // so each operation rounds as the unfused torch ops do and the kernels
@@ -74,46 +93,44 @@
 
 namespace {
 
-constexpr int kRows = 11;        // feature rows 0-10: o, d, o x d, 1, t_limit
-constexpr int kBlockRows = 16;   // rows of a coefficient block in memory
-constexpr int kFace4 = kRows;    // float4s a face: 4 groups x 11 rows
+constexpr int kFace4 = 5;        // float4s a face of the compact table: 20 floats
 constexpr int kCandMiss = 1 << 20;
 constexpr float kEps5 = 1.0e-5f;
 constexpr float kBigNeg = -3.0e38f;
-constexpr int kTile = 256;        // rays a tile: one block, one ray a thread
+constexpr int kTile = 256;       // rays a tile
+constexpr int kThreadsPerRay = 2;  // K4's threads a ray (K4m: 1)
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
-// Stage rows 0-10 of cluster `cid`'s block into shared memory, face-major:
-// sm[j * 44 + g * 11 + i] = block[i][g * S + j].
-template <int S>
-__device__ __forceinline__ void stage(const float* __restrict__ coeffs, int cid, float* sm) {
-  const float* blk = coeffs + static_cast<long long>(cid) * kBlockRows * 4 * S;
-  for (int k = threadIdx.x; k < kRows * 4 * S; k += kTile) {
-    const int i = k / (4 * S), lane = k - i * (4 * S);
-    const int g = lane / S, j = lane - g * S;
-    sm[j * (4 * kRows) + g * kRows + i] = blk[k];
-  }
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
-// sum_i c[i] * f[i], i = 0..10, in that order.
-__device__ __forceinline__ float contract(const float* c, const float* f) {
-  float acc = c[0] * f[0];
-#pragma unroll
-  for (int i = 1; i < kRows; ++i) acc = acc + c[i] * f[i];
-  return acc;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// One cluster for one ray: the face test over its S faces, then the
-// nearest merge or the any-hit OR. f[10] is the ray's t_limit (0 when
-// nearest).
-template <int S, bool ANY_HIT>
-__device__ __forceinline__ void sweep_cluster(const float4* sm4, const float* f, int cid,
-                                              float& best, int& face) {
+// Start copying cluster `cid`'s S x 5 float4s into `buf` (NT threads).
+template <int S, int NT>
+__device__ __forceinline__ void stage_async(const float4* __restrict__ table, int cid,
+                                            float4* buf) {
+  const float4* src = table + static_cast<long long>(cid) * S * kFace4;
+  for (int k = threadIdx.x; k < S * kFace4; k += NT) cp_async16(buf + k, src + k);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One cluster for one ray, this thread's faces sub, sub + K, ...: the face
+// test, then the nearest merge over the ray's K threads and into the
+// running best, or the any-hit OR. f: o (0-2), d (3-5), o x d (6-8).
+template <int S, bool ANY_HIT, int K>
+__device__ __forceinline__ void sweep_cluster(const float4* sm4, const float* f, float tlim,
+                                              int cid, int sub, float& best, int& face) {
   float tmin = inf_f();
   int fsub = 0;
-  for (int j = 0; j < S; ++j) {
-    float c[4 * kRows];
+  for (int j = sub; j < S; j += K) {
+    float c[4 * kFace4];
 #pragma unroll
     for (int q = 0; q < kFace4; ++q) {
       const float4 v = sm4[j * kFace4 + q];
@@ -122,30 +139,91 @@ __device__ __forceinline__ void sweep_cluster(const float4* sm4, const float* f,
       c[4 * q + 2] = v.z;
       c[4 * q + 3] = v.w;
     }
-    const float det = contract(c, f);
-    const float tnum = contract(c + kRows, f);
-    const float unum = contract(c + 2 * kRows, f);
-    const float vnum = contract(c + 3 * kRows, f);
+    const float det = c[0] * f[3] + c[1] * f[4] + c[2] * f[5];
+    const float tnum = c[3] * f[0] + c[4] * f[1] + c[5] * f[2] + c[6];
+    const float unum = c[7] * f[3] + c[8] * f[4] + c[9] * f[5] + c[10] * f[6] + c[11] * f[7] +
+                       c[12] * f[8];
+    const float vnum = c[13] * f[3] + c[14] * f[4] + c[15] * f[5] + c[16] * f[6] + c[17] * f[7] +
+                       c[18] * f[8];
     const float inv = 1.0f / det;
     const float t = tnum * inv;
     const float u = unum * inv;
     const float v = vnum * inv;
     const bool valid = (t >= kEps5) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
     if constexpr (ANY_HIT) {
-      if (valid && t < f[10]) best = 1.0f;
+      if (valid && t < tlim) best = 1.0f;
     } else if (valid && t < tmin) {
       tmin = t;
       fsub = j;
     }
   }
-  if constexpr (!ANY_HIT) {
-    const int fid = cid * S + fsub;
+  if constexpr (ANY_HIT) {
+#pragma unroll
+    for (int off = K / 2; off >= 1; off >>= 1) best = fmaxf(best, __shfl_xor_sync(kFull, best, off));
+  } else {
+    int fid = cid * S + fsub;
+#pragma unroll
+    for (int off = K / 2; off >= 1; off >>= 1) {
+      const float t2 = __shfl_xor_sync(kFull, tmin, off);
+      const int f2 = __shfl_xor_sync(kFull, fid, off);
+      if (t2 < tmin || (t2 == tmin && f2 < fid)) {
+        tmin = t2;
+        fid = f2;
+      }
+    }
     if (tmin < inf_f() && (tmin < best || (tmin == best && fid < face))) {
       best = tmin;
       face = fid;
     }
   }
 }
+
+// Sweep the clusters that `list` yields, in order, each table staged while
+// the previous one is swept. list.next(l): the first slot >= l that runs
+// (list.count when none); list.cluster(l): its cluster. With early_out the
+// tile stops after a slot l once every ray's key is at most tent_t[l + 1].
+template <int S, bool ANY_HIT, int K, class List>
+__device__ __forceinline__ void sweep_list(const float4* __restrict__ table, const List& list,
+                                           const float* tent_t, int early_out, const float* f,
+                                           float tlim, int sub, float& best, int& face) {
+  __shared__ float4 buf[2][S * kFace4];
+  int l = list.next(0);
+  if (l < list.count) stage_async<S, kTile * K>(table, list.cluster(l), buf[0]);
+  for (int b = 0; l < list.count; b ^= 1) {
+    const int cid = list.cluster(l);
+    const int l_next = list.next(l + 1);
+    cp_async_wait_all();
+    __syncthreads();  // buf[b] has landed; no thread still reads buf[b ^ 1]
+    if (l_next < list.count) stage_async<S, kTile * K>(table, list.cluster(l_next), buf[b ^ 1]);
+    sweep_cluster<S, ANY_HIT, K>(buf[b], f, tlim, cid, sub, best, face);
+    if (early_out) {
+      const float key = ANY_HIT ? (best > 0.0f ? kBigNeg : tlim) : best;
+      if (__syncthreads_and(key <= tent_t[l + 1])) break;
+    }
+    l = l_next;
+  }
+  cp_async_wait_all();  // no copy in flight when the block ends
+}
+
+struct SlotList {  // K4: the tile's candidate row, slots within cnt without the miss bit
+  const int* cand;
+  int count;
+  __device__ int next(int l) const {
+    while (l < count && cand[l] >= kCandMiss) ++l;
+    return l;
+  }
+  __device__ int cluster(int l) const { return cand[l]; }
+};
+
+struct MaskList {  // K4m: the clusters whose verdict byte is set, ascending
+  const unsigned char* bits;
+  int count;
+  __device__ int next(int l) const {
+    while (l < count && bits[l] == 0) ++l;
+    return l;
+  }
+  __device__ int cluster(int l) const { return l; }
+};
 
 struct Rays {
   const float *ox, *oy, *oz, *dx, *dy, *dz, *t_limit;  // t_limit null: nearest
@@ -156,10 +234,10 @@ struct Rays {
   int* occ_out;
 };
 
-// The ray's features and seeds, from lane i.
+// The ray's features, t_limit and seeds, from lane i.
 template <bool ANY_HIT>
-__device__ __forceinline__ void load_ray(const Rays& r, long long i, float* f, float& best,
-                                         int& face) {
+__device__ __forceinline__ void load_ray(const Rays& r, long long i, float* f, float& tlim,
+                                         float& best, int& face) {
   f[0] = r.ox[i];
   f[1] = r.oy[i];
   f[2] = r.oz[i];
@@ -169,8 +247,7 @@ __device__ __forceinline__ void load_ray(const Rays& r, long long i, float* f, f
   f[6] = f[1] * f[5] - f[2] * f[4];  // c = o x d (ops/cuda_intersect.py::cross_od)
   f[7] = f[2] * f[3] - f[0] * f[5];
   f[8] = f[0] * f[4] - f[1] * f[3];
-  f[9] = 1.0f;
-  f[10] = ANY_HIT ? r.t_limit[i] : 0.0f;
+  tlim = ANY_HIT ? r.t_limit[i] : 0.0f;
   best = r.seed_t[i];
   face = ANY_HIT ? 0 : r.seed_f[i];
 }
@@ -186,50 +263,35 @@ __device__ __forceinline__ void store_ray(const Rays& r, long long i, float best
 }
 
 template <int S, bool ANY_HIT>
-__global__ void __launch_bounds__(kTile)
-    slotted_kernel(Rays r, const float* __restrict__ coeffs, int n_clusters,
+__global__ void __launch_bounds__(kTile * kThreadsPerRay)
+    slotted_kernel(Rays r, const float4* __restrict__ table, int n_clusters,
                    const int* __restrict__ cand, const int* __restrict__ cnt,
-                   const float* __restrict__ tent, int early_out) {
-  __shared__ float4 sm4[S * kFace4];
-  const long long i = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x;
-  float f[kRows], best;
+                   const float* __restrict__ tent, const int* __restrict__ order,
+                   int early_out) {
+  constexpr int K = kThreadsPerRay;
+  const int tile = order[blockIdx.x];
+  const int sub = static_cast<int>(threadIdx.x) % K;
+  const long long i = static_cast<long long>(tile) * kTile + threadIdx.x / K;
+  float f[9], tlim, best;
   int face;
-  load_ray<ANY_HIT>(r, i, f, best, face);
-  const int* cand_t = cand + static_cast<long long>(blockIdx.x) * n_clusters;
-  const float* tent_t = tent + static_cast<long long>(blockIdx.x) * (n_clusters + 1);
-  const int count = min(cnt[blockIdx.x], n_clusters);
-  for (int l = 0; l < count; ++l) {
-    const int entry = cand_t[l];
-    if (entry >= kCandMiss) continue;  // the frustum misses it: uniform over the block
-    __syncthreads();                   // the previous block is no longer read
-    stage<S>(coeffs, entry, reinterpret_cast<float*>(sm4));
-    __syncthreads();
-    sweep_cluster<S, ANY_HIT>(sm4, f, entry, best, face);
-    if (early_out) {
-      const float key = ANY_HIT ? (best > 0.0f ? kBigNeg : f[10]) : best;
-      if (__syncthreads_and(key <= tent_t[l + 1])) break;
-    }
-  }
-  store_ray<ANY_HIT>(r, i, best, face);
+  load_ray<ANY_HIT>(r, i, f, tlim, best, face);
+  const SlotList list{cand + static_cast<long long>(tile) * n_clusters,
+                      min(cnt[tile], n_clusters)};
+  sweep_list<S, ANY_HIT, K>(table, list, tent + static_cast<long long>(tile) * (n_clusters + 1),
+                            early_out, f, tlim, sub, best, face);
+  if (sub == 0) store_ray<ANY_HIT>(r, i, best, face);
 }
 
 template <int S, bool ANY_HIT>
 __global__ void __launch_bounds__(kTile)
-    masked_kernel(Rays r, const float* __restrict__ coeffs, int n_clusters,
+    masked_kernel(Rays r, const float4* __restrict__ table, int n_clusters,
                   const unsigned char* __restrict__ mask) {
-  __shared__ float4 sm4[S * kFace4];
   const long long i = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x;
-  float f[kRows], best;
+  float f[9], tlim, best;
   int face;
-  load_ray<ANY_HIT>(r, i, f, best, face);
-  const unsigned char* bits = mask + static_cast<long long>(blockIdx.x) * n_clusters;
-  for (int c = 0; c < n_clusters; ++c) {
-    if (bits[c] == 0) continue;  // one tile per block: uniform over the block
-    __syncthreads();
-    stage<S>(coeffs, c, reinterpret_cast<float*>(sm4));
-    __syncthreads();
-    sweep_cluster<S, ANY_HIT>(sm4, f, c, best, face);
-  }
+  load_ray<ANY_HIT>(r, i, f, tlim, best, face);
+  const MaskList list{mask + static_cast<long long>(blockIdx.x) * n_clusters, n_clusters};
+  sweep_list<S, ANY_HIT, 1>(table, list, nullptr, 0, f, tlim, 0, best, face);
   store_ray<ANY_HIT>(r, i, best, face);
 }
 
@@ -244,45 +306,49 @@ Rays rays_of(const float* ox, const float* oy, const float* oz, const float* dx,
 }  // namespace
 
 // C entry points, bound with ctypes (ops/cuda_cull.py). Pointers are device
-// pointers to n_tiles x 256 rays (a whole number of tiles), the (C, 16, 4S)
-// f32 coefficient blocks, and the gate tables: K4 takes cand (n_tiles, C)
-// int32, cnt (n_tiles,) int32 and tent (n_tiles, C + 1) f32 and a flag for
-// the early-out; K4m takes (n_tiles, C) verdict bytes. `t_limit` null:
-// nearest mode, seeds seed_t / seed_f, outputs t_out / f_out. Otherwise
-// any-hit mode: seed_t is the 0/1 occlusion seed, output occ_out. `size`
-// is 64 or 128. Each launches one 256-thread block a tile (ops/cuda_cull.py's
-// TILE) on `stream` without synchronising and returns cudaGetLastError() of
-// the launch (cudaErrorInvalidValue for a shape it does not take).
+// pointers to n_tiles x 256 rays (a whole number of tiles), the (C, S, 20)
+// f32 compact table (16-byte aligned), and the gate tables: K4 takes cand
+// (n_tiles, C) int32, cnt (n_tiles,) int32, tent (n_tiles, C + 1) f32, order
+// (n_tiles,) int32 (block b sweeps tile order[b]) and a flag for the
+// early-out; K4m takes (n_tiles, C) verdict bytes. `t_limit` null: nearest
+// mode, seeds seed_t / seed_f, outputs t_out / f_out. Otherwise any-hit
+// mode: seed_t is the 0/1 occlusion seed, output occ_out. `size` is 64 or
+// 128. Each launches one block a tile (K4: 512 threads, K4m: 256) on
+// `stream` without synchronising and returns
+// cudaGetLastError() of the launch (cudaErrorInvalidValue for a shape it
+// does not take).
 extern "C" int pbr_cull_slotted(const float* ox, const float* oy, const float* oz,
                                 const float* dx, const float* dy, const float* dz,
-                                const float* t_limit, const float* coeffs, int n_clusters,
+                                const float* t_limit, const float* table, int n_clusters,
                                 int size, int n_tiles, const int* cand, const int* cnt,
-                                const float* tent, int early_out,
+                                const float* tent, const int* order, int early_out,
                                 const float* seed_t, const int* seed_f, float* t_out,
                                 int* f_out, int* occ_out, void* stream) {
   if (!shape_ok(n_clusters, size)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Rays r = rays_of(ox, oy, oz, dx, dy, dz, t_limit, seed_t, seed_f, t_out, f_out, occ_out);
+  const float4* t4 = reinterpret_cast<const float4*>(table);
+  constexpr int nt = kTile * kThreadsPerRay;
   if (size == 64 && t_limit) {
-    slotted_kernel<64, true><<<n_tiles, kTile, 0, s>>>(r, coeffs, n_clusters, cand, cnt, tent,
-                                                      early_out);
+    slotted_kernel<64, true><<<n_tiles, nt, 0, s>>>(r, t4, n_clusters, cand, cnt, tent, order,
+                                                    early_out);
   } else if (size == 64) {
-    slotted_kernel<64, false><<<n_tiles, kTile, 0, s>>>(r, coeffs, n_clusters, cand, cnt, tent,
-                                                       early_out);
+    slotted_kernel<64, false><<<n_tiles, nt, 0, s>>>(r, t4, n_clusters, cand, cnt, tent, order,
+                                                     early_out);
   } else if (t_limit) {
-    slotted_kernel<128, true><<<n_tiles, kTile, 0, s>>>(r, coeffs, n_clusters, cand, cnt, tent,
-                                                       early_out);
+    slotted_kernel<128, true><<<n_tiles, nt, 0, s>>>(r, t4, n_clusters, cand, cnt, tent, order,
+                                                     early_out);
   } else {
-    slotted_kernel<128, false><<<n_tiles, kTile, 0, s>>>(r, coeffs, n_clusters, cand, cnt,
-                                                        tent, early_out);
+    slotted_kernel<128, false><<<n_tiles, nt, 0, s>>>(r, t4, n_clusters, cand, cnt, tent, order,
+                                                      early_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int pbr_cull_masked(const float* ox, const float* oy, const float* oz,
                                const float* dx, const float* dy, const float* dz,
-                               const float* t_limit, const float* coeffs, int n_clusters,
+                               const float* t_limit, const float* table, int n_clusters,
                                int size, int n_tiles, const unsigned char* mask,
                                const float* seed_t, const int* seed_f, float* t_out,
                                int* f_out, int* occ_out, void* stream) {
@@ -290,14 +356,15 @@ extern "C" int pbr_cull_masked(const float* ox, const float* oy, const float* oz
   if (n_tiles <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Rays r = rays_of(ox, oy, oz, dx, dy, dz, t_limit, seed_t, seed_f, t_out, f_out, occ_out);
+  const float4* t4 = reinterpret_cast<const float4*>(table);
   if (size == 64 && t_limit) {
-    masked_kernel<64, true><<<n_tiles, kTile, 0, s>>>(r, coeffs, n_clusters, mask);
+    masked_kernel<64, true><<<n_tiles, kTile, 0, s>>>(r, t4, n_clusters, mask);
   } else if (size == 64) {
-    masked_kernel<64, false><<<n_tiles, kTile, 0, s>>>(r, coeffs, n_clusters, mask);
+    masked_kernel<64, false><<<n_tiles, kTile, 0, s>>>(r, t4, n_clusters, mask);
   } else if (t_limit) {
-    masked_kernel<128, true><<<n_tiles, kTile, 0, s>>>(r, coeffs, n_clusters, mask);
+    masked_kernel<128, true><<<n_tiles, kTile, 0, s>>>(r, t4, n_clusters, mask);
   } else {
-    masked_kernel<128, false><<<n_tiles, kTile, 0, s>>>(r, coeffs, n_clusters, mask);
+    masked_kernel<128, false><<<n_tiles, kTile, 0, s>>>(r, t4, n_clusters, mask);
   }
   return static_cast<int>(cudaGetLastError());
 }

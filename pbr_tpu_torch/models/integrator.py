@@ -15,7 +15,10 @@ What the JAX version does only to please XLA is not ported. These
 ``sample_loop`` (the bounce and sample loops are Python loops here),
 ``remat`` and the ``PBR_TPU_CKPT_*`` / ``PBR_TPU_GATHER_VJP`` switches
 (checkpointing scopes), and the shard_map varying-axes workarounds. The
-material gather is plain indexing: exact table values, no matmul.
+material gather is the JAX default's select chain up to 16 materials and
+plain indexing above (``_gather_materials``): exact table values either
+way. JAX's one-hot matmul for 17-128 materials and its opt-in matmul
+backward are TPU choices and are not ported.
 
 Gradients are stopped exactly where the JAX version stops them: the
 nearest-face search and the geometry (``ops/traverse.py``, and the
@@ -120,13 +123,34 @@ def _norm_rgb(bc: Vec3) -> Vec3:
     return bc / torch.maximum(_ONE, bc.max_component())
 
 
+SELECT_MAX_MATERIALS = 16  # a select chain up to this many materials, indexing above
+
+
 def _gather_materials(mats, midx):
-    """All per-ray material fields, by plain indexing (exact values)."""
-    return (
-        mats.d[midx], mats.Ni[midx], mats.rough[midx], mats.p[midx],
-        mats.nu[midx], mats.nv[midx], mats.Rs[midx], mats.Rd[midx],
-        gather_vec3(mats.kd, midx), gather_vec3(mats.ks, midx),
-    )
+    """All per-ray material fields; every value is a table entry verbatim.
+
+    With at most ``SELECT_MAX_MATERIALS`` materials each field is the JAX
+    default's select chain (``pbr_tpu/models/integrator.py:176-186``):
+    ``f[0] * ones``, then one ``torch.where`` per material 1..M-1. Its
+    backward is M elementwise selects and M small sums a field; plain
+    indexing's backward sorts the B indices. Above that, plain indexing."""
+    fields = (mats.d, mats.Ni, mats.rough, mats.p, mats.nu, mats.nv, mats.Rs, mats.Rd,
+              *mats.kd, *mats.ks)
+    m = int(mats.d.shape[0])
+    if m <= SELECT_MAX_MATERIALS:
+        ones = torch.ones(midx.shape, dtype=torch.float32, device=midx.device)
+        sels = [midx == i for i in range(1, m)]
+
+        def pick(f):
+            v = f[0] * ones
+            for i, sel in enumerate(sels):
+                v = torch.where(sel, f[i + 1], v)
+            return v
+
+        vals = [pick(f) for f in fields]
+    else:
+        vals = [f[midx] for f in fields]
+    return (*vals[:8], Vec3(*vals[8:11]), Vec3(*vals[11:14]))
 
 
 def _compact_rows(alive, block: int, cap: int):

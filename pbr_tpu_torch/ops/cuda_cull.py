@@ -13,8 +13,12 @@ The scene is cut into clusters of S = 64 or 128 faces
 (``accel/clusters.py``), each with a (16, 4S) coefficient block; contracted
 with a ray's features ``[o, d, o x d, 1, t_limit]`` (rows 0-10) it gives
 det, tnum, unum and vnum of the linear-form Moller-Trumbore for the S
-faces. Per tile of ``TILE`` = 256 rays (the JAX wrapper's default, fixed
-here):
+faces. Only 19 of a face's 44 entries in rows 0-10 can be nonzero:
+``compact_table`` repacks them once a scene (``scene/device.py``) into the
+(C, S, 20) table the kernels and the plain versions read, and each sum
+leaves out only the zero terms, in ascending row order, which changes no
+gate and no winning t for finite rays (the source's header says why). Per
+tile of ``TILE`` = 256 rays (the JAX wrapper's default, fixed here):
 
 - **K4** (more than 48 clusters) sweeps the tile's candidate list
   (``ops/cull.py::candidates``: superclusters near to far, the fine
@@ -23,7 +27,8 @@ here):
   ties whatever the order of the sweep. With more than 96 clusters the
   rays are first sorted by ``coherence_keys``, and a tile stops once every
   ray's best t (any-hit: every unoccluded ray's light distance) is at most
-  the next slot's entry bound;
+  the next slot's entry bound. The kernel takes the tiles heaviest first
+  (``tile_order``), two threads a ray;
 - **K4m** (at most 48 clusters) visits every cluster in ascending order,
   gated by the tile's ``fine_hit_mask`` verdict.
 
@@ -76,7 +81,16 @@ from pbr_tpu_torch.ops.vec import Vec3, f32, safe_div, safe_sqrt
 MASKED_MAX_CLUSTERS = 48  # K4m up to this many clusters, K4 above
 SORT_MIN_CLUSTERS = 96  # sort and early-out above this many (more than one TPU round)
 FEATURE_ROWS = 11  # rows 0-10 of the coefficient block: o, d, o x d, 1, t_limit
-TILE = 256  # rays a tile, one thread block of the kernels
+TILE = 256  # rays a tile: one thread block of the kernels (K4's has two threads a ray)
+# The compact table: per face, the entries of the coefficient block that the
+# layout (accel/clusters.py) can make nonzero, as (group, row), each sum's
+# rows ascending: det = d.m, tnum = -o.m + km (row 9's feature is 1), unum =
+# -d.w + c.e2, vnum = -d.q - c.e1; then one zero, so a face is five float4s.
+COMPACT_TERMS = ((0, 3), (0, 4), (0, 5),
+                 (1, 0), (1, 1), (1, 2), (1, 9),
+                 (2, 3), (2, 4), (2, 5), (2, 6), (2, 7), (2, 8),
+                 (3, 3), (3, 4), (3, 5), (3, 6), (3, 7), (3, 8))
+COMPACT = 20  # floats a face of the compact table
 _BIG = f32(3.0e38)
 _BIG_NEG = f32(-3.0e38)
 # Plain version: tiles per step are capped so that a (tiles, TILE, S)
@@ -87,10 +101,10 @@ _PLAIN_ELEMS = 1 << 22
 launches = {"K4": 0, "K4 any-hit": 0, "K4m": 0, "K4m any-hit": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# rays (6), t_limit, coeffs, C, S, n_tiles, gate tables (3), early_out,
+# rays (6), t_limit, table, C, S, n_tiles, cand, cnt, tent, order, early_out,
 # seed_t, seed_f, t_out, f_out, occ_out, stream
-_SLOTTED_ARGTYPES = [_P] * 8 + [_I] * 3 + [_P] * 3 + [_I] + [_P] * 6
-# rays (6), t_limit, coeffs, C, S, n_tiles, mask, seed_t, seed_f, t_out,
+_SLOTTED_ARGTYPES = [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 6
+# rays (6), t_limit, table, C, S, n_tiles, mask, seed_t, seed_f, t_out,
 # f_out, occ_out, stream
 _MASKED_ARGTYPES = [_P] * 8 + [_I] * 3 + [_P] * 7
 
@@ -104,23 +118,39 @@ def _features(o: Vec3, d: Vec3, t_limit) -> list:
     return [*o, *d, *c, ones, tlim]
 
 
-def _face_test(coeff: torch.Tensor, feats: torch.Tensor, s: int):
+def compact_table(coeffs: torch.Tensor) -> torch.Tensor:
+    """The (C, S, 20) float32 compact table of (C, 16, 4S) coefficient
+    blocks, face-major: face j of cluster c holds the ``COMPACT_TERMS``
+    entries, then 0. Raises ``ValueError`` where an entry of rows 0-10 that
+    it drops is not exactly 0 (row 11, the AABB lanes, is not read)."""
+    c, rows, lanes = coeffs.shape
+    if rows != 16 or lanes % 4:
+        raise ValueError(f"coefficient blocks must be (C, 16, 4S), not {tuple(coeffs.shape)}")
+    blk = coeffs[:, :FEATURE_ROWS].reshape(c, FEATURE_ROWS, 4, lanes // 4)  # (C, row, group, S)
+    keep = torch.zeros((FEATURE_ROWS, 4), dtype=torch.bool)
+    for g, r in COMPACT_TERMS:
+        keep[r, g] = True
+    dropped = blk[:, ~keep.to(coeffs.device)]
+    if (dropped != 0).any():
+        raise ValueError("coefficient blocks hold a nonzero entry where the layout has none: "
+                         "the compact table would drop it")
+    cols = [blk[:, r, g] for g, r in COMPACT_TERMS]
+    return torch.stack([*cols, torch.zeros_like(cols[0])], dim=2).contiguous()
+
+
+def _face_test(tab: torch.Tensor, feats: torch.Tensor):
     """t and validity of each (ray, face) pair of a group of tiles.
 
-    ``coeff`` (k, 16, 4S): each tile's cluster block; ``feats`` (11, k,
-    TILE). Each of det, tnum, unum and vnum is the 11-term sum over rows
-    0-10 in ascending row order, left to right (row 11, the AABB lanes, is
-    left out: its feature is 0, but the padding clusters' infinite bounds
-    times 0 would be NaN), as in the kernel. Returns ``(t, valid)`` of
-    (k, TILE, S)."""
-    def contract(g):
-        blk = coeff[:, :FEATURE_ROWS, g * s:(g + 1) * s]  # (k, 11, S)
-        acc = blk[:, 0, None, :] * feats[0, :, :, None]
-        for i in range(1, FEATURE_ROWS):
-            acc = acc + blk[:, i, None, :] * feats[i, :, :, None]
-        return acc
-
-    det, tnum, unum, vnum = (contract(g) for g in range(4))
+    ``tab`` (k, S, 20): each tile's cluster of the compact table; ``feats``
+    (11, k, TILE). det, tnum, unum and vnum sum the compact terms left to
+    right, as the kernel does (km is added as it is: its feature is 1).
+    Returns ``(t, valid)`` of (k, TILE, S)."""
+    c = [tab[:, None, :, j] for j in range(len(COMPACT_TERMS))]  # (k, 1, S)
+    f = [feats[i, :, :, None] for i in range(9)]  # (k, TILE, 1)
+    det = c[0] * f[3] + c[1] * f[4] + c[2] * f[5]
+    tnum = c[3] * f[0] + c[4] * f[1] + c[5] * f[2] + c[6]
+    unum = c[7] * f[3] + c[8] * f[4] + c[9] * f[5] + c[10] * f[6] + c[11] * f[7] + c[12] * f[8]
+    vnum = c[13] * f[3] + c[14] * f[4] + c[15] * f[5] + c[16] * f[6] + c[17] * f[7] + c[18] * f[8]
     inv = 1.0 / det
     t = tnum * inv
     u = unum * inv
@@ -138,13 +168,14 @@ class _SweepState:
         self.face = None if any_hit else seed_f.reshape(-1, TILE).clone()
         self.any_hit = any_hit
 
-    def sweep(self, coeffs, tiles, cids):
-        """Sweep cluster ``cids[i]`` for tile ``tiles[i]`` (1-D int64)."""
-        s = coeffs.shape[2] // 4
+    def sweep(self, table, tiles, cids):
+        """Sweep cluster ``cids[i]`` of the compact table for tile
+        ``tiles[i]`` (1-D int64)."""
+        s = table.shape[1]
         step = max(1, _PLAIN_ELEMS // (TILE * s))
         for k in range(0, tiles.shape[0], step):
             tl, cl = tiles[k:k + step], cids[k:k + step]
-            t, valid = _face_test(coeffs[cl], self.feats[:, tl], s)
+            t, valid = _face_test(table[cl], self.feats[:, tl])
             if self.any_hit:
                 occ_new = (valid & (t < self.feats[10, tl][:, :, None])).any(dim=2)
                 self.best[tl] = torch.maximum(self.best[tl], occ_new.to(torch.float32))
@@ -173,7 +204,7 @@ class _SweepState:
         return self.best.reshape(-1), self.face.reshape(-1)
 
 
-def _slotted_plain(feats, coeffs, cand, cnt, tent, early_out, seed_t, seed_f, any_hit):
+def _slotted_plain(feats, table, cand, cnt, tent, early_out, seed_t, seed_f, any_hit):
     """K4 in torch ops: walk the slots in order; at each slot only the
     tiles whose slot runs (within ``cnt``, no miss bit, not done) sweep
     their candidate, so the cost follows the executed work."""
@@ -187,24 +218,24 @@ def _slotted_plain(feats, coeffs, cand, cnt, tent, early_out, seed_t, seed_f, an
         tiles = torch.nonzero(run).flatten()
         if tiles.numel() == 0:
             continue
-        st.sweep(coeffs, tiles, cand[tiles, l].long())
+        st.sweep(table, tiles, cand[tiles, l].long())
         if early_out:
             done[tiles] = st.done(tiles, tent[tiles, l + 1])
     return st.result()
 
 
-def _masked_plain(feats, coeffs, mask, seed_t, seed_f, any_hit):
+def _masked_plain(feats, table, mask, seed_t, seed_f, any_hit):
     """K4m in torch ops: cluster by cluster in ascending order, only the
     tiles whose verdict is set."""
     st = _SweepState(feats, seed_t, seed_f, any_hit)
     for c in range(mask.shape[1]):
         tiles = torch.nonzero(mask[:, c]).flatten()
         if tiles.numel():
-            st.sweep(coeffs, tiles, torch.full_like(tiles, c))
+            st.sweep(table, tiles, torch.full_like(tiles, c))
     return st.result()
 
 
-def _launch(name, symbol, argtypes, o, d, t_limit, coeffs, n_tiles, gate_args, seed_t,
+def _launch(name, symbol, argtypes, o, d, t_limit, table, n_tiles, gate_args, seed_t,
             seed_f):
     """One launch of a K4/K4m instance; returns the pass's outputs."""
     dev = o.x.device
@@ -214,12 +245,12 @@ def _launch(name, symbol, argtypes, o, d, t_limit, coeffs, n_tiles, gate_args, s
     f_out = torch.empty((0 if any_hit else n,), dtype=torch.int32, device=dev)
     occ = torch.empty((n if any_hit else 0,), dtype=torch.int32, device=dev)
     lib = load("cull_intersect", symbol, argtypes)
-    c, _, lanes = coeffs.shape
+    c, s, _ = table.shape
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, symbol)(
             *(a.data_ptr() for a in (*o, *d)), t_limit.data_ptr() if any_hit else None,
-            coeffs.data_ptr(), c, lanes // 4, n_tiles, *gate_args,
+            table.data_ptr(), c, s, n_tiles, *gate_args,
             seed_t.data_ptr(), None if any_hit else seed_f.data_ptr(),
             t_out.data_ptr(), f_out.data_ptr(), occ.data_ptr(), stream,
         )
@@ -230,22 +261,32 @@ def _launch(name, symbol, argtypes, o, d, t_limit, coeffs, n_tiles, gate_args, s
     return occ.to(torch.float32) if any_hit else (t_out, f_out)
 
 
-def _slotted_kernel(feats, coeffs, cand, cnt, tent, early_out, seed_t, seed_f, any_hit):
+def tile_order(cand: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """(T,) int32: the tiles by listed slots (within ``cnt``, without the
+    miss bit), most first, ties in ascending order. K4's block b sweeps
+    tile ``order[b]``, so the longest lists start in the first wave."""
+    slots = torch.arange(cand.shape[1], device=cand.device)[None, :] < cnt[:, None]
+    listed = ((cand < CAND_MISS) & slots).sum(dim=1)
+    return torch.argsort(listed, descending=True, stable=True).to(torch.int32)
+
+
+def _slotted_kernel(feats, table, cand, cnt, tent, early_out, seed_t, seed_f, any_hit):
     """``_slotted_plain``'s contract, by a launch of kernel K4."""
     o, d = Vec3(*feats[0:3]), Vec3(*feats[3:6])
     cand, cnt, tent = (a.contiguous() for a in (cand, cnt, tent))
-    gate = (cand.data_ptr(), cnt.data_ptr(), tent.data_ptr(), int(early_out))
+    order = tile_order(cand, cnt)
+    gate = (cand.data_ptr(), cnt.data_ptr(), tent.data_ptr(), order.data_ptr(), int(early_out))
     return _launch("K4", "pbr_cull_slotted", _SLOTTED_ARGTYPES, o, d,
-                   feats[10] if any_hit else None, coeffs, cand.shape[0], gate, seed_t,
+                   feats[10] if any_hit else None, table, cand.shape[0], gate, seed_t,
                    seed_f)
 
 
-def _masked_kernel(feats, coeffs, mask, seed_t, seed_f, any_hit):
+def _masked_kernel(feats, table, mask, seed_t, seed_f, any_hit):
     """``_masked_plain``'s contract, by a launch of kernel K4m."""
     o, d = Vec3(*feats[0:3]), Vec3(*feats[3:6])
     m8 = mask.to(torch.uint8).contiguous()
     return _launch("K4m", "pbr_cull_masked", _MASKED_ARGTYPES, o, d,
-                   feats[10] if any_hit else None, coeffs, mask.shape[0], (m8.data_ptr(),),
+                   feats[10] if any_hit else None, table, mask.shape[0], (m8.data_ptr(),),
                    seed_t, seed_f)
 
 
@@ -259,13 +300,13 @@ def _cull(slotted, masked, o: Vec3, d: Vec3, clusters, light_pos, alive, precisi
     if alive is not None and (alive.dtype != torch.bool or alive.shape != o.x.shape
                               or alive.device != dev):
         raise ValueError(f"alive must be a bool tensor of the rays' shape on {dev}")
-    coeffs = clusters.coeffs
-    if coeffs.device != dev or coeffs.dtype != torch.float32 or not coeffs.is_contiguous():
-        raise ValueError(f"cluster coefficients must be contiguous float32 on {dev}")
+    table = clusters.compact
+    if table.device != dev or table.dtype != torch.float32 or not table.is_contiguous():
+        raise ValueError(f"the compact table must be contiguous float32 on {dev}")
     c = clusters.count
-    if coeffs.shape != (c, 16, 4 * clusters.size) or clusters.size not in (64, 128):
-        raise ValueError(f"coefficient blocks must be (C, 16, 4S) with S 64 or 128, not "
-                         f"{tuple(coeffs.shape)}")
+    if table.shape != (c, clusters.size, COMPACT) or clusters.size not in (64, 128):
+        raise ValueError(f"the compact table must be (C, S, {COMPACT}) with S 64 or 128, not "
+                         f"{tuple(table.shape)}")
     sort = early_out = c > SORT_MIN_CLUSTERS
     flat = o.x.shape[0]
     pad = (-flat) % TILE
@@ -291,10 +332,10 @@ def _cull(slotted, masked, o: Vec3, d: Vec3, clusters, light_pos, alive, precisi
         any_hit = t_limit is not None
         if c <= MASKED_MAX_CLUSTERS:
             mask = fine_hit_mask(ov, dv, clusters, TILE, t_cap=t_cap)
-            return masked(feats, coeffs, mask, seed_t, seed_f, any_hit)
+            return masked(feats, table, mask, seed_t, seed_f, any_hit)
         cand, cnt, tent = candidates(ov, dv, clusters, TILE, t_cap=t_cap)
         tent = torch.cat([tent, tent.new_full((n_tiles, 1), _BIG)], dim=1)
-        return slotted(feats, coeffs, cand, cnt, tent, early_out, seed_t, seed_f, any_hit)
+        return slotted(feats, table, cand, cnt, tent, early_out, seed_t, seed_f, any_hit)
 
     t_seed = torch.where(live, INF, _BIG_NEG)
     f_seed = torch.full((flat + pad,), -1, dtype=torch.int32, device=dev)

@@ -42,10 +42,19 @@ missed lanes out of the frustums, and those lanes seeded occluded.
   expression (``ops/cuda_intersect.py::mt_lin``) in their operation order,
   so on the card the two agree bitwise.
 
-Four parts of the JAX wrapper are not ported, and none changes an answer:
+After the global coherence sort, each pass builds its lists one chunk of
+``SWEEP_CHUNK_RAYS`` = 262,144 rays (whole tiles) at a time, as JAX's
+``lax.map`` does (131,072 rays there, a budget of the TPU's scalar memory):
+here the chunks bound the lists' (rows x 8, CL) temporaries, and the
+joined lists (a few MB) feed one launch a pass over all tiles, since a
+chunk of 1,024 tiles would fill only a few waves of the card. The chunk is
+the largest of those measured (``tools/sweep_chunks.py``) that keeps
+soup:100000's 1024² ``sweep`` frame within 5 GiB; fewer chunks cost fewer
+launches. No answer changes: every list, verdict and shadow ``t_cap`` is
+per tile or per row.
 
-- the ``lax.map`` ray chunking (``SWEEP_CHUNK_RAYS``): a budget of the
-  TPU's scalar memory for the candidate tables. Chunks are whole tiles;
+Three parts of the JAX wrapper are not ported, and none changes an answer:
+
 - the ``_sweep_rounds`` while-loop over rounds of ``slots`` candidate
   slots (``pallas_cull.py:339``): one launch sweeps every slot, and the
   in-kernel row early-out, with the same criterion, subsumes the round
@@ -73,6 +82,8 @@ TILE = 256  # rays a tile, one thread block of the kernels
 GROUPS = 8  # rows a tile
 ROW = TILE // GROUPS  # rays a row, one warp of the kernels
 LIN = 128  # faces a lin cluster
+# Rays a chunk of the lists, whole tiles (pallas_sweep.py:330-332 has 131,072)
+SWEEP_CHUNK_RAYS = 262_144
 _BIG = f32(3.0e38)
 _BIG_NEG = f32(-3.0e38)
 # Plain version: rows per step are capped so that a (rows, ROW, LIN)
@@ -296,13 +307,30 @@ def _sweep(slotted, masked, o: Vec3, d: Vec3, clusters, light_pos, alive, with_c
         o_p, d_p = Vec3(*(a[perm] for a in o_p)), Vec3(*(a[perm] for a in d_p))
         live = live[perm]
 
+    def chunked(lists, ov, dv, t_cap, live_p):
+        """``lists`` (``candidates_rows`` or ``row_hit_words``) one chunk of
+        whole tiles at a time, joined along the tiles."""
+        n = ov.x.shape[0]
+        step = max(TILE, SWEEP_CHUNK_RAYS // TILE * TILE)
+        parts = []
+        for lo in range(0, max(n, 1), step):  # one empty chunk when there are no rays
+            hi = min(lo + step, n)
+            cut = lambda v: Vec3(*(a[lo:hi] for a in v))  # noqa: E731
+            cap = None if t_cap is None else t_cap[lo // ROW:hi // ROW]
+            parts.append(lists(cut(ov), cut(dv), clusters, TILE, GROUPS, t_cap=cap,
+                               live=live_p[lo:hi]))
+        if len(parts) == 1:
+            return parts[0]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat(p) for p in zip(*parts))
+        return torch.cat(parts)
+
     def run_pass(ov, dv, t_limit, seed_t, seed_f, t_cap, live_p):
         if cl <= MASKED_MAX_LIN:
-            words = row_hit_words(ov, dv, clusters, TILE, GROUPS, t_cap=t_cap, live=live_p)
+            words = chunked(row_hit_words, ov, dv, t_cap, live_p)
             tests = _masked_counts(words) if with_counts else None
             return masked(ov, dv, t_limit, lin, words, seed_t, seed_f), tests
-        cand, cnt, tent = candidates_rows(ov, dv, clusters, TILE, GROUPS, t_cap=t_cap,
-                                          live=live_p)
+        cand, cnt, tent = chunked(candidates_rows, ov, dv, t_cap, live_p)
         tests = _slotted_counts(cand, cnt) if with_counts else None
         tent = torch.cat([tent, tent.new_full((tent.shape[0], 1), _BIG)], dim=1)
         return slotted(ov, dv, t_limit, lin, cand, cnt, tent, early_out, seed_t, seed_f), tests

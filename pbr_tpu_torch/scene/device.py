@@ -15,9 +15,10 @@ moves the result onto a torch device:
 Of a ``Scene``'s acceleration tables, what the kernels read is carried
 over: for the gated sweep (kernel K3, ``ops/cuda_gated.py``) and the
 cull-and-sweep (kernels K4 and K4m, ``ops/cuda_cull.py``) the fine cluster
-AABBs, the coefficient blocks, the supercluster AABBs, the scene bounds and
-the cluster size of its ``ClusterSet`` (``SceneParams.clusters``); for the
-row sweep (kernels K5 and K5m, ``ops/cuda_sweep.py``) its lin tables and
+AABBs, the compact table of the coefficient blocks
+(``ops/cuda_cull.py::compact_table``, repacked here once a scene), the
+supercluster AABBs, the scene bounds and the cluster size of its
+``ClusterSet`` (``SceneParams.clusters``); for the row sweep (kernels K5 and K5m, ``ops/cuda_sweep.py``) its lin tables and
 lin-cluster AABBs as well; for the tree walks (kernels K6, K7 and K8,
 ``ops/cuda_bvh.py``) the ``LinearBVH`` (``SceneParams.bvh``) and the
 ``BVHForest`` (``SceneParams.forest``).
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pbr_tpu_torch.ops.cuda_cull import compact_table
 from pbr_tpu_torch.ops.vec import Vec3
 from pbr_tpu_torch.scene.types import (
     CameraState,
@@ -76,9 +78,11 @@ class ClusterTables(NamedTuple):
     - ``bb_min``/``bb_max``: fine cluster AABBs, Vec3s of (C,) (padding
       clusters are inverted boxes);
     - ``size``: faces per cluster, 64 or 128;
-    - ``coeffs``: (C, 16, 4 * size) float32 coefficient blocks
-      (``accel/clusters.py``: ``[det | tnum | unum | vnum]`` against the ray
-      features ``[o, d, o x d, 1, t_limit]``; row 11 carries the AABB);
+    - ``compact``: (C, size, 20) float32, the compact table that kernels
+      K4 and K4m read: the entries of the ``ClusterSet``'s coefficient
+      blocks (``accel/clusters.py``: ``[det | tnum | unum | vnum]`` against
+      the ray features ``[o, d, o x d, 1, t_limit]``) that can be nonzero,
+      19 a face (``ops/cuda_cull.py::compact_table``);
     - ``sup_min``/``sup_max``: supercluster AABBs, Vec3s of (C / 16,);
     - ``scene_min``/``scene_max``: Vec3s of 0-d tensors, the Morton bounds
       of the coherence sort;
@@ -92,7 +96,7 @@ class ClusterTables(NamedTuple):
     bb_min: Vec3
     bb_max: Vec3
     size: int
-    coeffs: torch.Tensor
+    compact: torch.Tensor
     sup_min: Vec3
     sup_max: Vec3
     scene_min: Vec3
@@ -172,7 +176,7 @@ class SceneParams(nn.Module):
     ``light_radius`` (L,). Buffers: the triangle table ``tri_<name>``
     (3, F), the integer fields ``tri_mtl``, ``mat_light``, ``light_type``
     and, when the scene has a ``ClusterSet``, its tables ``clu_bb_min`` /
-    ``clu_bb_max`` (3, C), ``clu_coeffs`` (C, 16, 4S), ``clu_sup_min`` /
+    ``clu_bb_max`` (3, C), ``clu_compact`` (C, S, 20), ``clu_sup_min`` /
     ``clu_sup_max`` (3, C / 16) and ``clu_scene_min`` / ``clu_scene_max``
     (3,); when it has a BVH, ``bvh_bb_min`` / ``bvh_bb_max`` (3, N) and
     ``bvh_leaf_first`` / ``bvh_leaf_count`` / ``bvh_exit`` (N,); when it has
@@ -208,7 +212,7 @@ class SceneParams(nn.Module):
         if cs is not None:
             self.register_buffer("clu_bb_min", _stack3(cs.bb_min, device))
             self.register_buffer("clu_bb_max", _stack3(cs.bb_max, device))
-            self.register_buffer("clu_coeffs", _f32(cs.coeffs, device))
+            self.register_buffer("clu_compact", compact_table(_f32(cs.coeffs, "cpu")).to(device))
             self.register_buffer("clu_sup_min", _stack3(cs.sup_min, device))
             self.register_buffer("clu_sup_max", _stack3(cs.sup_max, device))
             self.register_buffer("clu_scene_min", _stack3(cs.scene_min, device))
@@ -256,7 +260,7 @@ class SceneParams(nn.Module):
             if self.has_lin else ()
         return ClusterTables(
             _vec(self.clu_bb_min), _vec(self.clu_bb_max), self.cluster_size,
-            self.clu_coeffs, _vec(self.clu_sup_min), _vec(self.clu_sup_max),
+            self.clu_compact, _vec(self.clu_sup_min), _vec(self.clu_sup_max),
             _vec(self.clu_scene_min), _vec(self.clu_scene_max), *lin,
         )
 

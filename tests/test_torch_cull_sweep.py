@@ -220,7 +220,7 @@ def test_early_out_skips_slots_and_changes_no_answer(monkeypatch):
     results = {}
     for early in (False, True):
         swept.clear()
-        out = cc._slotted_plain(cc._features(o, d, None), clusters.coeffs, cand, cnt, tent,
+        out = cc._slotted_plain(cc._features(o, d, None), clusters.compact, cand, cnt, tent,
                                 early, seed_t, seed_f, False)
         results[early] = (out, sum(swept))
     (t0, f0), n0 = results[False]
@@ -229,6 +229,127 @@ def test_early_out_skips_slots_and_changes_no_answer(monkeypatch):
     assert n1 < n0
     assert n0 == int(((cand < cc.CAND_MISS)
                       & (torch.arange(cand.shape[1]) < cnt[:, None])).sum())
+
+
+def _face_test_11(coeff, feats, s):
+    """The face test as the 11-row sums: each of det, tnum, unum and vnum
+    sums all of rows 0-10 in ascending order, left to right (the form K4
+    had before the compact table). ``coeff`` (k, 16, 4S), ``feats`` (11, k,
+    TILE); returns ``(t, valid, det)`` of (k, TILE, S)."""
+    def contract(g):
+        blk = coeff[:, :cc.FEATURE_ROWS, g * s:(g + 1) * s]
+        acc = blk[:, 0, None, :] * feats[0, :, :, None]
+        for i in range(1, cc.FEATURE_ROWS):
+            acc = acc + blk[:, i, None, :] * feats[i, :, :, None]
+        return acc
+
+    det, tnum, unum, vnum = (contract(g) for g in range(4))
+    inv = 1.0 / det
+    t, u, v = tnum * inv, unum * inv, vnum * inv
+    return t, (t >= 1e-5) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0), det
+
+
+def _adversarial_rays(scene, seed):
+    """Two tiles: 256 of the case's rays, 128 along the axes (directions
+    with zero components, half of them from a face's first vertex) and 128
+    from a random point or a first vertex towards a vertex or an edge's
+    midpoint of a face."""
+    rs = np.random.RandomState(seed)
+    v0, e1, e2 = (np.stack(list(getattr(scene.tris, k))) for k in ("v0", "e1", "e2"))
+    faces = rs.randint(0, v0.shape[1], 256)
+    o_axis = rs.uniform(-1.2, 1.2, (3, 128))
+    o_axis[:, :64] = v0[:, faces[:64]]
+    d_axis = np.zeros((3, 128))
+    d_axis[np.arange(128) % 3, np.arange(128)] = np.where(np.arange(128) % 2, 1.0, -1.0)
+    f2 = faces[128:]
+    targets = [v0[:, f2], v0[:, f2] + e1[:, f2], v0[:, f2] + e2[:, f2],
+               v0[:, f2] + 0.5 * e1[:, f2], v0[:, f2] + 0.5 * (e1[:, f2] + e2[:, f2])]
+    tgt = np.stack(targets)[np.arange(128) % 5, :, np.arange(128)].T
+    o_pt = rs.uniform(-1.2, 1.2, (3, 128))
+    o_pt[:, ::4] = v0[:, faces[::4][:32]]
+    d_pt = tgt - o_pt
+    d_pt[:, np.linalg.norm(d_pt, axis=0) == 0] = 1.0
+    d_pt /= np.linalg.norm(d_pt, axis=0, keepdims=True)
+    o_c, d_c, _ = _rays(256, seed)
+    o = np.concatenate([o_c, o_axis, o_pt], 1).astype(np.float32)
+    d = np.concatenate([d_c, d_axis, d_pt], 1).astype(np.float32)
+    return _t3(o), _t3(d)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_compact_form_matches_the_11_row_form(name):
+    """Every cluster of the case's scene against the case's rays and the
+    adversarial ones: the compact face test's validity equals the 11-row
+    form's, and t is equal wherever a face is valid. Padding faces give
+    det = +-0 in both forms, with signs that may differ, and stay invalid."""
+    n_faces, seed, size = CASES[name][:3]
+    scene = _scene(n_faces, seed, size)
+    clusters = to_torch(scene, "cpu").clusters
+    coeffs = torch.from_numpy(scene.clusters.coeffs)
+    o, d = _adversarial_rays(scene, seed)
+    feats = torch.stack(cc._features(o, d, None))  # (11, 512)
+    n_valid = n_zero_det = 0
+    for lo in range(0, clusters.count, 16):
+        cl = torch.arange(lo, min(lo + 16, clusters.count))
+        f = feats[:, None, :].expand(-1, cl.numel(), -1)
+        t11, valid11, det11 = _face_test_11(coeffs[cl], f, size)
+        t, valid = cc._face_test(clusters.compact[cl], f)
+        assert torch.equal(valid, valid11)
+        assert torch.equal(t[valid], t11[valid])
+        n_valid += int(valid.sum())
+        n_zero_det += int((det11 == 0).sum())
+    assert n_valid > 300 and n_zero_det > 0  # the case has substance
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_compact_table_drops_only_zeros(name):
+    """The repack keeps the layout's 19 entries a face verbatim, in
+    ``COMPACT_TERMS`` order, and every entry of rows 0-10 it drops is 0."""
+    n_faces, seed, size = CASES[name][:3]
+    scene = _scene(n_faces, seed, size)
+    coeffs, clusters = torch.from_numpy(scene.clusters.coeffs), to_torch(scene, "cpu").clusters
+    tab = clusters.compact
+    assert tab.shape == (clusters.count, size, cc.COMPACT) and tab.is_contiguous()
+    assert torch.equal(tab, cc.compact_table(coeffs))
+    blk = coeffs[:, :cc.FEATURE_ROWS].reshape(clusters.count, cc.FEATURE_ROWS, 4, size)
+    kept = torch.zeros_like(blk, dtype=torch.bool)
+    for j, (g, r) in enumerate(cc.COMPACT_TERMS):
+        assert torch.equal(tab[:, :, j], blk[:, r, g])
+        kept[:, r, g] = True
+    assert not tab[:, :, len(cc.COMPACT_TERMS):].any()
+    assert not blk[~kept].any()
+    assert blk[kept].count_nonzero() > 0.9 * blk[kept].numel() * n_faces / (clusters.count * size)
+
+
+@pytest.mark.parametrize("group, row", [(0, 0), (0, 10), (1, 5), (2, 9), (3, 0)])
+def test_compact_table_raises_on_a_dropped_nonzero(group, row):
+    """A block with a nonzero entry where the layout has none cannot be
+    repacked: the compact sums would leave it out."""
+    coeffs = torch.tensor(_scene(2000, 3, 64).clusters.coeffs)
+    cc.compact_table(coeffs)
+    coeffs[5, row, group * 64 + 7] = 0.25
+    with pytest.raises(ValueError, match="nonzero"):
+        cc.compact_table(coeffs)
+
+
+def test_tile_order_is_heaviest_first():
+    """K4's blocks take the tiles by listed slots, most first, ties in
+    ascending tile order: a permutation of the tiles."""
+    clusters = to_torch(_scene(12000, 11, 64), "cpu").clusters
+    o, d, _ = _rays(16 * cc.TILE, 3, 0.75)
+    o, d = _t3(o), _t3(d)
+    perm = torch.argsort(coherence_keys(o, d, clusters.scene_min, clusters.scene_max),
+                         stable=True)
+    o, d = Vec3(*(a[perm] for a in o)), Vec3(*(a[perm] for a in d))
+    cand, cnt, _ = candidates(o, d, clusters, cc.TILE)
+    order = cc.tile_order(cand, cnt)
+    assert order.dtype == torch.int32
+    assert torch.equal(torch.sort(order).values, torch.arange(cand.shape[0], dtype=torch.int32))
+    listed = ((cand < cc.CAND_MISS) & (torch.arange(cand.shape[1]) < cnt[:, None])).sum(dim=1)
+    lo = listed[order.long()]
+    assert torch.all(lo[:-1] >= lo[1:]) and lo[0] > lo[-1]
+    ties = lo[:-1] == lo[1:]
+    assert torch.all(order[:-1][ties] < order[1:][ties])
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take():

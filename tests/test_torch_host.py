@@ -25,6 +25,7 @@ from pbr_tpu_torch.io.loader import load_model as port_load_model
 from pbr_tpu_torch.scene import build as port_build
 from pbr_tpu_torch.scene import camera as port_camera
 from pbr_tpu_torch.scene import procedural as port_procedural
+from pbr_tpu_torch.scene import to_torch
 from pbr_tpu_torch.utils import config as port_config
 from pbr_tpu_torch.utils import morton as port_morton
 
@@ -78,6 +79,8 @@ def test_scene_equals_the_jax_host_layer(name):
         assert got.clusters is None
     else:
         assert got.clusters.coeffs.shape[2] == 4 * size
+        c = got.clusters.coeffs.shape[0]
+        assert to_torch(got, "cpu").clusters.compact.shape == (c, size, 20)
 
 
 def test_native_builder_is_the_one_that_ran():

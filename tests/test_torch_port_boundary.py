@@ -35,6 +35,8 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.io",
     "pbr_tpu_torch.ops.cuda_bvh",
     "pbr_tpu_torch.accel.forest",
+    "pbr_tpu_torch.tools.k4_tiles",
+    "pbr_tpu_torch.tools.sweep_chunks",
 ])
 def test_import_leaves_jax_out(module):
     out = _run(f"import sys, {module}; print('jax' in sys.modules, 'pbr_tpu' in sys.modules)")

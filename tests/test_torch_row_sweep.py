@@ -394,6 +394,34 @@ def _tent_lists(o, d, clusters, t_cap):
     return cand, cnt, torch.cat([tent, tent.new_full((tent.shape[0], 1), 3e38)], dim=1)
 
 
+@pytest.mark.parametrize("name, chunk, lists", [
+    ("sorted-early-out-alive-nee", 512, "candidates_rows"),
+    ("slotted-forced-alive-nee", 256, "candidates_rows"),
+    ("masked-alive-nee", 256, "row_hit_words"),
+])
+def test_chunked_lists_change_no_answer(monkeypatch, force, name, chunk, lists):
+    """The lists built ``chunk`` rays at a time (several chunks a pass):
+    (t, face, occluded, tests) equal to one chunk, with NEE and the
+    counters."""
+    force(name)
+    args, kw, _, _ = _inputs(name)
+    one = cs.intersect_sweep_plain(*args, **kw, with_counts=True)
+    calls = []
+    real = getattr(cs, lists)
+
+    def spy(o, *a, **k):
+        calls.append(o.x.shape[0])
+        return real(o, *a, **k)
+
+    monkeypatch.setattr(cs, lists, spy)
+    monkeypatch.setattr(cs, "SWEEP_CHUNK_RAYS", chunk)
+    many = cs.intersect_sweep_plain(*args, **kw, with_counts=True)
+    assert calls == [chunk] * (2 * CASES[name][3] // chunk)  # both passes, whole chunks
+    assert len(many) == len(one) == 4
+    for a, b in zip(many, one):
+        assert torch.equal(a, b)
+
+
 def test_wrapper_rejects_what_the_kernels_do_not_take():
     (o, d, clusters), _, _, _ = _inputs("slotted-one-round")
     with pytest.raises(ValueError, match="alive"):
