@@ -104,16 +104,21 @@ read just after; a kernel of the path that did not launch fails the run.
      (K4) frame on at least 99% of pixels; 8 timed frames in which K7 NEE
      launches once a bounce and nothing else launches, 0 lanes dropped;
      one frame with NEE off through K7's nearest instance;
-   - path "soup:100000, bvh": the same checks, 8 timed frames with K8
-     launching twice a bounce (the nearest walk and the shadow walk), and
-     the frame's ray-face tests and node visits (with_stats);
+   - path "soup:100000, bvh": the same checks, 8 timed frames with K8's
+     two instances launching once a bounce each (the nearest walk, and
+     the any-hit shadow walk on the lanes that cast a shadow ray), and the
+     frame's ray-face tests and node visits (with_stats); then one more
+     frame's shadow walks, recorded, each replayed bitwise against the
+     plain version and held to the form it replaces (the nearest walk on
+     every lane of the bounce, then t < t_light) on every casting lane,
+     with both forms' times;
    - path "soup:100000, forest": the first-frame checks and one frame of
      K6's chain (nearest and any-hit on sub-tree 0, seeded on the rest);
    - path "soup:10000, pallas_bvh": one 1024² frame through K6 with NEE
      against its auto (K3) frame;
    - every instance of K6, K7 and K8 against its plain version, bitwise,
-     on all the 1024² camera rays of its path (K7 and K8 also on 1M
-     bounce-like rays with an alive mask; K8 also against
+     on all the 1024² camera rays of its path (K7 and K8's two instances
+     also on 1M bounce-like rays with an alive mask; K8 also against
      intersect_bvh_chunked), with its kernel time, plain time and bound
      (the per-ray walk's node steps x 25 operations and face tests x 51,
      against the tables' and rays' bytes).
@@ -211,6 +216,7 @@ REPLACES = {
     "K7 nearest": "pbr_tpu/ops/pallas_bvh.py:589",  # _kernel_hbm around _traverse_tile_hbm
     "K7 NEE": "pbr_tpu/ops/pallas_bvh.py:600",  # _kernel_hbm_nee
     "K8": "pbr_tpu/ops/traverse.py:276",  # the XLA while_loop body of intersect_bvh
+    "K8 any-hit": "pbr_tpu/models/integrator.py:352",  # its shadow leg: t_sh < t_light
 }
 
 
@@ -1322,7 +1328,7 @@ def tree_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dic
     pt8 = _first_frame_checks(tag, scene, cam, dev, intersector="bvh")
     _frame_vs(tag, "first frame, 'bvh' (K8) vs auto (K4)", pt8.image(), k4_first)
     launched, ms = _timed_frames(tag, pt8, cam)
-    _expect(tag, launched, {"K8": 2 * FRAMES * mtd})  # the nearest walk and the shadow walk
+    _expect(tag, launched, {"K8": FRAMES * mtd, "K8 any-hit": FRAMES * mtd})
     res = trace_rays(pt8.scene, camera_to_torch(cam, dev), pt8.settings, pt8.pixel_ids, 0,
                      with_stats=True, max_leaf=pt8.max_leaf)
     n_tests, n_visits = int(res.heat_tests.sum()), int(res.heat_visits.sum())
@@ -1334,7 +1340,8 @@ def tree_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dic
         raise AssertionError(f"{tag}: empty counters")
     if profile:
         profile_phase(tag, pt8, cam)
-    out["k8"] = {"launches": launched, "ms_frame": ms, "tests": n_tests, "visits": n_visits}
+    out["k8"] = {"launches": launched, "ms_frame": ms, "tests": n_tests, "visits": n_visits,
+                 "shadow": shadow_leg_phase(tag, pt8, cam)}
     del pt8
 
     tag = "soup:100000 forest"
@@ -1347,6 +1354,56 @@ def tree_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dic
                             "K6 any-hit": mtd, "K6 seeded any-hit": (k - 1) * mtd})
     out["forest"] = {"launches": launched}
     return out
+
+
+def _old_shadow_form(w, tris):
+    """The shadow leg as it was before K8's any-hit instance, on the rays
+    of the any-hit walk ``w``: the nearest search of ``intersect_scene``
+    on every lane of the bounce, then t < t_light."""
+    t_sh = tt.intersect_scene(w.o, w.d, tris, mode="bvh", bvh=w.tree, max_leaf=w.max_leaf)[0]
+    return t_sh < w.t_limit
+
+
+def shadow_leg_phase(tag: str, pt: PathTracer, cam) -> dict:
+    """One more 'bvh' frame's shadow walks (K8 any-hit), recorded: each
+    replayed by the kernel and by the plain version, bitwise, and held to
+    the old form on every lane that casts a shadow ray; the leg's time in
+    both forms (the integrator's ``occluded_scene`` and the old form's
+    intersect_scene, 3 calls each) and the kernel's in both (the old form:
+    K8 nearest on every lane). Returns bounce 0's walk checked and timed
+    (the kernel row)."""
+    tris = pt.scene.tris
+    shadow = [w for w in _recorded(lambda: pt.render(cam, frame_seed=FRAMES + 3))
+              if w.kernel == "K8 any-hit"]
+    if len(shadow) != pt.settings.max_total_depth:
+        raise AssertionError(f"{tag}: {len(shadow)} shadow walks in a frame")
+    casting = occluded = 0
+    ms = {"new leg": 0.0, "old leg": 0.0, "new kernel": 0.0, "old kernel": 0.0}
+    for w in shadow:
+        def leg(w=w):
+            return tt.occluded_scene(w.o, w.d, w.t_limit, tris, mode="bvh", alive=w.alive,
+                                     bvh=w.tree, max_leaf=w.max_leaf)
+        new = leg()
+        old = _old_shadow_form(w, tris)
+        if not torch.equal(new[w.alive], old[w.alive]) or bool(new[~w.alive].any()):
+            raise AssertionError(f"{tag}: the any-hit bit differs from the old form's on "
+                                 f"{int((new != old)[w.alive].sum())} casting lanes")
+        casting += int(w.alive.sum())
+        occluded += int(new.sum())
+        old_w = w._replace(kernel="K8", alive=None, t_limit=None,
+                           order=cb.ray_order(w.o, w.d, w.tree))
+        ms["new leg"] += _time_ms(leg, 3)
+        ms["old leg"] += _time_ms(lambda: _old_shadow_form(w, tris), 3)
+        ms["new kernel"] += _time_ms(lambda: cb._run_kernel(w), 3)
+        ms["old kernel"] += _time_ms(lambda: cb._run_kernel(old_w), 3)
+    lanes = sum(w.o.x.shape[0] for w in shadow)
+    phase(tag, f"one frame's {len(shadow)} shadow walks: {lanes} lanes, {casting} cast a "
+               f"shadow ray, {occluded} occluded; the any-hit bit equals the old form's "
+               f"t < t_light on every casting lane; ms over the frame: "
+               + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    res = _check_walks(tag, shadow[:1], "bounce 0's recorded shadow rays", True)
+    _check_walks(tag, shadow[1:], "bounces 1-7's recorded shadow rays", True)
+    return res
 
 
 def soup10k_phase(dev) -> dict:
@@ -1386,9 +1443,11 @@ def _recorded(call) -> list:
 
 def _walk_bound(w, work: list) -> tuple:
     """Bound of one walk: the per-ray walk's node steps and leaf-face tests
-    on these rays (what the plain version counted: each hit leaf's faces
-    whole, both legs of NEE); bytes: the rays, the per-ray inputs and
-    outputs, the tree's nodes (9 words each) and its faces (9 words)."""
+    on these rays (what the plain version counted, both legs of NEE: each
+    hit leaf's faces whole, and on an any-hit walk those up to and
+    including the occluding face, where it stops); bytes: the rays, the
+    per-ray inputs and outputs, the tree's nodes (9 words each) and its
+    faces (9 words)."""
     tests = sum(int(t.sum()) for t, _ in work)
     visits = sum(int(v.sum()) for _, v in work)
     n = w.o.x.shape[0]
@@ -1457,6 +1516,12 @@ def tree_kernel_phase(dev, pt, cam, pt10k, cam10k) -> dict:
         cb.intersect_bvh_walk(cam_o, cam_d, bvh, tris, ml),
         cb.intersect_bvh_forest(cam_o, cam_d, ts.forest, bvh, light_pos=l0)))
     res = _check_walks(tag, cam_walks, f"all {n} soup:100000 camera rays, {pt.lane_order}", True)
+    t_cam = torch.tensor(np.random.default_rng(9).uniform(0.0, 6.0, n), dtype=torch.float32,
+                         device=dev)
+    t_cam[::16], t_cam[1::16] = 0.0, float("inf")
+    _check_walks(tag, _recorded(lambda: cb.occluded_bvh_walk(
+        cam_o, cam_d, t_cam, bvh, tris, ml, with_counts=True)),
+        f"all {n} soup:100000 camera rays, t_limit 0, +inf and in [0, 6)", False)
     got = cb.intersect_bvh_walk(cam_o, cam_d, bvh, tris, ml, with_counts=True)
     ref = tt.intersect_bvh_chunked(cam_o, cam_d, bvh, tris, ml, with_counts=True)
     _equal_or_raise("K8 vs intersect_bvh_chunked", got, ref)
@@ -1465,9 +1530,12 @@ def tree_kernel_phase(dev, pt, cam, pt10k, cam10k) -> dict:
     nb = BOUNCE_RAYS
     bo, bd = _rays_in_soup(nb, 7, dev)
     alive = torch.tensor(np.random.default_rng(8).random(nb) < 0.6, device=dev)
+    t_b = torch.tensor(np.random.default_rng(10).uniform(0.0, 2.0, nb), dtype=torch.float32,
+                       device=dev)
     _check_walks(tag, _recorded(lambda: (
         cb.intersect_bvh_packet_hbm(bo, bd, bvh, tris, ml, light_pos=l0, alive=alive),
-        cb.intersect_bvh_walk(bo, bd, bvh, tris, ml, alive=alive, with_counts=True))),
+        cb.intersect_bvh_walk(bo, bd, bvh, tris, ml, alive=alive, with_counts=True),
+        cb.occluded_bvh_walk(bo, bd, t_b, bvh, tris, ml, alive=alive, with_counts=True))),
         f"{nb} bounce-like rays, 60% alive", False)
     t10 = pt10k.scene
     o10, d10 = _camera_rays(camera_to_torch(cam10k, dev), pt10k.settings, dev, pt10k.pixel_ids)
@@ -1551,7 +1619,8 @@ def main() -> None:
     tree_oracle_phase(scene_t, cam_s, dev)
     tp = tree_path_phase(scene_t, cam_s, dev, k4_first, profile)
     s10 = soup10k_phase(dev)
-    tk = tree_kernel_phase(dev, tp["k7"]["pt"], cam_s, s10["pt"], s10["cam"])
+    tk = {**tree_kernel_phase(dev, tp["k7"]["pt"], cam_s, s10["pt"], s10["cam"]),
+          **tp["k8"]["shadow"]}
     phase("done", f"all phases passed on {smi}")
 
     t = {**corn["times"], **mk_times, **mc["times"], **sk["times"], **msw["times"],
@@ -1589,11 +1658,12 @@ def main() -> None:
         ("K7 nearest", K67_SOURCE, tp["k7 off"]["K7 nearest"], 1),
         ("K7 NEE", K67_SOURCE, tp["k7"]["launches"]["K7 NEE"], FRAMES),
         ("K8", K8_SOURCE, tp["k8"]["launches"]["K8"], FRAMES),
+        ("K8 any-hit", K8_SOURCE, tp["k8"]["launches"]["K8 any-hit"], FRAMES),
     ]
     # No one PyTorch call computes a nearest-hit search or a BVH walk:
     # library_ms is null.
-    if len(rows) != 22:
-        raise AssertionError(f"expected 22 kernel rows, got {len(rows)}")
+    if len(rows) != 23:
+        raise AssertionError(f"expected 23 kernel rows, got {len(rows)}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src,
         "replaces": REPLACES[name] if name in REPLACES else REPLACES[name.split()[0]],

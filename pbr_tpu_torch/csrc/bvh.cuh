@@ -56,15 +56,10 @@ __device__ __forceinline__ float slab_hi(float a, float b) {
   return (a != a || b != b) ? INFINITY : fmaxf(a, b);
 }
 
-// Node i's box against ray r: true on a hit (without the caller's gate);
-// t_near is the entry distance the caller gates.
-__device__ __forceinline__ bool box_hit(const Tree& tr, int i, const Ray& r, float* t_near) {
-  const float x0 = __ldg(tr.bmin + i);
-  const float y0 = __ldg(tr.bmin + tr.n + i);
-  const float z0 = __ldg(tr.bmin + 2 * tr.n + i);
-  const float x1 = __ldg(tr.bmax + i);
-  const float y1 = __ldg(tr.bmax + tr.n + i);
-  const float z1 = __ldg(tr.bmax + 2 * tr.n + i);
+// The box (x0, y0, z0)-(x1, y1, z1) against ray r: true on a hit (without
+// the caller's gate); t_near is the entry distance the caller gates.
+__device__ __forceinline__ bool box_hit(float x0, float y0, float z0, float x1, float y1,
+                                        float z1, const Ray& r, float* t_near) {
   const float ax = (x0 - r.ox) * r.ix, bx = (x1 - r.ox) * r.ix;
   const float ay = (y0 - r.oy) * r.iy, by = (y1 - r.oy) * r.iy;
   const float az = (z0 - r.oz) * r.iz, bz = (z1 - r.oz) * r.iz;
@@ -72,6 +67,13 @@ __device__ __forceinline__ bool box_hit(const Tree& tr, int i, const Ray& r, flo
   const float hi = fminf(fminf(slab_hi(ax, bx), slab_hi(ay, by)), slab_hi(az, bz));
   *t_near = lo;
   return (lo <= hi) && (hi > kBoxEps5) && (x0 <= x1);
+}
+
+// Node i's box of the (3, n) tables against ray r, as above.
+__device__ __forceinline__ bool box_hit(const Tree& tr, int i, const Ray& r, float* t_near) {
+  return box_hit(__ldg(tr.bmin + i), __ldg(tr.bmin + tr.n + i), __ldg(tr.bmin + 2 * tr.n + i),
+                 __ldg(tr.bmax + i), __ldg(tr.bmax + tr.n + i), __ldg(tr.bmax + 2 * tr.n + i),
+                 r, t_near);
 }
 
 }  // namespace pbr

@@ -56,7 +56,7 @@ from pbr_tpu_torch.ops.rng import (
     S_TRANS,
     PixelRng,
 )
-from pbr_tpu_torch.ops.traverse import detach_tris, intersect_scene
+from pbr_tpu_torch.ops.traverse import detach_tris, intersect_scene, occluded_scene
 from pbr_tpu_torch.ops.vec import Vec3, f32, jitter, safe_div, safe_sqrt, where3
 from pbr_tpu_torch.scene.camera import pixel_dim
 from pbr_tpu_torch.utils.config import BRDF_SCHLICK, RenderSettings
@@ -229,13 +229,14 @@ def _orb_pass(o, d, lights, t_geom):
     return torch.where(torch.isfinite(t_geom), -1, orb_idx)
 
 
-def _shadow_occluded(tris, hit_p, l_dir, t_light, mode, tables):
-    """Any-hit shadow test as a second nearest-hit search
-    (traverseShadows, pt_bvh.cl:133-177): occluded iff some geometry hit
-    lies closer than the light. Used when the intersector has no fused
-    shadow leg (the plain sweep, and the per-ray BVH walk K8)."""
-    t_sh, _ = intersect_scene(hit_p, l_dir, tris, mode=mode, **tables)
-    return t_sh < t_light
+def _shadow_occluded(tris, hit_p, l_dir, t_light, casts, mode, tables):
+    """Any-hit shadow test (traverseShadows, pt_bvh.cl:133-177): occluded
+    iff some geometry hit lies closer than the light. Used when the
+    intersector has no fused shadow leg; ``casts``: the lanes whose bit the
+    caller reads (``ops/traverse.py::occluded_scene``: the per-ray BVH walk
+    runs kernel K8's any-hit instance on those lanes only, the plain sweep
+    a second nearest-hit search over every lane)."""
+    return occluded_scene(hit_p, l_dir, t_light, tris, mode=mode, alive=casts, **tables)
 
 
 def _stage_capacities(settings: RenderSettings, rows_total: int, block: int):
@@ -412,13 +413,14 @@ def trace_rays(
             l_vec = Vec3(lights.pos.x[0], lights.pos.y[0], lights.pos.z[0]) - hit_p
             t_light = safe_sqrt(l_vec.length2())
             l_dir = l_vec * safe_div(1.0, t_light)
+            casts = live & (m_d > 0.0)
             occluded = occ_fused
             if occluded is None:
-                occluded = _shadow_occluded(tris, hit_p, l_dir, t_light,
+                occluded = _shadow_occluded(tris, hit_p, l_dir, t_light, casts,
                                             settings.intersector, tables)
-            nee_ok = live & (m_d > 0.0) & ~occluded
+            nee_ok = casts & ~occluded
             if with_stats:
-                n_shadow = n_shadow + (live & (m_d > 0.0)).sum()
+                n_shadow = n_shadow + casts.sum()
 
         # ---- new direction (getNewRay, pt_brdf.cl:344-378) -----------------
         ra, rbb, rc = rb.u(S_BRDF_A), rb.u(S_BRDF_B), rb.u(S_BRDF_C)

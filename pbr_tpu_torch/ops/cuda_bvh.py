@@ -17,7 +17,13 @@ plain PyTorch version.
 - **K8**, the per-ray walk (``csrc/bvh_walk.cu``), is the H100 form of the
   ``bvh`` mode, which the JAX package runs as an XLA while_loop
   (``pbr_tpu/ops/traverse.py::intersect_bvh``), with its exact ``tests``
-  and ``visits`` counters (``intersect_bvh_walk``).
+  and ``visits`` counters (``intersect_bvh_walk``, instance "K8"); its
+  any-hit instance ("K8 any-hit", ``occluded_bvh_walk``) is the ``bvh``
+  mode's NEE shadow leg, the bit ``t_sh < t_light`` that the JAX package
+  takes from a second nearest search (``pbr_tpu/models/integrator.py:
+  352-353``). K8 reads the tree and its faces as packed records
+  (``node_records``, ``face_records``), which ``scene/device.py::to_torch``
+  builds once a scene (``BVHTables.node_records``/``face_records``).
 
 The sources' headers say what bounds the kernels on the card and how the
 designs answer that. Every wrapper takes its rays as six (B,) float32
@@ -68,9 +74,14 @@ SLAB_MAX_LEAF = 256
 # temporary holds at most this many elements.
 _PLAIN_ELEMS = 1 << 22
 
+# K8's leaf record word: leaf_first << LEAF_COUNT_BITS | (leaf_count - 1)
+# (csrc/bvh_walk.cu's kCountBits).
+LEAF_COUNT_BITS = 8
+
 # Kernel launches per instance. CPU calls do not count.
 launches = {"K6 nearest": 0, "K6 NEE": 0, "K6 any-hit": 0, "K6 seeded": 0,
-            "K6 seeded any-hit": 0, "K7 nearest": 0, "K7 NEE": 0, "K8": 0}
+            "K6 seeded any-hit": 0, "K7 nearest": 0, "K7 NEE": 0, "K8": 0, "K8 any-hit": 0}
+_K8 = ("K8", "K8 any-hit")
 # bvh_packet.cu's (mode, slab) of each instance.
 _PACKET_MODES = {"K6 nearest": (0, 0), "K6 NEE": (1, 0), "K6 any-hit": (2, 0),
                  "K6 seeded": (3, 0), "K6 seeded any-hit": (4, 0), "K7 nearest": (0, 1),
@@ -81,9 +92,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # face_base, max_leaf, light, t_limit, t_seed, f_seed, occ_seed, t_out,
 # f_out, occ_out, stream
 _PACKET_ARGTYPES = [_I, _I] + [_P] * 8 + [_I] + [_P] * 5 + [_I, _P, _I, _I, _I] + [_P] * 9
-# rays (6), order, alive, n, tree (5), n_nodes, faces, stride, max_leaf,
-# t_out, f_out, tests, visits, stream
-_WALK_ARGTYPES = [_P] * 8 + [_I] + [_P] * 5 + [_I, _P, _I, _I] + [_P] * 5
+# rays (6), order, alive, n, node records, n_nodes, face records,
+# max_leaf, t_limit, t_out, f_out, occ_out, tests, visits, stream
+_WALK_ARGTYPES = [_P] * 8 + [_I, _P, _I, _P, _I] + [_P] * 7
 
 
 def packet_fits(bvh, tris) -> bool:
@@ -97,6 +108,40 @@ def packet_hbm_fits(bvh) -> bool:
     return bvh.count <= PACKET_HBM_MAX_NODES
 
 
+def node_records(tree) -> torch.Tensor:
+    """K8's (N, 8) float32 node records of a ``BVHTables``' (3, N) and (N,)
+    tables: 32 bytes a node, read as two float4, ``{bb_min, exit}`` and
+    ``{bb_max, leaf}``, each int32 word stored as its bits; ``leaf`` is
+    ``leaf_first << LEAF_COUNT_BITS | (leaf_count - 1)`` for a leaf and -1
+    for an inner node (leaf_first -1, leaf_count 0). Raises where a field
+    does not fit: a leaf of no faces or more than 2**LEAF_COUNT_BITS, a
+    first face at or above 2**(31 - LEAF_COUNT_BITS), an inner node with a
+    count."""
+    lf, lc = tree.leaf_first, tree.leaf_count
+    leaf = lf >= 0
+    bad_leaf = leaf & ((lc < 1) | (lc > 1 << LEAF_COUNT_BITS)
+                       | (lf >= 1 << (31 - LEAF_COUNT_BITS)))
+    bad_inner = ~leaf & ((lf != -1) | (lc != 0))
+    if bool((bad_leaf | bad_inner).any()):
+        i = int(torch.nonzero(bad_leaf | bad_inner)[0])
+        raise ValueError(
+            f"node {i} (leaf_first {int(lf[i])}, leaf_count {int(lc[i])}) does not fit K8's node "
+            f"record: a leaf holds 1..{1 << LEAF_COUNT_BITS} faces from a first face below "
+            f"{1 << (31 - LEAF_COUNT_BITS)}, an inner node has leaf_first -1 and leaf_count 0")
+    word = torch.where(leaf, (lf << LEAF_COUNT_BITS) | (lc - 1), -1).to(torch.int32)
+    return torch.cat([tree.bb_min.T, tree.exit.view(torch.float32)[:, None],
+                      tree.bb_max.T, word.view(torch.float32)[:, None]], dim=1).contiguous()
+
+
+def face_records(faces: torch.Tensor) -> torch.Tensor:
+    """K8's (F, 12) float32 face records of a (9, F) face table: 48 bytes a
+    face, read as three float4, ``{v0, 0}``, ``{e1, 0}``, ``{e2, 0}``."""
+    nf = faces.shape[1]
+    rec = faces.new_zeros((nf, 3, 4))
+    rec[:, :, :3] = faces.T.reshape(nf, 3, 3)
+    return rec.reshape(nf, 12)
+
+
 class Walk(NamedTuple):
     """One launch of a tree-walk instance, or the same call of the plain
     version (what ``run`` executes; chip_smoke.py replays them).
@@ -107,7 +152,8 @@ class Walk(NamedTuple):
     written offset by ``face_base``; ``order``: the launch order (CUDA
     only; the plain version walks each ray alone); ``light`` (3,) for the
     NEE instances; ``t_limit`` for the any-hit ones; ``t_seed``/``f_seed``
-    and ``occ_seed`` for the seeded ones; ``with_counts`` for K8."""
+    and ``occ_seed`` for the seeded ones; ``with_counts`` for K8's two.
+    K8 reads ``tree``'s packed records, which it must have."""
 
     kernel: str
     o: Vec3
@@ -130,10 +176,12 @@ def _leaf_tests(o, d, faces, rays, first, cnt, face_base, t_best, f_best, occ, t
     """The leaf faces ``first .. first + cnt - 1`` of each ray in ``rays``
     (1-D int64), in ascending order, a cut of rays at a time: nearest
     (strict '<', so the first face wins ties) into ``t_best``/``f_best``,
-    or any-hit against ``t_limit`` into ``occ``."""
+    or any-hit against ``t_limit`` into ``occ``. Returns each ray's face
+    tests: ``cnt``, or on any-hit up to and including the occluding face."""
     kmax = int(cnt.max())
     nf = faces.shape[1]
     k = torch.arange(kmax, device=first.device)
+    ran = cnt.clone()
     step = max(1, _PLAIN_ELEMS // kmax)
     for lo in range(0, rays.shape[0], step):
         r, fi, ct = rays[lo:lo + step], first[lo:lo + step], cnt[lo:lo + step]
@@ -145,7 +193,11 @@ def _leaf_tests(o, d, faces, rays, first, cnt, face_base, t_best, f_best, occ, t
                                    Vec3(tab[3], tab[4], tab[5]), Vec3(tab[6], tab[7], tab[8]))
         valid = valid & (k < ct[:, None])
         if t_limit is not None:
-            occ[r] = occ[r] | (valid & (t < t_limit[r, None])).any(dim=1)
+            hit = valid & (t < t_limit[r, None])
+            found = hit.any(dim=1)
+            occ[r] = occ[r] | found
+            first_hit = torch.where(hit, k, kmax).amin(dim=1)
+            ran[lo:lo + step] = torch.where(found, first_hit + 1, ct)
             continue
         tt = torch.where(valid, t, INF)
         t_min = tt.amin(dim=1)
@@ -153,6 +205,7 @@ def _leaf_tests(o, d, faces, rays, first, cnt, face_base, t_best, f_best, occ, t
         better = t_min < t_best[r]
         t_best[r] = torch.where(better, t_min, t_best[r])
         f_best[r] = torch.where(better, (face_base + fi + k_first).to(torch.int32), f_best[r])
+    return ran
 
 
 def walk_plain(o: Vec3, d: Vec3, tree, faces: torch.Tensor, max_leaf: int, alive=None,
@@ -163,8 +216,10 @@ def walk_plain(o: Vec3, d: Vec3, tree, faces: torch.Tensor, max_leaf: int, alive
     Nearest (``t_limit`` None), optionally from ``t_seed``/``f_seed``; or
     any-hit against ``t_limit``, optionally from ``occ_seed``. Returns
     ``(t, face, occluded, tests, visits)``: the exact per-ray counters of
-    ``pbr_tpu/ops/traverse.py:302-314`` (node steps; min(leaf_count,
-    max_leaf) per hit leaf) for the walk that ran."""
+    the walk that ran, those of ``pbr_tpu/ops/traverse.py:302-314`` on the
+    nearest walk (node steps; min(leaf_count, max_leaf) per hit leaf); the
+    any-hit walk counts a leaf's faces up to and including the one that
+    occludes the ray, where it stops."""
     n, dev = o.x.shape[0], o.x.device
     any_hit = t_limit is not None
     inv = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
@@ -194,9 +249,8 @@ def walk_plain(o: Vec3, d: Vec3, tree, faces: torch.Tensor, max_leaf: int, alive
         if bool(leaf.any()):
             rays = act[leaf]
             cnt = tree.leaf_count[i][leaf].clamp_max(max_leaf)
-            tests[rays] += cnt
-            _leaf_tests(o, d, faces, rays, lf[leaf].long(), cnt.long(), face_base, t_best,
-                        f_best, occ, t_limit)
+            tests[rays] += _leaf_tests(o, d, faces, rays, lf[leaf].long(), cnt.long(), face_base,
+                                       t_best, f_best, occ, t_limit).to(torch.int32)
         nxt = torch.where(hit, i + 1, tree.exit[i].long())
         idx[act] = nxt
         keep = nxt < tree.count
@@ -208,19 +262,21 @@ def walk_plain(o: Vec3, d: Vec3, tree, faces: torch.Tensor, max_leaf: int, alive
 
 def _run_plain(w: Walk, work: Optional[list] = None):
     """``w`` through the plain version: (t, face), (t, face, occluded),
-    occluded, or K8's (t, face[, tests, visits]). ``work``: a list to which
-    each walk run appends its per-ray ``(tests, visits)`` (chip_smoke.py's
-    bounds count them)."""
+    occluded, or K8's (t, face[, tests, visits]) and (occluded[, tests,
+    visits]). ``work``: a list to which each walk run appends its per-ray
+    ``(tests, visits)`` (chip_smoke.py's bounds count them)."""
     def walk(o, d, **kw):
         out = walk_plain(o, d, w.tree, w.faces, w.max_leaf, w.alive, w.face_base, **kw)
         if work is not None:
             work.append(out[3:])
         return out
+    counts = w.with_counts and w.kernel in _K8
     if w.t_limit is not None:
-        return walk(w.o, w.d, t_limit=w.t_limit, occ_seed=w.occ_seed)[2]
+        _, _, occ, tests, visits = walk(w.o, w.d, t_limit=w.t_limit, occ_seed=w.occ_seed)
+        return (occ, tests, visits) if counts else occ
     t, f, _, tests, visits = walk(w.o, w.d, t_seed=w.t_seed, f_seed=w.f_seed)
     if w.kernel == "K8":
-        return (t, f, tests, visits) if w.with_counts else (t, f)
+        return (t, f, tests, visits) if counts else (t, f)
     if w.light is None:
         return t, f
     hit_p, s_dir, t_light = _shadow_ray(w.o, w.d, t, w.light)
@@ -259,32 +315,49 @@ def _check(w: Walk) -> None:
         raise ValueError(f"light position must be (3,) float32 on {dev}")
     if w.max_leaf < 1:
         raise ValueError(f"max_leaf must be at least 1, not {w.max_leaf}")
+    if w.kernel in _K8 and (w.kernel == "K8 any-hit") != (w.t_limit is not None):
+        raise ValueError("K8's any-hit instance, and only it, takes a t_limit")
+    for rec, shape in ((tr.node_records, (tr.count, 8)), (tr.face_records, (f.shape[1], 12))):
+        if w.kernel in _K8 and (
+                rec is None or rec.device != dev or rec.dtype != torch.float32
+                or tuple(rec.shape) != shape or not rec.is_contiguous()):
+            raise ValueError(f"{w.kernel}: the tree needs its packed records, contiguous "
+                             f"{shape} float32 on {dev} (node_records, face_records; to_torch "
+                             f"builds them)")
 
 
 def _run_kernel(w: Walk):
     """``w`` by one kernel launch: ``_run_plain``'s outputs."""
     dev, n = w.o.x.device, w.o.x.shape[0]
     tr = w.tree
-    tables = (tr.bb_min.data_ptr(), tr.bb_max.data_ptr(), tr.leaf_first.data_ptr(),
-              tr.leaf_count.data_ptr(), tr.exit.data_ptr(), tr.count,
-              w.faces.data_ptr(), w.faces.stride(0))
     rays = (*(a.data_ptr() for a in (*w.o, *w.d)), _ptr(w.order), _ptr(w.alive), n)
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    f = torch.empty((n,), dtype=torch.int32, device=dev)
+    any_hit = w.t_limit is not None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if w.kernel == "K8":
-            counts = [torch.empty((n,), dtype=torch.int32, device=dev)
-                      for _ in range(2 if w.with_counts else 0)]
+        if w.kernel in _K8:
+            out = ((torch.empty((n,), dtype=torch.bool, device=dev),) if any_hit else
+                   (torch.empty((n,), dtype=torch.float32, device=dev),
+                    torch.empty((n,), dtype=torch.int32, device=dev)))
+            counts = tuple(torch.empty((n,), dtype=torch.int32, device=dev)
+                           for _ in range(2 if w.with_counts else 0))
             lib = load("bvh_walk", "pbr_bvh_walk", _WALK_ARGTYPES)
-            err = lib.pbr_bvh_walk(*rays, *tables, w.max_leaf, t.data_ptr(), f.data_ptr(),
-                                   *(_ptr(c) for c in counts or (None, None)), stream)
-            out = (t, f, *counts)
+            outs = (None, None, out[0].data_ptr()) if any_hit else \
+                (out[0].data_ptr(), out[1].data_ptr(), None)
+            err = lib.pbr_bvh_walk(*rays, tr.node_records.data_ptr(), tr.count,
+                                   tr.face_records.data_ptr(), w.max_leaf, _ptr(w.t_limit),
+                                   *outs, *(_ptr(c) for c in counts or (None, None)), stream)
+            out = out + counts
+            if len(out) == 1:
+                out = out[0]
         else:
-            any_hit = w.t_limit is not None
+            t = torch.empty((n,), dtype=torch.float32, device=dev)
+            f = torch.empty((n,), dtype=torch.int32, device=dev)
             occ = torch.empty((n,) if any_hit or w.light is not None else (0,),
                               dtype=torch.bool, device=dev)
             mode, slab = _PACKET_MODES[w.kernel]
+            tables = (tr.bb_min.data_ptr(), tr.bb_max.data_ptr(), tr.leaf_first.data_ptr(),
+                      tr.leaf_count.data_ptr(), tr.exit.data_ptr(), tr.count,
+                      w.faces.data_ptr(), w.faces.stride(0))
             lib = load("bvh_packet", "pbr_bvh_packet", _PACKET_ARGTYPES)
             err = lib.pbr_bvh_packet(mode, slab, *rays, *tables, w.face_base, w.max_leaf,
                                      _ptr(w.light), _ptr(w.t_limit), _ptr(w.t_seed),
@@ -338,6 +411,21 @@ def intersect_bvh_walk(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2, alive=Non
     face, tests, visits)`` with the exact int32 counters."""
     w = Walk("K8", o, d, bvh, face_table(tris), max_leaf, alive,
              ray_order(o, d, bvh, alive), with_counts=with_counts)
+    return run(w)
+
+
+def occluded_bvh_walk(o: Vec3, d: Vec3, t_limit: torch.Tensor, bvh, tris, max_leaf: int = 2,
+                      alive=None, with_counts: bool = False):
+    """Any hit closer than ``t_limit`` by the per-ray walk, kernel K8's
+    any-hit instance: a ray is occluded iff some valid face has t <
+    ``t_limit``, which is the bit ``t_sh < t_light`` that the JAX package
+    takes from a second nearest search (``pbr_tpu/models/integrator.py:
+    352-353``). Arguments as ``intersect_bvh_walk``; ``t_limit`` (B,)
+    float32. Returns the (B,) bool ``occluded`` (False on a dead lane), or
+    ``(occluded, tests, visits)``: the any-hit walk's node steps, and its
+    face tests up to and including each ray's occluding face."""
+    w = Walk("K8 any-hit", o, d, bvh, face_table(tris), max_leaf, alive,
+             ray_order(o, d, bvh, alive), t_limit=t_limit, with_counts=with_counts)
     return run(w)
 
 

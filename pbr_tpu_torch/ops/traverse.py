@@ -11,7 +11,9 @@ port has so far:
   time, bitwise equal to the unchunked walk;
 - ``intersect_scene``: the dispatch the integrator calls, with the JAX
   version's contract (detached search, differentiable re-evaluation of the
-  winner, fused NEE leg, ``alive`` mask, ``(tests, visits)`` counters).
+  winner, fused NEE leg, ``alive`` mask, ``(tests, visits)`` counters);
+  ``occluded_scene`` is its any-hit form, the shadow leg of the modes
+  without a fused one.
   Modes: ``pallas`` is kernel K1 (``ops/cuda_intersect.py``); ``gated`` is
   kernel K3 (``ops/cuda_gated.py``) over the scene's cluster verdicts;
   ``cull`` is kernel K4 (more than 48 clusters) or K4m
@@ -279,3 +281,26 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
             counts = face.new_full(face.shape, int(tris.mtl.shape[0]) * (2 if occ is not None else 1))
         out.append((counts, visits))
     return tuple(out)
+
+
+def occluded_scene(o: Vec3, d: Vec3, t_limit: torch.Tensor, tris, mode: str = "auto",
+                   alive=None, clusters=None, bvh=None, forest=None, max_leaf: int = 2):
+    """Any-hit dispatch: the NEE shadow leg of the modes that have no fused
+    one (``intersect_scene`` returns ``occluded`` None for them), the bit
+    ``t_sh < t_light`` of ``pbr_tpu/models/integrator.py:352-353``: True
+    where some face lies closer along the ray than ``t_limit`` (B,).
+
+    ``alive``: the lanes whose bit the caller reads; the others may hold
+    any value. ``bvh`` runs kernel K8's any-hit instance on those lanes
+    only (``cuda_bvh.occluded_bvh_walk``: False on the others); every other
+    mode, as the JAX package does, runs the nearest search of
+    ``intersect_scene`` on every lane and compares its t. Detached: a bit
+    has no gradient. Arguments as ``intersect_scene``."""
+    n_faces = int(tris.mtl.shape[0])
+    if bvh is not None and resolve_mode(mode, o.x.device, n_faces, clusters is not None, True,
+                                        forest is not None) == "bvh":
+        return cuda_bvh.occluded_bvh_walk(o.detach(), d.detach(), t_limit.detach(), bvh,
+                                          detach_tris(tris), max_leaf, alive=alive)
+    t_sh, _ = intersect_scene(o, d, tris, mode=mode, clusters=clusters, bvh=bvh, forest=forest,
+                              max_leaf=max_leaf)
+    return t_sh < t_limit

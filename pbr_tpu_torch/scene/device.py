@@ -20,7 +20,8 @@ AABBs, the compact table of the coefficient blocks
 supercluster AABBs, the scene bounds and the cluster size of its
 ``ClusterSet`` (``SceneParams.clusters``); for the row sweep (kernels K5 and K5m, ``ops/cuda_sweep.py``) its lin tables and
 lin-cluster AABBs as well; for the tree walks (kernels K6, K7 and K8,
-``ops/cuda_bvh.py``) the ``LinearBVH`` (``SceneParams.bvh``) and the
+``ops/cuda_bvh.py``) the ``LinearBVH`` (``SceneParams.bvh``, with K8's
+packed node and face records, built here once a scene) and the
 ``BVHForest`` (``SceneParams.forest``).
 """
 
@@ -33,6 +34,7 @@ import torch
 from torch import nn
 
 from pbr_tpu_torch.ops.cuda_cull import compact_table
+from pbr_tpu_torch.ops.cuda_intersect import face_table
 from pbr_tpu_torch.ops.vec import Vec3
 from pbr_tpu_torch.scene.types import (
     CameraState,
@@ -114,14 +116,21 @@ class BVHTables(NamedTuple):
     """A ``LinearBVH`` on the device, as the tree walks read it:
     ``bb_min``/``bb_max`` (3, N) float32 node bounds (rows x, y, z) and
     ``leaf_first``/``leaf_count``/``exit`` (N,) int32 (the TPU kernels' f32
-    packing of the indices was a Pallas workaround). A forest's
-    ``ForestTables.trees`` has the same fields with a leading (K,) axis."""
+    packing of the indices was a Pallas workaround). ``node_records``
+    (N, 8) and ``face_records`` (F, 12) float32 are kernel K8's packed
+    copies of the same values and of the faces the tree indexes
+    (``ops/cuda_bvh.py::node_records``, ``face_records``); ``to_torch``
+    builds them for a scene's tree, and a tree without them has None. A
+    forest's ``ForestTables.trees`` has the first five fields with a
+    leading (K,) axis."""
 
     bb_min: torch.Tensor
     bb_max: torch.Tensor
     leaf_first: torch.Tensor
     leaf_count: torch.Tensor
     exit: torch.Tensor
+    node_records: Optional[torch.Tensor] = None
+    face_records: Optional[torch.Tensor] = None
 
     @property
     def count(self) -> int:
@@ -132,6 +141,9 @@ class BVHTables(NamedTuple):
         """The root's bounds, two Vec3s of 0-d tensors (the coherence sort's
         box)."""
         return _vec(self.bb_min[:, 0]), _vec(self.bb_max[:, 0])
+
+
+_NODE_FIELDS = BVHTables._fields[:5]  # the (3, N) and (N,) tables
 
 
 class ForestTables(NamedTuple):
@@ -155,7 +167,7 @@ class ForestTables(NamedTuple):
 
     def tree(self, i: int) -> BVHTables:
         """Sub-tree ``i``'s node tables."""
-        return BVHTables(*(f[i] for f in self.trees))
+        return BVHTables(*(getattr(self.trees, n)[i] for n in _NODE_FIELDS))
 
 
 def _bvh_tensors(bvhs, device) -> list:
@@ -178,8 +190,9 @@ class SceneParams(nn.Module):
     and, when the scene has a ``ClusterSet``, its tables ``clu_bb_min`` /
     ``clu_bb_max`` (3, C), ``clu_compact`` (C, S, 20), ``clu_sup_min`` /
     ``clu_sup_max`` (3, C / 16) and ``clu_scene_min`` / ``clu_scene_max``
-    (3,); when it has a BVH, ``bvh_bb_min`` / ``bvh_bb_max`` (3, N) and
-    ``bvh_leaf_first`` / ``bvh_leaf_count`` / ``bvh_exit`` (N,); when it has
+    (3,); when it has a BVH, ``bvh_bb_min`` / ``bvh_bb_max`` (3, N),
+    ``bvh_leaf_first`` / ``bvh_leaf_count`` / ``bvh_exit`` (N,) and K8's
+    ``bvh_node_records`` (N, 8) / ``bvh_face_records`` (F, 12); when it has
     a forest, ``forest_<field>`` for the K sub-trees' stacked node tables,
     ``forest_faces`` (9, K * chunk) and ``forest_face_ids``. The properties
     ``tris``, ``materials``, ``lights``, ``clusters``, ``bvh`` and ``forest``
@@ -224,14 +237,21 @@ class SceneParams(nn.Module):
             self.register_buffer("clu_lbb_max", _stack3(cs.lbb_max, device))
         self.has_bvh = scene.bvh is not None
         if self.has_bvh:
-            for name, t in zip(BVHTables._fields, _bvh_tensors([scene.bvh], device)):
-                self.register_buffer(f"bvh_{name}", t)
+            # Imported here: ops/cuda_bvh.py imports accel/, which imports
+            # this package.
+            from pbr_tpu_torch.ops.cuda_bvh import face_records, node_records
+
+            tree = BVHTables(*_bvh_tensors([scene.bvh], device))
+            for name in _NODE_FIELDS:
+                self.register_buffer(f"bvh_{name}", getattr(tree, name))
+            self.register_buffer("bvh_node_records", node_records(tree))
+            self.register_buffer("bvh_face_records", face_records(face_table(self.tris)))
         fo = scene.forest
         self.has_forest = fo is not None
         if self.has_forest:
             k = len(fo.bvhs)
             trees = _bvh_tensors(fo.bvhs, device)
-            for name, t in zip(BVHTables._fields, trees):
+            for name, t in zip(_NODE_FIELDS, trees):
                 self.register_buffer(f"forest_{name}", t if k > 1 else t[None])
             self.register_buffer("forest_faces", torch.cat(
                 [_stack3(fo.v0, device), _stack3(fo.e1, device), _stack3(fo.e2, device)]))
@@ -274,7 +294,7 @@ class SceneParams(nn.Module):
     def forest(self) -> Optional[ForestTables]:
         if not self.has_forest:
             return None
-        trees = BVHTables(*(getattr(self, f"forest_{n}") for n in BVHTables._fields))
+        trees = BVHTables(*(getattr(self, f"forest_{n}") for n in _NODE_FIELDS))
         return ForestTables(trees, self.forest_faces, self.forest_face_ids)
 
     @property

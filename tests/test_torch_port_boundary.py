@@ -37,6 +37,7 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.accel.forest",
     "pbr_tpu_torch.tools.k4_tiles",
     "pbr_tpu_torch.tools.sweep_chunks",
+    "pbr_tpu_torch.tools.k8_walk",
 ])
 def test_import_leaves_jax_out(module):
     out = _run(f"import sys, {module}; print('jax' in sys.modules, 'pbr_tpu' in sys.modules)")

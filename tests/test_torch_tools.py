@@ -1,16 +1,19 @@
 """The port's diagnostic tools (``pbr_tpu_torch/tools/``), on the CPU: the
-source patch of ``k4_tiles`` finds every hook it needs in
-``csrc/cull_intersect.cu`` as it stands, and its block statistics give the
-span, tail and balance of a known record. The tools themselves run only on
-a card."""
+source patches of ``k4_tiles`` and ``k8_walk`` find every hook they need in
+``csrc/cull_intersect.cu`` and ``csrc/bvh_walk.cu`` as they stand, and
+their statistics give the span, tail, balance and SIMD efficiency of known
+records. The tools themselves run only on a card."""
+
+import re
 
 import numpy as np
 import pytest
 
 from pbr_tpu_torch.ops import cuda_intersect as ci
-from pbr_tpu_torch.tools import k4_tiles
+from pbr_tpu_torch.tools import k4_tiles, k8_walk
 
 SOURCE = (ci.CSRC / "cull_intersect.cu").read_text()
+K8_SOURCE = (ci.CSRC / "bvh_walk.cu").read_text()
 
 
 def test_source_as_built_is_the_unpatched_copy():
@@ -62,3 +65,60 @@ def test_block_stats_of_a_known_record():
         np.array([30, 22.5, 7.5, 27.5, 30, 30, 30]) / 1e6)
     assert st["longest_block_slots"] == 3 and st["slots_max"] == 3
     assert st["slots_mean"] == 1.75 and st["slots_top1pct_share"] == 3 / 7
+
+
+def test_k8_patched_source_finds_every_hook():
+    """The record's declaration and setter are added once; walk_kernel
+    starts and ends with its clock reads and tallies each node step and
+    each face test once; the rest of the source is unchanged."""
+    src = k8_walk.patched_source(K8_SOURCE)
+    assert src.count(k8_walk._DECL) == 1 and src.endswith(k8_walk._SETTER)
+    lo, hi = k8_walk._body(src, "walk_kernel")
+    body = src[lo:hi]
+    assert body.startswith(k8_walk._START) and body.endswith(k8_walk._END)
+    assert body.count(k8_walk._NODE + k8_walk._NODE_ANCHOR) == 1
+    assert body.count(k8_walk._LEAF_ANCHOR + " " + k8_walk._LEAF) == 1
+    for hook in (k8_walk._DECL, k8_walk._SETTER, k8_walk._START, k8_walk._END,
+                 k8_walk._NODE, " " + k8_walk._LEAF):
+        src = src.replace(hook, "", 1)
+    assert src == K8_SOURCE
+
+
+def test_k8_kernel_has_no_early_return():
+    """walk_kernel returns only at its end, where the patch reads each
+    warp's clock: a lane that returned early would leave its warp's
+    __syncwarp and record."""
+    lo, hi = k8_walk._body(K8_SOURCE, "walk_kernel")
+    code = re.sub(r"//[^\n]*", "", K8_SOURCE[lo:hi])
+    assert re.search(r"\breturn\b", code) is None
+
+
+@pytest.mark.parametrize("old, new, match", [
+    ("#include <cuda_runtime.h>\n", "#include <cuda.h>\n", "cuda_runtime"),
+    ("walk_kernel(const Params p)", "walk_rays(const Params p)", "walk_kernel"),
+    ("++visits;", "visits += 1;", "visits"),
+    ("for (int k = 0; k < cnt; ++k) {", "for (int k = 0; k != cnt; ++k) {", "cnt"),
+])
+def test_k8_patched_source_raises_on_a_missing_hook(old, new, match):
+    """The include the declaration follows, the kernel's name and its two
+    loops' anchors: the patch fails where one goes missing."""
+    assert K8_SOURCE.count(old) == 1
+    with pytest.raises(ValueError, match=match):
+        k8_walk.patched_source(K8_SOURCE.replace(old, new))
+
+
+def test_warp_stats_of_a_known_record():
+    """Three warps that ran (and one row that never did): starts 0, 0, 10
+    ns, ends 10, 40, 20 ns; node iterations 2, 4, 2 with 64, 32, 32 lanes;
+    leaf iterations 1, 1, 0 with 32, 16, 0 lanes. Two run at once; the
+    median warp ends at 20 ns, the last at 40; a warp lasts 20 ns on
+    average; SIMD 128 / 256 and 48 / 64."""
+    rec = np.array([[100, 110, 2, 64, 1, 32], [100, 140, 4, 32, 1, 16],
+                    [110, 120, 2, 32, 0, 0], [0, 0, 0, 0, 0, 0]])
+    st = k8_walk.warp_stats(rec)
+    assert st["warps"] == 3 and st["resident_warps"] == 2
+    np.testing.assert_allclose(
+        [st["span_ms"], st["median_end_ms"], st["last_after_median_ms"], st["mean_warp_ms"],
+         st["longest_warp_ms"]], np.array([40, 20, 20, 20, 40]) / 1e6)
+    assert st["node_simd"] == 0.5 and st["leaf_simd"] == 0.75
+    assert st["node_iterations_per_warp"] == 8 / 3 and st["leaf_iterations_per_warp"] == 2 / 3
