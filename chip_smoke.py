@@ -88,9 +88,12 @@ read just after; a kernel of the path that did not launch fails the run.
      nearest and any-hit instances launch once a bounce each and nothing
      else, 0 lanes dropped, with the frame's test counter; K5 against its
      plain version, bitwise (with the counters), on all 1M camera rays and
-     on 1M bounce-like rays with an alive mask and NEE; the executed share
-     of (row, slot) pairs; times per call of K5's passes, of the wrapper
-     and of its plain version, with the bound;
+     on 1M bounce-like rays with an alive mask and NEE (its tiles
+     heaviest first, on the face-major lin table); the executed share of
+     (row, slot) pairs, and from a copy of K5 with a record a block
+     (tools/k5_rows.py) the active rows a staged slot and the staging
+     share of a block's time; times per call of K5's passes, of the
+     wrapper and of its plain version, with the bound;
 6. the tree walks on soup:100000 (4,523 nodes, 64-face leaves, and a forest
    from accel.forest.build_forest: 13 sub-trees of 8,192 faces) and on
    soup:10000 (bench.py --scene soup:10000: 11,953 nodes, 2-face leaves):
@@ -157,6 +160,7 @@ from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
 from pbr_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from pbr_tpu_torch.ops import cuda_sweep as cs  # noqa: E402
 from pbr_tpu_torch.ops import traverse as tt  # noqa: E402
+from pbr_tpu_torch.ops.intersect import EPS5  # noqa: E402
 from pbr_tpu_torch.ops.rng import PixelRng  # noqa: E402
 from pbr_tpu_torch.ops.vec import Vec3  # noqa: E402
 from pbr_tpu_torch.scene.build import scene_from_text  # noqa: E402
@@ -167,6 +171,7 @@ from pbr_tpu_torch.scene.procedural import (  # noqa: E402
     multi_room,
     random_soup,
 )
+from pbr_tpu_torch.tools import k5_rows  # noqa: E402
 from pbr_tpu_torch.utils.config import RenderSettings  # noqa: E402
 
 SIZE = 1024
@@ -192,6 +197,11 @@ PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 # with the division and the gates, and K5 and K5m run the form itself:
 # the bound counts what the function needs, whatever implements it.
 OPS_CLASSIC, OPS_LIN = 51, 44
+# The row sweep's bound splits the linear form: every test needs t (det 5,
+# 1/det 1, t 7, the gate t >= 1e-5 and the comparison with the ray's bound
+# 2: 15), and only a face whose t can change the result needs u and v (u
+# 12, v 13, their gates 4: 29).
+OPS_LIN_T, OPS_LIN_UV = 15, 29
 # Floating-point operations of one ray-box slab test, as the tree walks
 # need them: (bound - o) * inv for 6 bounds 12, a min and a max per axis 6,
 # t_near and t_far 4, the gates t_near <= t_far, t_far > EPSILON5 and
@@ -308,16 +318,25 @@ def _build_native():
     return Path(native._LIB)
 
 
+# K5 as built and its copy with a record a block (tools/k5_rows.py), built
+# with the kernels: {record: (library, ptxas report)}.
+K5_RECORD = {}
+
+
 def build_phase() -> None:
-    """One nvcc per kernel source and one g++, all started together."""
+    """One nvcc per kernel source and one g++, all started together, and
+    K5's two diagnostic copies."""
     def timed(name):
         t0 = time.perf_counter()
+        if name == "k5 record":
+            K5_RECORD.update(k5_rows.build())
+            return name, time.perf_counter() - t0, "build/pbr_tpu_torch/diag/"
         path = _build_native() if name == "bvh_builder" else ci.build(name)
         return name, time.perf_counter() - t0, path.name
 
     t0 = time.perf_counter()
     names = ("brute_intersect", "gated_intersect", "cull_intersect", "row_sweep", "bvh_packet",
-             "bvh_walk", "bvh_builder")
+             "bvh_walk", "bvh_builder", "k5 record")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         done = list(pool.map(timed, names))
     for name, sec, lib in done:
@@ -1065,11 +1084,12 @@ def _sweep_passes(o, d, clusters, light, alive):
     return passes, out
 
 
-def _sweep_pass_plain(kind: str, args) -> tuple:
+def _sweep_pass_plain(kind: str, args, uv: bool = False) -> tuple:
     """A recorded pass through the plain version, with what it ran: the
     (row, lin cluster) pairs, their real-face tests (32 rays x the lin
     cluster's real faces a pair) and the (tile, lin cluster) tables the
-    kernel stages (one where any row of the tile runs)."""
+    kernel stages (one where any row of the tile runs); ``uv``: also the
+    tests that need u and v (``_sweep_uv_tests``)."""
     lin = args[3]
     # m = e2 x e1 (rows 0-2) is 0 on padding faces
     real = (lin[:, 0:3, :] != 0).any(dim=1).sum(dim=1)
@@ -1079,11 +1099,49 @@ def _sweep_pass_plain(kind: str, args) -> tuple:
     pairs = sum(int(r.numel()) for r, _ in work)
     tests = sum(int(real[c].sum()) for _, c in work) * cs.ROW
     staged = sum(int(torch.unique(r // cs.GROUPS).numel()) for r, _ in work)
-    return out, {"pairs": pairs, "tests": tests, "staged": staged}
+    res = {"pairs": pairs, "tests": tests, "staged": staged}
+    if uv:
+        res["uv_tests"] = _sweep_uv_tests(args, work, out)
+    return out, res
+
+
+def _sweep_uv_tests(args, work, out) -> int:
+    """The tests of a recorded pass whose t can change the result, the only
+    ones whose u and v the function needs, from the plain version's t on
+    its executed pairs: nearest, 1e-5 <= t <= the ray's final t; any-hit,
+    1e-5 <= t < t_limit on a ray not occluded yet, in the plain version's
+    order up to and including the ray's first occluder. Padding faces
+    (det = 0, t NaN) are never counted."""
+    rows = lambda a: a.reshape(-1, cs.ROW)  # noqa: E731
+    o, d = Vec3(*map(rows, args[0])), Vec3(*map(rows, args[1]))
+    c = ci.cross_od(o, d)
+    t_limit, lin = args[2], args[3]
+    if t_limit is not None:
+        limit, occ = rows(t_limit), rows(args[-2]) > 0.0  # the 0/1 seed
+    else:
+        final = rows(out[0])
+    step = max(1, cs._PLAIN_ELEMS // (cs.ROW * cs.LIN))
+    n = 0
+    for rws, cids in work:
+        for k in range(0, rws.shape[0], step):
+            rw, cd = rws[k:k + step], cids[k:k + step]
+            tab = lin[cd].transpose(0, 1)[:, :, None, :]  # (16, k, 1, LIN)
+            ray = lambda v: Vec3(*(a[rw][:, :, None] for a in v))  # noqa: E731
+            t, valid = ci.mt_lin(ray(o), ray(d), ray(c), tab)  # (k, ROW, LIN)
+            if t_limit is None:
+                n += int(((t >= EPS5) & (t <= final[rw][:, :, None])).sum())
+                continue
+            lim = limit[rw][:, :, None]
+            hit = valid & (t < lim)
+            before = torch.cumsum(hit, dim=2, dtype=torch.int32) - hit.to(torch.int32)
+            n += int(((t >= EPS5) & (t < lim) & (before == 0) & ~occ[rw][:, :, None]).sum())
+            occ[rw] = occ[rw] | hit.any(dim=2)
+    return n
 
 
 def _sweep_pass_bound(kind: str, args, work: dict) -> tuple:
-    """Bound of one K5 or K5m pass: its real-face tests in the linear form;
+    """Bound of one K5 or K5m pass: t for each of its real-face tests, u
+    and v for those whose t can change the result (``_sweep_uv_tests``);
     bytes, each input read once and each output written once: the rays
     (and t_limit), the seeds, the lin tables, the candidate tables or
     verdict words, the outputs. Also returns the time of the bytes the
@@ -1096,7 +1154,8 @@ def _sweep_pass_bound(kind: str, args, work: dict) -> tuple:
     nbytes = (28 if any_hit else 24) * n + 8 * n + lin.numel() * 4 + gate \
         + (4 if any_hit else 8) * n
     staged = 8192 * work["staged"] / PEAK_BYTES * 1e3
-    return _bound(OPS_LIN * work["tests"], nbytes), staged
+    ops = OPS_LIN_T * work["tests"] + OPS_LIN_UV * work["uv_tests"]
+    return _bound(ops, nbytes), staged
 
 
 def _sweep_kernel_checks(tag: str, cases, clusters, light) -> dict:
@@ -1127,23 +1186,29 @@ def _sweep_kernel_checks(tag: str, cases, clusters, light) -> dict:
         shares = []
         for kind_i, args in passes:
             pass_name = kind_i + (" any-hit" if args[2] is not None else "")
-            out, work = _sweep_pass_plain(kind_i, args)
+            out, work = _sweep_pass_plain(kind_i, args, uv=i_case == 0)
             _equal_or_raise(f"{pass_name} replay on {name}", cs._slotted_kernel(*args)
                             if kind_i == "K5" else cs._masked_kernel(*args), out)
             cl = args[3].shape[0]
             rows = args[0].x.shape[0] // cs.ROW
             if kind_i == "K5":
-                cand, cnt = args[4], args[5]
-                listed_slots = torch.arange(cl, device=cand.device)[None, :] < cnt[:, None]
-                listed = sum(int((((cand >> (16 + g)) & 1) * listed_slots).sum())
-                             for g in range(cs.GROUPS))
+                listed = int(cs.listed_rows(args[4], args[5]).sum())
             else:
                 w = args[4]
                 listed = sum(int(((w >> b) & 1).sum()) for b in range(16))
+            blocks = ""
+            if kind_i == "K5":  # the copy with the record: its pairs and staged tables equal
+                st = k5_rows.record_pass(K5_RECORD, args, (out if isinstance(out, tuple)
+                                                           else (out,), work["pairs"],
+                                                           work["staged"]))
+                blocks = (f"; {st['rows_per_staged_slot']:.3f} active rows a staged slot (of "
+                          f"{cs.GROUPS}), staging {st['staging_share']:.2%} of a block's "
+                          f"time, span {st['span_ms']:.4f} ms, last block "
+                          f"{st['last_after_median_ms']:.4f} ms after the median")
             shares.append(f"{pass_name}: listed {listed / (rows * cl):.4f}, executed "
                           f"{work['pairs'] / (rows * cl):.4f} of the {rows} x {cl} (row, lin "
                           f"cluster) pairs ({work['pairs']} pairs, {work['tests']} real-face "
-                          f"tests, {work['staged']} tables staged)")
+                          f"tests, {work['staged']} tables staged){blocks}")
             if i_case == 0:
                 first.append((pass_name, kind_i, args, work))
         phase(tag, f"{name}: " + "; ".join(shares))
@@ -1162,7 +1227,8 @@ def _time_sweep_passes(tag: str, passes, what: str) -> dict:
         bound, staged = _sweep_pass_bound(kind, args, work)
         out[pass_name] = (ms, plain_ms, bound)
         phase(tag, f"{pass_name} per pass on {what}: {ms:.4f} ms; plain version "
-                   f"{plain_ms:.4f} ms; {work['tests']} real-face tests, bound {bound[0]:.4f} ms "
+                   f"{plain_ms:.4f} ms; {work['tests']} real-face tests, {work['uv_tests']} of them "
+                   f"need u and v, bound {bound[0]:.4f} ms "
                    f"({bound[1]}); staged tables {staged:.4f} ms at 3.35 TB/s")
     return out
 

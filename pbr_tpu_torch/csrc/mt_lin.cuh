@@ -36,16 +36,32 @@ __device__ __forceinline__ void cross_od(float ox, float oy, float oz, float dx,
   *cz = ox * dy - oy * dx;
 }
 
+// The face test in parts, which a caller may gate on t before it computes
+// u and v: lin_det and lin_tnum return det and t's numerator, t = tnum *
+// (1 / det); lin_uv tells whether u >= 0, v >= 0 and u + v <= 1.
+__device__ __forceinline__ float lin_det(const LinFace& f, float dx, float dy, float dz) {
+  return dx * f.m0 + dy * f.m1 + dz * f.m2;
+}
+
+__device__ __forceinline__ float lin_tnum(const LinFace& f, float ox, float oy, float oz) {
+  return f.km - (ox * f.m0 + oy * f.m1 + oz * f.m2);
+}
+
+__device__ __forceinline__ bool lin_uv(const LinFace& f, float dx, float dy, float dz, float cx,
+                                       float cy, float cz, float inv) {
+  const float u = ((f.e2x * cx + f.e2y * cy + f.e2z * cz) - (dx * f.w0 + dy * f.w1 + dz * f.w2)) * inv;
+  const float v = (-(f.e1x * cx + f.e1y * cy + f.e1z * cz) - (dx * f.q0 + dy * f.q1 + dz * f.q2)) * inv;
+  return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
+}
+
 __device__ __forceinline__ bool mt_lin(const LinFace& f, float ox, float oy, float oz,
                                        float dx, float dy, float dz, float cx, float cy,
                                        float cz, float* t_out) {
-  const float det = dx * f.m0 + dy * f.m1 + dz * f.m2;
-  const float inv = 1.0f / det;
-  const float t = (f.km - (ox * f.m0 + oy * f.m1 + oz * f.m2)) * inv;
-  const float u = ((f.e2x * cx + f.e2y * cy + f.e2z * cz) - (dx * f.w0 + dy * f.w1 + dz * f.w2)) * inv;
-  const float v = (-(f.e1x * cx + f.e1y * cy + f.e1z * cz) - (dx * f.q0 + dy * f.q1 + dz * f.q2)) * inv;
+  const float inv = 1.0f / lin_det(f, dx, dy, dz);
+  const float t = lin_tnum(f, ox, oy, oz) * inv;
+  const bool uv = lin_uv(f, dx, dy, dz, cx, cy, cz, inv);
   *t_out = t;
-  return (t >= kLinEps5) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
+  return (t >= kLinEps5) && uv;
 }
 
 }  // namespace pbr

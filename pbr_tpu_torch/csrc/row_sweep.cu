@@ -6,9 +6,10 @@
 // ::_build_call_masked). They compute exactly what those kernels compute:
 //   - the scene's faces, in memory order, are cut into CL lin clusters of
 //     128 faces; lin cluster c holds faces [c * 128, (c + 1) * 128) and a
-//     (16, 128) f32 table of the linear form's per-face constants
-//     (accel/clusters.py: rows m, km, w, q, e1, e2; padding faces all 0, so
-//     det = 0, t = NaN, never valid);
+//     table of the linear form's 16 per-face constants (accel/clusters.py:
+//     m, km, w, q, e1, e2; padding faces all 0, so det = 0, t = NaN, never
+//     valid), which the kernels read face-major, (CL, 128, 16) f32
+//     (scene/device.py builds it once a scene: SceneParams.clu_lin_fm);
 //   - a ray tile is 256 rays in 8 rows of 32. A row's verdict bit says
 //     whether the row's frustum may hit a lin cluster (ops/cull.py);
 //   - K5, per tile and slot l in order: the slot's entry cand[t, l] holds a
@@ -32,9 +33,9 @@
 //     updates;
 //   - any-hit mode: occ = max(occ_seed, valid & (t < t_limit)).
 // The wrapper (ops/cuda_sweep.py) sorts the rays, computes the candidate
-// lists or verdict words (ops/cull.py), the seeds and the NEE shadow rays,
-// and pads the batch to whole tiles, so every thread holds a real (maybe
-// dead) ray and every warp is full.
+// lists or verdict words (ops/cull.py), the seeds, the NEE shadow rays and
+// K5's tile order, and pads the batch to whole tiles, so every thread holds
+// a real (maybe dead) ray and every warp is full.
 //
 // What bounds it on this card: per executed (row, lin cluster) pair, 32
 // rays x 128 faces of the linear form, about 44 f32 operations a test
@@ -45,26 +46,44 @@
 // is. --fmad=false caps issue at 33.5 T op/s (132 SMs x 128 lanes x
 // 1.98 GHz) against the 67 T op/s of the published peak.
 //
-// The design, for that bound and for this card (not the TPU's blocks):
-//   - one 256-thread block per ray tile; the TPU's 32-ray row is one warp,
-//     and each thread holds its ray (o, d, o x d, t_limit) and its running
-//     (t, face), or occlusion, in registers. The TPU kept per-(ray, lane)
-//     state in VMEM and reduced it once per tile (_finalize); the
-//     lexicographic minimum does not depend on the order of its updates, so
-//     a sequential per-thread update gives the same answer;
-//   - the TPU grid's sequential slot axis is a loop inside the block, and
-//     each block reads its own cand/cnt/tent row (the TPU's scalar
-//     prefetch). A slot no row needs costs one __syncthreads_or; a needed
-//     lin cluster's (16, 128) table is staged into shared memory by the
-//     whole block, face-major, so a face's 16 constants are 4 float4
-//     broadcast loads; only the warps whose bit is set run it;
-//   - a row's early-out is one __all_sync over its warp; the block leaves
-//     once every row is done (__syncthreads_and);
-//   - K5m stages only the lin clusters some row of the tile gates in: the
-//     whole table (up to 48 x 8 KB) would not fit in shared memory, and
-//     multiroom's 128 KB would cap occupancy.
-// Later work: a persistent block, TMA staging of the next slot's table
-// while the current one runs, several rays a thread.
+// K5's design, for that bound and for this card (not the TPU's blocks;
+// pbr_tpu_torch/tools/k5_rows.py measures its blocks, PERF.md has the
+// numbers of each step):
+//   - one 256-thread block per ray tile, taken heaviest first: block b
+//     sweeps tile order[b] (the wrapper's row_order: listed (row, slot)
+//     pairs, descending), so the longest lists start in the first wave;
+//   - no warp idles while its block sweeps. The TPU's 32-ray row is not
+//     one warp: the tile's rays (o, d, o x d, t_limit) and running results
+//     live in shared memory, the nearest result as one 64-bit key whose
+//     unsigned order is the (t, face) order. For each staged slot, warp w
+//     takes faces [16 w, 16 w + 16) of every row that runs the slot, and
+//     merges each ray's partial minimum by a shared atomicMin on the key
+//     (any-hit: a store of 1). The lexicographic minimum does not depend on
+//     the order of the merges, so the answer is the sequential one (with
+//     a warp a row, 3.2 of 8 warps ran a staged slot on soup:100000's
+//     camera rays);
+//   - the face test computes t first, and u and v only where t can change
+//     the result: t >= 1e-5 and t < t_limit on an unoccluded ray; for the
+//     nearest, t below the chunk's minimum so far and at most the ray's
+//     best t when its chunk began (a tie keeps the earlier face, and the
+//     best only falls). Every face that can win is tested whole, in
+//     mt_lin.cuh's operation order;
+//   - a slot's table is one straight 8 KB copy of the face-major table
+//     (two 16-byte loads and stores a thread) and a __syncthreads; after
+//     the sweep a second one: every merge is in and the buffer is free.
+//     Each warp then checks the early-out of the rows that ran (every warp
+//     reaches the same verdicts). Staging the next slot's table with
+//     cp.async into a second buffer while the block sweeps, with one
+//     barrier a slot, was measured and lost: staging was 0.2-3% of a
+//     block's time, and six blocks an SM hide it;
+//   - the TPU grid's sequential slot axis is a loop inside the block, which
+//     reads its own cand/cnt/tent row (the TPU's scalar prefetch);
+//   - at most 40 registers (six blocks an SM) and the face loop unrolled by
+//     four: unrolled once it takes 15% longer, by 16 it spills.
+// K5m keeps the first design: one warp a row, each thread its ray and result
+// in registers, one lin cluster staged at a time (a straight copy of its
+// face-major table) and only where some row of the tile gates it in: the
+// whole table (up to 48 x 8 KB) would not fit in shared memory.
 //
 // Numerics: built with --fmad=false, no --use_fast_math and IEEE division,
 // so each operation rounds as the unfused torch ops do and the kernels
@@ -77,10 +96,18 @@
 namespace {
 
 constexpr int kTile = 256;        // rays a tile: one block, one ray a thread
-constexpr int kRowRays = 32;      // rays a row: one warp
+constexpr int kRowRays = 32;      // rays a row
+constexpr int kRows = kTile / kRowRays;
 constexpr int kLin = 128;         // faces a lin cluster
+constexpr int kFace4 = pbr::kLinRows / 4;  // float4s a face of the face-major table
+constexpr int kTable4 = kLin * kFace4;     // float4s a lin cluster's table: 8 KB
+constexpr int kChunk = kLin / kRows;       // faces a warp takes of each row a slot runs
+constexpr int kMinBlocks = 6;     // K5's blocks an SM: at most 40 registers
 constexpr int kMaxLin = 1 << 16;  // lin cluster ids fill bits 0-15 of an entry
 constexpr float kBigNeg = -3.0e38f;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 struct Rays {
   const float *ox, *oy, *oz, *dx, *dy, *dz, *t_limit;  // t_limit null: nearest
@@ -124,25 +151,26 @@ __device__ __forceinline__ void store_ray(const Rays& r, long long i, const Ray&
   }
 }
 
-// Stage lin cluster `cid`'s (16, 128) table into shared memory,
-// face-major: sm[j * 16 + k] = lin[cid][k][j].
-__device__ __forceinline__ void stage(const float* __restrict__ lin, int cid, float* sm) {
-  const float* blk = lin + static_cast<long long>(cid) * pbr::kLinRows * kLin;
-  for (int i = threadIdx.x; i < pbr::kLinRows * kLin; i += kTile) {
-    const int k = i / kLin, j = i - k * kLin;
-    sm[j * pbr::kLinRows + k] = blk[i];
-  }
+// Copy lin cluster `cid`'s face-major table into `buf`: 16-byte loads and
+// stores, two a thread, every warp's stores on consecutive banks.
+__device__ __forceinline__ void stage(const float4* __restrict__ lin4, int cid, float4* buf) {
+  const float4* src = lin4 + static_cast<long long>(cid) * kTable4;
+  for (int k = threadIdx.x; k < kTable4; k += kTile) buf[k] = src[k];
 }
 
-// _section: the 128 faces of the staged lin cluster `cid` for one ray.
+__device__ __forceinline__ pbr::LinFace face_of(const float4* sm4, int j) {
+  const float4 a = sm4[kFace4 * j], b = sm4[kFace4 * j + 1], c = sm4[kFace4 * j + 2],
+               e = sm4[kFace4 * j + 3];
+  return {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, e.x, e.y, e.z, e.w};
+}
+
+// _section (K5m): the 128 faces of the staged lin cluster `cid` for one ray.
 template <bool ANY_HIT>
 __device__ __forceinline__ void section(const float4* sm4, int cid, Ray& y) {
   for (int j = 0; j < kLin; ++j) {
-    const float4 a = sm4[4 * j], b = sm4[4 * j + 1], c = sm4[4 * j + 2], e = sm4[4 * j + 3];
-    const pbr::LinFace f{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
-                         c.x, c.y, c.z, c.w, e.x, e.y, e.z, e.w};
     float t;
-    const bool valid = pbr::mt_lin(f, y.ox, y.oy, y.oz, y.dx, y.dy, y.dz, y.cx, y.cy, y.cz, &t);
+    const bool valid =
+        pbr::mt_lin(face_of(sm4, j), y.ox, y.oy, y.oz, y.dx, y.dy, y.dz, y.cx, y.cy, y.cz, &t);
     if constexpr (ANY_HIT) {
       if (valid && t < y.t_limit) y.best = 1.0f;
     } else {
@@ -155,51 +183,153 @@ __device__ __forceinline__ void section(const float4* sm4, int cid, Ray& y) {
   }
 }
 
-// _row_done: every ray of the warp's row has its key at most `bound`. Called
-// by all 32 lanes of a warp.
+// A nearest result as one 64-bit key whose unsigned order is the (t, face)
+// lexicographic order: t's bits made order-preserving, then the face with
+// its sign bit flipped.
+__device__ __forceinline__ unsigned long long pack_key(float t, int face) {
+  const unsigned u = __float_as_uint(t);
+  const unsigned ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(ord) << 32) | (static_cast<unsigned>(face) ^ 0x80000000u);
+}
+
+__device__ __forceinline__ float key_t(unsigned long long k) {
+  const unsigned ord = static_cast<unsigned>(k >> 32);
+  return __uint_as_float((ord & 0x80000000u) ? (ord ^ 0x80000000u) : ~ord);
+}
+
+__device__ __forceinline__ int key_face(unsigned long long k) {
+  return static_cast<int>(static_cast<unsigned>(k) ^ 0x80000000u);
+}
+
+// K5's tile in shared memory, so that any warp can sweep any row: o, d,
+// o x d and t_limit a ray, column by column, and the nearest key or the 0/1
+// occlusion.
+struct RowState {
+  float ray[10][kTile];
+  unsigned long long key[kTile];
+  int occ[kTile];
+};
+
+// Warp `warp`'s share of row `row`'s run of the staged lin cluster `cid`:
+// faces [warp * kChunk, (warp + 1) * kChunk) for the row's 32 rays, merged
+// into the shared results. t comes first, u and v only where t can change
+// the result (the header says why that is exact).
 template <bool ANY_HIT>
-__device__ __forceinline__ bool row_done(const Ray& y, float bound) {
-  const float key = ANY_HIT ? (y.best > 0.0f ? kBigNeg : y.t_limit) : y.best;
-  return __all_sync(0xffffffffu, key <= bound);
+__device__ __forceinline__ void deal(const float4* sm4, int cid, int row, int warp, int lane,
+                                     RowState& s) {
+  const int k = row * kRowRays + lane;
+  const float ox = s.ray[0][k], oy = s.ray[1][k], oz = s.ray[2][k];
+  const float dx = s.ray[3][k], dy = s.ray[4][k], dz = s.ray[5][k];
+  const float cx = s.ray[6][k], cy = s.ray[7][k], cz = s.ray[8][k];
+  // any-hit: t_limit, and hit 1 once occluded; nearest: the ray's best t
+  // when the chunk began, and the chunk's minimum (tmin, jmin)
+  const float bound = ANY_HIT ? s.ray[9][k] : key_t(s.key[k]);
+  bool hit = ANY_HIT && s.occ[k];
+  float tmin = inf_f();
+  int jmin = 0;
+#pragma unroll 4
+  for (int q = 0; q < kChunk; ++q) {
+    const int j = warp * kChunk + q;
+    const pbr::LinFace f = face_of(sm4, j);
+    const float inv = 1.0f / pbr::lin_det(f, dx, dy, dz);
+    const float t = pbr::lin_tnum(f, ox, oy, oz) * inv;
+    const bool gate = ANY_HIT ? (!hit && t < bound) : (t < tmin && t <= bound);
+    if (t >= pbr::kLinEps5 && gate && pbr::lin_uv(f, dx, dy, dz, cx, cy, cz, inv)) {
+      if constexpr (ANY_HIT) {
+        hit = true;
+      } else {
+        tmin = t;
+        jmin = j;
+      }
+    }
+  }
+  if constexpr (ANY_HIT) {
+    if (hit) s.occ[k] = 1;
+  } else if (tmin < inf_f()) {
+    atomicMin(&s.key[k], pack_key(tmin, cid * kLin + jmin));
+  }
+}
+
+// _row_done: every ray of row `row` has its key at most `bound`, from the
+// shared results. Called by all 32 lanes of a warp.
+template <bool ANY_HIT>
+__device__ __forceinline__ bool row_done(const RowState& s, int row, int lane, float bound) {
+  const int k = row * kRowRays + lane;
+  const float key = ANY_HIT ? (s.occ[k] ? kBigNeg : s.ray[9][k]) : key_t(s.key[k]);
+  return __all_sync(kFull, key <= bound);
+}
+
+// The first slot >= l within count whose rows include one not done (count
+// when none).
+__device__ __forceinline__ int next_slot(const int* __restrict__ cand_t, int l, int count,
+                                         unsigned done) {
+  while (l < count && !((cand_t[l] >> 16) & 0xFF & ~done)) ++l;
+  return l;
 }
 
 template <bool ANY_HIT>
-__global__ void __launch_bounds__(kTile)
-    slotted_rows_kernel(Rays r, const float* __restrict__ lin, int n_lin,
+__global__ void __launch_bounds__(kTile, kMinBlocks)
+    slotted_rows_kernel(Rays r, const float4* __restrict__ lin4, int n_lin,
                         const int* __restrict__ cand, const int* __restrict__ cnt,
-                        const float* __restrict__ tent, int early_out) {
-  __shared__ float4 sm4[kLin * pbr::kLinRows / 4];
-  const long long i = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x;
-  const int row = threadIdx.x / kRowRays;
+                        const float* __restrict__ tent, const int* __restrict__ order,
+                        int early_out) {
+  __shared__ float4 buf[kTable4];
+  __shared__ RowState s;
+  const int tile = order[blockIdx.x];
+  const int warp = threadIdx.x / kRowRays, lane = threadIdx.x % kRowRays;
+  const long long i = static_cast<long long>(tile) * kTile + threadIdx.x;
   Ray y = load_ray<ANY_HIT>(r, i);
-  const int* cand_t = cand + static_cast<long long>(blockIdx.x) * n_lin;
-  const float* tent_t = tent + static_cast<long long>(blockIdx.x) * (n_lin + 1);
-  // Rows whose seeds already beat the first entry bound skip everything.
-  bool done = early_out && row_done<ANY_HIT>(y, tent_t[0]);
-  const int count = min(cnt[blockIdx.x], n_lin);
-  if (!(early_out && __syncthreads_and(done))) {
-    for (int l = 0; l < count; ++l) {
-      const int entry = cand_t[l];
-      const bool run = !done && ((entry >> (16 + row)) & 1);  // uniform over the warp
-      if (!__syncthreads_or(run)) continue;  // no row needs it; also: sm4 is free
-      const int cid = entry & 0xFFFF;
-      stage(lin, cid, reinterpret_cast<float*>(sm4));
-      __syncthreads();
-      if (run) {
-        section<ANY_HIT>(sm4, cid, y);
-        if (early_out) done = row_done<ANY_HIT>(y, tent_t[l + 1]);
-      }
-      if (early_out && __syncthreads_and(done)) break;
+  const int* cand_t = cand + static_cast<long long>(tile) * n_lin;
+  const float* tent_t = tent + static_cast<long long>(tile) * (n_lin + 1);
+  const int count = min(cnt[tile], n_lin);
+  const float v[10] = {y.ox, y.oy, y.oz, y.dx, y.dy, y.dz, y.cx, y.cy, y.cz, y.t_limit};
+#pragma unroll
+  for (int q = 0; q < 10; ++q) s.ray[q][threadIdx.x] = v[q];
+  if constexpr (ANY_HIT) {
+    s.occ[threadIdx.x] = y.best > 0.0f ? 1 : 0;
+  } else {
+    s.key[threadIdx.x] = pack_key(y.best, y.face);
+  }
+  __syncthreads();
+  // The rows done, the same in every thread. Rows whose seeds already beat
+  // the first entry bound skip everything.
+  unsigned done = 0;
+  if (early_out) {
+    for (int row = 0; row < kRows; ++row) {
+      if (row_done<ANY_HIT>(s, row, lane, tent_t[0])) done |= 1u << row;
     }
+  }
+  for (int l = next_slot(cand_t, 0, count, done); l < count;
+       l = next_slot(cand_t, l + 1, count, done)) {
+    const int entry = cand_t[l];
+    const int cid = entry & 0xFFFF;
+    const unsigned act = (entry >> 16) & 0xFF & ~done;  // the rows that run this slot
+    stage(lin4, cid, buf);
+    __syncthreads();  // slot l's table is staged
+    for (unsigned m = act; m; m &= m - 1) deal<ANY_HIT>(buf, cid, __ffs(m) - 1, warp, lane, s);
+    __syncthreads();  // slot l is swept: every merge is in, no thread still reads buf
+    if (early_out) {
+      const float bound = tent_t[l + 1];
+      for (unsigned m = act; m; m &= m - 1) {
+        const int row = __ffs(m) - 1;
+        if (row_done<ANY_HIT>(s, row, lane, bound)) done |= 1u << row;
+      }
+    }
+  }
+  if constexpr (ANY_HIT) {
+    y.best = s.occ[threadIdx.x] ? 1.0f : 0.0f;
+  } else {
+    y.best = key_t(s.key[threadIdx.x]);
+    y.face = key_face(s.key[threadIdx.x]);
   }
   store_ray<ANY_HIT>(r, i, y);
 }
 
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(kTile)
-    masked_rows_kernel(Rays r, const float* __restrict__ lin, int n_lin,
+    masked_rows_kernel(Rays r, const float4* __restrict__ lin4, int n_lin,
                        const int* __restrict__ words) {
-  __shared__ float4 sm4[kLin * pbr::kLinRows / 4];
+  __shared__ float4 sm4[kTable4];
   const long long i = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x;
   const int row = threadIdx.x / kRowRays;
   Ray y = load_ray<ANY_HIT>(r, i);
@@ -208,7 +338,7 @@ __global__ void __launch_bounds__(kTile)
     const int bits = (words_t[c / 2] >> ((c % 2) * 8)) & 0xFF;
     if (bits == 0) continue;  // one tile per block: uniform over the block
     __syncthreads();          // the previous table is no longer read
-    stage(lin, c, reinterpret_cast<float*>(sm4));
+    stage(lin4, c, sm4);
     __syncthreads();
     if ((bits >> row) & 1) section<ANY_HIT>(sm4, c, y);
   }
@@ -220,10 +350,12 @@ bool shape_ok(int n_lin) { return n_lin > 0 && n_lin <= kMaxLin; }
 }  // namespace
 
 // C entry points, bound with ctypes (ops/cuda_sweep.py). Pointers are device
-// pointers to n_tiles x 256 rays (a whole number of tiles), the (n_lin, 16,
-// 128) f32 lin tables, and the gate tables: K5 takes cand (n_tiles, n_lin)
-// int32, cnt (n_tiles,) int32, tent (n_tiles, n_lin + 1) f32 and a flag for
-// the early-out; K5m takes the (n_tiles, ceil(n_lin / 2)) int32 verdict
+// pointers to n_tiles x 256 rays (a whole number of tiles), the face-major
+// (n_lin, 128, 16) f32 lin tables (16-byte aligned), and the gate tables:
+// K5 takes cand (n_tiles, n_lin) int32, cnt (n_tiles,) int32, tent
+// (n_tiles, n_lin + 1) f32, order (n_tiles,) int32 (block b sweeps tile
+// order[b]) and a flag for the early-out; K5m takes the (n_tiles,
+// ceil(n_lin / 2)) int32 verdict
 // words. `t_limit` null: nearest mode, seeds seed_t / seed_f, outputs t_out
 // / f_out. Otherwise any-hit mode: seed_t is the 0/1 occlusion seed, output
 // occ_out. Each launches one 256-thread block a tile on `stream` without
@@ -232,18 +364,20 @@ bool shape_ok(int n_lin) { return n_lin > 0 && n_lin <= kMaxLin; }
 extern "C" int pbr_row_sweep(const float* ox, const float* oy, const float* oz,
                              const float* dx, const float* dy, const float* dz,
                              const float* t_limit, const float* lin, int n_lin, int n_tiles,
-                             const int* cand, const int* cnt, const float* tent, int early_out,
+                             const int* cand, const int* cnt, const float* tent,
+                             const int* order, int early_out,
                              const float* seed_t, const int* seed_f, float* t_out, int* f_out,
                              int* occ_out, void* stream) {
   if (!shape_ok(n_lin)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Rays r{ox, oy, oz, dx, dy, dz, t_limit, seed_t, seed_f, t_out, f_out, occ_out};
+  const float4* lin4 = reinterpret_cast<const float4*>(lin);
   if (t_limit) {
-    slotted_rows_kernel<true><<<n_tiles, kTile, 0, s>>>(r, lin, n_lin, cand, cnt, tent,
+    slotted_rows_kernel<true><<<n_tiles, kTile, 0, s>>>(r, lin4, n_lin, cand, cnt, tent, order,
                                                         early_out);
   } else {
-    slotted_rows_kernel<false><<<n_tiles, kTile, 0, s>>>(r, lin, n_lin, cand, cnt, tent,
+    slotted_rows_kernel<false><<<n_tiles, kTile, 0, s>>>(r, lin4, n_lin, cand, cnt, tent, order,
                                                          early_out);
   }
   return static_cast<int>(cudaGetLastError());
@@ -259,10 +393,11 @@ extern "C" int pbr_row_sweep_masked(const float* ox, const float* oy, const floa
   if (n_tiles <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Rays r{ox, oy, oz, dx, dy, dz, t_limit, seed_t, seed_f, t_out, f_out, occ_out};
+  const float4* lin4 = reinterpret_cast<const float4*>(lin);
   if (t_limit) {
-    masked_rows_kernel<true><<<n_tiles, kTile, 0, s>>>(r, lin, n_lin, words);
+    masked_rows_kernel<true><<<n_tiles, kTile, 0, s>>>(r, lin4, n_lin, words);
   } else {
-    masked_rows_kernel<false><<<n_tiles, kTile, 0, s>>>(r, lin, n_lin, words);
+    masked_rows_kernel<false><<<n_tiles, kTile, 0, s>>>(r, lin4, n_lin, words);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,10 +10,14 @@ wrapper, ``intersect_sweep``, with its contract. The source is
 kernels on the card and how their design answers that.
 
 The scene's faces are cut into lin clusters of 128 (``accel/clusters.py``),
-each with a (16, 128) table of the linear form's per-face constants. A ray
+each with a (16, 128) table of the linear form's per-face constants, which
+the kernels read face-major: ``clusters.lin`` is a transposed view of the
+contiguous (CL, 128, 16) ``SceneParams.clu_lin_fm`` that ``to_torch``
+builds once a scene, and the plain versions read the same values. A ray
 tile is ``TILE`` = 256 rays in ``GROUPS`` = 8 rows of 32 (the JAX wrapper's
-defaults, fixed here; a row is one warp of the kernels), and every row has
-its own frustum verdicts:
+defaults, fixed here; one thread block a tile; a row is one warp of K5m,
+while K5 deals each row's faces to all eight warps), and every row has its
+own frustum verdicts:
 
 - **K5** (more than 48 lin clusters) sweeps the tile's candidate list
   (``ops/cull.py::candidates_rows``: superclusters near to far, expanded to
@@ -21,7 +25,8 @@ its own frustum verdicts:
   row runs an entry only where its bit is set. With more than 96 lin
   clusters the rays are first sorted by ``coherence_keys``, and a row stops
   once every ray's best t (any-hit: every unoccluded ray's light distance)
-  is at most the next slot's entry bound;
+  is at most the next slot's entry bound. Its blocks take the tiles
+  heaviest first (``row_order``);
 - **K5m** (at most 48 lin clusters) visits every lin cluster in ascending
   order, each row gated by its bit of ``ops/cull.py::row_hit_words``.
 
@@ -80,7 +85,7 @@ MASKED_MAX_LIN = 48  # K5m up to this many lin clusters, K5 above (pallas_sweep.
 SORT_MIN_LIN = 96  # sort and early-out above this many (pallas_sweep.py:378-379, :471)
 TILE = 256  # rays a tile, one thread block of the kernels
 GROUPS = 8  # rows a tile
-ROW = TILE // GROUPS  # rays a row, one warp of the kernels
+ROW = TILE // GROUPS  # rays a row
 LIN = 128  # faces a lin cluster
 # Rays a chunk of the lists, whole tiles (pallas_sweep.py:330-332 has 131,072)
 SWEEP_CHUNK_RAYS = 262_144
@@ -94,9 +99,9 @@ _PLAIN_ELEMS = 1 << 22
 launches = {"K5": 0, "K5 any-hit": 0, "K5m": 0, "K5m any-hit": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# rays (6), t_limit, lin, n_lin, n_tiles, cand, cnt, tent, early_out,
+# rays (6), t_limit, lin, n_lin, n_tiles, cand, cnt, tent, order, early_out,
 # seed_t, seed_f, t_out, f_out, occ_out, stream
-_SLOTTED_ARGTYPES = [_P] * 8 + [_I] * 2 + [_P] * 3 + [_I] + [_P] * 6
+_SLOTTED_ARGTYPES = [_P] * 8 + [_I] * 2 + [_P] * 4 + [_I] + [_P] * 6
 # rays (6), t_limit, lin, n_lin, n_tiles, words, seed_t, seed_f, t_out,
 # f_out, occ_out, stream
 _MASKED_ARGTYPES = [_P] * 8 + [_I] * 2 + [_P] * 7
@@ -224,10 +229,30 @@ def _launch(name, symbol, argtypes, o, d, t_limit, lin, gate_args, seed_t, seed_
     return occ.to(torch.float32) if any_hit else (t_out, f_out)
 
 
-def _slotted_kernel(o, d, t_limit, lin, cand, cnt, tent, early_out, seed_t, seed_f):
-    """``_slotted_plain``'s contract, by a launch of kernel K5."""
+def listed_rows(cand: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """(T, GROUPS) int32: each tile's listed (row, slot) pairs by row, the
+    row's bit (16 + g) over the slots within ``cnt``."""
+    slots = torch.arange(cand.shape[1], device=cand.device)[None, :] < cnt[:, None]
+    bits = torch.where(slots, (cand >> 16) & 0xFF, 0).to(torch.uint8)
+    g = torch.arange(GROUPS, dtype=torch.uint8, device=cand.device)
+    return ((bits[:, :, None] >> g) & 1).sum(dim=1, dtype=torch.int32)
+
+
+def row_order(cand: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """(T,) int32: the tiles by listed (row, slot) pairs (``listed_rows``),
+    most first, ties in ascending order. K5's block b sweeps tile
+    ``order[b]``, so the longest lists start in the first wave."""
+    listed = listed_rows(cand, cnt).sum(dim=1)
+    return torch.argsort(listed, descending=True, stable=True).to(torch.int32)
+
+
+def _slotted_kernel(o, d, t_limit, lin, cand, cnt, tent, early_out, seed_t, seed_f,
+                    order=None):
+    """``_slotted_plain``'s contract, by a launch of kernel K5; ``order``:
+    the tiles' order (default ``row_order``)."""
     cand, cnt, tent = (a.contiguous() for a in (cand, cnt, tent))
-    gate = (cand.data_ptr(), cnt.data_ptr(), tent.data_ptr(), int(early_out))
+    order = row_order(cand, cnt) if order is None else order.contiguous()
+    gate = (cand.data_ptr(), cnt.data_ptr(), tent.data_ptr(), order.data_ptr(), int(early_out))
     return _launch("K5", "pbr_row_sweep", _SLOTTED_ARGTYPES, o, d, t_limit, lin, gate, seed_t,
                    seed_f)
 
@@ -256,24 +281,25 @@ def _slotted_counts(cand: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
     """The verdict counts of a K5 pass (pallas_sweep.py:453-463): the row
     bits of the listed slots, times LIN; early-out savings are not
     subtracted."""
-    listed = torch.arange(cand.shape[1], device=cand.device)[None, :] < cnt[:, None]
-    per_row = [(((cand >> (16 + g)) & 1) * listed).sum(dim=1, dtype=torch.int32)
-               for g in range(GROUPS)]
-    return _per_ray(torch.stack(per_row, dim=1))
+    return _per_ray(listed_rows(cand, cnt))
 
 
 def _check_lin(clusters, dev) -> torch.Tensor:
-    """The scene's lin tables, checked: contiguous (CL, 16, 128) float32 on
-    ``dev`` with CL <= 2**16 (ids fill 16 bits of an entry); raises
-    ``ValueError`` when the clusters carry none."""
+    """The scene's lin tables, checked: (CL, 16, 128) float32 on ``dev``
+    with CL <= 2**16 (ids fill 16 bits of an entry), stored face-major
+    (``lin.transpose(1, 2)`` contiguous: ``to_torch``'s ``clu_lin_fm``),
+    the one layout the kernels read; raises ``ValueError`` when the
+    clusters carry none."""
     if clusters is None or clusters.lin is None:
         raise ValueError(
             "mode='sweep' needs a scene whose clusters carry row-sweep lin tables; "
             "rebuild via scene/build.py (build_scene attaches them) or "
             "accel.clusters.build_clusters.")
     lin = clusters.lin
-    if lin.device != dev or lin.dtype != torch.float32 or not lin.is_contiguous():
-        raise ValueError(f"lin tables must be contiguous float32 on {dev}")
+    face_major = lin.transpose(1, 2).is_contiguous()
+    if lin.device != dev or lin.dtype != torch.float32 or not face_major:
+        raise ValueError(f"lin tables must be float32 on {dev}, stored face-major (a "
+                         f"transposed view of a contiguous (CL, 128, 16) table)")
     if lin.dim() != 3 or lin.shape[1:] != (16, LIN) or not 0 < lin.shape[0] <= 2**16:
         raise ValueError(f"lin tables must be (CL, 16, {LIN}) with 0 < CL <= 65536, not "
                          f"{tuple(lin.shape)}")

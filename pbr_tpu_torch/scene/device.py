@@ -18,7 +18,9 @@ cull-and-sweep (kernels K4 and K4m, ``ops/cuda_cull.py``) the fine cluster
 AABBs, the compact table of the coefficient blocks
 (``ops/cuda_cull.py::compact_table``, repacked here once a scene), the
 supercluster AABBs, the scene bounds and the cluster size of its
-``ClusterSet`` (``SceneParams.clusters``); for the row sweep (kernels K5 and K5m, ``ops/cuda_sweep.py``) its lin tables and
+``ClusterSet`` (``SceneParams.clusters``); for the row sweep (kernels K5
+and K5m, ``ops/cuda_sweep.py``) its lin tables, stored face-major
+(``SceneParams.clu_lin_fm``, repacked here once a scene), and the
 lin-cluster AABBs as well; for the tree walks (kernels K6, K7 and K8,
 ``ops/cuda_bvh.py``) the ``LinearBVH`` (``SceneParams.bvh``, with K8's
 packed node and face records, built here once a scene) and the
@@ -90,7 +92,8 @@ class ClusterTables(NamedTuple):
       of the coherence sort;
     - ``lin``: the row sweep's (CL, 16, 128) float32 lin tables, lin
       cluster ``c`` holding faces ``[c * 128, (c + 1) * 128)`` (rows m, km,
-      w, q, e1, e2 of the linear form; padding faces all zero), and
+      w, q, e1, e2 of the linear form; padding faces all zero), stored
+      face-major: a transposed view of ``SceneParams.clu_lin_fm``, and
       ``lbb_min``/``lbb_max`` their AABBs, Vec3s of (CL,) (padding clusters
       inverted). A supercluster covers CL / (C / 16) consecutive lin
       clusters. None where the ``ClusterSet`` carries no lin tables."""
@@ -232,7 +235,11 @@ class SceneParams(nn.Module):
             self.register_buffer("clu_scene_max", _stack3(cs.scene_max, device))
         self.has_lin = cs is not None and cs.lin is not None
         if self.has_lin:
-            self.register_buffer("clu_lin", _f32(cs.lin, device))
+            # The row sweep's lin tables, face-major (CL, 128, 16): a lin
+            # cluster's table is one straight 8 KB copy for kernels K5 and
+            # K5m; ``clusters.lin`` is its (CL, 16, 128) transposed view.
+            self.register_buffer("clu_lin_fm",
+                                 _f32(np.ascontiguousarray(cs.lin.transpose(0, 2, 1)), device))
             self.register_buffer("clu_lbb_min", _stack3(cs.lbb_min, device))
             self.register_buffer("clu_lbb_max", _stack3(cs.lbb_max, device))
         self.has_bvh = scene.bvh is not None
@@ -276,8 +283,8 @@ class SceneParams(nn.Module):
     def clusters(self) -> Optional[ClusterTables]:
         if self.cluster_size is None:
             return None
-        lin = (self.clu_lin, _vec(self.clu_lbb_min), _vec(self.clu_lbb_max)) \
-            if self.has_lin else ()
+        lin = (self.clu_lin_fm.transpose(1, 2), _vec(self.clu_lbb_min),
+               _vec(self.clu_lbb_max)) if self.has_lin else ()
         return ClusterTables(
             _vec(self.clu_bb_min), _vec(self.clu_bb_max), self.cluster_size,
             self.clu_compact, _vec(self.clu_sup_min), _vec(self.clu_sup_max),

@@ -75,18 +75,19 @@ def built_threads(src: str) -> int:
     return int(m.group(1))
 
 
-def _body(src: str, name: str) -> tuple:
-    """(start, end) of the body of function ``name``'s definition: just
-    after its opening brace, and at its closing brace."""
+def _body(src: str, name: str, file: str = "cull_intersect.cu") -> tuple:
+    """(start, end) of the body of function ``name``'s definition in
+    ``src`` (the text of ``file``): just after its opening brace, and at
+    its closing brace."""
     m = re.search(name + r"\([^)]*\)\s*\{", src)
     if m is None:
-        raise ValueError(f"cull_intersect.cu: no definition of {name}")
+        raise ValueError(f"{file}: no definition of {name}")
     depth = 0
     for i in range(m.end() - 1, len(src)):
         depth += {"{": 1, "}": -1}.get(src[i], 0)
         if depth == 0:
             return m.end(), i
-    raise ValueError(f"cull_intersect.cu: {name} does not end")
+    raise ValueError(f"{file}: {name} does not end")
 
 
 def patched_source(src: str, threads: int, record: bool) -> str:

@@ -542,7 +542,10 @@ def test_soup_compaction_on_off_bitwise():
 def test_kernels_match_plain_on_card(name, force):
     """K5 (nearest and any-hit) and K5m against their plain versions on the
     card: t, face, occluded and the counts bitwise equal (--fmad=false), on
-    the cases' rays and on 100,003 rays of the same kinds."""
+    the cases' rays and on 100,003 rays of the same kinds. The kernels read
+    the face-major lin table; each K5 pass also replayed with its tiles in
+    launch order and reversed, not heaviest first, equals the plain
+    version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels K5 and K5m have no CPU mode")
     force(name)
@@ -562,4 +565,21 @@ def test_kernels_match_plain_on_card(name, force):
             k["light_pos"] is not None)
         for x, y in zip(got, ref):
             assert torch.equal(x, y)
+        passes = []
+
+        def slotted(*args):
+            passes.append(args)
+            return cs._slotted_kernel(*args)
+
+        cs._sweep(slotted, cs._masked_kernel, *a, k["light_pos"], k["alive"], False)
+        assert len(passes) == (0 if masked else 1 + (k["light_pos"] is not None))
+        for args in passes:
+            assert args[3].transpose(1, 2).is_contiguous()  # the face-major table
+            plain = cs._slotted_plain(*args)
+            n_tiles = args[4].shape[0]
+            for order in (torch.arange(n_tiles), torch.arange(n_tiles - 1, -1, -1)):
+                out = cs._slotted_kernel(*args, order=order.to(torch.int32).cuda())
+                for x, y in zip(out if isinstance(out, tuple) else (out,),
+                                plain if isinstance(plain, tuple) else (plain,)):
+                    assert torch.equal(x, y)
         cs.launches.update(before)  # the autouse check counts CPU launches only

@@ -1,8 +1,9 @@
 """The port's diagnostic tools (``pbr_tpu_torch/tools/``), on the CPU: the
-source patches of ``k4_tiles`` and ``k8_walk`` find every hook they need in
-``csrc/cull_intersect.cu`` and ``csrc/bvh_walk.cu`` as they stand, and
-their statistics give the span, tail, balance and SIMD efficiency of known
-records. The tools themselves run only on a card."""
+source patches of ``k4_tiles``, ``k8_walk`` and ``k5_rows`` find every hook
+they need in ``csrc/cull_intersect.cu``, ``csrc/bvh_walk.cu`` and
+``csrc/row_sweep.cu`` as they stand, and their statistics give the span,
+tail, balance, SIMD efficiency, rows a staged slot and staging share of
+known records. The tools themselves run only on a card."""
 
 import re
 
@@ -10,10 +11,11 @@ import numpy as np
 import pytest
 
 from pbr_tpu_torch.ops import cuda_intersect as ci
-from pbr_tpu_torch.tools import k4_tiles, k8_walk
+from pbr_tpu_torch.tools import k4_tiles, k5_rows, k8_walk
 
 SOURCE = (ci.CSRC / "cull_intersect.cu").read_text()
 K8_SOURCE = (ci.CSRC / "bvh_walk.cu").read_text()
+K5_SOURCE = (ci.CSRC / "row_sweep.cu").read_text()
 
 
 def test_source_as_built_is_the_unpatched_copy():
@@ -122,3 +124,61 @@ def test_warp_stats_of_a_known_record():
          st["longest_warp_ms"]], np.array([40, 20, 20, 20, 40]) / 1e6)
     assert st["node_simd"] == 0.5 and st["leaf_simd"] == 0.75
     assert st["node_iterations_per_warp"] == 8 / 3 and st["leaf_iterations_per_warp"] == 2 / 3
+
+
+def test_k5_patched_source_finds_every_hook():
+    """The record's declaration and setter are added once;
+    slotted_rows_kernel starts and ends with its clock reads and its tile,
+    times the staging of each slot's table once and counts each staged
+    slot's rows once; masked_rows_kernel and the rest of the source are
+    unchanged."""
+    src = k5_rows.patched_source(K5_SOURCE)
+    assert src.count(k5_rows._DECL) == 1 and src.endswith(k5_rows._SETTER)
+    lo, hi = k5_rows._body(src, "slotted_rows_kernel", "row_sweep.cu")
+    body = src[lo:hi]
+    end = k5_rows._END
+    assert body.startswith(k5_rows._START) and body.endswith(end)
+    wait, pair = k5_rows._WAIT, k5_rows._PAIR
+    assert len(re.findall(re.escape(wait[1]) + wait[0] + re.escape(wait[2]), body)) == 1
+    assert len(re.findall(pair[0] + re.escape(pair[2]), body)) == 1
+    for hook in (k5_rows._DECL, k5_rows._SETTER, k5_rows._START, end, wait[1], wait[2],
+                 pair[2]):
+        src = src.replace(hook, "", 1)
+    assert src == K5_SOURCE
+
+
+def test_k5_kernel_has_no_early_return():
+    """slotted_rows_kernel returns only at its end, where the patch waits
+    for every thread and writes the block's record."""
+    lo, hi = k5_rows._body(K5_SOURCE, "slotted_rows_kernel", "row_sweep.cu")
+    assert re.search(r"\breturn\b", re.sub(r"//[^\n]*", "", K5_SOURCE[lo:hi])) is None
+
+
+@pytest.mark.parametrize("old, new, match", [
+    ("#include <cuda_runtime.h>\n", "#include <cuda.h>\n", "cuda_runtime"),
+    ("    slotted_rows_kernel(Rays r,", "    slotted_kernel(Rays r,", "slotted_rows_kernel"),
+    ("stage(lin4, cid, buf);", "stage(lin4, entry & 0xFFFF, buf);", "stage"),
+    ("const unsigned act = ", "const unsigned rows_run = ", "act"),
+])
+def test_k5_patched_source_raises_on_a_missing_hook(old, new, match):
+    """The include the declaration follows, the kernel's name, the staging
+    of a slot's table and the slot's active rows: the patch fails where one
+    goes missing."""
+    assert K5_SOURCE.count(old) == 1
+    with pytest.raises(ValueError, match=match):
+        k5_rows.patched_source(K5_SOURCE.replace(old, new))
+
+
+def test_k5_row_stats_of_a_known_record():
+    """Three blocks: starts 0, 0, 10 ns, ends 10, 30, 20 ns; staged slots 2,
+    4, 1 with 6, 8, 2 executed pairs (16 of 7: 2.286 rows a staged slot);
+    wait clocks 10, 30, 0 of block clocks 100, 300, 100 (40 / 500 = 8%);
+    two blocks at once balance their 50 ns to 25."""
+    rec = np.array([[100, 110, 0, 2, 6, 10, 100, 3], [100, 130, 1, 4, 8, 30, 300, 0],
+                    [110, 120, 0, 1, 2, 0, 100, 1]])
+    st = k5_rows.row_stats(rec)
+    assert st["blocks"] == 3 and st["max_resident"] == 2
+    assert st["staged"] == 7 and st["pairs"] == 16 and st["pairs_max"] == 8
+    assert st["rows_per_staged_slot"] == 16 / 7 and st["staging_share"] == 40 / 500
+    np.testing.assert_allclose([st["span_ms"], st["last_after_median_ms"], st["balanced_ms"]],
+                               np.array([30, 10, 25]) / 1e6)
