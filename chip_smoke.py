@@ -61,7 +61,9 @@ read just after; a kernel of the path that did not launch fails the run.
      once a pass and bounce and no other kernel, within 1e-3 of the auto
      (K3) frame on at least 99% of pixels; K5m (nearest and any-hit)
      against its plain version, bitwise, on the path's camera rays and on
-     1M bounce-like rays with an alive mask, timed, with its bound;
+     1M bounce-like rays with an alive mask, timed, with its bound, and
+     from the copy with a record a block (tools/k5_rows.py) its active rows
+     a staged table, staging share, span and tail;
 5. soup:100000 (bench.py --scene soup:100000: 100,000 faces, 784 clusters of
    128 in 49 superclusters; auto runs K4 over the candidate lists of
    ops/cull.py, with the coherence sort and the early-out):
@@ -318,14 +320,14 @@ def _build_native():
     return Path(native._LIB)
 
 
-# K5 as built and its copy with a record a block (tools/k5_rows.py), built
-# with the kernels: {record: (library, ptxas report)}.
+# The row sweep (K5, K5m) as built and its copy with a record a block
+# (tools/k5_rows.py), built with the kernels: {record: (library, ptxas report)}.
 K5_RECORD = {}
 
 
 def build_phase() -> None:
     """One nvcc per kernel source and one g++, all started together, and
-    K5's two diagnostic copies."""
+    the row sweep's two diagnostic copies."""
     def timed(name):
         t0 = time.perf_counter()
         if name == "k5 record":
@@ -1196,15 +1198,14 @@ def _sweep_kernel_checks(tag: str, cases, clusters, light) -> dict:
             else:
                 w = args[4]
                 listed = sum(int(((w >> b) & 1).sum()) for b in range(16))
-            blocks = ""
-            if kind_i == "K5":  # the copy with the record: its pairs and staged tables equal
-                st = k5_rows.record_pass(K5_RECORD, args, (out if isinstance(out, tuple)
-                                                           else (out,), work["pairs"],
-                                                           work["staged"]))
-                blocks = (f"; {st['rows_per_staged_slot']:.3f} active rows a staged slot (of "
-                          f"{cs.GROUPS}), staging {st['staging_share']:.2%} of a block's "
-                          f"time, span {st['span_ms']:.4f} ms, last block "
-                          f"{st['last_after_median_ms']:.4f} ms after the median")
+            # the copy with the record: its pairs and staged tables equal
+            st = k5_rows.record_pass(K5_RECORD, kind_i, args, (out if isinstance(out, tuple)
+                                                               else (out,), work["pairs"],
+                                                               work["staged"]))
+            blocks = (f"; {st['rows_per_staged_slot']:.3f} active rows a staged table (of "
+                      f"{cs.GROUPS}), staging {st['staging_share']:.2%} of a block's time, "
+                      f"span {st['span_ms']:.4f} ms, last block "
+                      f"{st['last_after_median_ms']:.4f} ms after the median")
             shares.append(f"{pass_name}: listed {listed / (rows * cl):.4f}, executed "
                           f"{work['pairs'] / (rows * cl):.4f} of the {rows} x {cl} (row, lin "
                           f"cluster) pairs ({work['pairs']} pairs, {work['tests']} real-face "
@@ -1632,7 +1633,7 @@ def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     total = sum(r[1] for r in rows)
     names = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "rows_kernel",
-             "packet_kernel", "walk_kernel")
+             "packet_kernel", "slab_kernel", "walk_kernel")
     ours = sum(r[1] for r in rows if any(k in r[0] for k in names))
     phase("profile", f"{tag}: device time over one {'frame' if step is None else 'step'}: "
                      f"{total / 1e3:.3f} ms in {sum(r[2] for r in rows)} kernel launches; "

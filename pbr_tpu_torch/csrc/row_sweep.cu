@@ -80,10 +80,15 @@
 //     reads its own cand/cnt/tent row (the TPU's scalar prefetch);
 //   - at most 40 registers (six blocks an SM) and the face loop unrolled by
 //     four: unrolled once it takes 15% longer, by 16 it spills.
-// K5m keeps the first design: one warp a row, each thread its ray and result
-// in registers, one lin cluster staged at a time (a straight copy of its
-// face-major table) and only where some row of the tile gates it in: the
-// whole table (up to 48 x 8 KB) would not fit in shared memory.
+// K5m is K5's design on the masked loop: one 256-thread block a tile, the
+// tile's state in shared memory, every lin cluster that some row of the
+// tile gates in staged in ascending order (the whole table, up to 48 x 8
+// KB, would not fit in shared memory), every warp taking faces [16 w, 16 w
+// + 16) of every row whose bit is set, merged as above, t first, unrolled
+// by four, six blocks an SM. It has no early-out, as the TPU kernel has
+// none. With one warp a row (its first design) 7.8 of 8 rows ran a staged
+// table on multiroom's camera rays: its gain is the t-first test, the
+// unrolled loop and the residency, not the idle warps.
 //
 // Numerics: built with --fmad=false, no --use_fast_math and IEEE division,
 // so each operation rounds as the unfused torch ops do and the kernels
@@ -91,6 +96,7 @@
 
 #include <cuda_runtime.h>
 
+#include "key.cuh"
 #include "mt_lin.cuh"
 
 namespace {
@@ -102,7 +108,7 @@ constexpr int kLin = 128;         // faces a lin cluster
 constexpr int kFace4 = pbr::kLinRows / 4;  // float4s a face of the face-major table
 constexpr int kTable4 = kLin * kFace4;     // float4s a lin cluster's table: 8 KB
 constexpr int kChunk = kLin / kRows;       // faces a warp takes of each row a slot runs
-constexpr int kMinBlocks = 6;     // K5's blocks an SM: at most 40 registers
+constexpr int kMinBlocks = 6;     // blocks an SM: at most 40 registers
 constexpr int kMaxLin = 1 << 16;  // lin cluster ids fill bits 0-15 of an entry
 constexpr float kBigNeg = -3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -164,43 +170,6 @@ __device__ __forceinline__ pbr::LinFace face_of(const float4* sm4, int j) {
   return {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, e.x, e.y, e.z, e.w};
 }
 
-// _section (K5m): the 128 faces of the staged lin cluster `cid` for one ray.
-template <bool ANY_HIT>
-__device__ __forceinline__ void section(const float4* sm4, int cid, Ray& y) {
-  for (int j = 0; j < kLin; ++j) {
-    float t;
-    const bool valid =
-        pbr::mt_lin(face_of(sm4, j), y.ox, y.oy, y.oz, y.dx, y.dy, y.dz, y.cx, y.cy, y.cz, &t);
-    if constexpr (ANY_HIT) {
-      if (valid && t < y.t_limit) y.best = 1.0f;
-    } else {
-      const int fid = cid * kLin + j;
-      if (valid && (t < y.best || (t == y.best && fid < y.face))) {
-        y.best = t;
-        y.face = fid;
-      }
-    }
-  }
-}
-
-// A nearest result as one 64-bit key whose unsigned order is the (t, face)
-// lexicographic order: t's bits made order-preserving, then the face with
-// its sign bit flipped.
-__device__ __forceinline__ unsigned long long pack_key(float t, int face) {
-  const unsigned u = __float_as_uint(t);
-  const unsigned ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<unsigned long long>(ord) << 32) | (static_cast<unsigned>(face) ^ 0x80000000u);
-}
-
-__device__ __forceinline__ float key_t(unsigned long long k) {
-  const unsigned ord = static_cast<unsigned>(k >> 32);
-  return __uint_as_float((ord & 0x80000000u) ? (ord ^ 0x80000000u) : ~ord);
-}
-
-__device__ __forceinline__ int key_face(unsigned long long k) {
-  return static_cast<int>(static_cast<unsigned>(k) ^ 0x80000000u);
-}
-
 // K5's tile in shared memory, so that any warp can sweep any row: o, d,
 // o x d and t_limit a ray, column by column, and the nearest key or the 0/1
 // occlusion.
@@ -209,6 +178,30 @@ struct RowState {
   unsigned long long key[kTile];
   int occ[kTile];
 };
+
+// A thread's ray and seed into the tile's shared state, and its result
+// back out.
+template <bool ANY_HIT>
+__device__ __forceinline__ void put_state(const Ray& y, RowState& s) {
+  const float v[10] = {y.ox, y.oy, y.oz, y.dx, y.dy, y.dz, y.cx, y.cy, y.cz, y.t_limit};
+#pragma unroll
+  for (int q = 0; q < 10; ++q) s.ray[q][threadIdx.x] = v[q];
+  if constexpr (ANY_HIT) {
+    s.occ[threadIdx.x] = y.best > 0.0f ? 1 : 0;
+  } else {
+    s.key[threadIdx.x] = pbr::pack_key(y.best, y.face);
+  }
+}
+
+template <bool ANY_HIT>
+__device__ __forceinline__ void take_state(const RowState& s, Ray& y) {
+  if constexpr (ANY_HIT) {
+    y.best = s.occ[threadIdx.x] ? 1.0f : 0.0f;
+  } else {
+    y.best = pbr::key_t(s.key[threadIdx.x]);
+    y.face = pbr::key_face(s.key[threadIdx.x]);
+  }
+}
 
 // Warp `warp`'s share of row `row`'s run of the staged lin cluster `cid`:
 // faces [warp * kChunk, (warp + 1) * kChunk) for the row's 32 rays, merged
@@ -223,7 +216,7 @@ __device__ __forceinline__ void deal(const float4* sm4, int cid, int row, int wa
   const float cx = s.ray[6][k], cy = s.ray[7][k], cz = s.ray[8][k];
   // any-hit: t_limit, and hit 1 once occluded; nearest: the ray's best t
   // when the chunk began, and the chunk's minimum (tmin, jmin)
-  const float bound = ANY_HIT ? s.ray[9][k] : key_t(s.key[k]);
+  const float bound = ANY_HIT ? s.ray[9][k] : pbr::key_t(s.key[k]);
   bool hit = ANY_HIT && s.occ[k];
   float tmin = inf_f();
   int jmin = 0;
@@ -246,7 +239,7 @@ __device__ __forceinline__ void deal(const float4* sm4, int cid, int row, int wa
   if constexpr (ANY_HIT) {
     if (hit) s.occ[k] = 1;
   } else if (tmin < inf_f()) {
-    atomicMin(&s.key[k], pack_key(tmin, cid * kLin + jmin));
+    atomicMin(&s.key[k], pbr::pack_key(tmin, cid * kLin + jmin));
   }
 }
 
@@ -255,7 +248,7 @@ __device__ __forceinline__ void deal(const float4* sm4, int cid, int row, int wa
 template <bool ANY_HIT>
 __device__ __forceinline__ bool row_done(const RowState& s, int row, int lane, float bound) {
   const int k = row * kRowRays + lane;
-  const float key = ANY_HIT ? (s.occ[k] ? kBigNeg : s.ray[9][k]) : key_t(s.key[k]);
+  const float key = ANY_HIT ? (s.occ[k] ? kBigNeg : s.ray[9][k]) : pbr::key_t(s.key[k]);
   return __all_sync(kFull, key <= bound);
 }
 
@@ -282,14 +275,7 @@ __global__ void __launch_bounds__(kTile, kMinBlocks)
   const int* cand_t = cand + static_cast<long long>(tile) * n_lin;
   const float* tent_t = tent + static_cast<long long>(tile) * (n_lin + 1);
   const int count = min(cnt[tile], n_lin);
-  const float v[10] = {y.ox, y.oy, y.oz, y.dx, y.dy, y.dz, y.cx, y.cy, y.cz, y.t_limit};
-#pragma unroll
-  for (int q = 0; q < 10; ++q) s.ray[q][threadIdx.x] = v[q];
-  if constexpr (ANY_HIT) {
-    s.occ[threadIdx.x] = y.best > 0.0f ? 1 : 0;
-  } else {
-    s.key[threadIdx.x] = pack_key(y.best, y.face);
-  }
+  put_state<ANY_HIT>(y, s);
   __syncthreads();
   // The rows done, the same in every thread. Rows whose seeds already beat
   // the first entry bound skip everything.
@@ -316,32 +302,32 @@ __global__ void __launch_bounds__(kTile, kMinBlocks)
       }
     }
   }
-  if constexpr (ANY_HIT) {
-    y.best = s.occ[threadIdx.x] ? 1.0f : 0.0f;
-  } else {
-    y.best = key_t(s.key[threadIdx.x]);
-    y.face = key_face(s.key[threadIdx.x]);
-  }
+  take_state<ANY_HIT>(s, y);
   store_ray<ANY_HIT>(r, i, y);
 }
 
 template <bool ANY_HIT>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kTile, kMinBlocks)
     masked_rows_kernel(Rays r, const float4* __restrict__ lin4, int n_lin,
                        const int* __restrict__ words) {
-  __shared__ float4 sm4[kTable4];
-  const long long i = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x;
-  const int row = threadIdx.x / kRowRays;
+  __shared__ float4 buf[kTable4];
+  __shared__ RowState s;
+  const int tile = blockIdx.x;
+  const int warp = threadIdx.x / kRowRays, lane = threadIdx.x % kRowRays;
+  const long long i = static_cast<long long>(tile) * kTile + threadIdx.x;
   Ray y = load_ray<ANY_HIT>(r, i);
-  const int* words_t = words + static_cast<long long>(blockIdx.x) * ((n_lin + 1) / 2);
-  for (int c = 0; c < n_lin; ++c) {
-    const int bits = (words_t[c / 2] >> ((c % 2) * 8)) & 0xFF;
-    if (bits == 0) continue;  // one tile per block: uniform over the block
-    __syncthreads();          // the previous table is no longer read
-    stage(lin4, c, sm4);
-    __syncthreads();
-    if ((bits >> row) & 1) section<ANY_HIT>(sm4, c, y);
+  put_state<ANY_HIT>(y, s);
+  const int* words_t = words + static_cast<long long>(tile) * ((n_lin + 1) / 2);
+  for (int cid = 0; cid < n_lin; ++cid) {
+    // the rows gated in; one tile a block, so uniform over the block
+    const unsigned act = (words_t[cid / 2] >> ((cid % 2) * 8)) & 0xFF;
+    if (act == 0) continue;
+    stage(lin4, cid, buf);
+    __syncthreads();  // the table is staged (the first time: and the tile's state)
+    for (unsigned m = act; m; m &= m - 1) deal<ANY_HIT>(buf, cid, __ffs(m) - 1, warp, lane, s);
+    __syncthreads();  // every merge is in, no thread still reads buf
   }
+  take_state<ANY_HIT>(s, y);
   store_ray<ANY_HIT>(r, i, y);
 }
 

@@ -9,10 +9,11 @@ plain PyTorch version.
   warp of 32 rays. ``intersect_bvh_packet`` runs it on a scene's tree (the
   ``pallas_bvh`` mode); ``intersect_bvh_forest`` chains it over the
   sub-trees of a ``BVHForest`` (``pallas_bvh_forest``).
-- **K7**, the leaf-slab walk (same source, slab on), replaces
+- **K7**, the leaf-slab walk (same source, ``slab_kernel``), replaces
   ``_kernel_hbm`` ("K7 nearest") and ``_kernel_hbm_nee`` ("K7 NEE"),
-  around ``_traverse_tile_hbm``: the same walk, each visited leaf's faces
-  staged in shared memory (``intersect_bvh_packet_hbm``, the
+  around ``_traverse_tile_hbm``: the same walk over the tree's packed
+  records, each leaf some lane hits staged in shared memory and its
+  (ray, face) tests dealt over the warp (``intersect_bvh_packet_hbm``, the
   ``pallas_bvh_hbm`` mode).
 - **K8**, the per-ray walk (``csrc/bvh_walk.cu``), is the H100 form of the
   ``bvh`` mode, which the JAX package runs as an XLA while_loop
@@ -21,9 +22,14 @@ plain PyTorch version.
   any-hit instance ("K8 any-hit", ``occluded_bvh_walk``) is the ``bvh``
   mode's NEE shadow leg, the bit ``t_sh < t_light`` that the JAX package
   takes from a second nearest search (``pbr_tpu/models/integrator.py:
-  352-353``). K8 reads the tree and its faces as packed records
+  352-353``). K8 and K7 read the tree and its faces as packed records
   (``node_records``, ``face_records``), which ``scene/device.py::to_torch``
   builds once a scene (``BVHTables.node_records``/``face_records``).
+
+The NEE instances (K6 NEE, K7 NEE) walk the shadow ray only on the lanes
+whose nearest walk hit, and give False on the others without a walk: the
+integrator reads the bit only where the nearest walk hit, and there it is
+the TPU kernels' bit. The plain version does the same.
 
 The sources' headers say what bounds the kernels on the card and how the
 designs answer that. Every wrapper takes its rays as six (B,) float32
@@ -68,30 +74,34 @@ from pbr_tpu_torch.ops.vec import Vec3
 # both packages take the same scenes in the same modes.
 PALLAS_BVH_MAX_ROWS = 24_576
 PACKET_HBM_MAX_NODES = 12_288
-# K7 stages up to this many faces a leaf, 9 KB a warp (csrc/bvh_packet.cu).
+# K7 stages up to this many faces a leaf, 12 KB a warp (csrc/bvh_packet.cu).
 SLAB_MAX_LEAF = 256
 # Plain version: leaf tests per step are cut so that a (rays, faces)
 # temporary holds at most this many elements.
 _PLAIN_ELEMS = 1 << 22
 
-# K8's leaf record word: leaf_first << LEAF_COUNT_BITS | (leaf_count - 1)
-# (csrc/bvh_walk.cu's kCountBits).
+# K7's and K8's leaf record word: leaf_first << LEAF_COUNT_BITS |
+# (leaf_count - 1) (kCountBits of csrc/bvh_walk.cu and bvh_packet.cu).
 LEAF_COUNT_BITS = 8
 
 # Kernel launches per instance. CPU calls do not count.
 launches = {"K6 nearest": 0, "K6 NEE": 0, "K6 any-hit": 0, "K6 seeded": 0,
             "K6 seeded any-hit": 0, "K7 nearest": 0, "K7 NEE": 0, "K8": 0, "K8 any-hit": 0}
 _K8 = ("K8", "K8 any-hit")
-# bvh_packet.cu's (mode, slab) of each instance.
-_PACKET_MODES = {"K6 nearest": (0, 0), "K6 NEE": (1, 0), "K6 any-hit": (2, 0),
-                 "K6 seeded": (3, 0), "K6 seeded any-hit": (4, 0), "K7 nearest": (0, 1),
-                 "K7 NEE": (1, 1)}
+# The instances that read the packed records.
+_RECORDS = ("K7 nearest", "K7 NEE", *_K8)
+# bvh_packet.cu's mode of each instance.
+_PACKET_MODES = {"K6 nearest": 0, "K6 NEE": 1, "K6 any-hit": 2, "K6 seeded": 3,
+                 "K6 seeded any-hit": 4, "K7 nearest": 0, "K7 NEE": 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# mode, slab, rays (6), order, alive, n, tree (5), n_nodes, faces, stride,
+# mode, rays (6), order, alive, n, tree (5), n_nodes, faces, stride,
 # face_base, max_leaf, light, t_limit, t_seed, f_seed, occ_seed, t_out,
 # f_out, occ_out, stream
-_PACKET_ARGTYPES = [_I, _I] + [_P] * 8 + [_I] + [_P] * 5 + [_I, _P, _I, _I, _I] + [_P] * 9
+_PACKET_ARGTYPES = [_I] + [_P] * 8 + [_I] + [_P] * 5 + [_I, _P, _I, _I, _I] + [_P] * 9
+# mode, rays (6), order, alive, n, node records, n_nodes, face records,
+# max_leaf, light, t_out, f_out, occ_out, stream
+_SLAB_ARGTYPES = [_I] + [_P] * 8 + [_I, _P, _I, _P, _I] + [_P] * 5
 # rays (6), order, alive, n, node records, n_nodes, face records,
 # max_leaf, t_limit, t_out, f_out, occ_out, tests, visits, stream
 _WALK_ARGTYPES = [_P] * 8 + [_I, _P, _I, _P, _I] + [_P] * 7
@@ -109,7 +119,7 @@ def packet_hbm_fits(bvh) -> bool:
 
 
 def node_records(tree) -> torch.Tensor:
-    """K8's (N, 8) float32 node records of a ``BVHTables``' (3, N) and (N,)
+    """K7's and K8's (N, 8) float32 node records of a ``BVHTables``' (3, N) and (N,)
     tables: 32 bytes a node, read as two float4, ``{bb_min, exit}`` and
     ``{bb_max, leaf}``, each int32 word stored as its bits; ``leaf`` is
     ``leaf_first << LEAF_COUNT_BITS | (leaf_count - 1)`` for a leaf and -1
@@ -125,7 +135,7 @@ def node_records(tree) -> torch.Tensor:
     if bool((bad_leaf | bad_inner).any()):
         i = int(torch.nonzero(bad_leaf | bad_inner)[0])
         raise ValueError(
-            f"node {i} (leaf_first {int(lf[i])}, leaf_count {int(lc[i])}) does not fit K8's node "
+            f"node {i} (leaf_first {int(lf[i])}, leaf_count {int(lc[i])}) does not fit the node "
             f"record: a leaf holds 1..{1 << LEAF_COUNT_BITS} faces from a first face below "
             f"{1 << (31 - LEAF_COUNT_BITS)}, an inner node has leaf_first -1 and leaf_count 0")
     word = torch.where(leaf, (lf << LEAF_COUNT_BITS) | (lc - 1), -1).to(torch.int32)
@@ -134,7 +144,7 @@ def node_records(tree) -> torch.Tensor:
 
 
 def face_records(faces: torch.Tensor) -> torch.Tensor:
-    """K8's (F, 12) float32 face records of a (9, F) face table: 48 bytes a
+    """K7's and K8's (F, 12) float32 face records of a (9, F) face table: 48 bytes a
     face, read as three float4, ``{v0, 0}``, ``{e1, 0}``, ``{e2, 0}``."""
     nf = faces.shape[1]
     rec = faces.new_zeros((nf, 3, 4))
@@ -153,7 +163,7 @@ class Walk(NamedTuple):
     only; the plain version walks each ray alone); ``light`` (3,) for the
     NEE instances; ``t_limit`` for the any-hit ones; ``t_seed``/``f_seed``
     and ``occ_seed`` for the seeded ones; ``with_counts`` for K8's two.
-    K8 reads ``tree``'s packed records, which it must have."""
+    K7 and K8 read ``tree``'s packed records, which it must have."""
 
     kernel: str
     o: Vec3
@@ -265,8 +275,8 @@ def _run_plain(w: Walk, work: Optional[list] = None):
     occluded, or K8's (t, face[, tests, visits]) and (occluded[, tests,
     visits]). ``work``: a list to which each walk run appends its per-ray
     ``(tests, visits)`` (chip_smoke.py's bounds count them)."""
-    def walk(o, d, **kw):
-        out = walk_plain(o, d, w.tree, w.faces, w.max_leaf, w.alive, w.face_base, **kw)
+    def walk(o, d, alive=w.alive, **kw):
+        out = walk_plain(o, d, w.tree, w.faces, w.max_leaf, alive, w.face_base, **kw)
         if work is not None:
             work.append(out[3:])
         return out
@@ -280,7 +290,8 @@ def _run_plain(w: Walk, work: Optional[list] = None):
     if w.light is None:
         return t, f
     hit_p, s_dir, t_light = _shadow_ray(w.o, w.d, t, w.light)
-    return t, f, walk(hit_p, s_dir, t_limit=t_light)[2]
+    casts = t < INF if w.alive is None else w.alive & (t < INF)
+    return t, f, walk(hit_p, s_dir, casts, t_limit=t_light)[2]
 
 
 def _ptr(a: Optional[torch.Tensor]):
@@ -317,8 +328,10 @@ def _check(w: Walk) -> None:
         raise ValueError(f"max_leaf must be at least 1, not {w.max_leaf}")
     if w.kernel in _K8 and (w.kernel == "K8 any-hit") != (w.t_limit is not None):
         raise ValueError("K8's any-hit instance, and only it, takes a t_limit")
+    if w.kernel in _RECORDS and w.face_base != 0:
+        raise ValueError(f"{w.kernel} walks a scene's tree: face_base must be 0")
     for rec, shape in ((tr.node_records, (tr.count, 8)), (tr.face_records, (f.shape[1], 12))):
-        if w.kernel in _K8 and (
+        if w.kernel in _RECORDS and (
                 rec is None or rec.device != dev or rec.dtype != torch.float32
                 or tuple(rec.shape) != shape or not rec.is_contiguous()):
             raise ValueError(f"{w.kernel}: the tree needs its packed records, contiguous "
@@ -354,15 +367,21 @@ def _run_kernel(w: Walk):
             f = torch.empty((n,), dtype=torch.int32, device=dev)
             occ = torch.empty((n,) if any_hit or w.light is not None else (0,),
                               dtype=torch.bool, device=dev)
-            mode, slab = _PACKET_MODES[w.kernel]
-            tables = (tr.bb_min.data_ptr(), tr.bb_max.data_ptr(), tr.leaf_first.data_ptr(),
-                      tr.leaf_count.data_ptr(), tr.exit.data_ptr(), tr.count,
-                      w.faces.data_ptr(), w.faces.stride(0))
-            lib = load("bvh_packet", "pbr_bvh_packet", _PACKET_ARGTYPES)
-            err = lib.pbr_bvh_packet(mode, slab, *rays, *tables, w.face_base, w.max_leaf,
-                                     _ptr(w.light), _ptr(w.t_limit), _ptr(w.t_seed),
-                                     _ptr(w.f_seed), _ptr(w.occ_seed), t.data_ptr(),
-                                     f.data_ptr(), occ.data_ptr(), stream)
+            mode = _PACKET_MODES[w.kernel]
+            outs = (t.data_ptr(), f.data_ptr(), occ.data_ptr(), stream)
+            if w.kernel in _RECORDS:
+                lib = load("bvh_packet", "pbr_bvh_slab", _SLAB_ARGTYPES)
+                err = lib.pbr_bvh_slab(mode, *rays, tr.node_records.data_ptr(), tr.count,
+                                       tr.face_records.data_ptr(), w.max_leaf, _ptr(w.light),
+                                       *outs)
+            else:
+                tables = (tr.bb_min.data_ptr(), tr.bb_max.data_ptr(),
+                          tr.leaf_first.data_ptr(), tr.leaf_count.data_ptr(),
+                          tr.exit.data_ptr(), tr.count, w.faces.data_ptr(), w.faces.stride(0))
+                lib = load("bvh_packet", "pbr_bvh_packet", _PACKET_ARGTYPES)
+                err = lib.pbr_bvh_packet(mode, *rays, *tables, w.face_base, w.max_leaf,
+                                         _ptr(w.light), _ptr(w.t_limit), _ptr(w.t_seed),
+                                         _ptr(w.f_seed), _ptr(w.occ_seed), *outs)
             out = occ if any_hit else (t, f) if w.light is None else (t, f, occ)
     if err != 0:
         raise RuntimeError(f"{w.kernel} launch failed: cudaError {err}")

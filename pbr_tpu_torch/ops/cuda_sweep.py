@@ -15,9 +15,8 @@ the kernels read face-major: ``clusters.lin`` is a transposed view of the
 contiguous (CL, 128, 16) ``SceneParams.clu_lin_fm`` that ``to_torch``
 builds once a scene, and the plain versions read the same values. A ray
 tile is ``TILE`` = 256 rays in ``GROUPS`` = 8 rows of 32 (the JAX wrapper's
-defaults, fixed here; one thread block a tile; a row is one warp of K5m,
-while K5 deals each row's faces to all eight warps), and every row has its
-own frustum verdicts:
+defaults, fixed here; one thread block a tile, which deals each row's
+faces to all eight warps), and every row has its own frustum verdicts:
 
 - **K5** (more than 48 lin clusters) sweeps the tile's candidate list
   (``ops/cull.py::candidates_rows``: superclusters near to far, expanded to

@@ -1,30 +1,32 @@
-"""Where kernel K5's time goes across its blocks, on a card.
+"""Where the row sweep's time goes across its blocks, on a card: kernel K5
+(slotted) and kernel K5m (masked).
 
     python3 -m pbr_tpu_torch.tools.k5_rows [--out out/k5_rows.json]
 
 Run it from the root of a checkout: it takes ``chip_smoke.py``'s
 soup:100000 scene (bench.py --scene soup:100000: 100,000 faces, 784 lin
-clusters of 128) and its 1,048,576 camera rays at 1024² (scanline order,
-frame 0), records the two passes of the row sweep's wrapper (nearest, then
-any-hit on the NEE shadow rays to light 0), and replays each pass through
-copies of ``csrc/row_sweep.cu`` built into ``build/pbr_tpu_torch/diag/``
-(``csrc/`` is not changed):
+clusters of 128, so K5) and its multiroom scene (bench.py --scene
+multiroom: 1,428 faces, 16 lin clusters, so K5m), each with its 1,048,576
+camera rays at 1024² (scanline order, frame 0), records the two passes of
+the row sweep's wrapper (nearest, then any-hit on the NEE shadow rays to
+light 0), and replays each pass through copies of ``csrc/row_sweep.cu``
+built into ``build/pbr_tpu_torch/diag/`` (``csrc/`` is not changed):
 
 - the source as it is, held bitwise to the plain version, then timed with
   CUDA events (10 launches);
-- the source whose ``slotted_rows_kernel`` also writes one record a block:
-  the ``%globaltimer`` (ns) at its start and at its end, its ``%smid``, the
-  slots whose table it staged, the (row, slot) pairs it executed, and, in
-  SM clocks, the time its thread 0 spent staging tables (its copy of a
-  slot's table and the barrier after it) against the block's whole time.
-  Its outputs must equal the first copy's bitwise, and its executed pairs
-  and staged slots the plain version's.
+- the source whose ``slotted_rows_kernel`` and ``masked_rows_kernel`` also
+  write one record a block: the ``%globaltimer`` (ns) at its start and at
+  its end, its ``%smid``, the lin cluster tables it staged, the (row, lin
+  cluster) pairs it executed, and, in SM clocks, the time its thread 0
+  spent staging tables (its copy of a table and the barrier after it)
+  against the block's whole time. Its outputs must equal the first copy's
+  bitwise, and its executed pairs and staged tables the plain version's.
 
 Both are built at once with the port's nvcc flags plus ``-Xptxas -v``, and
 the registers, shared memory and spills of every kernel are printed. Per
 pass it prints the blocks' span, the median and the last block end, the
 most blocks resident at once and what a perfect balance of their durations
-over that many places would take, the active rows per staged slot (of 8),
+over that many places would take, the active rows per staged table (of 8),
 and the staging share of a block's time. The JSON record goes to
 ``--out``.
 """
@@ -66,9 +68,10 @@ _END = (" __syncthreads(); if (threadIdx.x == 0) { long long diag_t1; unsigned d
         f"long long* p = g_block_rec + {WORDS} * static_cast<long long>(blockIdx.x); "
         "p[0] = diag_t0; p[1] = diag_t1; p[2] = diag_sm; p[3] = diag_staged; "
         "p[4] = diag_pairs; p[5] = diag_wait; p[6] = clock64() - diag_c0; p[7] = tile; } ")
-# The hooks of slotted_rows_kernel: the copy of a slot's table up to the
+KERNELS = ("slotted_rows_kernel", "masked_rows_kernel")
+# The hooks of each kernel: the copy of a lin cluster's table up to the
 # barrier after which the block sweeps it (timed and counted by thread 0),
-# and the slot's active rows, which thread 0 adds to the executed pairs.
+# and the table's active rows, which thread 0 adds to the executed pairs.
 _WAIT = (r"stage\(lin4, cid, buf\);\s*__syncthreads\(\);",
          "const long long diag_s = clock64(); ",
          " diag_wait += clock64() - diag_s; ++diag_staged;")
@@ -76,32 +79,34 @@ _PAIR = (r"const unsigned act = [^;]*;", "",
          " if (threadIdx.x == 0) diag_pairs += __popc(act);")
 
 
-def _wrap(body: str, hook: tuple) -> str:
-    """``body`` with the one match of ``hook``'s pattern between its text
-    before and after."""
+def _wrap(body: str, hook: tuple, kernel: str) -> str:
+    """``body`` (of ``kernel``) with the one match of ``hook``'s pattern
+    between its text before and after."""
     pattern, before, after = hook
     found = list(re.finditer(pattern, body))
     if len(found) != 1:
-        raise ValueError(f"row_sweep.cu: slotted_rows_kernel has {len(found)} matches of "
+        raise ValueError(f"row_sweep.cu: {kernel} has {len(found)} matches of "
                          f"{pattern!r}, not 1")
     m = found[0]
     return body[:m.start()] + before + m.group(0) + after + body[m.end():]
 
 
 def patched_source(src: str) -> str:
-    """``src`` with the per-block record in ``slotted_rows_kernel`` (only
-    that kernel: ``masked_rows_kernel`` is not launched here)."""
+    """``src`` with the per-block record in both kernels (``KERNELS``);
+    each declares the ``tile`` it sweeps."""
     if _HEAD not in src:
         raise ValueError("row_sweep.cu: no '#include <cuda_runtime.h>' line")
     src = src.replace(_HEAD, _HEAD + _DECL, 1)
-    lo, hi = _body(src, "slotted_rows_kernel", "row_sweep.cu")
-    body = src[lo:hi]
-    if re.search(r"\breturn\b", body):
-        raise ValueError("row_sweep.cu: slotted_rows_kernel returns early; the record is "
-                         "written at its end")
-    for hook in (_WAIT, _PAIR):
-        body = _wrap(body, hook)
-    return src[:lo] + _START + body + _END + src[hi:] + _SETTER
+    for kernel in KERNELS:
+        lo, hi = _body(src, kernel, "row_sweep.cu")
+        body = src[lo:hi]
+        if re.search(r"\breturn\b", re.sub(r"//[^\n]*", "", body)):
+            raise ValueError(f"row_sweep.cu: {kernel} returns early; the record is written at "
+                             f"its end")
+        for hook in (_WAIT, _PAIR):
+            body = _wrap(body, hook, kernel)
+        src = src[:lo] + _START + body + _END + src[hi:]
+    return src + _SETTER
 
 
 def build() -> dict:
@@ -120,23 +125,27 @@ def build() -> dict:
 
 
 def camera_passes(dev) -> list:
-    """soup:100000's 1024² camera rays through the sweep wrapper with K5;
-    returns each pass's recorded kernel arguments."""
-    import chip_smoke as smoke  # the repo root's: its scene, camera and settings
+    """soup:100000's and multiroom's 1024² camera rays through the sweep
+    wrapper (K5 and K5m); returns each pass's kernel and recorded
+    arguments."""
+    import chip_smoke as smoke  # the repo root's: its scenes, camera and settings
 
     smoke._build_native()
-    scene, cam = smoke.soup()
-    ts = to_torch(scene, dev)
-    o, d = smoke._camera_rays(camera_to_torch(cam, dev), smoke.bench_settings(smoke.SIZE), dev)
-    passes, _ = smoke._sweep_passes(o, d, ts.clusters, smoke._light0(ts), None)
+    passes = []
+    for make in (smoke.soup, smoke.multiroom):
+        scene, cam = make()
+        ts = to_torch(scene, dev)
+        o, d = smoke._camera_rays(camera_to_torch(cam, dev), smoke.bench_settings(smoke.SIZE),
+                                  dev)
+        passes += smoke._sweep_passes(o, d, ts.clusters, smoke._light0(ts), None)[0]
     torch.cuda.synchronize()
-    return [args for _, args in passes]
+    return passes
 
 
-def run_with(lib, args, rec=None, order=None):
-    """One K5 launch of a recorded pass through the copy ``lib`` (tiles in
-    ``order``, default heaviest first); with ``rec``, the copy writes its
-    block records there."""
+def run_with(lib, kind, args, rec=None, order=None):
+    """One launch of a recorded ``kind`` ("K5" or "K5m") pass through the
+    copy ``lib`` (K5's tiles in ``order``, default heaviest first); with
+    ``rec``, the copy writes its block records there."""
     if rec is not None and lib.pbr_diag_set(ctypes.c_void_p(rec.data_ptr())) != 0:
         raise RuntimeError("cudaMemcpyToSymbol of the record pointer failed")
     real = cs.load
@@ -148,7 +157,8 @@ def run_with(lib, args, rec=None, order=None):
 
     cs.load = copy_load
     try:
-        out = cs._slotted_kernel(*args, order=order)
+        out = (cs._slotted_kernel(*args, order=order) if kind == "K5"
+               else cs._masked_kernel(*args))
     finally:
         cs.load = real
     return out if isinstance(out, tuple) else (out,)
@@ -167,11 +177,11 @@ def row_stats(rec: np.ndarray) -> dict:
     return st
 
 
-def _plain_work(args) -> tuple:
-    """The plain version's outputs, executed (row, slot) pairs and staged
-    (tile, slot) tables on a recorded pass."""
+def _plain_work(kind, args) -> tuple:
+    """The plain version's outputs, executed (row, lin cluster) pairs and
+    staged (tile, lin cluster) tables on a recorded ``kind`` pass."""
     work = []
-    out = cs._slotted_plain(*args, work=work)
+    out = (cs._slotted_plain if kind == "K5" else cs._masked_plain)(*args, work=work)
     pairs = sum(int(r.numel()) for r, _ in work)
     staged = sum(int(torch.unique(r // cs.GROUPS).numel()) for r, _ in work)
     return (out if isinstance(out, tuple) else (out,)), pairs, staged
@@ -188,18 +198,18 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def record_pass(libs: dict, args, plain=None) -> dict:
-    """One recorded pass through the two copies (``libs``: {record:
-    (library, report)}): the kernel held bitwise to the plain version
-    (computed here unless given as ``_plain_work``'s tuple), timed; the
-    record's outputs held to the kernel's, its pairs and staged slots to
-    the plain version's; returns the kernel time and the block
+def record_pass(libs: dict, kind, args, plain=None) -> dict:
+    """One recorded ``kind`` pass through the two copies (``libs``:
+    {record: (library, report)}): the kernel held bitwise to the plain
+    version (computed here unless given as ``_plain_work``'s tuple), timed;
+    the record's outputs held to the kernel's, its pairs and staged tables
+    to the plain version's; returns the kernel time and the block
     statistics."""
-    name = "K5 any-hit" if args[2] is not None else "K5"
-    ref, pairs, staged = plain or _plain_work(args)
+    name = kind + (" any-hit" if args[2] is not None else "")
+    ref, pairs, staged = plain or _plain_work(kind, args)
     n_tiles = args[0].x.shape[0] // cs.TILE
-    order = cs.row_order(args[4], args[5])
-    run = lambda lib, rec=None: run_with(lib, args, rec, order)  # noqa: E731
+    order = cs.row_order(args[4], args[5]) if kind == "K5" else None
+    run = lambda lib, rec=None: run_with(lib, kind, args, rec, order)  # noqa: E731
     out = run(libs[False][0])
     if not all(torch.equal(x, y) for x, y in zip(out, ref)):
         raise AssertionError(f"{name}: the kernel differs from its plain version")
@@ -217,10 +227,9 @@ def record_pass(libs: dict, args, plain=None) -> dict:
     return st
 
 
-def _registers(report: str) -> str:
-    """slotted_rows_kernel's registers, nearest / any-hit, from a ptxas
-    report."""
-    regs = re.findall(r"slotted_rows_kernelILb([01]).*Used (\d+) registers", report)
+def _registers(report: str, kernel: str) -> str:
+    """``kernel``'s registers, nearest / any-hit, from a ptxas report."""
+    regs = re.findall(kernel + r"ILb([01]).*Used (\d+) registers", report)
     return " / ".join(r for _, r in sorted(regs))
 
 
@@ -238,10 +247,10 @@ def main() -> None:
     for record, (_, report) in libs.items():
         print(f"ptxas{', with the record' if record else ''}:\n{report}", flush=True)
     res = {"device": smi, "ptxas": libs[False][1], "passes": {}}
-    for args in camera_passes(dev):
-        name = "K5 any-hit" if args[2] is not None else "K5"
-        st = record_pass(libs, args)
-        st["registers"] = _registers(libs[False][1])
+    for kind, args in camera_passes(dev):
+        name = kind + (" any-hit" if args[2] is not None else "")
+        st = record_pass(libs, kind, args)
+        st["registers"] = _registers(libs[False][1], KERNELS[kind == "K5m"])
         res["passes"][name] = st
         print(f"{name}, equal to the plain version bitwise: "
               + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"

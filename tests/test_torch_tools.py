@@ -1,9 +1,11 @@
 """The port's diagnostic tools (``pbr_tpu_torch/tools/``), on the CPU: the
-source patches of ``k4_tiles``, ``k8_walk`` and ``k5_rows`` find every hook
-they need in ``csrc/cull_intersect.cu``, ``csrc/bvh_walk.cu`` and
-``csrc/row_sweep.cu`` as they stand, and their statistics give the span,
-tail, balance, SIMD efficiency, rows a staged slot and staging share of
-known records. The tools themselves run only on a card."""
+source patches of ``k4_tiles``, ``k8_walk``, ``k5_rows`` and ``k7_walk``
+find every hook they need in ``csrc/cull_intersect.cu``,
+``csrc/bvh_walk.cu``, ``csrc/row_sweep.cu`` and ``csrc/bvh_packet.cu`` as
+they stand, and their
+statistics give the span, tail, balance, SIMD efficiency, rows a staged
+slot and staging share of known records. The tools themselves run only on
+a card."""
 
 import re
 
@@ -11,11 +13,12 @@ import numpy as np
 import pytest
 
 from pbr_tpu_torch.ops import cuda_intersect as ci
-from pbr_tpu_torch.tools import k4_tiles, k5_rows, k8_walk
+from pbr_tpu_torch.tools import k4_tiles, k5_rows, k7_walk, k8_walk
 
 SOURCE = (ci.CSRC / "cull_intersect.cu").read_text()
 K8_SOURCE = (ci.CSRC / "bvh_walk.cu").read_text()
 K5_SOURCE = (ci.CSRC / "row_sweep.cu").read_text()
+K7_SOURCE = (ci.CSRC / "bvh_packet.cu").read_text()
 
 
 def test_source_as_built_is_the_unpatched_copy():
@@ -127,23 +130,25 @@ def test_warp_stats_of_a_known_record():
 
 
 def test_k5_patched_source_finds_every_hook():
-    """The record's declaration and setter are added once;
-    slotted_rows_kernel starts and ends with its clock reads and its tile,
-    times the staging of each slot's table once and counts each staged
-    slot's rows once; masked_rows_kernel and the rest of the source are
-    unchanged."""
+    """The record's declaration and setter are added once; each of
+    slotted_rows_kernel and masked_rows_kernel starts and ends with its
+    clock reads and its tile, times the staging of each lin cluster's table
+    once and counts each staged table's rows once; the rest of the source
+    is unchanged."""
     src = k5_rows.patched_source(K5_SOURCE)
     assert src.count(k5_rows._DECL) == 1 and src.endswith(k5_rows._SETTER)
-    lo, hi = k5_rows._body(src, "slotted_rows_kernel", "row_sweep.cu")
-    body = src[lo:hi]
     end = k5_rows._END
-    assert body.startswith(k5_rows._START) and body.endswith(end)
     wait, pair = k5_rows._WAIT, k5_rows._PAIR
-    assert len(re.findall(re.escape(wait[1]) + wait[0] + re.escape(wait[2]), body)) == 1
-    assert len(re.findall(pair[0] + re.escape(pair[2]), body)) == 1
-    for hook in (k5_rows._DECL, k5_rows._SETTER, k5_rows._START, end, wait[1], wait[2],
-                 pair[2]):
+    for kernel in k5_rows.KERNELS:
+        lo, hi = k5_rows._body(src, kernel, "row_sweep.cu")
+        body = src[lo:hi]
+        assert body.startswith(k5_rows._START) and body.endswith(end)
+        assert len(re.findall(re.escape(wait[1]) + wait[0] + re.escape(wait[2]), body)) == 1
+        assert len(re.findall(pair[0] + re.escape(pair[2]), body)) == 1
+    for hook in (k5_rows._DECL, k5_rows._SETTER):
         src = src.replace(hook, "", 1)
+    for hook in (k5_rows._START, end, wait[1], wait[2], pair[2]):
+        src = src.replace(hook, "", 2)
     assert src == K5_SOURCE
 
 
@@ -154,6 +159,16 @@ def test_k5_kernel_has_no_early_return():
     assert re.search(r"\breturn\b", re.sub(r"//[^\n]*", "", K5_SOURCE[lo:hi])) is None
 
 
+def test_k5m_kernel_has_no_early_return():
+    """masked_rows_kernel too (it skips a lin cluster no row gates in with
+    a continue, uniform over the block)."""
+    lo, hi = k5_rows._body(K5_SOURCE, "masked_rows_kernel", "row_sweep.cu")
+    assert re.search(r"\breturn\b", re.sub(r"//[^\n]*", "", K5_SOURCE[lo:hi])) is None
+    bad = K5_SOURCE[:hi] + " if (tile < 0) return;" + K5_SOURCE[hi:]
+    with pytest.raises(ValueError, match="masked_rows_kernel returns early"):
+        k5_rows.patched_source(bad)
+
+
 @pytest.mark.parametrize("old, new, match", [
     ("#include <cuda_runtime.h>\n", "#include <cuda.h>\n", "cuda_runtime"),
     ("    slotted_rows_kernel(Rays r,", "    slotted_kernel(Rays r,", "slotted_rows_kernel"),
@@ -162,11 +177,27 @@ def test_k5_kernel_has_no_early_return():
 ])
 def test_k5_patched_source_raises_on_a_missing_hook(old, new, match):
     """The include the declaration follows, the kernel's name, the staging
-    of a slot's table and the slot's active rows: the patch fails where one
-    goes missing."""
-    assert K5_SOURCE.count(old) == 1
+    of a lin cluster's table and its active rows (in both kernels): the
+    patch fails where one goes missing."""
+    assert old in K5_SOURCE
     with pytest.raises(ValueError, match=match):
         k5_rows.patched_source(K5_SOURCE.replace(old, new))
+
+
+@pytest.mark.parametrize("old, new, match", [
+    ("    masked_rows_kernel(Rays r,", "    masked_kernel(Rays r,", "masked_rows_kernel"),
+    ("stage(lin4, cid, buf);", "stage(lin4, cid + 0, buf);", "masked_rows_kernel has 0"),
+    ("const unsigned act = ", "const unsigned rows_in = ", "masked_rows_kernel has 0"),
+])
+def test_k5m_patched_source_raises_on_a_missing_hook(old, new, match):
+    """The same hooks in masked_rows_kernel alone: the patch names the
+    kernel that lost one."""
+    lo, hi = k5_rows._body(K5_SOURCE, "masked_rows_kernel", "row_sweep.cu")
+    start = K5_SOURCE.rfind("template", 0, lo)
+    head, tail = K5_SOURCE[:start], K5_SOURCE[start:]
+    assert tail.count(old) == 1
+    with pytest.raises(ValueError, match=match):
+        k5_rows.patched_source(head + tail.replace(old, new))
 
 
 def test_k5_row_stats_of_a_known_record():
@@ -182,3 +213,76 @@ def test_k5_row_stats_of_a_known_record():
     assert st["rows_per_staged_slot"] == 16 / 7 and st["staging_share"] == 40 / 500
     np.testing.assert_allclose([st["span_ms"], st["last_after_median_ms"], st["balanced_ms"]],
                                np.array([30, 10, 25]) / 1e6)
+
+
+def test_k7_patched_source_finds_every_hook():
+    """The record's declarations and setter are added once; slab_kernel
+    starts and ends with its clock reads and times each leg once; slab_walk
+    counts each node step and each leaf visit once and times the staging
+    once; the rest of the source is unchanged."""
+    base = K7_SOURCE
+    src = k7_walk.patched_source(base)
+    assert src.count(k7_walk._DECL) == 1 and src.endswith(k7_walk._SETTER)
+    lo, hi = k7_walk._body(src, "slab_kernel", k7_walk.FILE)
+    assert src[lo:hi].startswith(k7_walk._START) and src[lo:hi].endswith(k7_walk._END)
+    for func, pattern, before, after in k7_walk._HOOKS:
+        lo, hi = k7_walk._body(src, func, k7_walk.FILE)
+        m = re.search(pattern, base, re.S)
+        assert src[lo:hi].count(m.expand(before) + m.group(0) + m.expand(after)) == 1
+        src = src[:lo] + src[lo:hi].replace(m.expand(before), "", 1).replace(
+            m.expand(after), "", 1) + src[hi:]
+    for hook in (k7_walk._DECL, k7_walk._SETTER, k7_walk._START, k7_walk._END):
+        src = src.replace(hook, "", 1)
+    assert src == base
+
+
+def test_k7_kernel_has_no_early_return():
+    """slab_kernel returns only at its end, where the patch reads each
+    warp's clock; the patch refuses a kernel that returns early."""
+    lo, hi = k7_walk._body(K7_SOURCE, "slab_kernel", k7_walk.FILE)
+    assert re.search(r"\breturn\b", re.sub(r"//[^\n]*", "", K7_SOURCE[lo:hi])) is None
+    bad = K7_SOURCE[:hi] + " if (!in) return;" + K7_SOURCE[hi:]
+    with pytest.raises(ValueError, match="returns early"):
+        k7_walk.patched_source(bad)
+
+
+@pytest.mark.parametrize("old, new, match", [
+    ("#include <cuda_runtime.h>\n", "#include <cuda.h>\n", "cuda_runtime"),
+    ("slab_kernel(const SlabParams p)", "slab_walk_kernel(const SlabParams p)", "slab_kernel"),
+    ("    float t_near;\n    bool hit = pbr::box_hit(lo.x", "    float tn;\n    bool hit = "
+     "pbr::box_hit(lo.x", "t_near"),
+    ("    if (lf >= 0) {\n      const int first = lf >> kCountBits;\n      const int cnt = min(",
+     "    if (lf > -1) {\n      const int first = lf >> kCountBits;\n      const int cnt = min(",
+     "lf >= 0"),
+    ("__syncwarp();  // every lane is done with the previous slab",
+     "__syncwarp();  // the previous slab is free", "previous slab"),
+    ("slab_walk<true>(p, s, casts,", "slab_walk<true>(p, s, live && t_best < INFINITY,",
+     "slab_walk<true>"),
+])
+def test_k7_patched_source_raises_on_a_missing_hook(old, new, match):
+    """The include the declaration follows, the kernel's name, the node
+    step, the leaf visit, the staging and the shadow leg's lanes: the patch
+    fails where one goes missing."""
+    assert K7_SOURCE.count(old) == 1
+    with pytest.raises(ValueError, match=match):
+        k7_walk.patched_source(K7_SOURCE.replace(old, new))
+
+
+def test_k7_warp_stats_of_a_known_record():
+    """Three warps that ran (and one row that never did): starts 0, 0, 10
+    ns, ends 10, 40, 20 ns; node steps 10, 20, 6; leaf visits 2, 4, 0 with
+    40, 24, 0 hitting lanes (64 of 6 x 32: SIMD 1/3, 10.67 a visit);
+    staging 30 of 600 + 200 clocks, shadow 200 (25%); 50 shadow lanes, 5
+    of them missed."""
+    rec = np.array([[100, 110, 10, 2, 40, 10, 300, 100, 32, 5],
+                    [100, 140, 20, 4, 24, 20, 300, 100, 18, 0],
+                    [110, 120, 6, 0, 0, 0, 0, 0, 0, 0], [0] * 10])
+    st = k7_walk.warp_stats(rec)
+    assert st["warps"] == 3
+    np.testing.assert_allclose(
+        [st["span_ms"], st["median_end_ms"], st["last_after_median_ms"], st["mean_warp_ms"],
+         st["longest_warp_ms"]], np.array([40, 20, 20, 20, 40]) / 1e6)
+    assert st["node_steps_per_warp"] == 12 and st["leaf_visits_per_warp"] == 2
+    assert st["leaf_simd"] == 64 / 192 and st["hitting_lanes_per_visit"] == 64 / 6
+    assert st["staging_share"] == 30 / 800 and st["shadow_share"] == 200 / 800
+    assert st["shadow_lanes"] == 50 and st["missed_shadow_lanes"] == 5
