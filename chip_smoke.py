@@ -41,9 +41,13 @@ read just after; a kernel of the path that did not launch fails the run.
      frames, in which K3 launches and K1 does not, 0 lanes dropped;
    - K3 (nearest and any-hit passes) and K2 (NEE and nearest) against
      their plain versions, bitwise, on the path's 1024² camera rays (in its
-     lane order) and on 1M bounce-like rays with an alive mask and NEE,
-     with K3's executed test counts equal; K3's faces against K2's on live
-     lanes; times per call of K3, K2 and K1 and of their plain versions;
+     lane order), on 1M bounce-like rays with 60% alive and NEE, and on 1M
+     bounce-like rays with 15% alive, whose shadow pass is mostly seeded 1
+     or occluded (K3's exits), with K3's executed test counts equal; K3's
+     faces against K2's on live lanes; times per call of K3, K2 and K1 and
+     of their plain versions, K3's bound charging t to every gated-in
+     real-face test and u and v only where t can change the result
+     (tools/k3_tiles.py::pass_counts);
    - path "multiroom, forward+backward": bench.py's step (loss = sum of
      the frame's colors; gradients to every material and light parameter
      and to the eye) at 1024², timed, with its peak memory and finite
@@ -118,15 +122,18 @@ read just after; a kernel of the path that did not launch fails the run.
      every lane of the bounce, then t < t_light) on every casting lane,
      with both forms' times;
    - path "soup:100000, forest": the first-frame checks and one frame of
-     K6's chain (nearest and any-hit on sub-tree 0, seeded on the rest);
+     K6's chain (nearest and any-hit on sub-tree 0, then the seeded chain
+     over sub-trees 1-12 in one launch a pass);
    - path "soup:10000, pallas_bvh": one 1024² frame through K6 with NEE
      against its auto (K3) frame;
    - every instance of K6, K7 and K8 against its plain version, bitwise,
      on all the 1024² camera rays of its path (K7 and K8's two instances
-     also on 1M bounce-like rays with an alive mask; K8 also against
-     intersect_bvh_chunked), with its kernel time, plain time and bound
-     (the per-ray walk's node steps x 25 operations and face tests x 51,
-     against the tables' and rays' bytes).
+     and the forest's chain, against the plain chain of one walk a
+     sub-tree, also on 1M bounce-like rays with an alive mask; K8 also
+     against intersect_bvh_chunked), with its kernel time, plain time and
+     bound (the per-ray walk's node steps x 25 operations and face tests x
+     51, against the tables' and rays' bytes; one bound for the seeded
+     chain's sub-trees together).
 
 Every failure raises, so the exit code is not 0. The last two lines of
 standard output are the kernels' JSON record (with each kernel's bound: the
@@ -167,13 +174,14 @@ from pbr_tpu_torch.ops.rng import PixelRng  # noqa: E402
 from pbr_tpu_torch.ops.vec import Vec3  # noqa: E402
 from pbr_tpu_torch.scene.build import scene_from_text  # noqa: E402
 from pbr_tpu_torch.scene.camera import make_camera_state  # noqa: E402
+from pbr_tpu_torch.scene.device import ForestTables  # noqa: E402
 from pbr_tpu_torch.scene.procedural import (  # noqa: E402
     cornell_box,
     grey_soup,
     multi_room,
     random_soup,
 )
-from pbr_tpu_torch.tools import k5_rows  # noqa: E402
+from pbr_tpu_torch.tools import k3_tiles, k5_rows  # noqa: E402
 from pbr_tpu_torch.utils.config import RenderSettings  # noqa: E402
 
 SIZE = 1024
@@ -199,10 +207,10 @@ PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 # with the division and the gates, and K5 and K5m run the form itself:
 # the bound counts what the function needs, whatever implements it.
 OPS_CLASSIC, OPS_LIN = 51, 44
-# The row sweep's bound splits the linear form: every test needs t (det 5,
-# 1/det 1, t 7, the gate t >= 1e-5 and the comparison with the ray's bound
-# 2: 15), and only a face whose t can change the result needs u and v (u
-# 12, v 13, their gates 4: 29).
+# The row sweep's and the gated sweep's bounds split the linear form: every
+# test needs t (det 5, 1/det 1, t 7, the gate t >= 1e-5 and the comparison
+# with the ray's bound 2: 15), and only a face whose t can change the
+# result needs u and v (u 12, v 13, their gates 4: 29).
 OPS_LIN_T, OPS_LIN_UV = 15, 29
 # Floating-point operations of one ray-box slab test, as the tree walks
 # need them: (bound - o) * inv for 6 bounds 12, a min and a max per axis 6,
@@ -648,8 +656,10 @@ def multiroom_kernel_phase(scene, cam, dev, pt: PathTracer) -> dict:
     n = BOUNCE_RAYS
     bo, bd = _rays_in_rooms(n, 3, dev)
     b_alive = torch.tensor(np.random.default_rng(4).random(n) < 0.6, device=dev)
+    s_alive = torch.tensor(np.random.default_rng(5).random(n) < 0.15, device=dev)
     cases = [("camera rays, " + pt.lane_order, cam_o, cam_d, None),
-             (f"{n} bounce-like rays, 60% alive", bo, bd, b_alive)]
+             (f"{n} bounce-like rays, 60% alive", bo, bd, b_alive),
+             (f"{n} bounce-like rays, 15% alive", bo, bd, s_alive)]
     lin = ci.lin_table(tris)
     errs = dict.fromkeys(("K2", "K2'", "K3", "K3 any-hit"), 0.0)
     for name, o, d, alive in cases:
@@ -682,15 +692,17 @@ def multiroom_kernel_phase(scene, cam, dev, pt: PathTracer) -> dict:
     # Times on the path's camera rays: K3's two passes alone (recorded
     # arguments replayed), the whole wrapper (cull + both passes), K2, K1.
     p_near, p_any = _gated_passes(cam_o, cam_d, tris, clusters, l0, None)
-    for args in (p_near, p_any):
-        _equal_or_raise("K3 pass replay", cg._sweep_kernel(*args), cg._sweep_plain(*args))
+    real = cg.real_faces(int(tris.mtl.shape[0]), clusters.count, dev)
+    gated_bounds = {}
+    for key, args in (("K3", p_near), ("K3 any-hit", p_any)):
+        ref = cg._sweep_plain(*args)
+        _equal_or_raise("K3 pass replay", cg._sweep_kernel(*args), ref)
+        gated_bounds[key] = _gated_bound(args, real, ref)
     phase("kernels", f"K3 verdicts on the camera rays: {float(p_near[3].double().mean()):.4f} "
                      f"of (tile, cluster) pairs gated in for the nearest pass, "
                      f"{float(p_any[3].double().mean()):.4f} for the any-hit pass")
     table = ci.face_table(tris)
-    real = cg.real_faces(int(tris.mtl.shape[0]), clusters.count, dev)
-    bounds = {**_full_sweep_bounds("K2", OPS_LIN, cam_o, cam_d, tris, l0, 16),
-              "K3": _gated_bound(p_near, real), "K3 any-hit": _gated_bound(p_any, real)}
+    bounds = {**_full_sweep_bounds("K2", OPS_LIN, cam_o, cam_d, tris, l0, 16), **gated_bounds}
     times = {
         "K3": (_time_ms(lambda: cg._sweep_kernel(*p_near), 20),
                _time_ms(lambda: cg._sweep_plain(*p_near), 3)),
@@ -718,17 +730,24 @@ def multiroom_kernel_phase(scene, cam, dev, pt: PathTracer) -> dict:
     return {"times": times, "errs": errs, "bounds": bounds, "o": cam_o, "d": cam_d}
 
 
-def _gated_bound(args, real) -> tuple:
-    """Bound of one K3 pass from its recorded arguments: the gated-in
-    clusters' real faces for every ray of the tile."""
-    o, _, tab, verdict, tile, _, _, t_limit = args
+def _gated_bound(args, real, out) -> tuple:
+    """Bound of one K3 pass from its recorded arguments and its plain
+    result ``out``: t for the gated-in clusters' real faces for every ray
+    of the tile, u and v for the tests whose t can change the result
+    (``k3_tiles.pass_counts``: nearest 1e-5 <= t <= the final t, any-hit up
+    to and including the first occluder)."""
+    o, _, tab, verdict, _, _, _, t_limit = args
     n = o.x.shape[0]
-    tests = int((verdict.to(torch.int64) * real).sum()) * tile
+    work = k3_tiles.pass_counts(args, real, out if isinstance(out, tuple) else (out,))
     any_hit = t_limit is not None
     # rays, the seeds (nearest: t and face; any-hit: occlusion and t_limit),
     # table, verdicts, outputs
     nbytes = 24 * n + 8 * n + 4 * tab.numel() + verdict.numel() + (4 if any_hit else 8) * n
-    return _bound(OPS_LIN * tests, nbytes)
+    phase("kernels", f"K3 {'any-hit' if any_hit else 'nearest'} pass on the camera rays: "
+                     f"{work['tests']} real-face tests, {work['uv_tests']} whose t can change "
+                     f"the result; {work['closed_warps']} of {work['warps']} warp sections "
+                     f"closed at entry")
+    return _bound(OPS_LIN_T * work["tests"] + OPS_LIN_UV * work["uv_tests"], nbytes)
 
 
 def _grads(ts, cam_t, settings, ids, weights=None) -> tuple:
@@ -1415,10 +1434,12 @@ def tree_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dic
     ptf = _first_frame_checks(tag, scene, cam, dev, intersector="pallas_bvh_forest")
     _frame_vs(tag, "first frame, 'pallas_bvh_forest' (K6 chain) vs auto (K4)", ptf.image(),
               k4_first)
-    k = ptf.scene.forest.count
+    if ptf.scene.forest.count < 2:
+        raise AssertionError(f"{tag}: the forest must have several sub-trees")
     launched = _one_frame_launches(tag, ptf, cam)
-    _expect(tag, launched, {"K6 nearest": mtd, "K6 seeded": (k - 1) * mtd,
-                            "K6 any-hit": mtd, "K6 seeded any-hit": (k - 1) * mtd})
+    # sub-tree 0, then the seeded chain over the others: one launch a pass
+    _expect(tag, launched, {"K6 nearest": mtd, "K6 seeded": mtd,
+                            "K6 any-hit": mtd, "K6 seeded any-hit": mtd})
     out["forest"] = {"launches": launched}
     return out
 
@@ -1512,9 +1533,10 @@ def _walk_bound(w, work: list) -> tuple:
     """Bound of one walk: the per-ray walk's node steps and leaf-face tests
     on these rays (what the plain version counted, both legs of NEE: each
     hit leaf's faces whole, and on an any-hit walk those up to and
-    including the occluding face, where it stops); bytes: the rays, the
-    per-ray inputs and outputs, the tree's nodes (9 words each) and its
-    faces (9 words)."""
+    including the occluding face, where it stops; summed over a seeded
+    chain's sub-trees); bytes: the rays, the per-ray inputs and outputs,
+    each once, the tree's nodes (9 words each; every sub-tree's for a
+    chain) and its faces (9 words)."""
     tests = sum(int(t.sum()) for t, _ in work)
     visits = sum(int(v.sum()) for _, v in work)
     n = w.o.x.shape[0]
@@ -1522,7 +1544,8 @@ def _walk_bound(w, work: list) -> tuple:
                                                   w.f_seed, w.occ_seed) if a is not None)
     per_ray += 1 if w.t_limit is not None else 8 + (1 if w.light is not None else 0)
     per_ray += 8 if w.with_counts else 0
-    nbytes = per_ray * n + 36 * w.tree.count + 36 * w.faces.shape[1]
+    nodes = w.tree.trees.exit.numel() if isinstance(w.tree, ForestTables) else w.tree.count
+    nbytes = per_ray * n + 36 * nodes + 36 * w.faces.shape[1]
     return _bound(OPS_SLAB * visits + OPS_CLASSIC * tests, nbytes), tests, visits
 
 
@@ -1602,7 +1625,8 @@ def tree_kernel_phase(dev, pt, cam, pt10k, cam10k) -> dict:
     _check_walks(tag, _recorded(lambda: (
         cb.intersect_bvh_packet_hbm(bo, bd, bvh, tris, ml, light_pos=l0, alive=alive),
         cb.intersect_bvh_walk(bo, bd, bvh, tris, ml, alive=alive, with_counts=True),
-        cb.occluded_bvh_walk(bo, bd, t_b, bvh, tris, ml, alive=alive, with_counts=True))),
+        cb.occluded_bvh_walk(bo, bd, t_b, bvh, tris, ml, alive=alive, with_counts=True),
+        cb.intersect_bvh_forest(bo, bd, ts.forest, bvh, light_pos=l0, alive=alive))),
         f"{nb} bounce-like rays, 60% alive", False)
     t10 = pt10k.scene
     o10, d10 = _camera_rays(camera_to_torch(cam10k, dev), pt10k.settings, dev, pt10k.pixel_ids)
@@ -1633,7 +1657,7 @@ def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     total = sum(r[1] for r in rows)
     names = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "rows_kernel",
-             "packet_kernel", "slab_kernel", "walk_kernel")
+             "packet_kernel", "chain_kernel", "slab_kernel", "walk_kernel")
     ours = sum(r[1] for r in rows if any(k in r[0] for k in names))
     phase("profile", f"{tag}: device time over one {'frame' if step is None else 'step'}: "
                      f"{total / 1e3:.3f} ms in {sum(r[2] for r in rows)} kernel launches; "

@@ -1,4 +1,5 @@
-// Packet BVH walks for Hopper (sm_90a): kernel K6 (five instances) and the
+// Packet BVH walks for Hopper (sm_90a): kernel K6 (five instances: three of
+// packet_kernel and the seeded chain's two of chain_kernel) and the
 // leaf-slab walk K7 (two instances).
 //
 // K6 replaces pbr_tpu/ops/pallas_bvh.py::_kernel (nearest), ::_kernel_nee
@@ -6,7 +7,8 @@
 // t_limit), ::_kernel_seeded (nearest from a running best) and
 // ::_kernel_shadow_seeded (any-hit from a running occlusion mask), all
 // around ::_traverse_tile; the seeded pair carries the forest's chain over
-// its sub-trees (ops/cuda_bvh.py::intersect_bvh_forest). K7 replaces
+// its sub-trees (ops/cuda_bvh.py::intersect_bvh_forest), each sub-tree's
+// walk seeded by the best of those before it, in ascending order. K7 replaces
 // ::_kernel_hbm and ::_kernel_hbm_nee around ::_traverse_tile_hbm. Both
 // compute what those kernels compute:
 //   - the stackless walk of bvh.cuh with a cursor shared by a packet of
@@ -42,10 +44,29 @@
 // (octant, Morton code of the origin in the root box), so the 32 rays of a
 // warp are coherent.
 //
-// K6 keeps its first design: the nodes (SoA tables) and the leaf faces are
-// read from global memory through the read-only cache, every lane the
-// same node, and each lane that hits a leaf tests its faces one after
-// another.
+// K6's nearest, NEE and any-hit instances keep its first design: the nodes
+// (SoA tables) and the leaf faces are read from global memory through the
+// read-only cache, every lane the same node, and each lane that hits a
+// leaf tests its faces one after another.
+//
+// K6's seeded chain (chain_kernel) is the forest's walk over sub-trees
+// 1..K-1 (soup:100000: 12 sub-trees of 8,192 faces, 4-face leaves) in one
+// launch a pass. The TPU launched one kernel a sub-tree, each re-reading
+// the rays and seeds and writing the running best; here a warp loads its
+// rays, alive bits and seeds once, walks the sub-trees in ascending order
+// with t_best / f_best (or occ) in registers and writes once. The walk is
+// K6's packet walk over packed records (node_records, 32 bytes a node,
+// and face_records, 48 bytes a face, built once a scene for the whole
+// forest), as K7's and K8's, the same floats in the same operations. The
+// forest's padding nodes (inverted boxes, exit = n) pack as inner nodes
+// and still miss by the empty-box guard. The any-hit chain leaves once
+// every lane of the warp is occluded or not walking, before the next
+// sub-tree's root. Four-warp blocks at most 64 registers (8 blocks an SM;
+// one- and two-warp blocks, and loading node i + 1 with node i, lost:
+// tools/k6_chain.py, PERF.md). The order of the sub-trees stays
+// ascending: a nearest-first order is not exact at equal t (a node whose
+// t_near equals the running best is pruned, so a tie in an earlier
+// sub-tree would be lost).
 //
 // K7, the slab walk (soup:100000: 4,523 nodes, 64-face leaves), is built
 // for what bounds it here: operations, ~25 a node step and ~51 a face test,
@@ -105,7 +126,10 @@ constexpr int kSlabMaxLeaf = 256;  // ops/cuda_bvh.py::SLAB_MAX_LEAF
 // an inner node (ops/cuda_bvh.py::node_records).
 constexpr int kCountBits = 8;
 
-enum Mode : int { kNearest = 0, kNee = 1, kAnyHit = 2, kSeeded = 3, kSeededAnyHit = 4 };
+constexpr int kChainThreads = 128;  // the chain's block: four warps
+constexpr int kChainMinBlocks = 8;  // its blocks an SM: at most 64 registers
+
+enum Mode : int { kNearest = 0, kNee = 1, kAnyHit = 2 };
 
 struct Params {
   const float *ox, *oy, *oz, *dx, *dy, *dz;
@@ -118,13 +142,33 @@ struct Params {
   int face_base;  // added to the face ids written
   int max_leaf;
   const float* light;    // (3,) light 0 (kNee)
-  const float* t_limit;  // (n,) (any-hit modes)
-  const float* t_seed;   // (n,) (kSeeded)
-  const int* f_seed;
-  const unsigned char* occ_seed;  // (n,) bool (kSeededAnyHit)
+  const float* t_limit;  // (n,) (kAnyHit)
   float* t_out;
   int* f_out;
   unsigned char* occ_out;  // (n,) bool
+};
+
+// The seeded chain's inputs: the rays as K6's, n_trees sub-trees of n_nodes
+// packed node records each, their faces' records, `chunk` a sub-tree.
+struct ChainParams {
+  const float *ox, *oy, *oz, *dx, *dy, *dz;
+  const int* order;
+  const unsigned char* alive;
+  int n;
+  const float4* nodes;  // (n_trees, n_nodes, 2) node records
+  int n_nodes;
+  int n_trees;
+  const float4* faces;  // (n_trees * chunk, 3) face records
+  int chunk;
+  int face_base;  // the first sub-tree's, added to the face ids written
+  int max_leaf;
+  const float* t_limit;  // (n,) (any-hit)
+  const float* t_seed;   // (n,) (nearest)
+  const int* f_seed;
+  const unsigned char* occ_seed;  // (n,) bool (any-hit)
+  float* t_out;
+  int* f_out;
+  unsigned char* occ_out;
 };
 
 // K7's inputs: the rays as K6's, the tree and its faces as packed records.
@@ -222,8 +266,8 @@ __global__ void __launch_bounds__(kThreads) packet_kernel(const Params p) {
   const float dz = in ? p.dz[ray] : 1.0f;
   const pbr::Ray r = pbr::make_ray(ox, oy, oz, dx, dy, dz);
 
-  if constexpr (MODE == kAnyHit || MODE == kSeededAnyHit) {
-    bool occ = (MODE == kSeededAnyHit && in) ? p.occ_seed[ray] != 0 : false;
+  if constexpr (MODE == kAnyHit) {
+    bool occ = false;
     const float t_limit = in ? p.t_limit[ray] : 0.0f;
     walk<true>(p, r, live, t_limit, nullptr, nullptr, &occ);
     if (in) p.occ_out[ray] = occ ? 1 : 0;
@@ -232,10 +276,6 @@ __global__ void __launch_bounds__(kThreads) packet_kernel(const Params p) {
 
   float t_best = INFINITY;
   int f_best = -1;
-  if (MODE == kSeeded && in) {
-    t_best = p.t_seed[ray];
-    f_best = p.f_seed[ray];
-  }
   walk<false>(p, r, live, 0.0f, &t_best, &f_best, nullptr);
   if (in) {
     p.t_out[ray] = t_best;
@@ -247,6 +287,100 @@ __global__ void __launch_bounds__(kThreads) packet_kernel(const Params p) {
     bool occ = false;
     walk<true>(p, s, live && t_best < INFINITY, t_light, nullptr, nullptr, &occ);
     if (in) p.occ_out[ray] = occ ? 1 : 0;
+  }
+}
+
+// The warp's walk of one sub-tree of packed records, as walk: nodes (n, 2)
+// records, faces the sub-tree's face records, ids written from base.
+template <bool ANY>
+__device__ void record_walk(const float4* __restrict__ nodes, int n,
+                            const float4* __restrict__ faces, int base, int max_leaf,
+                            const pbr::Ray& r, bool live, float t_limit, float* t_best,
+                            int* f_best, bool* occ) {
+  int i = 0;
+  while (i < n) {
+    if constexpr (ANY) {
+      if (__all_sync(kAll, *occ || !live)) return;
+    }
+    float t_near;
+    const float4 lo = __ldg(nodes + 2 * i), hi = __ldg(nodes + 2 * i + 1);
+    bool hit = pbr::box_hit(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r, &t_near) && live;
+    if constexpr (ANY) {
+      hit = hit && !*occ && t_limit > t_near;
+    } else {
+      hit = hit && *t_best > t_near;
+    }
+    if (!__any_sync(kAll, hit)) {
+      i = __float_as_int(lo.w);
+      continue;
+    }
+    const int lf = __float_as_int(hi.w);
+    if (lf >= 0 && hit) {
+      const int first = lf >> kCountBits;
+      const int cnt = min((lf & ((1 << kCountBits) - 1)) + 1, max_leaf);
+      for (int k = 0; k < cnt; ++k) {
+        const float4* g = faces + 3 * (first + k);
+        const float4 a = __ldg(g), b = __ldg(g + 1), c = __ldg(g + 2);
+        float t;
+        const bool valid = pbr::moller_trumbore(
+            pbr::Face{a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z}, r.ox, r.oy, r.oz, r.dx,
+            r.dy, r.dz, &t);
+        if constexpr (ANY) {
+          if (valid && t < t_limit) {
+            *occ = true;
+            break;
+          }
+        } else if (valid && t < *t_best) {
+          *t_best = t;
+          *f_best = base + first + k;
+        }
+      }
+    }
+    ++i;
+  }
+}
+
+// The seeded chain: sub-trees 0..n_trees-1 of p in ascending order, each
+// seeded by the best so far, from the rays' seeds.
+template <bool ANY>
+__global__ void __launch_bounds__(kChainThreads, kChainMinBlocks)
+    chain_kernel(const ChainParams p) {
+  const int g = blockIdx.x * kChainThreads + threadIdx.x;
+  const bool in = g < p.n;
+  const int ray = in ? (p.order != nullptr ? p.order[g] : g) : 0;
+  // Lanes past the tail and dead lanes walk with the warp and vote false.
+  const bool live = in && (p.alive == nullptr || p.alive[ray] != 0);
+  const pbr::Ray r = pbr::make_ray(in ? p.ox[ray] : 0.0f, in ? p.oy[ray] : 0.0f,
+                                   in ? p.oz[ray] : 0.0f, in ? p.dx[ray] : 0.0f,
+                                   in ? p.dy[ray] : 0.0f, in ? p.dz[ray] : 1.0f);
+  const long long node_stride = 2LL * p.n_nodes, face_stride = 3LL * p.chunk;
+  bool occ = false;
+  float t_best = INFINITY, t_limit = 0.0f;
+  int f_best = -1;
+  if (in) {
+    if constexpr (ANY) {
+      occ = p.occ_seed[ray] != 0;
+      t_limit = p.t_limit[ray];
+    } else {
+      t_best = p.t_seed[ray];
+      f_best = p.f_seed[ray];
+    }
+  }
+  for (int s = 0; s < p.n_trees; ++s) {
+    if constexpr (ANY) {
+      if (__all_sync(kAll, occ || !live)) break;
+    }
+    record_walk<ANY>(p.nodes + s * node_stride, p.n_nodes, p.faces + s * face_stride,
+                     p.face_base + s * p.chunk, p.max_leaf, r, live, t_limit, &t_best, &f_best,
+                     &occ);
+  }
+  if (in) {
+    if constexpr (ANY) {
+      p.occ_out[ray] = occ ? 1 : 0;
+    } else {
+      p.t_out[ray] = t_best;
+      p.f_out[ray] = f_best;
+    }
   }
 }
 
@@ -436,6 +570,12 @@ void launch(const Params& p, cudaStream_t s) {
   packet_kernel<MODE><<<grid, kThreads, 0, s>>>(p);
 }
 
+template <bool ANY>
+void launch_chain(const ChainParams& p, cudaStream_t s) {
+  const dim3 grid((p.n + kChainThreads - 1) / kChainThreads);
+  chain_kernel<ANY><<<grid, kChainThreads, 0, s>>>(p);
+}
+
 template <int MODE>
 void launch_slab(const SlabParams& p, cudaStream_t s) {
   const size_t smem = kWarpSlabBytes + 3 * 16 * p.max_leaf;
@@ -450,34 +590,59 @@ void launch_slab(const SlabParams& p, cudaStream_t s) {
 // `stream` without synchronising and returns cudaGetLastError() of the
 // launch (cudaErrorInvalidValue for arguments it does not take).
 //
-// K6: mode 0 nearest, 1 nearest + NEE, 2 any-hit, 3 seeded nearest, 4
-// seeded any-hit; the tree as (3, n_nodes) bounds and (n_nodes,) indices,
-// the faces as a (9, stride) table.
+// K6: mode 0 nearest, 1 nearest + NEE, 2 any-hit; the tree as (3, n_nodes)
+// bounds and (n_nodes,) indices, the faces as a (9, stride) table.
 extern "C" int pbr_bvh_packet(int mode, const float* ox, const float* oy, const float* oz,
                               const float* dx, const float* dy, const float* dz,
                               const int* order, const unsigned char* alive, int n,
                               const float* bmin, const float* bmax, const int* leaf_first,
                               const int* leaf_count, const int* exit_, int n_nodes,
                               const float* faces, int stride, int face_base, int max_leaf,
-                              const float* light, const float* t_limit, const float* t_seed,
-                              const int* f_seed, const unsigned char* occ_seed, float* t_out,
+                              const float* light, const float* t_limit, float* t_out,
                               int* f_out, unsigned char* occ_out, void* stream) {
-  if (mode < kNearest || mode > kSeededAnyHit || max_leaf < 1) {
+  if (mode < kNearest || mode > kAnyHit || max_leaf < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
-  const Params p{ox,       oy,    oz,     dx,     dy,       dz,
-                 order,    alive, n,      {bmin, bmax, leaf_first, leaf_count, exit_, n_nodes},
-                 faces,    stride, face_base, max_leaf, light, t_limit,
-                 t_seed,   f_seed, occ_seed, t_out, f_out, occ_out};
+  const Params p{ox,    oy,     oz,    dx,    dy,       dz,
+                 order, alive,  n,     {bmin, bmax, leaf_first, leaf_count, exit_, n_nodes},
+                 faces, stride, face_base, max_leaf, light, t_limit, t_out, f_out, occ_out};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kNearest: launch<kNearest>(p, s); break;
     case kNee: launch<kNee>(p, s); break;
-    case kAnyHit: launch<kAnyHit>(p, s); break;
-    case kSeeded: launch<kSeeded>(p, s); break;
-    default: launch<kSeededAnyHit>(p, s); break;
+    default: launch<kAnyHit>(p, s); break;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6's seeded chain: any_hit 0 (seeds t_seed / f_seed, outputs t_out /
+// f_out) or 1 (seeds occ_seed, t_limit, output occ_out); n_trees sub-trees
+// of (n_nodes, 8) node records each, back to back, and their (n_trees *
+// chunk, 12) face records (16-byte aligned), face ids written from
+// face_base + i * chunk for sub-tree i.
+extern "C" int pbr_bvh_chain(int any_hit, const float* ox, const float* oy, const float* oz,
+                             const float* dx, const float* dy, const float* dz,
+                             const int* order, const unsigned char* alive, int n,
+                             const float* node_rec, int n_nodes, int n_trees,
+                             const float* face_rec, int chunk, int face_base, int max_leaf,
+                             const float* t_limit, const float* t_seed, const int* f_seed,
+                             const unsigned char* occ_seed, float* t_out, int* f_out,
+                             unsigned char* occ_out, void* stream) {
+  if (max_leaf < 1 || n_trees < 1 || n_nodes < 0 || chunk < 1 ||
+      (any_hit ? (t_limit == nullptr || occ_seed == nullptr || occ_out == nullptr)
+               : (t_seed == nullptr || f_seed == nullptr || t_out == nullptr ||
+                  f_out == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return 0;
+  const ChainParams p{ox,       oy,       oz,      dx,       dy,      dz,
+                      order,    alive,    n,       reinterpret_cast<const float4*>(node_rec),
+                      n_nodes,  n_trees,  reinterpret_cast<const float4*>(face_rec),
+                      chunk,    face_base, max_leaf, t_limit, t_seed, f_seed,
+                      occ_seed, t_out,    f_out,   occ_out};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (any_hit) launch_chain<true>(p, s); else launch_chain<false>(p, s);
   return static_cast<int>(cudaGetLastError());
 }
 

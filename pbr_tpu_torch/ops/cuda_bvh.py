@@ -8,7 +8,11 @@ plain PyTorch version.
   seeded any-hit"), around ``_traverse_tile``: a node cursor shared by a
   warp of 32 rays. ``intersect_bvh_packet`` runs it on a scene's tree (the
   ``pallas_bvh`` mode); ``intersect_bvh_forest`` chains it over the
-  sub-trees of a ``BVHForest`` (``pallas_bvh_forest``).
+  sub-trees of a ``BVHForest`` (``pallas_bvh_forest``): sub-tree 0 by "K6
+  nearest" / "K6 any-hit", then sub-trees 1..K-1 by one launch a pass of
+  the seeded instances (``chain_kernel``), which walk them in ascending
+  order over the forest's packed records (``ForestTables.node_records``,
+  ``face_records``), each seeded by the best so far.
 - **K7**, the leaf-slab walk (same source, ``slab_kernel``), replaces
   ``_kernel_hbm`` ("K7 nearest") and ``_kernel_hbm_nee`` ("K7 NEE"),
   around ``_traverse_tile_hbm``: the same walk over the tree's packed
@@ -69,6 +73,7 @@ from pbr_tpu_torch.ops.cuda_intersect import _shadow_ray, check_rays, face_table
 from pbr_tpu_torch.ops.cull import coherence_keys
 from pbr_tpu_torch.ops.intersect import EPS5, INF, moller_trumbore, slab_box
 from pbr_tpu_torch.ops.vec import Vec3
+from pbr_tpu_torch.scene.device import ForestTables
 
 # The TPU kernels' table budgets (pallas_bvh.py:39 and :460), kept so that
 # both packages take the same scenes in the same modes.
@@ -88,17 +93,21 @@ LEAF_COUNT_BITS = 8
 launches = {"K6 nearest": 0, "K6 NEE": 0, "K6 any-hit": 0, "K6 seeded": 0,
             "K6 seeded any-hit": 0, "K7 nearest": 0, "K7 NEE": 0, "K8": 0, "K8 any-hit": 0}
 _K8 = ("K8", "K8 any-hit")
+# The seeded chain's instances (chain_kernel).
+_SEEDED = ("K6 seeded", "K6 seeded any-hit")
 # The instances that read the packed records.
-_RECORDS = ("K7 nearest", "K7 NEE", *_K8)
+_RECORDS = ("K7 nearest", "K7 NEE", *_K8, *_SEEDED)
 # bvh_packet.cu's mode of each instance.
-_PACKET_MODES = {"K6 nearest": 0, "K6 NEE": 1, "K6 any-hit": 2, "K6 seeded": 3,
-                 "K6 seeded any-hit": 4, "K7 nearest": 0, "K7 NEE": 1}
+_PACKET_MODES = {"K6 nearest": 0, "K6 NEE": 1, "K6 any-hit": 2, "K7 nearest": 0, "K7 NEE": 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # mode, rays (6), order, alive, n, tree (5), n_nodes, faces, stride,
-# face_base, max_leaf, light, t_limit, t_seed, f_seed, occ_seed, t_out,
-# f_out, occ_out, stream
-_PACKET_ARGTYPES = [_I] + [_P] * 8 + [_I] + [_P] * 5 + [_I, _P, _I, _I, _I] + [_P] * 9
+# face_base, max_leaf, light, t_limit, t_out, f_out, occ_out, stream
+_PACKET_ARGTYPES = [_I] + [_P] * 8 + [_I] + [_P] * 5 + [_I, _P, _I, _I, _I] + [_P] * 6
+# any_hit, rays (6), order, alive, n, node records, n_nodes, n_trees, face
+# records, chunk, face_base, max_leaf, t_limit, t_seed, f_seed, occ_seed,
+# t_out, f_out, occ_out, stream
+_CHAIN_ARGTYPES = [_I] + [_P] * 8 + [_I, _P, _I, _I, _P, _I, _I, _I] + [_P] * 8
 # mode, rays (6), order, alive, n, node records, n_nodes, face records,
 # max_leaf, light, t_out, f_out, occ_out, stream
 _SLAB_ARGTYPES = [_I] + [_P] * 8 + [_I, _P, _I, _P, _I] + [_P] * 5
@@ -157,13 +166,17 @@ class Walk(NamedTuple):
     version (what ``run`` executes; chip_smoke.py replays them).
 
     ``kernel``: the instance, a key of ``launches``; ``tree``: a
-    ``BVHTables``; ``faces``: the (9, F) face table the tree indexes (a
-    column slice of a wider table for a forest's sub-tree), face ids
-    written offset by ``face_base``; ``order``: the launch order (CUDA
+    ``BVHTables``, or for the seeded instances also a ``ForestTables`` (a
+    run of a forest's sub-trees, ``ForestTables.subtrees``, walked in
+    ascending order, each seeded by the best so far); ``faces``: the (9, F)
+    face table the tree indexes (a column slice of a wider table for a
+    forest's sub-trees), face ids written offset by ``face_base`` (and by
+    ``i * chunk`` for a forest's sub-tree ``i``); ``order``: the launch order (CUDA
     only; the plain version walks each ray alone); ``light`` (3,) for the
     NEE instances; ``t_limit`` for the any-hit ones; ``t_seed``/``f_seed``
     and ``occ_seed`` for the seeded ones; ``with_counts`` for K8's two.
-    K7 and K8 read ``tree``'s packed records, which it must have."""
+    K7, K8 and the seeded chain read ``tree``'s packed records, which it
+    must have."""
 
     kernel: str
     o: Vec3
@@ -270,15 +283,29 @@ def walk_plain(o: Vec3, d: Vec3, tree, faces: torch.Tensor, max_leaf: int, alive
     return t_best, f_best, occ, tests, visits
 
 
+def _subtrees(w: Walk) -> list:
+    """(tree, faces, face_base) of each tree ``w`` walks, in order: a
+    forest's sub-trees, or ``w.tree`` alone."""
+    if not isinstance(w.tree, ForestTables):
+        return [(w.tree, w.faces, w.face_base)]
+    c = w.tree.chunk
+    return [(w.tree.tree(i), w.faces[:, i * c:(i + 1) * c], w.face_base + i * c)
+            for i in range(w.tree.count)]
+
+
 def _run_plain(w: Walk, work: Optional[list] = None):
     """``w`` through the plain version: (t, face), (t, face, occluded),
     occluded, or K8's (t, face[, tests, visits]) and (occluded[, tests,
-    visits]). ``work``: a list to which each walk run appends its per-ray
-    ``(tests, visits)`` (chip_smoke.py's bounds count them)."""
-    def walk(o, d, alive=w.alive, **kw):
-        out = walk_plain(o, d, w.tree, w.faces, w.max_leaf, alive, w.face_base, **kw)
-        if work is not None:
-            work.append(out[3:])
+    visits]); a forest's sub-trees walked one after another, each seeded by
+    the one before. ``work``: a list to which each tree's walk appends its
+    per-ray ``(tests, visits)`` (chip_smoke.py's bounds count them)."""
+    def walk(o, d, alive=w.alive, t_seed=None, f_seed=None, t_limit=None, occ_seed=None):
+        for tree, faces, base in _subtrees(w):
+            out = walk_plain(o, d, tree, faces, w.max_leaf, alive, base, t_seed=t_seed,
+                             f_seed=f_seed, t_limit=t_limit, occ_seed=occ_seed)
+            if work is not None:
+                work.append(out[3:])
+            t_seed, f_seed, occ_seed = out[:3]
         return out
     counts = w.with_counts and w.kernel in _K8
     if w.t_limit is not None:
@@ -302,13 +329,20 @@ def _check(w: Walk) -> None:
     check_rays(w.kernel, w.o, w.d)
     dev, n = w.o.x.device, w.o.x.shape[0]
     tr = w.tree
-    for a, dt in ((tr.bb_min, torch.float32), (tr.bb_max, torch.float32),
-                  (tr.leaf_first, torch.int32), (tr.leaf_count, torch.int32),
-                  (tr.exit, torch.int32)):
+    chain = isinstance(tr, ForestTables)
+    if chain and w.kernel not in _SEEDED:
+        raise ValueError(f"{w.kernel} walks one tree; only the seeded instances chain a "
+                         f"forest's sub-trees")
+    nodes = tr.trees if chain else tr
+    for a, dt in ((nodes.bb_min, torch.float32), (nodes.bb_max, torch.float32),
+                  (nodes.leaf_first, torch.int32), (nodes.leaf_count, torch.int32),
+                  (nodes.exit, torch.int32)):
         if a.device != dev or a.dtype != dt or not a.is_contiguous() \
-                or a.shape[-1] != tr.count or a.dim() != (2 if dt == torch.float32 else 1):
+                or a.shape[-1] != nodes.count \
+                or a.dim() != (2 if dt == torch.float32 else 1) + chain:
             raise ValueError(f"{w.kernel}: the tree's tables must be contiguous (3, N) float32 "
-                             f"bounds and (N,) int32 indices on {dev}")
+                             f"bounds and (N,) int32 indices on {dev} (stacked on a leading "
+                             f"axis for a forest's sub-trees)")
     f = w.faces
     if f.device != dev or f.dtype != torch.float32 or f.dim() != 2 or f.shape[0] != 9 \
             or f.stride(1) != 1 or f.shape[1] < 1 or 9 * f.stride(0) >= 2**31:
@@ -326,11 +360,20 @@ def _check(w: Walk) -> None:
         raise ValueError(f"light position must be (3,) float32 on {dev}")
     if w.max_leaf < 1:
         raise ValueError(f"max_leaf must be at least 1, not {w.max_leaf}")
+    if chain and (f.data_ptr() != tr.faces.data_ptr() or f.shape != tr.faces.shape
+                  or f.shape[1] % tr.count):
+        raise ValueError(f"{w.kernel}: a forest's sub-trees walk the forest's own faces, "
+                         f"chunk faces a sub-tree")
+    if w.kernel in _SEEDED and ((w.t_seed is None or w.f_seed is None) if w.t_limit is None
+                                else w.occ_seed is None):
+        raise ValueError(f"{w.kernel} starts from its seeds: t_seed and f_seed, or occ_seed "
+                         f"with t_limit")
     if w.kernel in _K8 and (w.kernel == "K8 any-hit") != (w.t_limit is not None):
         raise ValueError("K8's any-hit instance, and only it, takes a t_limit")
-    if w.kernel in _RECORDS and w.face_base != 0:
+    if w.kernel in _RECORDS and w.kernel not in _SEEDED and w.face_base != 0:
         raise ValueError(f"{w.kernel} walks a scene's tree: face_base must be 0")
-    for rec, shape in ((tr.node_records, (tr.count, 8)), (tr.face_records, (f.shape[1], 12))):
+    node_shape = (tr.count, nodes.count, 8) if chain else (tr.count, 8)
+    for rec, shape in ((tr.node_records, node_shape), (tr.face_records, (f.shape[1], 12))):
         if w.kernel in _RECORDS and (
                 rec is None or rec.device != dev or rec.dtype != torch.float32
                 or tuple(rec.shape) != shape or not rec.is_contiguous()):
@@ -362,6 +405,19 @@ def _run_kernel(w: Walk):
             out = out + counts
             if len(out) == 1:
                 out = out[0]
+        elif w.kernel in _SEEDED:
+            t = torch.empty((0 if any_hit else n,), dtype=torch.float32, device=dev)
+            f = torch.empty((0 if any_hit else n,), dtype=torch.int32, device=dev)
+            occ = torch.empty((n if any_hit else 0,), dtype=torch.bool, device=dev)
+            chain = isinstance(tr, ForestTables)
+            lib = load("bvh_packet", "pbr_bvh_chain", _CHAIN_ARGTYPES)
+            err = lib.pbr_bvh_chain(
+                int(any_hit), *rays, tr.node_records.data_ptr(),
+                tr.trees.count if chain else tr.count, tr.count if chain else 1,
+                tr.face_records.data_ptr(), tr.chunk if chain else w.faces.shape[1],
+                w.face_base, w.max_leaf, _ptr(w.t_limit), _ptr(w.t_seed), _ptr(w.f_seed),
+                _ptr(w.occ_seed), t.data_ptr(), f.data_ptr(), occ.data_ptr(), stream)
+            out = occ if any_hit else (t, f)
         else:
             t = torch.empty((n,), dtype=torch.float32, device=dev)
             f = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -380,8 +436,7 @@ def _run_kernel(w: Walk):
                           tr.exit.data_ptr(), tr.count, w.faces.data_ptr(), w.faces.stride(0))
                 lib = load("bvh_packet", "pbr_bvh_packet", _PACKET_ARGTYPES)
                 err = lib.pbr_bvh_packet(mode, *rays, *tables, w.face_base, w.max_leaf,
-                                         _ptr(w.light), _ptr(w.t_limit), _ptr(w.t_seed),
-                                         _ptr(w.f_seed), _ptr(w.occ_seed), *outs)
+                                         _ptr(w.light), _ptr(w.t_limit), *outs)
             out = occ if any_hit else (t, f) if w.light is None else (t, f, occ)
     if err != 0:
         raise RuntimeError(f"{w.kernel} launch failed: cudaError {err}")
@@ -486,27 +541,26 @@ def intersect_bvh_packet_hbm(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 64,
 
 def _forest(execute, o: Vec3, d: Vec3, forest, order, max_leaf, light, alive):
     """The forest walk with each launch made by ``execute(Walk)``: the
-    nearest walk chained over the K sub-trees, each seeded with the best so
-    far (sub-tree 0 unseeded); faces mapped to main order; with a light,
-    the shadow rays from the combined hit (the guarded math of
-    ``_kernel_nee``) and the any-hit walk chained the same way."""
+    nearest walk over sub-tree 0 ("K6 nearest"), then over sub-trees
+    1..K-1 in one walk ("K6 seeded"), each seeded with the best so far;
+    faces mapped to main order; with a light, the shadow rays from the
+    combined hit (the guarded math of ``_kernel_nee``) and the any-hit
+    walk chained the same way ("K6 any-hit", "K6 seeded any-hit")."""
     chunk = forest.chunk
-    t = f = None
-    for i in range(forest.count):
-        t, f = execute(Walk(
-            "K6 seeded" if i else "K6 nearest", o, d, forest.tree(i),
-            forest.faces[:, i * chunk:(i + 1) * chunk], max_leaf, alive, order,
-            face_base=i * chunk, t_seed=t, f_seed=f))
+    rest = forest.subtrees(1, forest.count) if forest.count > 1 else None
+    first = (forest.tree(0), forest.faces[:, :chunk], max_leaf, alive, order)
+    t, f = execute(Walk("K6 nearest", o, d, *first))
+    if rest is not None:
+        t, f = execute(Walk("K6 seeded", o, d, rest, rest.faces, max_leaf, alive, order,
+                            face_base=chunk, t_seed=t, f_seed=f))
     face = torch.where(f >= 0, forest.face_ids[f.clamp_min(0).long()], -1)
     if light is None:
         return t, face
     hit_p, s_dir, t_light = _shadow_ray(o, d, t, light)
-    occ = None
-    for i in range(forest.count):
-        occ = execute(Walk(
-            "K6 seeded any-hit" if i else "K6 any-hit", hit_p, s_dir, forest.tree(i),
-            forest.faces[:, i * chunk:(i + 1) * chunk], max_leaf, alive, order,
-            face_base=i * chunk, t_limit=t_light, occ_seed=occ))
+    occ = execute(Walk("K6 any-hit", hit_p, s_dir, *first, t_limit=t_light))
+    if rest is not None:
+        occ = execute(Walk("K6 seeded any-hit", hit_p, s_dir, rest, rest.faces, max_leaf,
+                           alive, order, face_base=chunk, t_limit=t_light, occ_seed=occ))
     return t, face, occ
 
 
@@ -516,6 +570,7 @@ def intersect_bvh_forest(o: Vec3, d: Vec3, forest, bvh, max_leaf: int = FOREST_M
     (``pallas_bvh.py::intersect_bvh_forest``'s contract): main-order faces,
     ``bvh`` (the scene's main tree) giving the root box of the coherence
     sort. Returns ``(t, face)`` or, with ``light_pos``, ``(t, face,
-    occluded)``. 2K launches a call with NEE, K without."""
+    occluded)``. Two launches a pass (one with a single sub-tree): four a
+    call with NEE, two without."""
     return _forest(run, o, d, forest, ray_order(o, d, bvh, alive), max_leaf,
                    _light(light_pos), alive)

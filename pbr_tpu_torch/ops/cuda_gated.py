@@ -27,6 +27,10 @@ Möller-Trumbore of kernel K2 (``ops/cuda_intersect.py::mt_lin``):
   by broadcasting, each element running the per-face expression in the
   kernel's operation order, so on the card the two agree bitwise.
 
+The sweep reads the scene's (C * 64, 16) face-major table
+(``ClusterTables.gated``), which ``scene/device.py::to_torch`` builds once
+a scene from ``gated_table``; nothing is rebuilt or transposed per pass.
+
 The JAX wrapper's ray chunking (``chunk_rays``) is a TPU SMEM budget for
 its verdict words. Chunks are whole tiles, so leaving it out changes no
 verdict; it is not ported.
@@ -81,7 +85,8 @@ def real_faces(nf: int, n_clusters: int, device) -> torch.Tensor:
 
 
 def _sweep_plain(o: Vec3, d: Vec3, tab, verdict, tile, seed_t, seed_f, t_limit):
-    """The gated sweep in torch ops. ``tab`` (16, C * 64); ``verdict`` (T, C)
+    """The gated sweep in torch ops. ``tab`` (16, C * 64), a transposed view
+    of the face-major ``ClusterTables.gated``; ``verdict`` (T, C)
     bool; rays, seeds and ``t_limit`` (T * tile,). Nearest mode
     (``t_limit`` None) returns ``(t, face)``; any-hit mode the occlusion
     as float32 0/1."""
@@ -118,7 +123,10 @@ def _sweep_kernel(o: Vec3, d: Vec3, tab, verdict, tile, seed_t, seed_f, t_limit)
     any_hit = t_limit is not None
     if n == 0:
         return seed_t.clone() if any_hit else (seed_t.clone(), seed_f.clone())
-    tab_fm = tab.t().contiguous()  # face-major (C * 64, 16), fresh, so aligned
+    tab_fm = tab.t()  # the face-major table itself
+    if not tab_fm.is_contiguous() or tab_fm.data_ptr() % 16:
+        raise ValueError("K3 reads the face-major (C * 64, 16) table, contiguous and 16-byte "
+                         "aligned (ClusterTables.gated)")
     verdict = verdict.contiguous()
     t_out = torch.empty((0 if any_hit else n,), dtype=torch.float32, device=dev)
     f_out = torch.empty((0 if any_hit else n,), dtype=torch.int32, device=dev)
@@ -162,9 +170,15 @@ def _gated(sweep, o: Vec3, d: Vec3, tris, clusters, light_pos, alive, rows, with
     o_p, d_p = Vec3(*map(prep, o)), Vec3(*map(prep, d))
     live = torch.ones((flat,), dtype=torch.bool, device=dev) if alive is None else alive
     live = torch.cat([live, live.new_zeros(pad)])
-    tab = gated_table(tris, n_clusters)
-    if tab.device != dev or tab.dtype != torch.float32:
-        raise ValueError(f"triangles must be float32 on the rays' device {dev}")
+    fm = clusters.gated
+    if fm is None:
+        raise ValueError("the gated sweep needs the scene's face-major table "
+                         "(ClusterTables.gated; to_torch builds it for 64-face clusters)")
+    if fm.device != dev or fm.dtype != torch.float32 or fm.shape != (n_clusters * GATE_CLUSTER,
+                                                                     16):
+        raise ValueError(f"the gated table must be ({n_clusters * GATE_CLUSTER}, 16) float32 "
+                         f"on the rays' device {dev}")
+    tab = fm.t()
     real = real_faces(nf, n_clusters, dev)
 
     def counts_of(verdict):

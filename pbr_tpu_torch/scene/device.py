@@ -18,13 +18,15 @@ cull-and-sweep (kernels K4 and K4m, ``ops/cuda_cull.py``) the fine cluster
 AABBs, the compact table of the coefficient blocks
 (``ops/cuda_cull.py::compact_table``, repacked here once a scene), the
 supercluster AABBs, the scene bounds and the cluster size of its
-``ClusterSet`` (``SceneParams.clusters``); for the row sweep (kernels K5
-and K5m, ``ops/cuda_sweep.py``) its lin tables, stored face-major
-(``SceneParams.clu_lin_fm``, repacked here once a scene), and the
-lin-cluster AABBs as well; for the tree walks (kernels K6, K7 and K8,
-``ops/cuda_bvh.py``) the ``LinearBVH`` (``SceneParams.bvh``, with K8's
-packed node and face records, built here once a scene) and the
-``BVHForest`` (``SceneParams.forest``).
+``ClusterSet`` (``SceneParams.clusters``), and for K3 its face-major
+linear-form table (``SceneParams.clu_gated_fm``, built here once a scene);
+for the row sweep (kernels K5 and K5m, ``ops/cuda_sweep.py``) its lin
+tables, stored face-major (``SceneParams.clu_lin_fm``, repacked here once
+a scene), and the lin-cluster AABBs as well; for the tree walks (kernels
+K6, K7 and K8, ``ops/cuda_bvh.py``) the ``LinearBVH``
+(``SceneParams.bvh``, with K8's packed node and face records, built here
+once a scene) and the ``BVHForest`` (``SceneParams.forest``, with the
+packed records of its sub-trees and faces, built here once a scene).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 from torch import nn
 
 from pbr_tpu_torch.ops.cuda_cull import compact_table
+from pbr_tpu_torch.ops.cuda_gated import GATE_CLUSTER, gated_table
 from pbr_tpu_torch.ops.cuda_intersect import face_table
 from pbr_tpu_torch.ops.vec import Vec3
 from pbr_tpu_torch.scene.types import (
@@ -96,7 +99,11 @@ class ClusterTables(NamedTuple):
       face-major: a transposed view of ``SceneParams.clu_lin_fm``, and
       ``lbb_min``/``lbb_max`` their AABBs, Vec3s of (CL,) (padding clusters
       inverted). A supercluster covers CL / (C / 16) consecutive lin
-      clusters. None where the ``ClusterSet`` carries no lin tables."""
+      clusters. None where the ``ClusterSet`` carries no lin tables;
+    - ``gated``: the gated sweep's (C * 64, 16) float32 linear-form table,
+      face-major (``ops/cuda_gated.py::gated_table`` transposed: a face's
+      16 constants m, km, w, q, e1, e2 in 64 contiguous bytes), which
+      kernel K3 and its plain version read. None unless ``size`` is 64."""
 
     bb_min: Vec3
     bb_max: Vec3
@@ -109,6 +116,7 @@ class ClusterTables(NamedTuple):
     lin: Optional[torch.Tensor] = None
     lbb_min: Optional[Vec3] = None
     lbb_max: Optional[Vec3] = None
+    gated: Optional[torch.Tensor] = None
 
     @property
     def count(self) -> int:
@@ -154,11 +162,17 @@ class ForestTables(NamedTuple):
     tables stacked (all padded to one node count, so (K, 3, N) and (K, N));
     ``faces``, the (9, K * chunk) float32 forest-order table, rows v0, e1,
     e2 (``ops/cuda_intersect.py::face_table``'s layout); ``face_ids``,
-    (K * chunk,) int32 forest slot -> main-order face."""
+    (K * chunk,) int32 forest slot -> main-order face; ``node_records``
+    (K, N, 8) and ``face_records`` (K * chunk, 12) float32, the packed
+    records of the sub-trees and of ``faces`` (``ops/cuda_bvh.py::
+    node_records``, ``face_records``) that the seeded chain reads;
+    ``to_torch`` builds them once a scene."""
 
     trees: BVHTables
     faces: torch.Tensor
     face_ids: torch.Tensor
+    node_records: Optional[torch.Tensor] = None
+    face_records: Optional[torch.Tensor] = None
 
     @property
     def count(self) -> int:
@@ -171,6 +185,14 @@ class ForestTables(NamedTuple):
     def tree(self, i: int) -> BVHTables:
         """Sub-tree ``i``'s node tables."""
         return BVHTables(*(getattr(self.trees, n)[i] for n in _NODE_FIELDS))
+
+    def subtrees(self, lo: int, hi: int) -> "ForestTables":
+        """Sub-trees ``lo .. hi - 1`` with their faces and records (views)."""
+        c = self.chunk
+        cut = lambda a, k: None if a is None else a[lo * k:hi * k]  # noqa: E731
+        return ForestTables(BVHTables(*(getattr(self.trees, n)[lo:hi] for n in _NODE_FIELDS)),
+                            self.faces[:, lo * c:hi * c], cut(self.face_ids, c),
+                            cut(self.node_records, 1), cut(self.face_records, c))
 
 
 def _bvh_tensors(bvhs, device) -> list:
@@ -197,7 +219,9 @@ class SceneParams(nn.Module):
     ``bvh_leaf_first`` / ``bvh_leaf_count`` / ``bvh_exit`` (N,) and K8's
     ``bvh_node_records`` (N, 8) / ``bvh_face_records`` (F, 12); when it has
     a forest, ``forest_<field>`` for the K sub-trees' stacked node tables,
-    ``forest_faces`` (9, K * chunk) and ``forest_face_ids``. The properties
+    ``forest_faces`` (9, K * chunk), ``forest_face_ids`` and the seeded
+    chain's ``forest_node_records`` (K, N, 8) / ``forest_face_records``
+    (K * chunk, 12). The properties
     ``tris``, ``materials``, ``lights``, ``clusters``, ``bvh`` and ``forest``
     give the SoA NamedTuples of ``pbr_tpu_torch.scene.types`` (and
     ``ClusterTables``, ``BVHTables``, ``ForestTables``, or None) over views
@@ -233,6 +257,10 @@ class SceneParams(nn.Module):
             self.register_buffer("clu_sup_max", _stack3(cs.sup_max, device))
             self.register_buffer("clu_scene_min", _stack3(cs.scene_min, device))
             self.register_buffer("clu_scene_max", _stack3(cs.scene_max, device))
+            if cs.size == GATE_CLUSTER:
+                # Kernel K3's table, face-major, once a scene.
+                self.register_buffer("clu_gated_fm", gated_table(
+                    self.tris, cs.bb_min.x.shape[0]).t().contiguous())
         self.has_lin = cs is not None and cs.lin is not None
         if self.has_lin:
             # The row sweep's lin tables, face-major (CL, 128, 16): a lin
@@ -242,12 +270,12 @@ class SceneParams(nn.Module):
                                  _f32(np.ascontiguousarray(cs.lin.transpose(0, 2, 1)), device))
             self.register_buffer("clu_lbb_min", _stack3(cs.lbb_min, device))
             self.register_buffer("clu_lbb_max", _stack3(cs.lbb_max, device))
+        # Imported here: ops/cuda_bvh.py imports accel/, which imports this
+        # package.
+        from pbr_tpu_torch.ops.cuda_bvh import face_records, node_records
+
         self.has_bvh = scene.bvh is not None
         if self.has_bvh:
-            # Imported here: ops/cuda_bvh.py imports accel/, which imports
-            # this package.
-            from pbr_tpu_torch.ops.cuda_bvh import face_records, node_records
-
             tree = BVHTables(*_bvh_tensors([scene.bvh], device))
             for name in _NODE_FIELDS:
                 self.register_buffer(f"bvh_{name}", getattr(tree, name))
@@ -263,6 +291,13 @@ class SceneParams(nn.Module):
             self.register_buffer("forest_faces", torch.cat(
                 [_stack3(fo.v0, device), _stack3(fo.e1, device), _stack3(fo.e2, device)]))
             self.register_buffer("forest_face_ids", _i32(fo.face_ids, device))
+            # The seeded chain's packed records, once a scene (the padding
+            # nodes pack as inner nodes with their inverted boxes).
+            tables = self.forest.trees
+            self.register_buffer("forest_node_records", torch.stack([
+                node_records(BVHTables(*(getattr(tables, n)[i] for n in _NODE_FIELDS)))
+                for i in range(k)]))
+            self.register_buffer("forest_face_records", face_records(self.forest_faces))
 
     @property
     def device(self) -> torch.device:
@@ -289,6 +324,7 @@ class SceneParams(nn.Module):
             _vec(self.clu_bb_min), _vec(self.clu_bb_max), self.cluster_size,
             self.clu_compact, _vec(self.clu_sup_min), _vec(self.clu_sup_max),
             _vec(self.clu_scene_min), _vec(self.clu_scene_max), *lin,
+            gated=getattr(self, "clu_gated_fm", None),
         )
 
     @property
@@ -302,7 +338,9 @@ class SceneParams(nn.Module):
         if not self.has_forest:
             return None
         trees = BVHTables(*(getattr(self, f"forest_{n}") for n in _NODE_FIELDS))
-        return ForestTables(trees, self.forest_faces, self.forest_face_ids)
+        return ForestTables(trees, self.forest_faces, self.forest_face_ids,
+                            getattr(self, "forest_node_records", None),
+                            getattr(self, "forest_face_records", None))
 
     @property
     def lights(self) -> LightsSoA:

@@ -3,6 +3,10 @@ against the JAX package's ``pbr_tpu.ops.pallas_gated.intersect_gated``,
 run as tests/test_gated.py runs it on the CPU (interpret mode, the
 ``fori`` body: ``static_unroll=False``).
 
+The cases cover dead lanes, a tile whose lanes are all dead (so in the
+shadow pass all seeded 1, an all-occluded tile) and shadow passes whose
+lanes are mostly seeded 1: what the kernel's early exits skip.
+
 Tolerances: faces, occluded and the executed test counts must be equal; t
 within rtol 1e-4 / atol 1e-5 (those of tests/test_gated.py), since XLA on
 the CPU may round the linear form's dot products differently from torch.
@@ -28,6 +32,7 @@ from pbr_tpu.ops.pallas_gated import intersect_gated as jax_gated
 from pbr_tpu.ops.vec import Vec3 as JVec3
 from pbr_tpu.scene.build import scene_from_text
 from pbr_tpu.scene.procedural import multi_room, random_soup
+from pbr_tpu_torch.accel.clusters import build_clusters
 from pbr_tpu_torch.ops import cuda_gated as cg
 from pbr_tpu_torch.ops import cuda_intersect as ci
 from pbr_tpu_torch.ops.cull import fine_hit_mask
@@ -39,15 +44,30 @@ from pbr_tpu_torch.scene import to_torch
 # 3 s test took 180 s with four workers).
 torch.set_num_threads(1)
 
-# name: (scene, rays, rows, alive, light). Soups of 257-1024 faces all pad
-# to 16 clusters, and 255 and 256 rays are both two 128-ray tiles, so the
-# two rows=1 soup cases share the JAX reference's compiled programs.
+# name: (scene, rays, rows, alive, light); alive: None (all live), or a
+# pattern of ``_alive``. Soups of 257-1024 faces all pad to 16 clusters,
+# and 255 and 256 rays are both two 128-ray tiles, so the rows=1 soup cases
+# share the JAX reference's compiled programs, as the multiroom cases do.
 CASES = {
-    "soup400-nearest": ("soup:400:7", 256, 1, False, None),
-    "soup700-odd-alive-nee": ("soup:700:2", 255, 1, True, (0.1, 0.6, -0.2)),
-    "soup500-rows2-alive": ("soup:500:4", 256, 2, True, None),
-    "multiroom-alive-nee": ("multiroom", 256, 1, True, (0.0, 1.75, 0.0)),
+    "soup400-nearest": ("soup:400:7", 256, 1, None, None),
+    "soup700-odd-alive-nee": ("soup:700:2", 255, 1, "thirds", (0.1, 0.6, -0.2)),
+    "soup500-rows2-alive": ("soup:500:4", 256, 2, "thirds", None),
+    "multiroom-alive-nee": ("multiroom", 256, 1, "thirds", (0.0, 1.75, 0.0)),
+    "multiroom-dead-tile-nee": ("multiroom", 256, 1, "dead-tile", (0.0, 1.75, 0.0)),
+    "multiroom-sparse-nee": ("multiroom", 256, 1, "sparse", (0.0, 1.75, 0.0)),
 }
+
+
+def _alive(kind, n):
+    """The live lanes: ``thirds``, two lanes of three; ``dead-tile``, none
+    in the first 128-ray tile and one in four after it; ``sparse``, one in
+    eight."""
+    lane = np.arange(n)
+    if kind == "dead-tile":
+        return (lane % 4 == 1) & (lane >= 128)
+    if kind == "sparse":
+        return lane % 8 == 3
+    return lane % 3 != 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,8 +93,7 @@ def _rays(spec, n, seed):
     d = rs.normal(size=(3, n))
     d[:2, : n // 16] = 0.0
     d /= np.linalg.norm(d, axis=0, keepdims=True)
-    alive = np.arange(n) % 3 != 0
-    return o.astype(np.float32), d.astype(np.float32), alive
+    return o.astype(np.float32), d.astype(np.float32)
 
 
 def _t3(a, device="cpu"):
@@ -87,30 +106,31 @@ def _light(lp, device="cpu"):
 
 @functools.lru_cache(maxsize=None)
 def _jax_result(name):
-    spec, n, rows, use_alive, lp = CASES[name]
+    spec, n, rows, kind, lp = CASES[name]
     scene = _scene(spec)
-    o, d, alive = _rays(spec, n, seed=n + rows)
+    o, d = _rays(spec, n, seed=n + rows)
     tree = functools.partial(jax.tree_util.tree_map, jnp.asarray)
     out = jax_gated(
         jnp, JVec3(*map(jnp.asarray, o)), JVec3(*map(jnp.asarray, d)),
         tree(scene.tris), tree(scene.clusters),
         light_pos=None if lp is None else JVec3(*(jnp.float32(v) for v in lp)),
-        alive=jnp.asarray(alive) if use_alive else None, rows=rows,
+        alive=None if kind is None else jnp.asarray(_alive(kind, n)), rows=rows,
         interpret=True, with_counts=True, static_unroll=False,
     )
     return tuple(np.asarray(a) for a in out)
 
 
 def _port_result(name):
-    spec, n, rows, use_alive, lp = CASES[name]
+    spec, n, rows, kind, lp = CASES[name]
     scene = _scene(spec)
-    o, d, alive = _rays(spec, n, seed=n + rows)
+    o, d = _rays(spec, n, seed=n + rows)
+    alive = np.ones(n, bool) if kind is None else _alive(kind, n)
     ts = to_torch(scene, "cpu")
     out = cg.intersect_gated(_t3(o), _t3(d), ts.tris, ts.clusters,
                              light_pos=None if lp is None else _light(lp),
-                             alive=torch.tensor(alive) if use_alive else None,
+                             alive=None if kind is None else torch.tensor(alive),
                              rows=rows, with_counts=True)
-    return out, (o, d, alive if use_alive else np.ones(n, bool)), ts
+    return out, (o, d, alive), ts
 
 
 @pytest.fixture(autouse=True)
@@ -195,7 +215,7 @@ def test_gated_table_pads_with_faces_that_never_hit():
     assert tab.shape == (16, ts.clusters.count * 64)
     assert torch.equal(tab[:, :400], ci.lin_table(ts.tris))
     assert not tab[:, 400:].any()
-    o, d, _ = _rays("soup:400:7", 64, seed=0)
+    o, d = _rays("soup:400:7", 64, seed=0)
     ob, db = (Vec3(*(c[:, None] for c in _t3(a))) for a in (o, d))
     _, valid = ci.mt_lin(ob, db, ci.cross_od(ob, db), tab[:, 400:])
     assert not valid.any()
@@ -205,7 +225,7 @@ def test_gated_table_pads_with_faces_that_never_hit():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     ts = to_torch(_scene("soup:400:7"), "cpu")
-    o, d, _ = _rays("soup:400:7", 128, seed=1)
+    o, d = _rays("soup:400:7", 128, seed=1)
     with pytest.raises(ValueError, match="rows"):
         cg.intersect_gated(_t3(o), _t3(d), ts.tris, ts.clusters, rows=9)
     with pytest.raises(ValueError, match="64-face"):
@@ -220,12 +240,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_kernel_matches_plain_on_card():
     """K3 against its plain version on the card: t, face, occluded and the
     test counts bitwise equal (--fmad=false), at tiles of 128 to 1,024 rays
-    (one and four rays a thread), with a ragged batch."""
+    (each split over several blocks), with a ragged batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernel K3 has no CPU mode")
     scene = _scene("multiroom")
     ts = to_torch(scene, "cuda")
-    o, d, alive = _rays("multiroom", 100_003, seed=3)
+    o, d = _rays("multiroom", 100_003, seed=3)
+    alive = _alive("thirds", 100_003)
     lp = _light((0.0, 1.75, 0.0), "cuda")
     for rows in (1, 3, 8):
         before = dict(cg.launches)
@@ -240,3 +261,37 @@ def test_kernel_matches_plain_on_card():
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
         cg.launches.update(before)  # the autouse check counts CPU launches only
+
+
+def test_gated_table_is_built_once_face_major():
+    """to_torch builds K3's table once a scene: the (C * 64, 16) face-major
+    copy of ``gated_table``, bitwise, contiguous; none for 128-face
+    clusters (the gated sweep takes only 64-face ones)."""
+    for spec in ("multiroom", "soup:400:7"):
+        ts = to_torch(_scene(spec), "cpu")
+        fm = ts.clusters.gated
+        assert fm.is_contiguous() and fm.shape == (ts.clusters.count * 64, 16)
+        assert torch.equal(fm, cg.gated_table(ts.tris, ts.clusters.count).t())
+        assert torch.equal(fm.t(), cg.gated_table(ts.tris, ts.clusters.count))
+    scene = _scene("soup:400:7")
+    wide = to_torch(scene._replace(clusters=build_clusters(scene.tris, size=128)), "cpu")
+    assert wide.clusters.size == 128 and wide.clusters.gated is None
+    assert "clu_gated_fm" not in dict(wide.named_buffers())
+
+
+def test_wrapper_needs_the_face_major_table():
+    """The wrapper reads the scene's table and rebuilds none: without it,
+    or with one of another shape, it raises."""
+    ts = to_torch(_scene("soup:400:7"), "cpu")
+    o, d = _rays("soup:400:7", 128, seed=2)
+    with pytest.raises(ValueError, match="face-major"):
+        cg.intersect_gated(_t3(o), _t3(d), ts.tris, ts.clusters._replace(gated=None))
+    with pytest.raises(ValueError, match="gated table"):
+        cg.intersect_gated(_t3(o), _t3(d), ts.tris,
+                           ts.clusters._replace(gated=ts.clusters.gated[:64]))
+    passes = []
+    cg._gated(lambda *a: passes.append(a) or cg._sweep_plain(*a), _t3(o), _t3(d), ts.tris,
+              ts.clusters, _light((0.1, 0.6, -0.2)), None, 1, False)
+    assert len(passes) == 2
+    for args in passes:  # both passes read a view of the scene's own table
+        assert args[2].t().data_ptr() == ts.clusters.gated.data_ptr()

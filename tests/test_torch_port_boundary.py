@@ -40,6 +40,8 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.tools.k8_walk",
     "pbr_tpu_torch.tools.k5_rows",
     "pbr_tpu_torch.tools.k7_walk",
+    "pbr_tpu_torch.tools.k3_tiles",
+    "pbr_tpu_torch.tools.k6_chain",
 ])
 def test_import_leaves_jax_out(module):
     out = _run(f"import sys, {module}; print('jax' in sys.modules, 'pbr_tpu' in sys.modules)")
