@@ -59,7 +59,10 @@ read just after; a kernel of the path that did not launch fails the run.
      masked cull-and-sweep): one 1024² frame in which K4m launches once a
      pass and bounce and no other kernel, within 1e-3 of the auto (K3)
      frame on at least 99% of pixels; K4m against its plain version,
-     bitwise, on the path's camera rays, timed;
+     bitwise, on the path's camera rays and on 1M bounce-like rays with
+     60% alive, timed on the camera rays, with its bound (t for every
+     real-face test, u and v only where t can change the result:
+     tools/k4_tiles.py::pass_counts, as K4's);
    - path "multiroom, sweep" (intersector='sweep': 16 lin clusters of 128,
      so K5m, the masked row sweep): one 1024² frame in which K5m launches
      once a pass and bounce and no other kernel, within 1e-3 of the auto
@@ -181,7 +184,7 @@ from pbr_tpu_torch.scene.procedural import (  # noqa: E402
     multi_room,
     random_soup,
 )
-from pbr_tpu_torch.tools import k3_tiles, k5_rows  # noqa: E402
+from pbr_tpu_torch.tools import k3_tiles, k4_tiles, k5_rows  # noqa: E402
 from pbr_tpu_torch.utils.config import RenderSettings  # noqa: E402
 
 SIZE = 1024
@@ -200,17 +203,14 @@ PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 # Floating-point operations of one ray-face test, as the function needs
 # them. Classic Moller-Trumbore (K1): p = d x e2 9, det 5, 1/det 1,
 # o - v0 3, q = (o - v0) x e1 9, t, u, v 6 each, the gates 5, the minimum
-# 1: 51. Linear form (K2, K3, and K4, whose coefficient blocks hold the
-# same form with zeros): det 5, 1/det 1, t 7, u 12, v 13, the gates 5, the
-# minimum 1: 44. K4 and K4m read the form's nonzero entries from a compact
-# table (18 multiplies, 15 adds; km's feature is 1), about 49 operations
-# with the division and the gates, and K5 and K5m run the form itself:
-# the bound counts what the function needs, whatever implements it.
-OPS_CLASSIC, OPS_LIN = 51, 44
-# The row sweep's and the gated sweep's bounds split the linear form: every
-# test needs t (det 5, 1/det 1, t 7, the gate t >= 1e-5 and the comparison
-# with the ray's bound 2: 15), and only a face whose t can change the
-# result needs u and v (u 12, v 13, their gates 4: 29).
+# 1: 51. Linear form (K2, K3, K5, K5m; K4 and K4m read its nonzero
+# entries from a compact table): det 5, 1/det 1, t 7, u 12, v 13, the
+# gates 5, the minimum 1: 44, which the bounds split: every test needs t
+# (det 5, 1/det 1, t 7, the gate t >= 1e-5 and the comparison with the
+# ray's bound 2: 15), and only a face whose t can change the result needs
+# u and v (u 12, v 13, their gates 4: 29). The bound counts what the
+# function needs, whatever implements it.
+OPS_CLASSIC = 51
 OPS_LIN_T, OPS_LIN_UV = 15, 29
 # Floating-point operations of one ray-box slab test, as the tree walks
 # need them: (bound - o) * inv for 6 bounds 12, a min and a max per axis 6,
@@ -560,7 +560,7 @@ def cornell_path_phase(scene, cam, dev, k1: dict, profile: bool) -> dict:
         "K1'": (_time_ms(lambda: ci.intersect_fused(o, d, t), 20),
                 _time_ms(lambda: ci.intersect_fused_plain(o, d, table), 5)),
     }
-    bounds = _full_sweep_bounds("K1", OPS_CLASSIC, o, d, t, light, table.shape[0])
+    bounds = _full_sweep_bounds("K1", o, d, t, light, table.shape[0])
     for name, (ms, plain) in out.items():
         phase("cornell", f"{name} per call at the path's shape ({o.x.shape[0]} rays x "
                          f"{table.shape[1]} faces): {ms:.4f} ms; plain version {plain:.4f} ms; "
@@ -570,19 +570,58 @@ def cornell_path_phase(scene, cam, dev, k1: dict, profile: bool) -> dict:
     return {"launches": launched, "times": out, "bounds": bounds}
 
 
-def _full_sweep_bounds(name: str, ops_test: int, o, d, tris, light, rows: int) -> dict:
+def _full_sweep_bounds(name: str, o, d, tris, light, rows: int) -> dict:
     """Bounds of a full sweep (K1 or K2) and its nearest-only instance on
     rays ``o``, ``d``: every ray tests every face; a shadow ray needs every
     face only when nothing occludes it (an occluded one may stop at its
-    first occluder, counted as nothing). Bytes: the rays, the (rows, F)
-    table, t, face and occluded."""
+    first occluder, counted as nothing). K2 (``rows`` 16, the linear form)
+    is charged as the sweeps over clusters are (``_lin_sweep_work``). Bytes:
+    the rays, the (rows, F) table, t, face and occluded."""
     n, nf = o.x.shape[0], int(tris.mtl.shape[0])
-    variant = "lin" if rows == 16 else "mt"
-    _, _, occ = ci.intersect_fused(o, d, tris, light_pos=light, variant=variant)
-    unocc = int((~occ).sum())
     table = 4 * rows * nf
-    return {name: _bound(ops_test * nf * (n + unocc), 24 * n + table + 12 + 12 * n),
-            name + "'": _bound(ops_test * nf * n, 24 * n + table + 8 * n)}
+    nbytes = 24 * n + table + 12 + 12 * n, 24 * n + table + 8 * n
+    if rows == 16:
+        work = _lin_sweep_work(o, d, ci.lin_table(tris), torch.stack(list(light)))
+        phase("kernels", f"{name} on the camera rays: nearest {work['tests']} tests, "
+                         f"{work['uv_tests']} whose t can change the result; shadow "
+                         f"{work['shadow_tests']} up to each ray's first occluder, "
+                         f"{work['shadow_uv_tests']} whose t can change the result")
+        near = OPS_LIN_T * work["tests"] + OPS_LIN_UV * work["uv_tests"]
+        shadow = OPS_LIN_T * work["shadow_tests"] + OPS_LIN_UV * work["shadow_uv_tests"]
+        return {name: _bound(near + shadow, nbytes[0]), name + "'": _bound(near, nbytes[1])}
+    _, _, occ = ci.intersect_fused(o, d, tris, light_pos=light)
+    unocc = int((~occ).sum())
+    return {name: _bound(OPS_CLASSIC * nf * (n + unocc), nbytes[0]),
+            name + "'": _bound(OPS_CLASSIC * nf * n, nbytes[1])}
+
+
+def _lin_sweep_work(o, d, lin, light) -> dict:
+    """What a full sweep in the linear form needs on rays ``o``, ``d``
+    (the (16, F) table ``lin``; light 0 ``light``): nearest, t for every
+    (ray, face) test and u and v where ``1e-5 <= t <=`` the ray's final t;
+    the shadow rays of the nearest result (every ray), t for the faces up
+    to and including the first occluder in face order (all faces where
+    none is) and u and v where ``1e-5 <= t < t_light`` among them."""
+    n, nf = o.x.shape[0], lin.shape[1]
+    step = max(1, ci._PLAIN_ELEMS // nf)
+    k = torch.arange(nf, device=lin.device)
+    res = dict.fromkeys(("tests", "uv_tests", "shadow_tests", "shadow_uv_tests"), 0)
+    for lo in range(0, n, step):
+        sl = slice(lo, lo + step)
+        oc, dc = Vec3(*(a[sl] for a in o)), Vec3(*(a[sl] for a in d))
+        col = lambda v: Vec3(v.x[:, None], v.y[:, None], v.z[:, None])  # noqa: E731
+        t, valid = ci.mt_lin(col(oc), col(dc), col(ci.cross_od(oc, dc)), lin)
+        t_min = torch.where(valid, t, float("inf")).amin(dim=1)
+        res["tests"] += t.numel()
+        res["uv_tests"] += int(((t >= EPS5) & (t <= t_min[:, None])).sum())
+        hit_p, s_dir, t_light = ci._shadow_ray(oc, dc, t_min, light)
+        t, valid = ci.mt_lin(col(hit_p), col(s_dir), col(ci.cross_od(hit_p, s_dir)), lin)
+        below = (t >= EPS5) & (t < t_light[:, None])
+        first = torch.where(valid & below, k, nf).amin(dim=1)
+        upto = k <= first[:, None]
+        res["shadow_tests"] += int(torch.clamp(first + 1, max=nf).sum())
+        res["shadow_uv_tests"] += int((below & upto).sum())
+    return res
 
 
 def cornell_nee_off_phase(scene, cam, dev) -> dict:
@@ -702,7 +741,7 @@ def multiroom_kernel_phase(scene, cam, dev, pt: PathTracer) -> dict:
                      f"of (tile, cluster) pairs gated in for the nearest pass, "
                      f"{float(p_any[3].double().mean()):.4f} for the any-hit pass")
     table = ci.face_table(tris)
-    bounds = {**_full_sweep_bounds("K2", OPS_LIN, cam_o, cam_d, tris, l0, 16), **gated_bounds}
+    bounds = {**_full_sweep_bounds("K2", cam_o, cam_d, tris, l0, 16), **gated_bounds}
     times = {
         "K3": (_time_ms(lambda: cg._sweep_kernel(*p_near), 20),
                _time_ms(lambda: cg._sweep_plain(*p_near), 3)),
@@ -866,34 +905,6 @@ def _cull_passes(o, d, clusters, light, alive):
     return passes, out
 
 
-def _plain_pass(kind: str, args) -> tuple:
-    """A recorded pass through the plain version, with the real-face tests
-    it executed (per (tile, slot or cluster) pair that runs: the cluster's
-    real faces for every ray of the tile) and the slots (or clusters) each
-    tile executed."""
-    table = args[1]
-    # det's entries (m = e2 x e1, the compact table's first three) are 0 on
-    # padding faces
-    real = (table[:, :, 0:3] != 0).any(dim=2).sum(dim=1)
-    n_tiles = args[2].shape[0]
-    slots = torch.zeros(n_tiles, dtype=torch.int64, device=table.device)
-    tests = [0]
-    sweep = cc._SweepState.sweep
-
-    def counted(self, table_, tiles, cids):
-        tests[0] += int(real[cids].sum()) * cc.TILE
-        slots[tiles] += 1
-        return sweep(self, table_, tiles, cids)
-
-    cc._SweepState.sweep = counted
-    try:
-        out = (cc._slotted_plain if kind == "K4" else cc._masked_plain)(*args)
-        torch.cuda.synchronize()
-    finally:
-        cc._SweepState.sweep = sweep
-    return out, tests[0], slots
-
-
 def _slot_stats(slots: torch.Tensor) -> str:
     """Executed slots a tile: max, mean, and the top 1% of tiles' share of
     all executed slots."""
@@ -903,9 +914,11 @@ def _slot_stats(slots: torch.Tensor) -> str:
             f"tiles {float(top[:k].sum() / top.sum().clamp_min(1)):.4f} of them")
 
 
-def _cull_pass_bound(kind: str, args, tests: int) -> tuple:
-    """Bound of one K4 or K4m pass: ``tests`` real-face tests in the linear
-    form; bytes: the rays, the seeds (and t_limit), the compact table, the
+def _cull_pass_bound(kind: str, args, work: dict) -> tuple:
+    """Bound of one K4 or K4m pass: t for each real-face test and u and v
+    for those whose t can change the result (``work``, from
+    ``k4_tiles.pass_counts`` on the plain replay);
+    bytes: the rays, the seeds (and t_limit), the compact table, the
     candidate tables or verdict bytes, the outputs."""
     feats, table = args[0], args[1]
     n = feats[0].shape[0]
@@ -913,7 +926,7 @@ def _cull_pass_bound(kind: str, args, tests: int) -> tuple:
     gate = sum(a.numel() * a.element_size() for a in args[2:5]) if kind == "K4" \
         else args[2].numel()
     nbytes = 24 * n + 8 * n + table.numel() * 4 + gate + (4 if any_hit else 8) * n
-    return _bound(OPS_LIN * tests, nbytes)
+    return _bound(OPS_LIN_T * work["tests"] + OPS_LIN_UV * work["uv_tests"], nbytes)
 
 
 def _cull_kernel_checks(tag: str, cases, clusters, light, tris) -> dict:
@@ -943,7 +956,7 @@ def _cull_kernel_checks(tag: str, cases, clusters, light, tris) -> dict:
         shares = []
         for kind_i, args in passes:
             pass_name = kind_i + (" any-hit" if args[-1] else "")
-            out, tests, slots = _plain_pass(kind_i, args)
+            out, work, slots = k4_tiles.pass_counts(kind_i, args)
             _equal_or_raise(f"{pass_name} replay on {name}", cc._slotted_kernel(*args)
                             if kind_i == "K4" else cc._masked_kernel(*args), out)
             c, s = args[1].shape[:2]
@@ -954,12 +967,12 @@ def _cull_kernel_checks(tag: str, cases, clusters, light, tris) -> dict:
             else:
                 listed = args[2]
             share = listed.sum(dim=1).double() / c
-            full = tests / (share.numel() * cc.TILE * c * s)
+            full = work["tests"] / (share.numel() * cc.TILE * c * s)
             shares.append(f"{pass_name}: listed {float(share.mean()):.4f} (tile min "
                           f"{float(share.min()):.4f}, max {float(share.max()):.4f}), executed "
                           f"{full:.4f} of all (tile, face) pairs, {_slot_stats(slots)}")
             if i_case == 0:
-                first.append((pass_name, kind_i, args, tests))
+                first.append((pass_name, kind_i, args, work))
         phase(tag, f"{name}: candidate-slot share per tile (slots listed without the miss "
                    f"bit, over C); " + "; ".join(shares))
     return {"errs": errs, "passes": first}
@@ -969,23 +982,25 @@ def _time_passes(tag: str, passes, what: str) -> dict:
     """Times of each recorded pass (kernel, and plain version), with its
     bound."""
     out = {}
-    for pass_name, kind, args, tests in passes:
+    for pass_name, kind, args, work in passes:
         kern = cc._slotted_kernel if kind == "K4" else cc._masked_kernel
         plain = cc._slotted_plain if kind == "K4" else cc._masked_plain
         ms = _time_ms(lambda: kern(*args), 10)
         plain_ms = _time_ms(lambda: plain(*args), 1)
-        bound = _cull_pass_bound(kind, args, tests)
+        bound = _cull_pass_bound(kind, args, work)
         out[pass_name] = (ms, plain_ms, bound)
         phase(tag, f"{pass_name} per pass on {what}: {ms:.4f} ms; plain version "
-                   f"{plain_ms:.4f} ms; {tests} real-face tests, bound {bound[0]:.4f} ms "
-                   f"({bound[1]})")
+                   f"{plain_ms:.4f} ms; {work['tests']} real-face tests, {work['uv_tests']} "
+                   f"whose t can change the result; bound {bound[0]:.4f} ms ({bound[1]})")
     return out
 
 
 def multiroom_cull_phase(scene, cam, dev, mr_pt: PathTracer) -> dict:
     """Path "multiroom, cull": one 1024² frame with intersector='cull'
     (K4m, 32 clusters), against the auto (K3) frame; K4m against its plain
-    version on the path's camera rays, timed."""
+    version on the path's camera rays and on 1M bounce-like rays with an
+    alive mask, with the tests whose t can change the result; timed on the
+    camera rays."""
     settings = mr_pt.settings.replace(intersector="cull")
     pt = PathTracer(scene, settings, device=dev, lane_order=mr_pt.lane_order)
     zero_counts()
@@ -1010,8 +1025,13 @@ def multiroom_cull_phase(scene, cam, dev, mr_pt: PathTracer) -> dict:
         raise AssertionError(f"multiroom cull: K4m and K3 frames agree on only {within:.4%}")
     ts = pt.scene
     cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), settings, dev, pt.pixel_ids)
+    nb = BOUNCE_RAYS
+    bo, bd = _rays_in_rooms(nb, 3, dev)
+    b_alive = torch.tensor(np.random.default_rng(4).random(nb) < 0.6, device=dev)
     chk = _cull_kernel_checks("multiroom cull", [("camera rays, " + pt.lane_order, cam_o,
-                                                  cam_d, None)],
+                                                  cam_d, None),
+                                                 (f"{nb} bounce-like rays, 60% alive", bo, bd,
+                                                  b_alive)],
                               ts.clusters, _light0(ts), ts.tris)
     times = _time_passes("multiroom cull", chk["passes"],
                          f"the multiroom camera rays ({cam_o.x.shape[0]})")
@@ -1568,7 +1588,8 @@ def _check_walks(tag: str, walks: list, what: str, timed: bool) -> dict:
         ms = _time_ms(lambda: cb._run_kernel(w), 3) if timed else None
         (b_ms, b_by), tests, visits = _walk_bound(w, work)
         r = res.setdefault(w.kernel, {"walks": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                      "bound_by": b_by, "err": 0.0, "tests": 0, "visits": 0})
+                                      "bound_by": b_by, "err": 0.0, "tests": 0, "visits": 0,
+                                      "shadow_visits": 0})
         r["walks"] += 1
         r["plain_ms"] += plain_ms
         r["bound_ms"] += b_ms
@@ -1576,12 +1597,16 @@ def _check_walks(tag: str, walks: list, what: str, timed: bool) -> dict:
         r["err"] = max(r["err"], err)
         r["tests"] += tests
         r["visits"] += visits
+        if w.light is not None:  # NEE: the nearest leg's walk, then the shadow leg's
+            r["shadow_visits"] += int(work[-1][1].sum())
     for name, r in res.items():
         n = walks[0].o.x.shape[0]
         t = f"{r['ms']:.4f} ms" if timed else "not timed"
+        legs = (f" ({r['shadow_visits'] / n:.1f} of them on the shadow leg)"
+                if r["shadow_visits"] else "")
         phase(tag, f"{name} on {what} ({r['walks']} launch(es)): equal to the plain version "
-                   f"bitwise; {r['visits'] / n:.1f} node steps and {r['tests'] / n:.1f} face "
-                   f"tests a ray; kernel {t}; plain {r['plain_ms']:.1f} ms; bound "
+                   f"bitwise; {r['visits'] / n:.1f} node steps{legs} and {r['tests'] / n:.1f} "
+                   f"face tests a ray; kernel {t}; plain {r['plain_ms']:.1f} ms; bound "
                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return res
 

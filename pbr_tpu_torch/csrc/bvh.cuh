@@ -29,15 +29,6 @@ namespace pbr {
 
 constexpr float kBoxEps5 = 1.0e-5f;
 
-struct Tree {
-  const float* bmin;  // (3, n) float32, rows x, y, z
-  const float* bmax;
-  const int* leaf_first;  // (n,) int32, -1 for inner nodes
-  const int* leaf_count;
-  const int* exit;
-  int n;
-};
-
 // A ray with its reciprocal direction (1 / d, IEEE-rounded).
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -67,13 +58,6 @@ __device__ __forceinline__ bool box_hit(float x0, float y0, float z0, float x1, 
   const float hi = fminf(fminf(slab_hi(ax, bx), slab_hi(ay, by)), slab_hi(az, bz));
   *t_near = lo;
   return (lo <= hi) && (hi > kBoxEps5) && (x0 <= x1);
-}
-
-// Node i's box of the (3, n) tables against ray r, as above.
-__device__ __forceinline__ bool box_hit(const Tree& tr, int i, const Ray& r, float* t_near) {
-  return box_hit(__ldg(tr.bmin + i), __ldg(tr.bmin + tr.n + i), __ldg(tr.bmin + 2 * tr.n + i),
-                 __ldg(tr.bmax + i), __ldg(tr.bmax + tr.n + i), __ldg(tr.bmax + 2 * tr.n + i),
-                 r, t_near);
 }
 
 }  // namespace pbr

@@ -1,6 +1,7 @@
-// Packet BVH walks for Hopper (sm_90a): kernel K6 (five instances: three of
-// packet_kernel and the seeded chain's two of chain_kernel) and the
-// leaf-slab walk K7 (two instances).
+// BVH walks for Hopper (sm_90a): kernel K6 (five instances: three of
+// packet_kernel, a per-ray walk, and the seeded chain's two of
+// chain_kernel, a packet walk) and the leaf-slab packet walk K7 (two
+// instances).
 //
 // K6 replaces pbr_tpu/ops/pallas_bvh.py::_kernel (nearest), ::_kernel_nee
 // (nearest + fused NEE shadow any-hit), ::_kernel_shadow (any-hit against
@@ -9,7 +10,7 @@
 // around ::_traverse_tile; the seeded pair carries the forest's chain over
 // its sub-trees (ops/cuda_bvh.py::intersect_bvh_forest), each sub-tree's
 // walk seeded by the best of those before it, in ascending order. K7 replaces
-// ::_kernel_hbm and ::_kernel_hbm_nee around ::_traverse_tile_hbm. Both
+// ::_kernel_hbm and ::_kernel_hbm_nee around ::_traverse_tile_hbm. All
 // compute what those kernels compute:
 //   - the stackless walk of bvh.cuh with a cursor shared by a packet of
 //     rays: the packet steps to i + 1 when any live ray of it hits node i
@@ -36,7 +37,8 @@
 // (ops/cuda_bvh.py::walk_plain) walks each ray alone and still agrees
 // bitwise.
 //
-// The cursor belongs to a warp (on the TPU, to a tile of 1,024 rays). Each
+// In the packet walks (the chain, K7) the cursor belongs to a warp (on the
+// TPU, to a tile of 1,024 rays). Each
 // lane holds one ray; every lane of the warp, the padding lanes past n and
 // the dead lanes included, takes part in the vote on the full mask, voting
 // false when it is not live, so the cursor is uniform and no lane leaves
@@ -44,10 +46,29 @@
 // (octant, Morton code of the origin in the root box), so the 32 rays of a
 // warp are coherent.
 //
-// K6's nearest, NEE and any-hit instances keep its first design: the nodes
-// (SoA tables) and the leaf faces are read from global memory through the
-// read-only cache, every lane the same node, and each lane that hits a
-// leaf tests its faces one after another.
+// K6's nearest, NEE and any-hit instances (packet_kernel; soup:10000: 11,953
+// nodes, 2-face leaves; the forest's sub-tree 0: 4-face leaves) walk each
+// ray alone, which gives the same answers (above). What bounds them is
+// operations, ~25 a node step and ~51 a face test; the packet walk ran the
+// union of its 32 rays' walks, and a warp of soup:10000's camera rays took
+// 106 node steps of which a lane needed 72 (68%), on a frame's second
+// bounce 296 of which it needed 73 (25%), the shadow leg 37% and 17%
+// (tools/k6_walk.py; PERF.md has each design step, those that lost
+// included). Their design, the per-ray walk of bvh_walk.cu (K8):
+//   - packed records (node_records, face_records, as K7, K8 and the
+//     chain): a node step is two 16-byte loads, a face three;
+//   - a while-while loop: a lane steps through inner nodes to its next
+//     hit leaf, then tests the leaf's faces, each ray in its own order of
+//     nodes and faces, so its answer is the per-ray walk's;
+//   - NEE's two legs in one loop: a lane whose nearest walk has ended
+//     derives its shadow ray and walks on at once, gated by t_light, while
+//     other lanes of its warp are still on their nearest walks, in the
+//     same instructions, and the shadow rays keep the nearest walk's
+//     launch order (no second sort, no second launch);
+//   - 128-ray blocks, no shared memory, 40-48 registers. 64- and 256-ray
+//     blocks tied; the warp cursor on the same packed records won on the
+//     coherent camera rays (by 2-4% on soup:10000's, 5-28% on the forest's
+//     sub-tree 0) and took 45-58% longer on every bounce 1.
 //
 // K6's seeded chain (chain_kernel) is the forest's walk over sub-trees
 // 1..K-1 (soup:100000: 12 sub-trees of 8,192 faces, 4-face leaves) in one
@@ -55,9 +76,9 @@
 // the rays and seeds and writing the running best; here a warp loads its
 // rays, alive bits and seeds once, walks the sub-trees in ascending order
 // with t_best / f_best (or occ) in registers and writes once. The walk is
-// K6's packet walk over packed records (node_records, 32 bytes a node,
-// and face_records, 48 bytes a face, built once a scene for the whole
-// forest), as K7's and K8's, the same floats in the same operations. The
+// the packet walk (record_walk) over packed records (node_records, 32
+// bytes a node, and face_records, 48 bytes a face, built once a scene for
+// the whole forest), the same floats in the same operations. The
 // forest's padding nodes (inverted boxes, exit = n) pack as inner nodes
 // and still miss by the empty-box guard. The any-hit chain leaves once
 // every lane of the warp is occluded or not walking, before the next
@@ -113,8 +134,7 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kRayThreads = 128;  // K6's block: one ray a thread
 constexpr int kSlabThreads = 32;  // K7's block: one warp
 constexpr int kSlabMinBlocks = 32;  // K7's blocks an SM (the most it takes): at most 64 registers
 // K7 deals a leaf's tests over the warp when at most this many lanes hit it;
@@ -131,15 +151,15 @@ constexpr int kChainMinBlocks = 8;  // its blocks an SM: at most 64 registers
 
 enum Mode : int { kNearest = 0, kNee = 1, kAnyHit = 2 };
 
+// K6's inputs: the rays, the tree and its faces as packed records.
 struct Params {
   const float *ox, *oy, *oz, *dx, *dy, *dz;
   const int* order;            // (n,) launch order (null: identity)
   const unsigned char* alive;  // (n,) bool (null: all live)
   int n;
-  pbr::Tree tree;
-  const float* faces;  // (9, stride) table: face f of row r at r * stride + f
-  int stride;
-  int face_base;  // added to the face ids written
+  const float4* nodes;  // (n_nodes, 2) node records
+  int n_nodes;
+  const float4* faces;  // (F, 3) face records
   int max_leaf;
   const float* light;    // (3,) light 0 (kNee)
   const float* t_limit;  // (n,) (kAnyHit)
@@ -208,85 +228,94 @@ __device__ __forceinline__ float shadow_ray(const float* light, float ox, float 
 
 // ------------------------------------------------------------------ K6 --
 
-// The warp's walk of one tree. Nearest (ANY false): updates *t_best /
-// *f_best. Any-hit: sets *occ. Every lane of the warp calls it together.
-template <bool ANY>
-__device__ void walk(const Params& p, const pbr::Ray& r, bool live, float t_limit,
-                     float* t_best, int* f_best, bool* occ) {
-  int i = 0;
-  while (i < p.tree.n) {
-    if constexpr (ANY) {
-      if (__all_sync(kAll, *occ || !live)) return;
+// One ray's walk of the tree, while-while (as bvh_walk.cu): the lane steps
+// through inner nodes to its next hit leaf, then tests the leaf's faces.
+// The nearest leg gates on the running best; with kNee, when it ends the
+// lane derives its shadow ray and walks on in the same loop, gated by
+// t_light, up to its first occluder, so that a lane starts its shadow walk
+// while other lanes of its warp are still on their nearest walks, and both
+// legs run the same instructions. kAnyHit walks the shadow leg alone.
+template <int MODE>
+__device__ __forceinline__ void ray_walk(const Params& p, pbr::Ray r, bool live, float gate,
+                                         float* t_best, int* f_best, bool* occ, int ray) {
+  bool shadow = MODE == kAnyHit;
+  int i = live ? 0 : p.n_nodes;
+  for (;;) {
+    int first = -1, count = 0;
+    while (i < p.n_nodes) {
+      const float4 lo = __ldg(p.nodes + 2 * i), hi = __ldg(p.nodes + 2 * i + 1);
+      float t_near;
+      const bool hit = pbr::box_hit(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r, &t_near) &&
+                       gate > t_near;
+      const int lf = __float_as_int(hi.w);
+      if (hit && lf >= 0) {
+        first = lf >> kCountBits;
+        count = (lf & ((1 << kCountBits) - 1)) + 1;
+        break;
+      }
+      i = hit ? i + 1 : __float_as_int(lo.w);
     }
-    float t_near;
-    bool hit = pbr::box_hit(p.tree, i, r, &t_near) && live;
-    if constexpr (ANY) {
-      hit = hit && !*occ && t_limit > t_near;
-    } else {
-      hit = hit && *t_best > t_near;
-    }
-    if (!__any_sync(kAll, hit)) {
-      i = __ldg(p.tree.exit + i);
-      continue;
-    }
-    const int first = __ldg(p.tree.leaf_first + i);
-    if (first >= 0 && hit) {
-      const int cnt = min(__ldg(p.tree.leaf_count + i), p.max_leaf);
+    if (first >= 0) {
+      // The leaf's faces in order: nearest, strict '<' against the running
+      // best (the first face of the least t wins); shadow, the first face
+      // below t_limit ends the walk.
+      const int cnt = min(count, p.max_leaf);
       for (int k = 0; k < cnt; ++k) {
+        const float4* g = p.faces + 3 * (first + k);
+        const float4 a = __ldg(g), b = __ldg(g + 1), c = __ldg(g + 2);
         float t;
-        const bool valid = pbr::moller_trumbore(pbr::load_face(p.faces, p.stride, first + k),
-                                                r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, &t);
-        if constexpr (ANY) {
-          if (valid && t < t_limit) {
+        if (pbr::moller_trumbore(pbr::Face{a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z}, r.ox,
+                                 r.oy, r.oz, r.dx, r.dy, r.dz, &t) &&
+            t < gate) {
+          if (shadow) {
             *occ = true;
             break;
           }
-        } else if (valid && t < *t_best) {
-          *t_best = t;
-          *f_best = p.face_base + first + k;
+          gate = t;
+          *f_best = first + k;
         }
       }
+      i = *occ ? p.n_nodes : i + 1;
+      continue;
     }
-    ++i;
+    if (MODE != kNee || shadow) break;
+    // The nearest leg has ended: its result, then the shadow ray.
+    *t_best = gate;
+    if (ray >= 0) {
+      p.t_out[ray] = gate;
+      p.f_out[ray] = *f_best;
+    }
+    pbr::Ray s;
+    gate = shadow_ray(p.light, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, *t_best, &s);
+    r = s;
+    shadow = true;
+    i = live && *t_best < INFINITY ? 0 : p.n_nodes;
   }
+  if (MODE == kNearest) *t_best = gate;
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(kThreads) packet_kernel(const Params p) {
-  const int g = blockIdx.x * kThreads + threadIdx.x;
+__global__ void __launch_bounds__(kRayThreads) packet_kernel(const Params p) {
+  const int g = blockIdx.x * kRayThreads + threadIdx.x;
   const bool in = g < p.n;
   const int ray = in ? (p.order != nullptr ? p.order[g] : g) : 0;
-  // Lanes past the tail and dead lanes walk with the warp and vote false.
+  // Lanes past the tail and dead lanes walk nothing.
   const bool live = in && (p.alive == nullptr || p.alive[ray] != 0);
-  const float ox = in ? p.ox[ray] : 0.0f;
-  const float oy = in ? p.oy[ray] : 0.0f;
-  const float oz = in ? p.oz[ray] : 0.0f;
-  const float dx = in ? p.dx[ray] : 0.0f;
-  const float dy = in ? p.dy[ray] : 0.0f;
-  const float dz = in ? p.dz[ray] : 1.0f;
-  const pbr::Ray r = pbr::make_ray(ox, oy, oz, dx, dy, dz);
-
-  if constexpr (MODE == kAnyHit) {
-    bool occ = false;
-    const float t_limit = in ? p.t_limit[ray] : 0.0f;
-    walk<true>(p, r, live, t_limit, nullptr, nullptr, &occ);
-    if (in) p.occ_out[ray] = occ ? 1 : 0;
-    return;
-  }
-
+  const pbr::Ray r = pbr::make_ray(in ? p.ox[ray] : 0.0f, in ? p.oy[ray] : 0.0f,
+                                   in ? p.oz[ray] : 0.0f, in ? p.dx[ray] : 0.0f,
+                                   in ? p.dy[ray] : 0.0f, in ? p.dz[ray] : 1.0f);
   float t_best = INFINITY;
   int f_best = -1;
-  walk<false>(p, r, live, 0.0f, &t_best, &f_best, nullptr);
+  bool occ = false;
+  const float gate = MODE == kAnyHit ? (in ? p.t_limit[ray] : 0.0f) : INFINITY;
+  ray_walk<MODE>(p, r, live, gate, &t_best, &f_best, &occ, in ? ray : -1);
   if (in) {
-    p.t_out[ray] = t_best;
-    p.f_out[ray] = f_best;
-  }
-  if constexpr (MODE == kNee) {
-    pbr::Ray s;
-    const float t_light = shadow_ray(p.light, ox, oy, oz, dx, dy, dz, t_best, &s);
-    bool occ = false;
-    walk<true>(p, s, live && t_best < INFINITY, t_light, nullptr, nullptr, &occ);
-    if (in) p.occ_out[ray] = occ ? 1 : 0;
+    if (MODE == kNearest) {
+      p.t_out[ray] = t_best;
+      p.f_out[ray] = f_best;
+    } else {
+      p.occ_out[ray] = occ ? 1 : 0;
+    }
   }
 }
 
@@ -566,8 +595,8 @@ __global__ void __launch_bounds__(kSlabThreads, kSlabMinBlocks) slab_kernel(cons
 
 template <int MODE>
 void launch(const Params& p, cudaStream_t s) {
-  const dim3 grid((p.n + kThreads - 1) / kThreads);
-  packet_kernel<MODE><<<grid, kThreads, 0, s>>>(p);
+  const dim3 grid((p.n + kRayThreads - 1) / kRayThreads);
+  packet_kernel<MODE><<<grid, kRayThreads, 0, s>>>(p);
 }
 
 template <bool ANY>
@@ -590,23 +619,25 @@ void launch_slab(const SlabParams& p, cudaStream_t s) {
 // `stream` without synchronising and returns cudaGetLastError() of the
 // launch (cudaErrorInvalidValue for arguments it does not take).
 //
-// K6: mode 0 nearest, 1 nearest + NEE, 2 any-hit; the tree as (3, n_nodes)
-// bounds and (n_nodes,) indices, the faces as a (9, stride) table.
+// K6: mode 0 nearest, 1 nearest + NEE, 2 any-hit; the tree's (n_nodes, 8)
+// node records and (F, 12) face records (16-byte aligned).
 extern "C" int pbr_bvh_packet(int mode, const float* ox, const float* oy, const float* oz,
                               const float* dx, const float* dy, const float* dz,
                               const int* order, const unsigned char* alive, int n,
-                              const float* bmin, const float* bmax, const int* leaf_first,
-                              const int* leaf_count, const int* exit_, int n_nodes,
-                              const float* faces, int stride, int face_base, int max_leaf,
-                              const float* light, const float* t_limit, float* t_out,
-                              int* f_out, unsigned char* occ_out, void* stream) {
-  if (mode < kNearest || mode > kAnyHit || max_leaf < 1) {
+                              const float* node_rec, int n_nodes, const float* face_rec,
+                              int max_leaf, const float* light, const float* t_limit,
+                              float* t_out, int* f_out, unsigned char* occ_out, void* stream) {
+  if (mode < kNearest || mode > kAnyHit || max_leaf < 1 ||
+      (mode == kAnyHit ? (t_limit == nullptr || occ_out == nullptr)
+                       : (t_out == nullptr || f_out == nullptr)) ||
+      (mode == kNee && (light == nullptr || occ_out == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
-  const Params p{ox,    oy,     oz,    dx,    dy,       dz,
-                 order, alive,  n,     {bmin, bmax, leaf_first, leaf_count, exit_, n_nodes},
-                 faces, stride, face_base, max_leaf, light, t_limit, t_out, f_out, occ_out};
+  const Params p{ox,       oy,      oz,       dx,    dy,    dz,
+                 order,    alive,   n,        reinterpret_cast<const float4*>(node_rec),
+                 n_nodes,  reinterpret_cast<const float4*>(face_rec), max_leaf,
+                 light,    t_limit, t_out,    f_out, occ_out};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kNearest: launch<kNearest>(p, s); break;

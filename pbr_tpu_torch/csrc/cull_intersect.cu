@@ -59,14 +59,14 @@
 // (pbr_tpu_torch/tools/k4_tiles.py measures the blocks, PERF.md has the
 // numbers).
 //
-// The design, for that bound and for this card (not the TPU's block by
+// K4's design, for that bound and for this card (not the TPU's block by
 // block):
-//   - one thread block per ray tile, K threads a ray (K4: kThreadsPerRay =
-//     2; K4m: 1): thread k of a ray takes faces k, k + K, ... of each
-//     cluster, and the K partial (t, face) minima are merged by shuffles on
-//     the same lexicographic rule, which does not depend on the order of
-//     the merge, so the answer is the same for any K. More threads a tile
-//     shorten the heavy tiles, which bound the launch;
+//   - one thread block per ray tile, K = kThreadsPerRay = 2 threads a ray:
+//     thread k of a ray takes faces k, k + K, ... of each cluster, and the
+//     K partial (t, face) minima are merged by shuffles on the same
+//     lexicographic rule, which does not depend on the order of the merge,
+//     so the answer is the same for any K. More threads a tile shorten the
+//     heavy tiles, which bound the launch;
 //   - K4's blocks take the tiles heaviest first (the wrapper's `order`:
 //     tiles by listed slots, descending), so the longest lists start in the
 //     first wave and the light tiles fill in behind them;
@@ -85,6 +85,29 @@
 //     self-hit gate, pallas_cull.py:59-69, docs/PERF.md round 3). The plain
 //     version (ops/cuda_cull.py::_face_test) sums in the same order.
 //
+// K4m (multiroom: 32 clusters of 64, 10-23 gated in a tile) spends most of
+// its work on u and v that cannot matter: on the camera rays only 19% /
+// 12% of its tests (nearest / any-hit) can change the result, on a frame's
+// second bounce 17% / 10% (tools/k4_tiles.py --masked; PERF.md has each
+// design step, those that lost included). Its design:
+//   - t first: every test computes det, the IEEE 1 / det and t from the
+//     face's first two float4s; the other three are read and u and v
+//     computed only where 1e-5 <= t < the ray's bound (MaskBest: nearest,
+//     its best t, or the next float above while the seed's face may still
+//     lose a tie to a smaller id; any-hit, t_limit until occluded). Two
+//     compares a face, so the incoherent bounce rays, where some lane of a
+//     warp needs u and v on almost every face, lose nothing to it;
+//   - exits: a lane whose bound is at most 1e-5 tests nothing more (a dead
+//     lane, an occluded or seeded-1 any-hit lane), a warp none of whose
+//     lanes can change skips the cluster, and the block leaves at the first
+//     cluster where none of its lanes can;
+//   - 128-ray blocks (two a tile), one ray a thread, the tile's gated-in
+//     clusters staged ahead into shared memory with cp.async as K4's (a
+//     barrier a cluster). Reading the table through L1 instead, without
+//     barriers, lost by 8-12% on every ray set; one-, two- and eight-warp
+//     blocks, batches of 2 or 8 faces, and the whole test on a warp's
+//     dense clusters lost or tied.
+//
 // Numerics: built with --fmad=false, no --use_fast_math and IEEE division,
 // so each operation rounds as the unfused torch ops do and the kernels
 // equal their plain versions (ops/cuda_cull.py) bitwise.
@@ -100,6 +123,11 @@ constexpr float kBigNeg = -3.0e38f;
 constexpr int kTile = 256;       // rays a tile
 constexpr int kThreadsPerRay = 2;  // K4's threads a ray (K4m: 1)
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaskThreads = 128;   // K4m's block: 4 warps, one ray a thread, half a tile
+constexpr int kMaskMinBlocks = 8;   // its blocks an SM (launch bounds): at most 64 registers
+constexpr int kBatch = 4;           // faces whose t go first together
+static_assert(kTile % kMaskThreads == 0, "a K4m block's rays lie in one tile");
+static_assert(64 % kBatch == 0, "batches divide a cluster");
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
@@ -282,17 +310,109 @@ __global__ void __launch_bounds__(kTile * kThreadsPerRay)
   if (sub == 0) store_ray<ANY_HIT>(r, i, best, face);
 }
 
+// ------------------------------------------------------------------ K4m --
+
+// A ray's running result in K4m. best, face: nearest, the (t, face) so
+// far; any-hit, the occlusion, 0 or 1 (a seed <= 0 is not occluded).
+// bound: a test can change the result only where 1e-5 <= t < bound.
+// Nearest: bound = best, or the next float above it while the seed's face
+// may still lose a tie to a smaller face id (seed face > 0; faces come in
+// ascending order, so after the first update no tie can win); any-hit:
+// t_limit while not occluded, else -inf. A dead lane's -3e38 and a NaN
+// give a bound no t passes. The lane can still change iff bound > 1e-5.
+struct MaskBest {
+  float best;
+  int face;
+  float bound;
+};
+
+template <bool ANY_HIT>
+__device__ __forceinline__ MaskBest mask_best(float best, int face, float tlim) {
+  if constexpr (ANY_HIT) {
+    return MaskBest{best, face, best <= 0.0f ? tlim : -inf_f()};
+  } else {
+    return MaskBest{best, face, face > 0 ? nextafterf(best, inf_f()) : best};
+  }
+}
+
+// Test (t, fid), whose u and v passed, against the running result.
+template <bool ANY_HIT>
+__device__ __forceinline__ void mask_update(MaskBest& m, float t, int fid) {
+  if constexpr (ANY_HIT) {
+    m.best = 1.0f;
+    m.bound = -inf_f();
+  } else if (t < m.best || (t == m.best && fid < m.face)) {
+    m.best = t;
+    m.face = fid;
+    m.bound = t;
+  }
+}
+
+// One gated-in cluster of the staged table `sec` for one ray, t first:
+// kBatch faces' det, 1 / det and t from their first 7 terms (two float4s),
+// then in face order u and v (the other three float4s) only where 1e-5 <=
+// t < bound. In ascending face order the lexicographic update gives what
+// sweep_cluster's per-cluster minimum and merge give.
 template <int S, bool ANY_HIT>
-__global__ void __launch_bounds__(kTile)
+__device__ __forceinline__ void sweep_t_first(const float4* sec, const float* f, int fid0,
+                                              MaskBest& m) {
+#pragma unroll 1
+  for (int j0 = 0; j0 < S; j0 += kBatch) {
+    float t[kBatch], inv[kBatch], c7[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const float4 a = sec[(j0 + k) * kFace4], b = sec[(j0 + k) * kFace4 + 1];
+      const float det = a.x * f[3] + a.y * f[4] + a.z * f[5];
+      const float tnum = a.w * f[0] + b.x * f[1] + b.y * f[2] + b.z;
+      inv[k] = 1.0f / det;
+      t[k] = tnum * inv[k];
+      c7[k] = b.w;
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (!(t[k] >= kEps5 && t[k] < m.bound)) continue;
+      const float4* g = sec + (j0 + k) * kFace4;
+      const float4 c = g[2], d = g[3], e = g[4];
+      const float unum =
+          c7[k] * f[3] + c.x * f[4] + c.y * f[5] + c.z * f[6] + c.w * f[7] + d.x * f[8];
+      const float vnum = d.y * f[3] + d.z * f[4] + d.w * f[5] + e.x * f[6] + e.y * f[7] +
+                         e.z * f[8];
+      const float u = unum * inv[k];
+      const float v = vnum * inv[k];
+      if ((u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f)) {
+        mask_update<ANY_HIT>(m, t[k], fid0 + j0 + k);
+      }
+    }
+  }
+}
+
+template <int S, bool ANY_HIT>
+__global__ void __launch_bounds__(kMaskThreads, kMaskMinBlocks)
     masked_kernel(Rays r, const float4* __restrict__ table, int n_clusters,
                   const unsigned char* __restrict__ mask) {
-  const long long i = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x;
+  const long long i = static_cast<long long>(blockIdx.x) * kMaskThreads + threadIdx.x;
+  const long long tile = i / kTile;  // a block's rays lie in one tile
   float f[9], tlim, best;
   int face;
   load_ray<ANY_HIT>(r, i, f, tlim, best, face);
-  const MaskList list{mask + static_cast<long long>(blockIdx.x) * n_clusters, n_clusters};
-  sweep_list<S, ANY_HIT, 1>(table, list, nullptr, 0, f, tlim, 0, best, face);
-  store_ray<ANY_HIT>(r, i, best, face);
+  MaskBest m = mask_best<ANY_HIT>(best, face, tlim);
+  // The tile's gated-in clusters in ascending order, each table staged
+  // ahead into shared memory; the block leaves once no lane can change.
+  const MaskList list{mask + tile * n_clusters, n_clusters};
+  __shared__ float4 buf[2][S * kFace4];
+  int l = list.next(0);
+  if (l < list.count) stage_async<S, kMaskThreads>(table, l, buf[0]);
+  for (int b = 0; l < list.count; b ^= 1) {
+    const int l_next = list.next(l + 1);
+    cp_async_wait_all();
+    // buf[b] has landed; no thread still reads buf[b ^ 1]
+    if (!__syncthreads_or(m.bound > kEps5)) break;
+    if (l_next < list.count) stage_async<S, kMaskThreads>(table, l_next, buf[b ^ 1]);
+    if (__any_sync(kFull, m.bound > kEps5)) sweep_t_first<S, ANY_HIT>(buf[b], f, l * S, m);
+    l = l_next;
+  }
+  cp_async_wait_all();  // no copy in flight when the block ends
+  store_ray<ANY_HIT>(r, i, m.best, m.face);
 }
 
 bool shape_ok(int n_clusters, int size) { return n_clusters >= 0 && (size == 64 || size == 128); }
@@ -313,10 +433,9 @@ Rays rays_of(const float* ox, const float* oy, const float* oz, const float* dx,
 // early-out; K4m takes (n_tiles, C) verdict bytes. `t_limit` null: nearest
 // mode, seeds seed_t / seed_f, outputs t_out / f_out. Otherwise any-hit
 // mode: seed_t is the 0/1 occlusion seed, output occ_out. `size` is 64 or
-// 128. Each launches one block a tile (K4: 512 threads, K4m: 256) on
-// `stream` without synchronising and returns
-// cudaGetLastError() of the launch (cudaErrorInvalidValue for a shape it
-// does not take).
+// 128. K4 launches one 512-thread block a tile, K4m two 128-thread blocks,
+// on `stream` without synchronising, and each returns cudaGetLastError()
+// of the launch (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int pbr_cull_slotted(const float* ox, const float* oy, const float* oz,
                                 const float* dx, const float* dy, const float* dz,
                                 const float* t_limit, const float* table, int n_clusters,
@@ -357,14 +476,15 @@ extern "C" int pbr_cull_masked(const float* ox, const float* oy, const float* oz
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Rays r = rays_of(ox, oy, oz, dx, dy, dz, t_limit, seed_t, seed_f, t_out, f_out, occ_out);
   const float4* t4 = reinterpret_cast<const float4*>(table);
+  const dim3 grid(n_tiles * (kTile / kMaskThreads));
   if (size == 64 && t_limit) {
-    masked_kernel<64, true><<<n_tiles, kTile, 0, s>>>(r, t4, n_clusters, mask);
+    masked_kernel<64, true><<<grid, kMaskThreads, 0, s>>>(r, t4, n_clusters, mask);
   } else if (size == 64) {
-    masked_kernel<64, false><<<n_tiles, kTile, 0, s>>>(r, t4, n_clusters, mask);
+    masked_kernel<64, false><<<grid, kMaskThreads, 0, s>>>(r, t4, n_clusters, mask);
   } else if (t_limit) {
-    masked_kernel<128, true><<<n_tiles, kTile, 0, s>>>(r, t4, n_clusters, mask);
+    masked_kernel<128, true><<<grid, kMaskThreads, 0, s>>>(r, t4, n_clusters, mask);
   } else {
-    masked_kernel<128, false><<<n_tiles, kTile, 0, s>>>(r, t4, n_clusters, mask);
+    masked_kernel<128, false><<<grid, kMaskThreads, 0, s>>>(r, t4, n_clusters, mask);
   }
   return static_cast<int>(cudaGetLastError());
 }

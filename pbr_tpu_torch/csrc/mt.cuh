@@ -21,16 +21,6 @@ struct Face {
   float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
 };
 
-// Face f of a (9, stride) float32 table in global memory, rows v0, e1, e2
-// (ops/cuda_intersect.py::face_table), read through the read-only cache.
-__device__ __forceinline__ Face load_face(const float* __restrict__ tab, int stride, int f) {
-  return Face{__ldg(tab + f),              __ldg(tab + stride + f),
-              __ldg(tab + 2 * stride + f), __ldg(tab + 3 * stride + f),
-              __ldg(tab + 4 * stride + f), __ldg(tab + 5 * stride + f),
-              __ldg(tab + 6 * stride + f), __ldg(tab + 7 * stride + f),
-              __ldg(tab + 8 * stride + f)};
-}
-
 __device__ __forceinline__ bool moller_trumbore(const Face& f, float ox, float oy, float oz,
                                                 float dx, float dy, float dz, float* t_out) {
   const float px = dy * f.e2z - dz * f.e2y;

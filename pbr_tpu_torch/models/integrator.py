@@ -280,7 +280,7 @@ def trace_rays(
     if settings.phong_tessellation > 0.0:
         raise NotImplementedError(
             "phong_tessellation > 0 is not ported to pbr_tpu_torch yet "
-            "(ROADMAP.md queue 1 item 10, ops/phongtess.py)"
+            '(ROADMAP.md, "Phong tessellation", ops/phongtess.py)'
         )
     dev = pixel_ids.device
     ids = pixel_ids

@@ -1,18 +1,21 @@
 """Kernels K6, K7 and K8: the BVH tree walks, CUDA for Hopper, and their
 plain PyTorch version.
 
-- **K6**, the packet walk (``csrc/bvh_packet.cu``, slab off), replaces
-  ``pbr_tpu/ops/pallas_bvh.py``'s ``_kernel`` (instance "K6 nearest"),
-  ``_kernel_nee`` ("K6 NEE"), ``_kernel_shadow`` ("K6 any-hit"),
-  ``_kernel_seeded`` ("K6 seeded") and ``_kernel_shadow_seeded`` ("K6
-  seeded any-hit"), around ``_traverse_tile``: a node cursor shared by a
-  warp of 32 rays. ``intersect_bvh_packet`` runs it on a scene's tree (the
+- **K6** (``csrc/bvh_packet.cu``) replaces ``pbr_tpu/ops/pallas_bvh.py``'s
+  ``_kernel`` (instance "K6 nearest"), ``_kernel_nee`` ("K6 NEE"),
+  ``_kernel_shadow`` ("K6 any-hit"), ``_kernel_seeded`` ("K6 seeded") and
+  ``_kernel_shadow_seeded`` ("K6 seeded any-hit"), around
+  ``_traverse_tile``, the TPU's packet walk. The single-tree instances
+  (``packet_kernel``) walk each ray alone, NEE's shadow leg in the same
+  loop; the seeded ones (``chain_kernel``) keep a node cursor shared by a
+  warp of 32 rays. ``intersect_bvh_packet`` runs K6 on a scene's tree (the
   ``pallas_bvh`` mode); ``intersect_bvh_forest`` chains it over the
   sub-trees of a ``BVHForest`` (``pallas_bvh_forest``): sub-tree 0 by "K6
-  nearest" / "K6 any-hit", then sub-trees 1..K-1 by one launch a pass of
-  the seeded instances (``chain_kernel``), which walk them in ascending
-  order over the forest's packed records (``ForestTables.node_records``,
-  ``face_records``), each seeded by the best so far.
+  nearest" / "K6 any-hit" (``ForestTables.tree(0)``, whose records are
+  views of the forest's), then sub-trees 1..K-1 by one launch a pass of the
+  seeded instances, which walk them in ascending order over the forest's
+  packed records (``ForestTables.node_records``, ``face_records``), each
+  seeded by the best so far.
 - **K7**, the leaf-slab walk (same source, ``slab_kernel``), replaces
   ``_kernel_hbm`` ("K7 nearest") and ``_kernel_hbm_nee`` ("K7 NEE"),
   around ``_traverse_tile_hbm``: the same walk over the tree's packed
@@ -26,9 +29,10 @@ plain PyTorch version.
   any-hit instance ("K8 any-hit", ``occluded_bvh_walk``) is the ``bvh``
   mode's NEE shadow leg, the bit ``t_sh < t_light`` that the JAX package
   takes from a second nearest search (``pbr_tpu/models/integrator.py:
-  352-353``). K8 and K7 read the tree and its faces as packed records
-  (``node_records``, ``face_records``), which ``scene/device.py::to_torch``
-  builds once a scene (``BVHTables.node_records``/``face_records``).
+  352-353``). Every instance reads the tree and its faces as packed
+  records (``node_records``, ``face_records``), which
+  ``scene/device.py::to_torch`` builds once a scene
+  (``BVHTables.node_records``/``face_records``) and ``_check`` requires.
 
 The NEE instances (K6 NEE, K7 NEE) walk the shadow ray only on the lanes
 whose nearest walk hit, and give False on the others without a walk: the
@@ -95,15 +99,14 @@ launches = {"K6 nearest": 0, "K6 NEE": 0, "K6 any-hit": 0, "K6 seeded": 0,
 _K8 = ("K8", "K8 any-hit")
 # The seeded chain's instances (chain_kernel).
 _SEEDED = ("K6 seeded", "K6 seeded any-hit")
-# The instances that read the packed records.
-_RECORDS = ("K7 nearest", "K7 NEE", *_K8, *_SEEDED)
-# bvh_packet.cu's mode of each instance.
+# bvh_packet.cu's mode of each instance but the seeded chain's.
 _PACKET_MODES = {"K6 nearest": 0, "K6 NEE": 1, "K6 any-hit": 2, "K7 nearest": 0, "K7 NEE": 1}
+_SLAB = ("K7 nearest", "K7 NEE")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# mode, rays (6), order, alive, n, tree (5), n_nodes, faces, stride,
-# face_base, max_leaf, light, t_limit, t_out, f_out, occ_out, stream
-_PACKET_ARGTYPES = [_I] + [_P] * 8 + [_I] + [_P] * 5 + [_I, _P, _I, _I, _I] + [_P] * 6
+# mode, rays (6), order, alive, n, node records, n_nodes, face records,
+# max_leaf, light, t_limit, t_out, f_out, occ_out, stream
+_PACKET_ARGTYPES = [_I] + [_P] * 8 + [_I, _P, _I, _P, _I] + [_P] * 6
 # any_hit, rays (6), order, alive, n, node records, n_nodes, n_trees, face
 # records, chunk, face_base, max_leaf, t_limit, t_seed, f_seed, occ_seed,
 # t_out, f_out, occ_out, stream
@@ -128,8 +131,8 @@ def packet_hbm_fits(bvh) -> bool:
 
 
 def node_records(tree) -> torch.Tensor:
-    """K7's and K8's (N, 8) float32 node records of a ``BVHTables``' (3, N) and (N,)
-    tables: 32 bytes a node, read as two float4, ``{bb_min, exit}`` and
+    """The tree walks' (N, 8) float32 node records of a ``BVHTables``' (3, N)
+    and (N,) tables: 32 bytes a node, read as two float4, ``{bb_min, exit}`` and
     ``{bb_max, leaf}``, each int32 word stored as its bits; ``leaf`` is
     ``leaf_first << LEAF_COUNT_BITS | (leaf_count - 1)`` for a leaf and -1
     for an inner node (leaf_first -1, leaf_count 0). Raises where a field
@@ -153,8 +156,9 @@ def node_records(tree) -> torch.Tensor:
 
 
 def face_records(faces: torch.Tensor) -> torch.Tensor:
-    """K7's and K8's (F, 12) float32 face records of a (9, F) face table: 48 bytes a
-    face, read as three float4, ``{v0, 0}``, ``{e1, 0}``, ``{e2, 0}``."""
+    """The tree walks' (F, 12) float32 face records of a (9, F) face table:
+    48 bytes a face, read as three float4, ``{v0, 0}``, ``{e1, 0}``,
+    ``{e2, 0}``."""
     nf = faces.shape[1]
     rec = faces.new_zeros((nf, 3, 4))
     rec[:, :, :3] = faces.T.reshape(nf, 3, 3)
@@ -175,8 +179,7 @@ class Walk(NamedTuple):
     only; the plain version walks each ray alone); ``light`` (3,) for the
     NEE instances; ``t_limit`` for the any-hit ones; ``t_seed``/``f_seed``
     and ``occ_seed`` for the seeded ones; ``with_counts`` for K8's two.
-    K7, K8 and the seeded chain read ``tree``'s packed records, which it
-    must have."""
+    Every instance reads ``tree``'s packed records, which it must have."""
 
     kernel: str
     o: Vec3
@@ -370,12 +373,11 @@ def _check(w: Walk) -> None:
                          f"with t_limit")
     if w.kernel in _K8 and (w.kernel == "K8 any-hit") != (w.t_limit is not None):
         raise ValueError("K8's any-hit instance, and only it, takes a t_limit")
-    if w.kernel in _RECORDS and w.kernel not in _SEEDED and w.face_base != 0:
-        raise ValueError(f"{w.kernel} walks a scene's tree: face_base must be 0")
+    if w.kernel not in _SEEDED and w.face_base != 0:
+        raise ValueError(f"{w.kernel} walks one tree from its first face: face_base must be 0")
     node_shape = (tr.count, nodes.count, 8) if chain else (tr.count, 8)
     for rec, shape in ((tr.node_records, node_shape), (tr.face_records, (f.shape[1], 12))):
-        if w.kernel in _RECORDS and (
-                rec is None or rec.device != dev or rec.dtype != torch.float32
+        if (rec is None or rec.device != dev or rec.dtype != torch.float32
                 or tuple(rec.shape) != shape or not rec.is_contiguous()):
             raise ValueError(f"{w.kernel}: the tree needs its packed records, contiguous "
                              f"{shape} float32 on {dev} (node_records, face_records; to_torch "
@@ -424,19 +426,15 @@ def _run_kernel(w: Walk):
             occ = torch.empty((n,) if any_hit or w.light is not None else (0,),
                               dtype=torch.bool, device=dev)
             mode = _PACKET_MODES[w.kernel]
+            recs = (tr.node_records.data_ptr(), tr.count, tr.face_records.data_ptr(), w.max_leaf,
+                    _ptr(w.light))
             outs = (t.data_ptr(), f.data_ptr(), occ.data_ptr(), stream)
-            if w.kernel in _RECORDS:
+            if w.kernel in _SLAB:
                 lib = load("bvh_packet", "pbr_bvh_slab", _SLAB_ARGTYPES)
-                err = lib.pbr_bvh_slab(mode, *rays, tr.node_records.data_ptr(), tr.count,
-                                       tr.face_records.data_ptr(), w.max_leaf, _ptr(w.light),
-                                       *outs)
+                err = lib.pbr_bvh_slab(mode, *rays, *recs, *outs)
             else:
-                tables = (tr.bb_min.data_ptr(), tr.bb_max.data_ptr(),
-                          tr.leaf_first.data_ptr(), tr.leaf_count.data_ptr(),
-                          tr.exit.data_ptr(), tr.count, w.faces.data_ptr(), w.faces.stride(0))
                 lib = load("bvh_packet", "pbr_bvh_packet", _PACKET_ARGTYPES)
-                err = lib.pbr_bvh_packet(mode, *rays, *tables, w.face_base, w.max_leaf,
-                                         _ptr(w.light), _ptr(w.t_limit), *outs)
+                err = lib.pbr_bvh_packet(mode, *rays, *recs, _ptr(w.t_limit), *outs)
             out = occ if any_hit else (t, f) if w.light is None else (t, f, occ)
     if err != 0:
         raise RuntimeError(f"{w.kernel} launch failed: cudaError {err}")
@@ -505,7 +503,7 @@ def occluded_bvh_walk(o: Vec3, d: Vec3, t_limit: torch.Tensor, bvh, tris, max_le
 
 def intersect_bvh_packet(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2, light_pos=None,
                          alive=None):
-    """Nearest hit by the packet walk, kernel K6
+    """Nearest hit by kernel K6's per-ray walk
     (``pallas_bvh.py::intersect_bvh_packet``'s contract): ``(t, face)``,
     or with ``light_pos`` (a Vec3 of 0-d tensors, light 0) ``(t, face,
     occluded)`` from the fused NEE shadow leg. Needs ``packet_fits``."""

@@ -16,7 +16,7 @@ Every verdict is conservative: a cluster that any live ray of a tile could
 hit is set; extra clusters cost sweep work, never a wrong answer.
 
 Only ``candidates_fine``, the lists of the Phong-tessellated path, waits
-for the slice that ports Phong tessellation (ROADMAP.md queue 1 item 10).
+for the slice that ports Phong tessellation (ROADMAP.md, "Phong tessellation").
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ from pbr_tpu_torch.ops.vec import Vec3
 # JAX dispatch modes that have no port yet, with the ROADMAP item that
 # ports each.
 _NOT_PORTED = {
-    "gemm": "queue 1 item 9, ops/gemm_intersect.py",
+    "gemm": '"The `gemm` mode", ops/gemm_intersect.py',
 }
 _TREE_MODES = ("bvh", "pallas_bvh", "pallas_bvh_forest", "pallas_bvh_hbm")
 
@@ -155,7 +155,7 @@ def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False
     if mode in _NOT_PORTED:
         raise NotImplementedError(
             f"intersector mode {mode!r} is not ported to pbr_tpu_torch yet "
-            f"(ROADMAP.md {_NOT_PORTED[mode]})"
+            f"(ROADMAP.md, {_NOT_PORTED[mode]})"
         )
     raise ValueError(f"unknown intersector mode {mode!r}")
 

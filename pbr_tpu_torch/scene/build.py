@@ -10,8 +10,8 @@ equivalent of the reference's ``#SKY_LIGHT#`` / ``#NUM_LIGHTS#``
 substitutions (PathTracer.cpp:209-210,468-474,514-516).
 
 The port's copy of ``pbr_tpu/scene/build.py``. One thing differs:
-``phong_tess_alpha`` > 0 raises ``NotImplementedError`` (ROADMAP.md queue 1
-item 10). ``to_device`` is ``pbr_tpu_torch.scene.to_torch``.
+``phong_tess_alpha`` > 0 raises ``NotImplementedError`` (ROADMAP.md, "Phong
+tessellation"). ``to_device`` is ``pbr_tpu_torch.scene.to_torch``.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def build_scene(
     if phong_tess_alpha > 0.0:
         raise NotImplementedError(
             "phong_tess_alpha > 0 is not ported to pbr_tpu_torch yet "
-            "(ROADMAP.md queue 1 item 10, ops/phongtess.py)"
+            '(ROADMAP.md, "Phong tessellation", ops/phongtess.py)'
         )
     tris = make_triangles(
         obj.vertices,

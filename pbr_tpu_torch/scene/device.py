@@ -128,12 +128,13 @@ class BVHTables(NamedTuple):
     ``bb_min``/``bb_max`` (3, N) float32 node bounds (rows x, y, z) and
     ``leaf_first``/``leaf_count``/``exit`` (N,) int32 (the TPU kernels' f32
     packing of the indices was a Pallas workaround). ``node_records``
-    (N, 8) and ``face_records`` (F, 12) float32 are kernel K8's packed
+    (N, 8) and ``face_records`` (F, 12) float32 are the kernels' packed
     copies of the same values and of the faces the tree indexes
     (``ops/cuda_bvh.py::node_records``, ``face_records``); ``to_torch``
     builds them for a scene's tree, and a tree without them has None. A
     forest's ``ForestTables.trees`` has the first five fields with a
-    leading (K,) axis."""
+    leading (K,) axis; ``ForestTables.tree(i)`` gives sub-tree i with
+    views of its records."""
 
     bb_min: torch.Tensor
     bb_max: torch.Tensor
@@ -165,8 +166,9 @@ class ForestTables(NamedTuple):
     (K * chunk,) int32 forest slot -> main-order face; ``node_records``
     (K, N, 8) and ``face_records`` (K * chunk, 12) float32, the packed
     records of the sub-trees and of ``faces`` (``ops/cuda_bvh.py::
-    node_records``, ``face_records``) that the seeded chain reads;
-    ``to_torch`` builds them once a scene."""
+    node_records``, ``face_records``) that the kernels read (the seeded
+    chain all of them, sub-tree 0's walks their first rows); ``to_torch``
+    builds them once a scene."""
 
     trees: BVHTables
     faces: torch.Tensor
@@ -183,8 +185,12 @@ class ForestTables(NamedTuple):
         return int(self.faces.shape[1]) // self.count
 
     def tree(self, i: int) -> BVHTables:
-        """Sub-tree ``i``'s node tables."""
-        return BVHTables(*(getattr(self.trees, n)[i] for n in _NODE_FIELDS))
+        """Sub-tree ``i``'s node tables, with its packed records (views)
+        where the forest has them."""
+        c = self.chunk
+        rec = None if self.node_records is None else (self.node_records[i],
+                                                      self.face_records[i * c:(i + 1) * c])
+        return BVHTables(*(getattr(self.trees, n)[i] for n in _NODE_FIELDS), *(rec or ()))
 
     def subtrees(self, lo: int, hi: int) -> "ForestTables":
         """Sub-trees ``lo .. hi - 1`` with their faces and records (views)."""

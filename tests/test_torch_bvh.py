@@ -285,6 +285,72 @@ def test_any_hit_plain_matches_pallas_interpret(seeded):
     assert 0 < ref.sum() < 1000
 
 
+def _jax_subtree0(jsj, o, d, t_limit=None):
+    """``_kernel`` (nearest) or ``_kernel_shadow`` (any-hit against
+    ``t_limit``) on sub-tree 0 of the JAX forest and its chunk of faces,
+    one 1,024-ray tile: what the forest launches first."""
+    fo = jsj.forest
+    chunk = fo.chunk_size
+    n = o.shape[1]
+    pad = 1024 - n
+    prep = lambda a, v: jnp.concatenate([jnp.asarray(a), jnp.full((pad,), v, jnp.float32)]  # noqa: E731
+                                        ).reshape(8, 128)
+    rays = [prep(o[i], 1e30) for i in range(3)] + [prep(d[i], 1.0) for i in range(3)]
+    sl = lambda v: JVec3(v.x[:chunk], v.y[:chunk], v.z[:chunk])  # noqa: E731
+    nodes = jax_pallas_bvh._node_rows(jnp, fo.bvhs[0])
+    tris = jax_pallas_bvh._tri_rows(jnp, sl(fo.v0), sl(fo.e1), sl(fo.e2))
+    call = jax_pallas_bvh._build_call(fo.bvhs[0].count, chunk, 8, 4, interpret=True,
+                                      shadow=t_limit is not None)
+    if t_limit is not None:
+        return np.asarray(call(nodes, tris, *rays, prep(t_limit, 0.0))).reshape(-1)[:n] != 0
+    t, f = call(nodes, tris, *rays)
+    return np.asarray(t).reshape(-1)[:n], np.asarray(f).reshape(-1)[:n]
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["nearest", "any-hit"])
+def test_forest_subtree0_on_records_matches_pallas_interpret(any_hit):
+    """The forest's first walk ("K6 nearest", "K6 any-hit" on sub-tree 0),
+    whose tree carries its packed records as views of the forest's (what
+    the kernel reads), through the plain version against the Pallas
+    kernel on one tile: sub-tree-local faces equal, t within 1e-6;
+    occlusion equal."""
+    jsj, _, ts = _scenes(700, 0, chunk=256)
+    fo = ts.forest
+    tree = fo.tree(0)
+    assert tree.node_records.data_ptr() == fo.node_records.data_ptr()
+    assert tree.face_records.shape == (fo.chunk, 12)
+    o, d = _rays(1000, 13)
+    t_limit = np.random.default_rng(14).uniform(0.0, 1.5, 1000).astype(np.float32)
+    w = cb.Walk("K6 any-hit" if any_hit else "K6 nearest", _t(o), _t(d), tree,
+                fo.faces[:, :fo.chunk], 4, t_limit=torch.tensor(t_limit) if any_hit else None)
+    got = cb.run(w)
+    ref = _jax_subtree0(jsj, o, d, t_limit if any_hit else None)
+    if any_hit:
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert 0 < ref.sum() < 1000
+        return
+    np.testing.assert_array_equal(got[1].numpy(), ref[1])
+    _assert_t(got[0], ref[0])
+    assert (ref[1] >= 0).sum() > 50
+
+
+@pytest.mark.parametrize("kernel", ["K6 nearest", "K6 NEE", "K6 any-hit"])
+def test_k6_takes_no_tree_without_its_records(kernel):
+    """K6's single-tree walks read the packed records, as K7's and K8's do:
+    a tree without them raises, on the CPU as on a card, naming the
+    records; the tables of to_torch have them."""
+    _, _, ts = _scenes(700, 0)
+    o = Vec3(*(torch.zeros(4) for _ in range(3)))
+    d = Vec3(torch.ones(4), torch.zeros(4), torch.zeros(4))
+    kw = dict(light=torch.tensor(LIGHT)) if kernel == "K6 NEE" else \
+        dict(t_limit=torch.ones(4)) if kernel == "K6 any-hit" else {}
+    tab = ci.face_table(ts.tris)
+    for bare in (ts.bvh._replace(node_records=None), ts.bvh._replace(face_records=None)):
+        with pytest.raises(ValueError, match="packed records"):
+            cb.run(cb.Walk(kernel, o, d, bare, tab, 2, **kw))
+    cb.run(cb.Walk(kernel, o, d, ts.bvh, tab, 2, **kw))
+
+
 @pytest.mark.parametrize("nee", [False, True], ids=["nearest", "nee"])
 def test_forest_plain_matches_pallas_interpret(nee):
     """The forest (K6's seeded chain over 3 sub-trees of 256 faces, the

@@ -76,7 +76,8 @@ def _unpack(rec, frec):
 @pytest.mark.parametrize("tree", ["soup", "forest"])
 def test_records_unpack_bitwise_to_the_soa_tables(tree):
     """The scene's tree (64-face leaves; its records built by to_torch) and
-    each sub-tree of a forest (padding nodes with inverted boxes): bounds,
+    each sub-tree of a forest (padding nodes with inverted boxes; its
+    records the views ``ForestTables.tree`` cuts from the forest's): bounds,
     leaf_first, leaf_count and exit, and the faces, bitwise; the face
     records' padding is zero."""
     _, _, ts = _scenes(3000, 64)
@@ -86,10 +87,12 @@ def test_records_unpack_bitwise_to_the_soa_tables(tree):
         assert ts.bvh.node_records.shape == (ts.bvh.count, 8)
     else:
         fo = ts.forest
-        cases = [(fo.tree(i), cb.node_records(fo.tree(i)),
-                  cb.face_records(fo.faces[:, i * fo.chunk:(i + 1) * fo.chunk]),
+        cases = [(fo.tree(i), fo.tree(i).node_records, fo.tree(i).face_records,
                   fo.faces[:, i * fo.chunk:(i + 1) * fo.chunk]) for i in range(fo.count)]
-        assert fo.count == 12 and fo.tree(0).node_records is None
+        assert fo.count == 12
+        # a sub-tree's records are views of the forest's, which to_torch built
+        assert fo.tree(0).node_records.data_ptr() == fo.node_records.data_ptr()
+        assert fo.tree(1).face_records.data_ptr() == fo.face_records[fo.chunk].data_ptr()
     for bvh, rec, frec, faces in cases:
         lo, hi, first, count, exit_, fun, padded = _unpack(rec, frec)
         for a, b in ((lo, bvh.bb_min), (hi, bvh.bb_max), (first, bvh.leaf_first),

@@ -1,8 +1,8 @@
-"""The step-0 tools of K3 and of K6's seeded chain
-(``pbr_tpu_torch/tools/k3_tiles.py``, ``k6_chain.py``), on the CPU: their
-argument parsing, their clock patch against ``csrc/`` as it stands, and
-their plain-side counts against sweeps and walks written out here. The
-tools' kernel runs need a card."""
+"""The step-0 tools of K3, K4m and K6 (``pbr_tpu_torch/tools/k3_tiles.py``,
+``k4_tiles.py --masked``, ``k6_chain.py``, ``k6_walk.py``), on the CPU:
+their argument parsing, their clock patch against ``csrc/`` as it stands,
+and their plain-side counts against sweeps and walks written out here.
+The tools' kernel runs need a card."""
 
 import numpy as np
 import pytest
@@ -10,6 +10,7 @@ import torch
 
 from pbr_tpu_torch.accel.forest import build_forest
 from pbr_tpu_torch.ops import cuda_bvh as cb
+from pbr_tpu_torch.ops import cuda_cull as cc
 from pbr_tpu_torch.ops import cuda_gated as cg
 from pbr_tpu_torch.ops import cuda_intersect as ci
 from pbr_tpu_torch.ops.intersect import EPS5
@@ -17,17 +18,19 @@ from pbr_tpu_torch.ops.vec import Vec3
 from pbr_tpu_torch.scene.build import scene_from_text
 from pbr_tpu_torch.scene.device import to_torch
 from pbr_tpu_torch.scene.procedural import multi_room, random_soup
-from pbr_tpu_torch.tools import k3_tiles, k6_chain
+from pbr_tpu_torch.tools import k3_tiles, k4_tiles, k6_chain, k6_walk
 
 torch.set_num_threads(1)
 
 K3_SOURCE = (ci.CSRC / "gated_intersect.cu").read_text()
 K6_SOURCE = (ci.CSRC / "bvh_packet.cu").read_text()
+K4_SOURCE = (ci.CSRC / "cull_intersect.cu").read_text()
 
 
 @pytest.mark.parametrize("source, kernel, tag", [
     (K3_SOURCE, "gated_kernel", "first"),
     (K6_SOURCE, "chain_kernel", "blockIdx.x"),
+    (K4_SOURCE, "masked_kernel", "i"),
 ])
 def test_clock_patch_finds_each_kernel(source, kernel, tag):
     """The record's declaration follows the include once, the setter ends
@@ -47,10 +50,11 @@ def test_clock_patch_finds_each_kernel(source, kernel, tag):
         k3_tiles.clock_patch(source[:lo] + " return; " + source[lo:], "x.cu", kernel, tag)
 
 
-@pytest.mark.parametrize("tool", [k3_tiles, k6_chain], ids=["k3_tiles", "k6_chain"])
+@pytest.mark.parametrize("tool", [k3_tiles, k6_chain, k4_tiles, k6_walk],
+                         ids=["k3_tiles", "k6_chain", "k4_tiles", "k6_walk"])
 def test_tool_parses_its_arguments_and_needs_a_card(tool, tmp_path):
-    """Each tool takes only ``--out``, and without a card it stops before
-    it builds or writes anything."""
+    """Each tool refuses an option it does not have, and without a card it
+    stops before it builds or writes anything."""
     with pytest.raises(SystemExit) as err:
         tool.main(["--steps", "a"])
     assert err.value.code == 2  # argparse's usage error
@@ -164,3 +168,60 @@ def test_k6_chain_counts_match_the_plain_chain(alive):
         done = first[2] if al is None else first[2] | ~al
         done = torch.cat([done, done.new_ones((-n) % 32)]).reshape(-1, 32)
         assert entering[0] == int(done.all(dim=1).sum())
+
+
+def _masked_passes(n=1024, seed=3):
+    """Multiroom's two K4m passes (plain) on rays inside the rooms, two
+    lanes of three alive, light 0: their recorded arguments."""
+    scene, _ = scene_from_text(*multi_room(), use_bvh=True)
+    ts = to_torch(scene, "cpu")
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.uniform(-2.8, 2.8, n), rng.uniform(0.1, 1.9, n),
+                  rng.uniform(-4.8, 0.8, n)]).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    passes = []
+    cc._cull(cc._slotted_plain, lambda *a: passes.append(a) or cc._masked_plain(*a),
+             Vec3(*map(torch.tensor, o)), Vec3(*map(torch.tensor, d)), ts.clusters,
+             Vec3(*(torch.tensor(v) for v in (0.0, 1.75, 0.0))),
+             torch.tensor(np.arange(n) % 3 != 0), "highest")
+    return passes
+
+
+@pytest.mark.parametrize("pass_i", [0, 1], ids=["nearest", "any-hit"])
+def test_k4m_pass_counts_match_a_sweep_in_order(pass_i):
+    """``k4_tiles.pass_counts`` (one cluster at a time for the tiles that
+    gate it in) against a sweep written face by face over the gated-in
+    clusters in ascending order: real-face tests, and the tests whose t can
+    change the result (the bound's u-v tests: nearest ``1e-5 <= t <=`` the
+    final t; any-hit below t_limit on a ray not occluded yet); the plain
+    result is the pass's."""
+    args = _masked_passes()[pass_i]
+    out, counts, slots = k4_tiles.pass_counts("K4m", args)
+    feats, table, mask, seed_t, seed_f, any_hit = args
+    ref = cc._masked_plain(*args)
+    for a, b in zip(out if isinstance(out, tuple) else (out,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        assert torch.equal(a, b)
+    f = torch.stack(list(feats)).reshape(cc.FEATURE_ROWS, 1, -1)
+    gate = mask.repeat_interleave(cc.TILE, dim=0)
+    real = (table[:, :, 0:3] != 0).any(dim=2)
+    best = seed_t.clone()
+    tests = uv = 0
+    for c in range(table.shape[0]):
+        for j in range(table.shape[1]):
+            on = gate[:, c] & real[c, j]
+            t, valid = (x[0, :, 0] for x in cc._face_test(table[c:c + 1, j:j + 1], f))
+            tests += int(on.sum())
+            if any_hit:
+                uv += int((on & (t >= EPS5) & (t < f[10, 0]) & (best == 0.0)).sum())
+                best = torch.where(on & valid & (t < f[10, 0]), 1.0, best)
+            else:
+                uv += int((on & (t >= EPS5) & (t <= ref[0])).sum())
+    assert (counts["tests"], counts["uv_tests"]) == (tests, uv)
+    assert 0 < counts["uv_tests"] < counts["tests"]
+    assert counts["sections"] == int(mask.sum()) == int(slots.sum())
+    assert counts["warps"] == counts["sections"] * cc.TILE // 32
+    assert 0 <= counts["closed_warps"] <= counts["warps"]
+    assert counts["closed_lanes"] >= int((gate.sum(dim=1) * (
+        (seed_t > 0) if any_hit else ~(seed_t >= EPS5))).sum()) > 0

@@ -1,6 +1,6 @@
 """The port's diagnostic tools (``pbr_tpu_torch/tools/``), on the CPU: the
-source patches of ``k4_tiles``, ``k8_walk``, ``k5_rows`` and ``k7_walk``
-find every hook they need in ``csrc/cull_intersect.cu``,
+source patches of ``k4_tiles``, ``k8_walk``, ``k5_rows``, ``k7_walk`` and
+``k6_walk`` find every hook they need in ``csrc/cull_intersect.cu``,
 ``csrc/bvh_walk.cu``, ``csrc/row_sweep.cu`` and ``csrc/bvh_packet.cu`` as
 they stand, and their
 statistics give the span, tail, balance, SIMD efficiency, rows a staged
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 from pbr_tpu_torch.ops import cuda_intersect as ci
-from pbr_tpu_torch.tools import k4_tiles, k5_rows, k7_walk, k8_walk
+from pbr_tpu_torch.tools import k4_tiles, k5_rows, k6_walk, k7_walk, k8_walk
 
 SOURCE = (ci.CSRC / "cull_intersect.cu").read_text()
 K8_SOURCE = (ci.CSRC / "bvh_walk.cu").read_text()
@@ -286,3 +286,67 @@ def test_k7_warp_stats_of_a_known_record():
     assert st["leaf_simd"] == 64 / 192 and st["hitting_lanes_per_visit"] == 64 / 6
     assert st["staging_share"] == 30 / 800 and st["shadow_share"] == 200 / 800
     assert st["shadow_lanes"] == 50 and st["missed_shadow_lanes"] == 5
+
+
+def test_k6_patched_source_finds_every_hook():
+    """The record's declarations and setter are added once; packet_kernel
+    starts and ends with its clock reads; ray_walk tallies each node step
+    and each leaf face test once; the rest of the source is unchanged."""
+    src = k6_walk.patched_source(K7_SOURCE)
+    assert src.count(k6_walk._DECL) == 1 and src.endswith(k6_walk._SETTER)
+    lo, hi = k6_walk._body(src, k6_walk.KERNEL, k6_walk.FILE)
+    assert src[lo:hi].startswith(k6_walk._START) and src[lo:hi].endswith(k6_walk._END)
+    lo, hi = k6_walk._body(src, k6_walk.WALK, k6_walk.FILE)
+    body = src[lo:hi]
+    assert body.count(k6_walk._NODE + k6_walk._NODE_ANCHOR) == 1
+    assert body.count(k6_walk._LEAF_ANCHOR + " " + k6_walk._LEAF) == 1
+    for hook in (k6_walk._DECL, k6_walk._SETTER, k6_walk._START, k6_walk._END, k6_walk._NODE,
+                 " " + k6_walk._LEAF):
+        src = src.replace(hook, "", 1)
+    assert src == K7_SOURCE
+
+
+def test_k6_kernel_has_no_early_return():
+    """packet_kernel returns only at its end, where the patch reads each
+    warp's clock and adds each lane's counters; the patch refuses a kernel
+    that returns early."""
+    lo, hi = k6_walk._body(K7_SOURCE, k6_walk.KERNEL, k6_walk.FILE)
+    assert re.search(r"\breturn\b", re.sub(r"//[^\n]*", "", K7_SOURCE[lo:hi])) is None
+    bad = K7_SOURCE[:hi] + " if (!in) return;" + K7_SOURCE[hi:]
+    with pytest.raises(ValueError, match="returns early"):
+        k6_walk.patched_source(bad)
+
+
+@pytest.mark.parametrize("old, new, match", [
+    ("#include <cuda_runtime.h>\n", "#include <cuda.h>\n", "cuda_runtime"),
+    ("packet_kernel(const Params p)", "ray_kernel(const Params p)", "packet_kernel"),
+    ("      float t_near;\n      const bool hit", "      float tn;\n      const bool hit",
+     "t_near"),
+    ("      for (int k = 0; k < cnt; ++k) {\n        const float4* g = p.faces",
+     "      for (int k = 0; k != cnt; ++k) {\n        const float4* g = p.faces", "cnt"),
+])
+def test_k6_patched_source_raises_on_a_missing_hook(old, new, match):
+    """The include the declaration follows, the kernel's name, the node
+    step and the leaf loop of ray_walk: the patch fails where one goes
+    missing."""
+    assert K7_SOURCE.count(old) == 1
+    with pytest.raises(ValueError, match=match):
+        k6_walk.patched_source(K7_SOURCE.replace(old, new))
+
+
+def test_k6_warp_stats_of_a_known_record():
+    """Two warps that ran (and one row that never did): starts 0, 10 ns,
+    ends 30, 20 ns; node iterations 10, 6 with 200 + 40 and 100 + 20 lanes
+    (nearest + shadow: 360 of 16 x 32); leaf iterations 4, 2 with 64 + 16
+    and 32 + 0 lanes. A mismatch with the plain walk's steps raises."""
+    rec = np.array([[100, 130, 10, 200, 40, 4, 64, 16], [110, 120, 6, 100, 20, 2, 32, 0],
+                    [0] * 8])
+    st = k6_walk.warp_stats(rec, {"nearest": 300, "shadow": 60})
+    assert st["warps"] == 2
+    np.testing.assert_allclose([st["span_ms"], st["last_after_median_ms"], st["mean_warp_ms"]],
+                               np.array([30, 5, 20]) / 1e6)
+    assert st["node_iterations_per_warp"] == 8 and st["node_simd"] == 360 / 512
+    assert st["shadow_node_lane_share"] == 60 / 360
+    assert st["leaf_iterations_per_warp"] == 3 and st["leaf_simd"] == 112 / 192
+    with pytest.raises(AssertionError, match="plain walk"):
+        k6_walk.warp_stats(rec, {"nearest": 301})
