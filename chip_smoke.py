@@ -18,16 +18,22 @@ read just after; a kernel of the path that did not launch fails the run.
    (csrc/bvh_packet.cu) and K8 (csrc/bvh_walk.cu) with nvcc, and the native
    BVH builder (csrc/bvh_builder.cpp) with g++, all in parallel, timed;
 3. Cornell box (34 faces; auto runs K1):
-   - K1 against its plain version on the card, bitwise (t, face,
-     occluded), nearest and NEE, on the path's camera rays, a ragged
-     random batch and a 4,000-face soup; faces also against the plain
-     sweep on the host's CPU;
+   - K1 and K2 (NEE, and K1', K2' nearest only) against their plain
+     versions on the card, bitwise (t, face, occluded), on the path's
+     camera rays, a ragged random batch, a 4,000-face soup, soups of 1,
+     255, 256, 257, 511, 512 and 513 faces (on both sides of the kernels'
+     256-face staged chunk and of twice it) and a scene whose every
+     shadow ray is occluded by face 0, with more than a chunk of faces
+     after it; K1's faces also against the plain sweep on the host's CPU;
    - a 128² frame on the card against the port's CPU path: no NaN and at
      least 99% of pixels within 1e-3 (the CPU tests hold the CPU path to
      the JAX package's NumPy oracle);
    - path "cornell": the first 1024² frame, compacted, equals bitwise the
      same frame at full width; then 8 timed frames after 2 warm-up frames
-     (K1 launches once a bounce, 0 lanes dropped, a plausible image);
+     (K1 launches once a bounce, 0 lanes dropped, a plausible image); K1
+     and K1' timed on the camera rays as 20 calls replayed from a CUDA
+     graph (the kernel is shorter than the wrapper's host time), with
+     their bounds;
    - path "cornell, NEE off" (shadow_rays=0): one frame through K1'
      (nearest only);
 4. multiroom (bench.py --scene multiroom: 1,428 faces in 32 clusters of 64;
@@ -36,18 +42,22 @@ read just after; a kernel of the path that did not launch fails the run.
      sweep's plain version), at least 99% of pixels within 1e-3;
    - path "multiroom": the first 1024² frame, compacted, equals bitwise
      the full-width frame; the auto frame against the same frame through
-     K1 (intersector='pallas') at least 99% of pixels within 1e-3 (the two
-     use different Moller-Trumbore forms); 8 timed frames after 2 warm-up
+     K1 (intersector='pallas', whose launches are counted: 8, and no
+     other kernel) at least 99% of pixels within 1e-3 (the two use
+     different Moller-Trumbore forms); 8 timed frames after 2 warm-up
      frames, in which K3 launches and K1 does not, 0 lanes dropped;
    - K3 (nearest and any-hit passes) and K2 (NEE and nearest) against
      their plain versions, bitwise, on the path's 1024² camera rays (in its
      lane order), on 1M bounce-like rays with 60% alive and NEE, and on 1M
      bounce-like rays with 15% alive, whose shadow pass is mostly seeded 1
      or occluded (K3's exits), with K3's executed test counts equal; K3's
-     faces against K2's on live lanes; times per call of K3, K2 and K1 and
-     of their plain versions, K3's bound charging t to every gated-in
-     real-face test and u and v only where t can change the result
-     (tools/k3_tiles.py::pass_counts);
+     faces against K2's on live lanes; K1 (NEE and nearest) against its
+     plain version, bitwise, on the camera rays; times per call of K3, K2
+     and K1 and of their plain versions, the bounds charging t to every
+     test and u and v only where t can change the result (K3:
+     tools/k3_tiles.py::pass_counts over its gated-in real faces; K1 and
+     K2: tools/k1_sweep.py::sweep_counts over all faces, the shadow leg up
+     to each ray's first occluder);
    - path "multiroom, forward+backward": bench.py's step (loss = sum of
      the frame's colors; gradients to every material and light parameter
      and to the eye) at 1024², timed, with its peak memory and finite
@@ -78,16 +88,18 @@ read just after; a kernel of the path that did not launch fails the run.
      pixels within 1e-3;
    - path "soup:100000": the first 1024² frame, compacted, equals bitwise
      the full-width frame; the auto frame against the same frame through K1
-     (intersector='pallas') at least 99% of pixels within 1e-3; 8 timed
-     frames after 2 warm-up frames, in which K4's nearest and any-hit
+     (intersector='pallas', 8 K1 launches and no other kernel) at least
+     99% of pixels within 1e-3; 8 timed frames after 2 warm-up frames, in
+     which K4's nearest and any-hit
      instances launch once a bounce each and K1, K3 and K4m not, 0 lanes
      dropped;
    - K4 (nearest and any-hit) against its plain version, bitwise, on all
      the path's 1024² camera rays (in its lane order) and on 1M bounce-like
      rays with an alive mask and NEE; the candidate-slot share per tile and
      the executed slots a tile (max, mean, the top 1% of tiles' share);
-     times per call of K4's passes, of the whole wrapper, of its plain
-     version and of K1 on the camera rays;
+     times per call of K4's passes, of the whole wrapper and of its plain
+     version; K1 (NEE) on the camera rays against its plain version,
+     bitwise (one call, timed), its time and its bound;
    - path "soup:100000, sweep" (bench.py --scene soup:100000 --intersector
      sweep: 784 lin clusters of 128, so K5, the slotted row sweep, with the
      coherence sort and the row early-out): a 64² card frame against the
@@ -142,7 +154,9 @@ Every failure raises, so the exit code is not 0. The last two lines of
 standard output are the kernels' JSON record (with each kernel's bound: the
 larger of its operations over 67 T op/s float32 and its bytes over
 3.35 TB/s, the H100's published peaks; ``launches`` counts the launches
-over ``frames`` frames of its path) and ``{"ok": true, "device":
+over ``frames`` frames of its path; "K1 (multiroom)" and "K1
+(soup:100000)" are K1 at those scenes' face counts, launched by their
+intersector='pallas' frames) and ``{"ok": true, "device":
 {...}}``. The script needs nothing of JAX: any import of it, or of the JAX
 package, fails (``sys.modules``); scenes are built by the port's own host
 layer.
@@ -184,7 +198,8 @@ from pbr_tpu_torch.scene.procedural import (  # noqa: E402
     multi_room,
     random_soup,
 )
-from pbr_tpu_torch.tools import k3_tiles, k4_tiles, k5_rows  # noqa: E402
+from pbr_tpu_torch.scene.types import TrianglesSoA  # noqa: E402
+from pbr_tpu_torch.tools import k1_sweep, k3_tiles, k4_tiles, k5_rows  # noqa: E402
 from pbr_tpu_torch.utils.config import RenderSettings  # noqa: E402
 
 SIZE = 1024
@@ -203,14 +218,17 @@ PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 # Floating-point operations of one ray-face test, as the function needs
 # them. Classic Moller-Trumbore (K1): p = d x e2 9, det 5, 1/det 1,
 # o - v0 3, q = (o - v0) x e1 9, t, u, v 6 each, the gates 5, the minimum
-# 1: 51. Linear form (K2, K3, K5, K5m; K4 and K4m read its nonzero
-# entries from a compact table): det 5, 1/det 1, t 7, u 12, v 13, the
-# gates 5, the minimum 1: 44, which the bounds split: every test needs t
-# (det 5, 1/det 1, t 7, the gate t >= 1e-5 and the comparison with the
-# ray's bound 2: 15), and only a face whose t can change the result needs
-# u and v (u 12, v 13, their gates 4: 29). The bound counts what the
-# function needs, whatever implements it.
+# 1: 51 (the tree walks' charge, OPS_CLASSIC), which K1's bound splits:
+# every test needs t (p, det, 1/det, o - v0, q, t 6, the gate t >= 1e-5 and
+# the comparison with the ray's bound 2: 35), and only a face whose t can
+# change the result needs u and v (6 each, their gates 4: 16). Linear form
+# (K2, K3, K5, K5m; K4 and K4m read its nonzero entries from a compact
+# table): det 5, 1/det 1, t 7, u 12, v 13, the gates 5, the minimum 1: 44,
+# split the same way: t (det, 1/det, t, the two gates: 15), u and v (u 12,
+# v 13, their gates 4: 29). The bound counts what the function needs,
+# whatever implements it.
 OPS_CLASSIC = 51
+OPS_CLASSIC_T, OPS_CLASSIC_UV = 35, 16
 OPS_LIN_T, OPS_LIN_UV = 15, 29
 # Floating-point operations of one ray-box slab test, as the tree walks
 # need them: (bound - o) * inv for 6 bounds 12, a min and a max per axis 6,
@@ -426,31 +444,65 @@ def _max_err(a, b) -> float:
 
 # ---------------------------------------------------------------- Cornell --
 
+def _ceiling_first(tris) -> TrianglesSoA:
+    """``tris`` after a ceiling: face 0 is one large triangle in the plane
+    y = 5, between every point below it near the origin and a light at
+    (0, 10, 0)."""
+    dev = tris.mtl.device
+
+    def cat(v: Vec3, first) -> Vec3:
+        return Vec3(*(torch.cat([torch.tensor([f], dtype=torch.float32, device=dev), c])
+                      for f, c in zip(first, v)))
+
+    v0 = (-1e3, 5.0, -1e3)
+    return TrianglesSoA(cat(tris.v0, v0), cat(tris.e1, (4e3, 0.0, 0.0)),
+                        cat(tris.e2, (0.0, 0.0, 4e3)), cat(tris.n0, (0.0, -1.0, 0.0)),
+                        cat(tris.n1, (0.0, -1.0, 0.0)), cat(tris.n2, (0.0, -1.0, 0.0)),
+                        torch.cat([tris.mtl[:1], tris.mtl]))
+
+
 def cornell_kernel_phase(scene, cam, dev) -> dict:
-    """K1 against its plain version, bitwise; returns the largest |t|
-    errors and the path-shape rays for timing."""
+    """K1, K1', K2 and K2' against their plain versions, bitwise; returns
+    the largest |t| errors and the path-shape rays for timing."""
     ts = to_torch(scene, dev)
     l0 = _light0(ts)
-    light = torch.stack(list(l0))
     cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), bench_settings(SIZE), dev)
-    soup, _ = scene_from_text(random_soup(4000), use_bvh=False)
+
+    def soup_tris(nf: int):
+        return to_torch(scene_from_text(random_soup(nf), use_bvh=False)[0], dev).tris
+
+    # Face counts across the kernels' staged chunk (256 faces) and twice
+    # that; a scene whose every shadow ray is occluded by face 0, with more
+    # than a chunk of faces after it (the block leaves the shadow leg).
+    down_o, down_d = _rays_in_box(65_536, 4, dev)
+    down_d = Vec3(down_d.x, -down_d.y.abs(), down_d.z)
+    above = Vec3(*(torch.tensor(v, device=dev) for v in (0.0, 10.0, 0.0)))
     cases = [
-        ("cornell camera rays", ts.tris, cam_o, cam_d),
-        ("cornell random rays", ts.tris, *_rays_in_box(1_000_003, 1, dev)),
-        ("soup:4000", to_torch(soup, dev).tris, *_rays_in_box(65_536, 2, dev)),
+        ("cornell camera rays", ts.tris, cam_o, cam_d, l0),
+        ("cornell random rays", ts.tris, *_rays_in_box(1_000_003, 1, dev), l0),
+        ("soup:4000", soup_tris(4000), *_rays_in_box(65_536, 2, dev), l0),
+        *((f"soup:{nf}", soup_tris(nf), *_rays_in_box(65_536, 3, dev), l0)
+          for nf in (1, 255, 256, 257, 511, 512, 513)),
+        ("every shadow ray occluded", _ceiling_first(soup_tris(600)), down_o, down_d, above),
     ]
     errs = {"K1": 0.0, "K1'": 0.0}
-    for name, tris, o, d in cases:
-        t, f, occ = ci.intersect_fused(o, d, tris, light_pos=l0)
-        t1, f1 = ci.intersect_fused(o, d, tris)
-        tp, fp, op = ci.intersect_fused_plain(o, d, ci.face_table(tris), light)
-        torch.cuda.synchronize()
-        mism = _equal_or_raise(f"K1 on {name}", (t, f, occ, t1, f1), (tp, fp, op, tp, fp))
-        errs["K1"] = max(errs["K1"], _max_err(t, tp))
-        errs["K1'"] = max(errs["K1'"], _max_err(t1, tp))
+    for name, tris, o, d, lp in cases:
+        light = torch.stack(list(lp))
+        for variant, table, key in (("mt", ci.face_table(tris), "K1"),
+                                    ("lin", ci.lin_table(tris), "K2")):
+            t, f, occ = ci.intersect_fused(o, d, tris, light_pos=lp, variant=variant)
+            t1, f1 = ci.intersect_fused(o, d, tris, variant=variant)
+            tp, fp, op = ci.intersect_fused_plain(o, d, table, light)
+            torch.cuda.synchronize()
+            mism = _equal_or_raise(f"{key} on {name}", (t, f, occ, t1, f1), (tp, fp, op, tp, fp))
+            if key == "K1":
+                errs["K1"] = max(errs["K1"], _max_err(t, tp))
+                errs["K1'"] = max(errs["K1'"], _max_err(t1, tp))
+        if name == "every shadow ray occluded" and not bool(occ.all()):
+            raise AssertionError(f"{name}: {int((~occ).sum())} shadow rays unoccluded")
         phase("kernel", f"{name}: {o.x.shape[0]} rays x {tris.mtl.shape[0]} faces, "
-                        f"{int((f >= 0).sum())} hits, {int(occ.sum())} occluded; K1 and K1' "
-                        f"mismatches against plain (t, face, occ, t', face') {mism}")
+                        f"{int((f >= 0).sum())} hits, {int(occ.sum())} occluded; K1, K1', K2 "
+                        f"and K2' mismatches against plain (t, face, occ, t', face') {mism}")
     # Faces against the plain sweep on the host's CPU, on a subset of camera
     # rays (CPU tensors take the plain version and launch nothing).
     sub = slice(0, 1 << 16)
@@ -554,74 +606,60 @@ def cornell_path_phase(scene, cam, dev, k1: dict, profile: bool) -> dict:
     t, o, d, light = k1["tris"], k1["o"], k1["d"], k1["light"]
     table = ci.face_table(t)
     light3 = torch.stack(list(light))
-    out = {
-        "K1": (_time_ms(lambda: ci.intersect_fused(o, d, t, light_pos=light), 20),
-               _time_ms(lambda: ci.intersect_fused_plain(o, d, table, light3), 5)),
-        "K1'": (_time_ms(lambda: ci.intersect_fused(o, d, t), 20),
-                _time_ms(lambda: ci.intersect_fused_plain(o, d, table), 5)),
-    }
-    bounds = _full_sweep_bounds("K1", o, d, t, light, table.shape[0])
+    # The kernel is shorter than the wrapper's host time a call, so 20 calls
+    # are timed as a CUDA graph (the device's time); in a row, for reference.
+    calls = {"K1": (lambda: ci.intersect_fused(o, d, t, light_pos=light),
+                    lambda: ci.intersect_fused_plain(o, d, table, light3)),
+             "K1'": (lambda: ci.intersect_fused(o, d, t),
+                     lambda: ci.intersect_fused_plain(o, d, table))}
+    out = {name: (k1_sweep.graph_ms(fn, 20), _time_ms(plain, 5))
+           for name, (fn, plain) in calls.items()}
+    bounds = _sweep_bounds("K1", o, d, t, light, lin=False)
     for name, (ms, plain) in out.items():
         phase("cornell", f"{name} per call at the path's shape ({o.x.shape[0]} rays x "
-                         f"{table.shape[1]} faces): {ms:.4f} ms; plain version {plain:.4f} ms; "
+                         f"{table.shape[1]} faces): {ms:.4f} ms (20 calls in a row: "
+                         f"{_time_ms(calls[name][0], 20):.4f} ms); plain version {plain:.4f} ms; "
                          f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
     if profile:
         profile_phase("cornell", pt, cam)
     return {"launches": launched, "times": out, "bounds": bounds}
 
 
-def _full_sweep_bounds(name: str, o, d, tris, light, rows: int) -> dict:
-    """Bounds of a full sweep (K1 or K2) and its nearest-only instance on
-    rays ``o``, ``d``: every ray tests every face; a shadow ray needs every
-    face only when nothing occludes it (an occluded one may stop at its
-    first occluder, counted as nothing). K2 (``rows`` 16, the linear form)
-    is charged as the sweeps over clusters are (``_lin_sweep_work``). Bytes:
-    the rays, the (rows, F) table, t, face and occluded."""
-    n, nf = o.x.shape[0], int(tris.mtl.shape[0])
-    table = 4 * rows * nf
-    nbytes = 24 * n + table + 12 + 12 * n, 24 * n + table + 8 * n
-    if rows == 16:
-        work = _lin_sweep_work(o, d, ci.lin_table(tris), torch.stack(list(light)))
-        phase("kernels", f"{name} on the camera rays: nearest {work['tests']} tests, "
-                         f"{work['uv_tests']} whose t can change the result; shadow "
-                         f"{work['shadow_tests']} up to each ray's first occluder, "
-                         f"{work['shadow_uv_tests']} whose t can change the result")
-        near = OPS_LIN_T * work["tests"] + OPS_LIN_UV * work["uv_tests"]
-        shadow = OPS_LIN_T * work["shadow_tests"] + OPS_LIN_UV * work["shadow_uv_tests"]
-        return {name: _bound(near + shadow, nbytes[0]), name + "'": _bound(near, nbytes[1])}
-    _, _, occ = ci.intersect_fused(o, d, tris, light_pos=light)
-    unocc = int((~occ).sum())
-    return {name: _bound(OPS_CLASSIC * nf * (n + unocc), nbytes[0]),
-            name + "'": _bound(OPS_CLASSIC * nf * n, nbytes[1])}
+def _full_sweep_bounds(counts: dict, n: int, nf: int, lin: bool) -> tuple:
+    """Bounds of a full sweep with NEE (K1, or K2 with ``lin``) and of its
+    nearest-only instance, on ``n`` rays against ``nf`` faces, from
+    ``k1_sweep.sweep_counts``: t for every test, u and v only where t can
+    change the result (nearest ``1e-5 <= t <=`` the ray's final t; the
+    shadow leg up to and including each ray's first occluder). Bytes: the
+    rays, the (9, F) or (16, F) table, the light, t, face and occluded."""
+    op_t, op_uv = (OPS_LIN_T, OPS_LIN_UV) if lin else (OPS_CLASSIC_T, OPS_CLASSIC_UV)
+    table = 4 * (16 if lin else 9) * nf
+    near = op_t * counts["tests"] + op_uv * counts["uv_tests"]
+    shadow = op_t * counts["shadow_tests"] + op_uv * counts["shadow_uv_tests"]
+    return (_bound(near + shadow, 24 * n + table + 12 + 12 * n),
+            _bound(near, 24 * n + table + 8 * n))
 
 
-def _lin_sweep_work(o, d, lin, light) -> dict:
-    """What a full sweep in the linear form needs on rays ``o``, ``d``
-    (the (16, F) table ``lin``; light 0 ``light``): nearest, t for every
-    (ray, face) test and u and v where ``1e-5 <= t <=`` the ray's final t;
-    the shadow rays of the nearest result (every ray), t for the faces up
-    to and including the first occluder in face order (all faces where
-    none is) and u and v where ``1e-5 <= t < t_light`` among them."""
-    n, nf = o.x.shape[0], lin.shape[1]
-    step = max(1, ci._PLAIN_ELEMS // nf)
-    k = torch.arange(nf, device=lin.device)
-    res = dict.fromkeys(("tests", "uv_tests", "shadow_tests", "shadow_uv_tests"), 0)
-    for lo in range(0, n, step):
-        sl = slice(lo, lo + step)
-        oc, dc = Vec3(*(a[sl] for a in o)), Vec3(*(a[sl] for a in d))
-        col = lambda v: Vec3(v.x[:, None], v.y[:, None], v.z[:, None])  # noqa: E731
-        t, valid = ci.mt_lin(col(oc), col(dc), col(ci.cross_od(oc, dc)), lin)
-        t_min = torch.where(valid, t, float("inf")).amin(dim=1)
-        res["tests"] += t.numel()
-        res["uv_tests"] += int(((t >= EPS5) & (t <= t_min[:, None])).sum())
-        hit_p, s_dir, t_light = ci._shadow_ray(oc, dc, t_min, light)
-        t, valid = ci.mt_lin(col(hit_p), col(s_dir), col(ci.cross_od(hit_p, s_dir)), lin)
-        below = (t >= EPS5) & (t < t_light[:, None])
-        first = torch.where(valid & below, k, nf).amin(dim=1)
-        upto = k <= first[:, None]
-        res["shadow_tests"] += int(torch.clamp(first + 1, max=nf).sum())
-        res["shadow_uv_tests"] += int((below & upto).sum())
-    return res
+def _sweep_bounds(name: str, o, d, tris, light, lin: bool) -> dict:
+    """{name: the NEE instance's bound, name': the nearest one's} on rays
+    ``o``, ``d`` (light 0 ``light``, a Vec3), with the counts printed."""
+    table = ci.lin_table(tris) if lin else ci.face_table(tris)
+    counts = k1_sweep.sweep_counts(o, d, table, torch.stack(list(light)))
+    phase("kernels", f"{name} on {o.x.shape[0]} rays x {table.shape[1]} faces: nearest "
+                     f"{counts['tests']} tests, {counts['uv_tests']} whose t can change the "
+                     f"result, {counts['skip_tests']} with no division; shadow "
+                     f"{counts['shadow_tests']} up to each ray's first occluder, "
+                     f"{counts['shadow_uv_tests']} whose t can change the result, "
+                     f"{counts['shadow_skip_tests']} with no division; {counts['occluded']} "
+                     f"rays and {counts['occluded_warps']} of {counts['warps']} warps occluded")
+    n, nf = o.x.shape[0], table.shape[1]
+    nee, near = _full_sweep_bounds(counts, n, nf, lin)
+    if not lin:  # the whole test on every face, and the shadow leg of unoccluded rays
+        whole = (_bound(OPS_CLASSIC * nf * (2 * n - counts["occluded"]), 1.0),
+                 _bound(OPS_CLASSIC * nf * n, 1.0))
+        phase("kernels", f"{name}: bound {nee[0]:.4f} ms, nearest {near[0]:.4f} ms; charged "
+                         f"the whole test on every face {whole[0][0]:.4f} / {whole[1][0]:.4f} ms")
+    return {name: nee, name + "'": near}
 
 
 def cornell_nee_off_phase(scene, cam, dev) -> dict:
@@ -652,7 +690,8 @@ def multiroom_path_phase(scene, cam, dev, profile: bool) -> dict:
     # the gate is the frame gate, not bitwise.
     k1 = PathTracer(scene, pt.settings.replace(intersector="pallas"), device=dev,
                     lane_order=pt.lane_order)
-    k1.render(cam, frame_seed=0)
+    k1_launches = _one_frame_launches("multiroom, pallas", k1, cam, seed=0)
+    _expect("multiroom, pallas", k1_launches, {"K1": k1.settings.max_total_depth})
     d = np.abs(first - k1.image()).max(axis=-1)
     within = float((d <= 1e-3).mean())
     phase("multiroom", f"first frame, auto (K3) vs intersector='pallas' (K1): {within:.4%} of "
@@ -669,7 +708,8 @@ def multiroom_path_phase(scene, cam, dev, profile: bool) -> dict:
         raise AssertionError(f"multiroom: auto launched another kernel than K3: {launched}")
     if profile:
         profile_phase("multiroom", pt, cam)
-    return {"pt": pt, "launches": launched, "ms_frame": ms_frame}
+    return {"pt": pt, "launches": launched, "ms_frame": ms_frame,
+            "k1_launches": k1_launches["K1"]}
 
 
 def _gated_passes(o, d, tris, clusters, light, alive):
@@ -741,7 +781,17 @@ def multiroom_kernel_phase(scene, cam, dev, pt: PathTracer) -> dict:
                      f"of (tile, cluster) pairs gated in for the nearest pass, "
                      f"{float(p_any[3].double().mean()):.4f} for the any-hit pass")
     table = ci.face_table(tris)
-    bounds = {**_full_sweep_bounds("K2", cam_o, cam_d, tris, l0, 16), **gated_bounds}
+    k1 = ci.intersect_fused(cam_o, cam_d, tris, light_pos=l0)
+    k1n = ci.intersect_fused(cam_o, cam_d, tris)
+    k1p = ci.intersect_fused_plain(cam_o, cam_d, table, light)
+    torch.cuda.synchronize()
+    _equal_or_raise("K1 on the multiroom camera rays", (*k1, *k1n), (*k1p, *k1p[:2]))
+    errs["K1 (multiroom)"] = max(_max_err(k1[0], k1p[0]), _max_err(k1n[0], k1p[0]))
+    phase("kernels", "multiroom camera rays: K1 (NEE, nearest) equals its plain version bitwise")
+    bounds = {**_sweep_bounds("K2", cam_o, cam_d, tris, l0, lin=True),
+              "K1 (multiroom)": _sweep_bounds("K1 (multiroom)", cam_o, cam_d, tris, l0,
+                                              lin=False)["K1 (multiroom)"],
+              **gated_bounds}
     times = {
         "K3": (_time_ms(lambda: cg._sweep_kernel(*p_near), 20),
                _time_ms(lambda: cg._sweep_plain(*p_near), 3)),
@@ -1055,7 +1105,8 @@ def soup_path_phase(scene, cam, dev, profile: bool) -> dict:
     first = pt.image()
     k1 = PathTracer(scene, pt.settings.replace(intersector="pallas"), device=dev,
                     lane_order=pt.lane_order)
-    k1.render(cam, frame_seed=0)
+    k1_launches = _one_frame_launches(f"{tag}, pallas", k1, cam, seed=0)
+    _expect(f"{tag}, pallas", k1_launches, {"K1": k1.settings.max_total_depth})
     d = np.abs(first - k1.image()).max(axis=-1)
     within = float((d <= 1e-3).mean())
     phase(tag, f"first frame, auto (K4) vs intersector='pallas' (K1): {within:.4%} of pixels "
@@ -1071,7 +1122,8 @@ def soup_path_phase(scene, cam, dev, profile: bool) -> dict:
                              f"other, got {launched}")
     if profile:
         profile_phase(tag, pt, cam)
-    return {"pt": pt, "launches": launched, "ms_frame": ms_frame, "first": first}
+    return {"pt": pt, "launches": launched, "ms_frame": ms_frame, "first": first,
+            "k1_launches": k1_launches["K1"]}
 
 
 def soup_kernel_phase(dev, pt: PathTracer, cam) -> dict:
@@ -1098,11 +1150,24 @@ def soup_kernel_phase(dev, pt: PathTracer, cam) -> dict:
     times["K4 wrapper"] = (
         _time_ms(lambda: cc.intersect_cull(cam_o, cam_d, clusters, light_pos=l0), 5),
         _time_ms(lambda: cc.intersect_cull_plain(cam_o, cam_d, clusters, light_pos=l0), 1))
-    k1 = _time_ms(lambda: ci.intersect_fused(cam_o, cam_d, tris, light_pos=l0), 2)
     phase(tag, f"on {what}: wrapper (sort, candidates, both passes) "
-               f"{times['K4 wrapper'][0]:.4f} ms, plain {times['K4 wrapper'][1]:.4f} ms; "
-               f"K1 (NEE) {k1:.4f} ms")
-    return {"times": times, "errs": chk["errs"]}
+               f"{times['K4 wrapper'][0]:.4f} ms, plain {times['K4 wrapper'][1]:.4f} ms")
+    # K1 (NEE) on the same rays: against its plain version (one call, timed),
+    # timed, and its bound
+    t0 = time.perf_counter()
+    plain_ms, k1p = k1_sweep.time_once(lambda: ci.intersect_fused_plain(
+        cam_o, cam_d, ci.face_table(tris), torch.stack(list(l0))))
+    k1 = ci.intersect_fused(cam_o, cam_d, tris, light_pos=l0)
+    torch.cuda.synchronize()
+    _equal_or_raise("K1 on the soup:100000 camera rays", k1, k1p)
+    errs = {**chk["errs"], "K1 (soup:100000)": _max_err(k1[0], k1p[0])}
+    key = "K1 (soup:100000)"
+    times[key] = (_time_ms(lambda: ci.intersect_fused(cam_o, cam_d, tris, light_pos=l0), 2),
+                  plain_ms, _sweep_bounds(key, cam_o, cam_d, tris, l0, lin=False)[key])
+    phase(tag, f"on {what}: K1 (NEE) {times[key][0]:.4f} ms, equal to its plain version "
+               f"bitwise ({plain_ms:.1f} ms); bound {times[key][2][0]:.4f} ms "
+               f"({times[key][2][1]}); {time.perf_counter() - t0:.1f} s in all")
+    return {"times": times, "errs": errs}
 
 
 # -------------------------------------------------------------- row sweep --
@@ -1707,8 +1772,8 @@ def main() -> None:
     oracle_phase("multiroom", scene_m, cam_m, dev)
     mr = multiroom_path_phase(scene_m, cam_m, dev, profile)
     mk = multiroom_kernel_phase(scene_m, cam_m, dev, mr["pt"])
-    mr_launches, mk_times, mk_errs, mk_bounds = (mr["launches"], mk["times"], mk["errs"],
-                                                 mk["bounds"])
+    mr_launches, mk_times, mk_errs, mk_bounds, mr_k1 = (mr["launches"], mk["times"], mk["errs"],
+                                                        mk["bounds"], mr["k1_launches"])
     grad = multiroom_grad_phase(scene_m, cam_m, dev, mr["pt"], profile)
     lin = lin_path_phase(scene_m, dev, mk)
     mc = multiroom_cull_phase(scene_m, cam_m, dev, mr["pt"])
@@ -1719,7 +1784,7 @@ def main() -> None:
     oracle_phase("soup:100000", scene_s, cam_s, dev, size=64)
     sp = soup_path_phase(scene_s, cam_s, dev, profile)
     sk = soup_kernel_phase(dev, sp["pt"], cam_s)
-    k4_first, sp_launches = sp["first"], sp["launches"]
+    k4_first, sp_launches, sp_k1 = sp["first"], sp["launches"], sp["k1_launches"]
     del sp
     sw = sweep_path_phase(scene_s, cam_s, dev, k4_first, profile)
     swk = sweep_kernel_phase(dev, sw["pt"], cam_s)
@@ -1756,6 +1821,8 @@ def main() -> None:
         ("K1'", K12_SOURCE, nee_off["K1'"], 1),
         ("K2", K12_SOURCE, lin["K2"], 1),
         ("K2'", K12_SOURCE, lin["K2'"], 1),
+        ("K1 (multiroom)", K12_SOURCE, mr_k1, 1),
+        ("K1 (soup:100000)", K12_SOURCE, sp_k1, 1),
         ("K3", K3_SOURCE, mr_launches["K3"], FRAMES),
         ("K3 any-hit", K3_SOURCE, mr_launches["K3 any-hit"], FRAMES),
         ("K4", K4_SOURCE, sp_launches["K4"], FRAMES),
@@ -1778,8 +1845,8 @@ def main() -> None:
     ]
     # No one PyTorch call computes a nearest-hit search or a BVH walk:
     # library_ms is null.
-    if len(rows) != 23:
-        raise AssertionError(f"expected 23 kernel rows, got {len(rows)}")
+    if len(rows) != 25:
+        raise AssertionError(f"expected 25 kernel rows, got {len(rows)}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src,
         "replaces": REPLACES[name] if name in REPLACES else REPLACES[name.split()[0]],

@@ -73,7 +73,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from pbr_tpu_torch.accel.forest import FOREST_MAX_LEAF
-from pbr_tpu_torch.ops.cuda_intersect import _shadow_ray, check_rays, face_table, load
+from pbr_tpu_torch.ops.cuda_intersect import (
+    _shadow_ray,
+    check_rays,
+    face_records,  # noqa: F401 (the walks' record layout, also cuda_bvh.face_records)
+    face_table,
+    load,
+)
 from pbr_tpu_torch.ops.cull import coherence_keys
 from pbr_tpu_torch.ops.intersect import EPS5, INF, moller_trumbore, slab_box
 from pbr_tpu_torch.ops.vec import Vec3
@@ -153,16 +159,6 @@ def node_records(tree) -> torch.Tensor:
     word = torch.where(leaf, (lf << LEAF_COUNT_BITS) | (lc - 1), -1).to(torch.int32)
     return torch.cat([tree.bb_min.T, tree.exit.view(torch.float32)[:, None],
                       tree.bb_max.T, word.view(torch.float32)[:, None]], dim=1).contiguous()
-
-
-def face_records(faces: torch.Tensor) -> torch.Tensor:
-    """The tree walks' (F, 12) float32 face records of a (9, F) face table:
-    48 bytes a face, read as three float4, ``{v0, 0}``, ``{e1, 0}``,
-    ``{e2, 0}``."""
-    nf = faces.shape[1]
-    rec = faces.new_zeros((nf, 3, 4))
-    rec[:, :, :3] = faces.T.reshape(nf, 3, 3)
-    return rec.reshape(nf, 12)
 
 
 class Walk(NamedTuple):

@@ -7,11 +7,17 @@ NEE shadow any-hit) and ``::_kernel`` (nearest hit only) around ``_sweep``;
 K2 is the same pair with ``variant='lin'``, around ``_sweep_lin`` and its
 (16, F) table ``_lin_table``. Both are instances of one template in
 ``pbr_tpu_torch/csrc/brute_intersect.cu``, whose header says what bounds
-them on the card and how the design answers that.
+them on the card and how the design answers that: issue bounds them, so a
+test computes t first, against the ray's running bound, and u and v only
+where t can change the result; the shadow leg stops at a ray's first
+occluder and a block once all its rays are occluded.
 
 - ``intersect_fused(o, d, tris, light_pos=None, variant='mt')`` is the
   wrapper: for CUDA tensors it launches the kernel (or raises); for CPU
-  tensors — and only for them — it runs ``intersect_fused_plain``.
+  tensors — and only for them — it runs ``intersect_fused_plain``. The
+  kernel reads the faces face-major, a face's record as float4s: K1 the
+  (F, 12) ``face_records`` of the (9, F) table, K2 the (16, F) table
+  transposed; the wrapper builds them each call, as it builds the tables.
   ``launches`` counts kernel launches per instance.
 - ``intersect_fused_plain`` is the same function in torch ops: the face
   loop of ``_sweep`` (``variant='mt'``, (9, F) table) or ``_sweep_lin``
@@ -118,6 +124,16 @@ def face_table(tris) -> torch.Tensor:
          tris.e1.x, tris.e1.y, tris.e1.z,
          tris.e2.x, tris.e2.y, tris.e2.z]
     ).contiguous()
+
+
+def face_records(faces: torch.Tensor) -> torch.Tensor:
+    """The (F, 12) float32 face records of a (9, F) face table, 48 bytes a
+    face read as three float4, ``{v0, 0}``, ``{e1, 0}``, ``{e2, 0}``: K1's
+    and the tree walks' layout."""
+    nf = faces.shape[1]
+    rec = faces.new_zeros((nf, 3, 4))
+    rec[:, :, :3] = faces.T.reshape(nf, 3, 3)
+    return rec.reshape(nf, 12)
 
 
 def lin_table(tris) -> torch.Tensor:
@@ -274,6 +290,8 @@ def intersect_fused(o: Vec3, d: Vec3, tris, light_pos=None, variant: str = "mt")
         return intersect_fused_plain(o, d, table, light)
     if dev.type != "cuda":
         raise ValueError(f"intersect_fused runs on CUDA or CPU tensors, not {dev}")
+    # face-major records (K1 (F, 12), K2 (F, 16)), 16-byte aligned
+    rec = table.T.contiguous() if variant == "lin" else face_records(table)
     lib = load("brute_intersect", "pbr_brute_intersect", _ARGTYPES)
     n, nf = o.x.shape[0], table.shape[1]
     t = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -282,7 +300,7 @@ def intersect_fused(o: Vec3, d: Vec3, tris, light_pos=None, variant: str = "mt")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pbr_brute_intersect(
-            *(a.data_ptr() for a in (*o, *d)), table.data_ptr(), nf, rows,
+            *(a.data_ptr() for a in (*o, *d)), rec.data_ptr(), nf, rec.shape[1],
             light.data_ptr() if light is not None else None, n,
             t.data_ptr(), face.data_ptr(), occ.data_ptr(), stream,
         )

@@ -39,7 +39,7 @@ from torch import nn
 
 from pbr_tpu_torch.ops.cuda_cull import compact_table
 from pbr_tpu_torch.ops.cuda_gated import GATE_CLUSTER, gated_table
-from pbr_tpu_torch.ops.cuda_intersect import face_table
+from pbr_tpu_torch.ops.cuda_intersect import face_records, face_table
 from pbr_tpu_torch.ops.vec import Vec3
 from pbr_tpu_torch.scene.types import (
     CameraState,
@@ -130,8 +130,9 @@ class BVHTables(NamedTuple):
     packing of the indices was a Pallas workaround). ``node_records``
     (N, 8) and ``face_records`` (F, 12) float32 are the kernels' packed
     copies of the same values and of the faces the tree indexes
-    (``ops/cuda_bvh.py::node_records``, ``face_records``); ``to_torch``
-    builds them for a scene's tree, and a tree without them has None. A
+    (``ops/cuda_bvh.py::node_records``,
+    ``ops/cuda_intersect.py::face_records``); ``to_torch`` builds them for
+    a scene's tree, and a tree without them has None. A
     forest's ``ForestTables.trees`` has the first five fields with a
     leading (K,) axis; ``ForestTables.tree(i)`` gives sub-tree i with
     views of its records."""
@@ -278,7 +279,7 @@ class SceneParams(nn.Module):
             self.register_buffer("clu_lbb_max", _stack3(cs.lbb_max, device))
         # Imported here: ops/cuda_bvh.py imports accel/, which imports this
         # package.
-        from pbr_tpu_torch.ops.cuda_bvh import face_records, node_records
+        from pbr_tpu_torch.ops.cuda_bvh import node_records
 
         self.has_bvh = scene.bvh is not None
         if self.has_bvh:

@@ -310,27 +310,51 @@ def test_intersect_scene_reeval_and_counts(mode):
         assert occ is not None and torch.all(tests == 2 * nf)
 
 
+def _ceiling_first(tris, device):
+    """``tris`` after a ceiling: face 0 is one large triangle in the plane
+    y = 5, between every point of the box and a light at (0, 10, 0)."""
+    def cat(v, first):
+        return Vec3(*(torch.cat([torch.tensor([f], dtype=torch.float32, device=device), c])
+                      for f, c in zip(first, v)))
+
+    return tris._replace(v0=cat(tris.v0, (-1e3, 5.0, -1e3)), e1=cat(tris.e1, (4e3, 0.0, 0.0)),
+                         e2=cat(tris.e2, (0.0, 0.0, 4e3)), n0=cat(tris.n0, (0.0, -1.0, 0.0)),
+                         n1=cat(tris.n1, (0.0, -1.0, 0.0)), n2=cat(tris.n2, (0.0, -1.0, 0.0)),
+                         mtl=torch.cat([tris.mtl[:1], tris.mtl]))
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """K1 and K2 against their plain versions on the card: t, face and
     occluded bitwise equal (both round every operation the same way: the
-    kernel is built with --fmad=false), over a ragged ray count and several
-    shared-memory chunks of faces."""
+    kernel is built with --fmad=false), over a ragged ray count, face
+    counts on both sides of the kernels' staged chunk (256 faces) and of
+    twice it, and a scene whose every shadow ray is occluded by face 0
+    with more than a chunk of faces after it (the blocks leave the shadow
+    leg early)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernel K1 has no CPU mode")
-    for kind, n in (("cornell", 100_003), ("soup", 4_097)):
-        obj, mtl, li = cornell_box() if kind == "cornell" else (random_soup(1500), "", "")
-        scene, _ = scene_from_text(obj, mtl, li, use_bvh=False)
+    cases = [(_scene("cornell"), 100_003, LIGHT, False)]
+    cases += [(_scene("soup", nf), 4_097, LIGHT, False)
+              for nf in (1500, 1, 255, 256, 257, 511, 512, 513)]
+    cases.append((_scene("soup", 600), 4_097, (0.0, 10.0, 0.0), True))
+    for scene, n, light, occluded in cases:
         tris = to_torch(scene, "cuda").tris
-        o, d = (_t3(a, "cuda") for a in _rays(n=n))
+        o, d = _rays(n=n)
+        if occluded:
+            tris = _ceiling_first(tris, "cuda")
+            d[1] = -np.abs(d[1])  # no hit point on the ceiling
+        o, d = _t3(o, "cuda"), _t3(d, "cuda")
+        lp = Vec3(*(torch.tensor(v, dtype=torch.float32, device="cuda") for v in light))
         for variant, table in (("mt", ci.face_table(tris)), ("lin", ci.lin_table(tris))):
             before = dict(ci.launches)
-            t, f, occ = ci.intersect_fused(o, d, tris, light_pos=_light("cuda"), variant=variant)
+            t, f, occ = ci.intersect_fused(o, d, tris, light_pos=lp, variant=variant)
             t1, f1 = ci.intersect_fused(o, d, tris, variant=variant)
             torch.cuda.synchronize()
             assert sum(ci.launches.values()) == sum(before.values()) + 2
             tp, fp, op = ci.intersect_fused_plain(o, d, table,
-                                                  torch.tensor(LIGHT, device="cuda"))
+                                                  torch.tensor(light, device="cuda"))
             for a, b in ((t, tp), (f, fp), (occ, op), (t1, tp), (f1, fp)):
                 assert torch.equal(a, b)
+            assert bool(occ.all()) or not occluded
             ci.launches.update(before)  # the autouse check counts CPU launches only

@@ -43,6 +43,7 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.tools.k3_tiles",
     "pbr_tpu_torch.tools.k6_chain",
     "pbr_tpu_torch.tools.k6_walk",
+    "pbr_tpu_torch.tools.k1_sweep",
 ])
 def test_import_leaves_jax_out(module):
     out = _run(f"import sys, {module}; print('jax' in sys.modules, 'pbr_tpu' in sys.modules)")

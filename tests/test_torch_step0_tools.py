@@ -1,5 +1,6 @@
-"""The step-0 tools of K3, K4m and K6 (``pbr_tpu_torch/tools/k3_tiles.py``,
-``k4_tiles.py --masked``, ``k6_chain.py``, ``k6_walk.py``), on the CPU:
+"""The step-0 tools of K1/K2, K3, K4m and K6 (``pbr_tpu_torch/tools/
+k1_sweep.py``, ``k3_tiles.py``, ``k4_tiles.py --masked``, ``k6_chain.py``,
+``k6_walk.py``), on the CPU:
 their argument parsing, their clock patch against ``csrc/`` as it stands,
 and their plain-side counts against sweeps and walks written out here.
 The tools' kernel runs need a card."""
@@ -18,13 +19,14 @@ from pbr_tpu_torch.ops.vec import Vec3
 from pbr_tpu_torch.scene.build import scene_from_text
 from pbr_tpu_torch.scene.device import to_torch
 from pbr_tpu_torch.scene.procedural import multi_room, random_soup
-from pbr_tpu_torch.tools import k3_tiles, k4_tiles, k6_chain, k6_walk
+from pbr_tpu_torch.tools import k1_sweep, k3_tiles, k4_tiles, k6_chain, k6_walk
 
 torch.set_num_threads(1)
 
 K3_SOURCE = (ci.CSRC / "gated_intersect.cu").read_text()
 K6_SOURCE = (ci.CSRC / "bvh_packet.cu").read_text()
 K4_SOURCE = (ci.CSRC / "cull_intersect.cu").read_text()
+K1_SOURCE = (ci.CSRC / "brute_intersect.cu").read_text()
 
 
 @pytest.mark.parametrize("source, kernel, tag", [
@@ -50,8 +52,8 @@ def test_clock_patch_finds_each_kernel(source, kernel, tag):
         k3_tiles.clock_patch(source[:lo] + " return; " + source[lo:], "x.cu", kernel, tag)
 
 
-@pytest.mark.parametrize("tool", [k3_tiles, k6_chain, k4_tiles, k6_walk],
-                         ids=["k3_tiles", "k6_chain", "k4_tiles", "k6_walk"])
+@pytest.mark.parametrize("tool", [k3_tiles, k6_chain, k4_tiles, k6_walk, k1_sweep],
+                         ids=["k3_tiles", "k6_chain", "k4_tiles", "k6_walk", "k1_sweep"])
 def test_tool_parses_its_arguments_and_needs_a_card(tool, tmp_path):
     """Each tool refuses an option it does not have, and without a card it
     stops before it builds or writes anything."""
@@ -225,3 +227,104 @@ def test_k4m_pass_counts_match_a_sweep_in_order(pass_i):
     assert 0 <= counts["closed_warps"] <= counts["warps"]
     assert counts["closed_lanes"] >= int((gate.sum(dim=1) * (
         (seed_t > 0) if any_hit else ~(seed_t >= EPS5))).sum()) > 0
+
+
+@pytest.mark.parametrize("early_return", [False, True], ids=["as-built", "early-return"])
+def test_k1_record_patch_finds_the_kernel(early_return):
+    """The record's declaration follows the include once, the setter ends
+    the file, the kernel starts with its clock read and ends with the
+    record, which also comes before each ``return`` (an earlier tree's
+    kernel returned early without NEE); the rest is the source."""
+    source = K1_SOURCE
+    if early_return:
+        lo, _ = k1_sweep._body(source, k1_sweep.KERNEL, k1_sweep.FILE)
+        source = source[:lo] + " if (!NEE) return; " + source[lo:]
+    src = k1_sweep.record_patch(source)
+    assert src.count(k3_tiles._DECL) == 1 and src.endswith(k3_tiles._SETTER)
+    end = k3_tiles._END.replace("@TAG@", "blockIdx.x")
+    lo, hi = k1_sweep._body(src, k1_sweep.KERNEL, k1_sweep.FILE)
+    assert src[lo:hi].startswith(k3_tiles._START) and src[lo:hi].endswith(end)
+    assert src[lo:hi].count(end) == (2 if early_return else 1)
+    src = src.replace("{" + end + "return; }", "return;")
+    for hook in (k3_tiles._DECL, k3_tiles._SETTER, k3_tiles._START, end):
+        src = src.replace(hook, "", 1)
+    assert src == source
+
+
+def test_sass_loops_reads_a_listing():
+    """Two kernels of a cuobjdump listing: the loop between a backward
+    branch and its target, with its instructions, shared loads, float32
+    arithmetic and MUFU; a forward branch is no loop."""
+    listing = """
+        Function : _Z1aPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;   /* 0x0 */
+        /*0010*/                   LDS.128 R4, [R2] ;       /* 0x0 */
+        /*0020*/                   FMUL R5, R4, R6 ;        /* 0x0 */
+        /*0030*/                   FSETP.GT.AND P0, PT, R5, RZ, PT ;
+        /*0040*/              @!P0 BRA 0x70 ;
+        /*0050*/                   MUFU.RCP R7, R5 ;
+        /*0060*/                   FADD R8, R7, R7 ;
+        /*0070*/               @P1 BRA 0x10 ;
+        /*0080*/                   EXIT ;
+        Function : _Z1bPf
+        /*0000*/                   EXIT ;
+"""
+    out = k1_sweep.sass_loops(listing)
+    assert out["_Z1aPf"] == {"instructions": 9, "loops": [
+        {"start": "0x10", "end": "0x70", "instructions": 7, "lds": 1, "fp32": 3, "mufu": 1}]}
+    assert out["_Z1bPf"] == {"instructions": 1, "loops": []}
+
+
+def _brute_in_order(o, d, table, light):
+    """``sweep_counts`` written face by face: the nearest sweep's tests and
+    those whose t can change the result or whose division can be skipped;
+    the shadow sweep's up to each ray's first occluder."""
+    lin = table.shape[0] == 16
+    n, nf = o.x.shape[0], table.shape[1]
+    t_fin, _ = ci.intersect_fused_plain(o, d, table)
+    hit_p, s_dir, t_light = ci._shadow_ray(o, d, t_fin, light)
+    res = dict.fromkeys(("tests", "uv_tests", "skip_tests", "shadow_tests", "shadow_uv_tests",
+                         "shadow_skip_tests"), 0)
+    occ = torch.zeros(n, dtype=torch.bool)
+    for f in range(nf):
+        col = table[:, f, None].expand(table.shape[0], n)
+        for leg, (oo, dd) in (("", (o, d)), ("shadow_", (hit_p, s_dir))):
+            det, tnum = k1_sweep._det_tnum(oo, dd, col)
+            t, valid = k1_sweep._test(oo, dd, col)
+            skip = ~((torch.fmin(det, tnum) > 0.0) | (torch.fmax(det, tnum) < 0.0))
+            on = ~occ if leg else torch.ones(n, dtype=torch.bool)
+            bound = t_fin if not leg else t_light
+            below = (t >= EPS5) & ((t <= bound) if not leg else (t < bound))
+            res[leg + "tests"] += int(on.sum())
+            res[leg + "uv_tests"] += int((on & below).sum())
+            res[leg + "skip_tests"] += int((on & skip).sum())
+            if leg:
+                occ |= on & valid & (t < t_light)
+    return res, occ
+
+
+@pytest.mark.parametrize("form", ["mt", "lin"])
+def test_k1_sweep_counts_match_a_sweep_in_order(form):
+    """``sweep_counts`` (rays a chunk at a time, the first occluder by a
+    minimum) against a sweep written face by face, on multiroom's faces
+    and rays inside its rooms (a ragged last warp); the occluded rays are
+    the plain version's."""
+    scene, _ = scene_from_text(*multi_room(), use_bvh=False)
+    tris = to_torch(scene, "cpu").tris
+    table = ci.lin_table(tris) if form == "lin" else ci.face_table(tris)
+    rng = np.random.default_rng(5)
+    n = 100
+    o = np.stack([rng.uniform(-2.8, 2.8, n), rng.uniform(0.1, 1.9, n),
+                  rng.uniform(-4.8, 0.8, n)]).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    o, d = Vec3(*map(torch.tensor, o)), Vec3(*map(torch.tensor, d))
+    light = torch.tensor([0.0, 1.75, 0.0])
+    got = k1_sweep.sweep_counts(o, d, table, light)
+    want, occ = _brute_in_order(o, d, table, light)
+    assert {k: got[k] for k in want} == want
+    assert torch.equal(occ, ci.intersect_fused_plain(o, d, table, light)[2])
+    assert got["occluded"] == int(occ.sum()) and got["warps"] == 4
+    pad = torch.cat([occ, torch.ones(28, dtype=torch.bool)])
+    assert got["occluded_warps"] == int(pad.reshape(-1, 32).all(dim=1).sum())
+    assert 0 < got["skip_tests"] < got["tests"] and 0 < got["uv_tests"] < got["tests"]
