@@ -148,7 +148,33 @@ read just after; a kernel of the path that did not launch fails the run.
      against intersect_bvh_chunked), with its kernel time, plain time and
      bound (the per-ray walk's node steps x 25 operations and face tests x
      51, against the tables' and rays' bytes; one bound for the seeded
-     chain's sub-trees together).
+     chain's sub-trees together);
+7. the app layer (``pbr_tpu_torch.app``, run in-process as ``app.main``
+   on the card; its files under build/pbr_tpu_torch/app/):
+   - ``render`` on the Cornell box at 1024², FRAMES frames with --stats
+     --heatmap --depth-out --checkpoint: K1 launches once a bounce of each
+     frame, of the first frame's two lane-order probes and of the heatmap's
+     trace, and nothing else launches; the three PNGs have the frame's
+     size; the image equals PathTracer's frames of the same seeds
+     (bitwise, else the frame gate); ms/frame; then one resumed frame with
+     --denoise (sample_count FRAMES + 1, the feature pass one K1' launch)
+     and its denoise ms; then ``render --scene multiroom`` (K3 only);
+   - the denoiser (first_hit_features + noise_filter) at 128² on the card
+     against the port's CPU path, the frame gate;
+   - ``fit`` on the Cornell box at 64², 60 steps: final loss at most a
+     quarter of the first, max albedo error at most 0.1, no step raising
+     the loss, ms/step; ``fit --scene multiroom`` at 1024², STEPS steps
+     (K3 and K3 any-hit), ms/step and peak memory;
+   - the ``gemm`` mode on the Cornell box's 1M camera rays against K1'
+     (faces agree on more than 99.5% of rays, t within 1e-4 where they
+     do), ms per call beside K1''s, its chunk and peak memory; a 1024²
+     frame through it (no kernel of the port launches) against the K1
+     frame, the frame gate;
+   - ``view`` at 256² with the keys 'wasdl' over 6 frames: 4 restarts,
+     sample_count 3, light mode on, K1 once a bounce of each frame and of
+     the two probes.
+   The app's numbers are one JSON line {"app": ...} before the kernels'
+   line.
 
 Every failure raises, so the exit code is not 0. The last two lines of
 standard output are the kernels' JSON record (with each kernel's bound: the
@@ -168,6 +194,7 @@ sys.modules["jax"] = None  # the port must run where JAX is absent ...
 sys.modules["pbr_tpu"] = None  # ... and imports nothing of the JAX package
 
 import json  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 from concurrent.futures import ThreadPoolExecutor  # noqa: E402
@@ -176,7 +203,7 @@ from pathlib import Path  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from pbr_tpu_torch import PathTracer, camera_to_torch, to_torch, trace_rays  # noqa: E402
+from pbr_tpu_torch import PathTracer, app, camera_to_torch, to_torch, trace_rays  # noqa: E402
 from pbr_tpu_torch.accel import native  # noqa: E402
 from pbr_tpu_torch.accel.forest import build_forest  # noqa: E402
 from pbr_tpu_torch.models.integrator import _gen_rays  # noqa: E402
@@ -185,11 +212,13 @@ from pbr_tpu_torch.ops import cuda_cull as cc  # noqa: E402
 from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
 from pbr_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from pbr_tpu_torch.ops import cuda_sweep as cs  # noqa: E402
+from pbr_tpu_torch.ops import gemm_intersect as gi  # noqa: E402
 from pbr_tpu_torch.ops import traverse as tt  # noqa: E402
+from pbr_tpu_torch.ops.denoise import first_hit_features, noise_filter  # noqa: E402
 from pbr_tpu_torch.ops.intersect import EPS5  # noqa: E402
 from pbr_tpu_torch.ops.rng import PixelRng  # noqa: E402
 from pbr_tpu_torch.ops.vec import Vec3  # noqa: E402
-from pbr_tpu_torch.scene.build import scene_from_text  # noqa: E402
+from pbr_tpu_torch.scene.build import apply_scene_constants, scene_from_text  # noqa: E402
 from pbr_tpu_torch.scene.camera import make_camera_state  # noqa: E402
 from pbr_tpu_torch.scene.device import ForestTables  # noqa: E402
 from pbr_tpu_torch.scene.procedural import (  # noqa: E402
@@ -201,6 +230,7 @@ from pbr_tpu_torch.scene.procedural import (  # noqa: E402
 from pbr_tpu_torch.scene.types import TrianglesSoA  # noqa: E402
 from pbr_tpu_torch.tools import k1_sweep, k3_tiles, k4_tiles, k5_rows  # noqa: E402
 from pbr_tpu_torch.utils.config import RenderSettings  # noqa: E402
+from pbr_tpu_torch.utils.image import read_png  # noqa: E402
 
 SIZE = 1024
 WARMUP, FRAMES, STEPS = 2, 8, 3
@@ -1729,6 +1759,204 @@ def tree_kernel_phase(dev, pt, cam, pt10k, cam10k) -> dict:
 
 
 
+# ------------------------------------------------------------------- app --
+
+# Where the app phase's CLI runs write (git-ignored, emptied at the start).
+APP_DIR = Path(__file__).resolve().parent / "build" / "pbr_tpu_torch" / "app"
+FIT_STEPS, FIT_SIZE, VIEW_SIZE = 60, 64, 256
+
+
+def _cli(tag: str, argv: list, dev) -> tuple:
+    """``app.main(argv)`` on ``dev``, in-process, with the launch counts set
+    to 0 just before it and read just after; returns (its result, the
+    launches, seconds)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = app.main([*argv, "--device", str(dev)])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched = {k: v for k, v in counts().items() if v}
+    phase(tag, f"app {' '.join(argv)}: {sec:.3f} s, launches {launched}")
+    return res, launched, sec
+
+
+def app_render_phase(cam, dev, size: int = SIZE) -> dict:
+    """``render`` on the Cornell box (FRAMES frames with --stats --heatmap
+    --depth-out --checkpoint), then one resumed frame with --denoise, then
+    ``render --scene multiroom``."""
+    tag = "app render"
+    shutil.rmtree(APP_DIR, ignore_errors=True)
+    APP_DIR.mkdir(parents=True)
+    png = {k: str(APP_DIR / f"{k}.png") for k in ("cornell", "depth", "heat", "resumed",
+                                                   "multiroom")}
+    ck = str(APP_DIR / "checkpoint")
+    common = ["render", "--scene", "cornell", "--size", str(size)]
+    res, launched, _ = _cli(tag, [*common, "--frames", str(FRAMES), "--out", png["cornell"],
+                                  "--depth-out", png["depth"], "--heatmap", png["heat"],
+                                  "--checkpoint", ck, "--stats"], dev)
+    pt = res["tracer"]
+    depth = pt.settings.max_total_depth
+    # K1 once a bounce: each frame, the first frame's two lane-order probes
+    # and the heatmap's full-width trace.
+    _expect(tag, launched, {"K1": depth * (FRAMES + 3)})
+    for k in ("cornell", "depth", "heat"):
+        shape = read_png(png[k]).shape
+        if shape != (size, size, 3):
+            raise AssertionError(f"{tag}: {png[k]} is {shape}")
+    # The same frames through PathTracer: the CLI's scene (with its BVH:
+    # the config's accel_struct) and settings.
+    scene, objd = scene_from_text(*cornell_box())
+    settings = apply_scene_constants(RenderSettings(width=size, height=size, shadow_rays=1,
+                                                    compact_schedule="auto"), objd)
+    ref = PathTracer(scene, settings, device=dev)
+    for i in range(FRAMES):
+        ref.render(cam, frame_seed=i)
+    n_diff = int((res["image"] != ref.image()).any(axis=-1).sum())
+    phase(tag, f"CLI image vs PathTracer frames 0-{FRAMES - 1}: {n_diff} pixels differ")
+    if n_diff:
+        _frame_vs(tag, "CLI image vs PathTracer", res["image"], ref.image())
+    phase(tag, f"{size}² Cornell: {res['ms_frame']:.3f} ms/frame (host clock over "
+               f"{FRAMES - 1} frames, synchronised)")
+
+    res2, launched2, _ = _cli(tag, [*common, "--frames", "1", "--out", png["resumed"],
+                                    "--checkpoint", ck, "--denoise", "--stats"], dev)
+    n = res2["tracer"].sample_count
+    if n != FRAMES + 1 or not np.isfinite(res2["image"]).all():
+        raise AssertionError(f"{tag}: resumed sample_count {n}, expected {FRAMES + 1}")
+    # The denoiser's feature pass is one nearest-only sweep (K1').
+    _expect(tag + " resumed", launched2, {"K1": depth * 3, "K1'": 1})
+    denoise_ms = {row[0]: row[2] for row in res2["timers"].rows()}["denoise"]
+    phase(tag, f"resumed at sample_count {n}; {size}² denoise (features + filter) "
+               f"{denoise_ms:.3f} ms")
+
+    res3, launched3, _ = _cli(tag, ["render", "--scene", "multiroom", "--size", str(size),
+                                    "--frames", "2", "--out", png["multiroom"]], dev)
+    depth3 = res3["tracer"].settings.max_total_depth
+    # The CLI renders multiroom without NEE (shadow_rays 0, the config's).
+    _expect(tag + " multiroom", launched3, {"K3": depth3 * (2 + 2)})
+    if read_png(png["multiroom"]).shape != (size, size, 3):
+        raise AssertionError(f"{tag}: multiroom image has the wrong size")
+    return {"ms_frame": res["ms_frame"], "denoise_ms": denoise_ms,
+            "multiroom_ms_frame": res3["ms_frame"]}
+
+
+def app_denoise_phase(scene, cam, dev, size: int = 128) -> None:
+    """The denoiser on the card (first_hit_features + noise_filter) against
+    the port's CPU path on the same noisy frame."""
+    host = PathTracer(scene, bench_settings(size), device="cpu", lane_order="scanline")
+    host.render(cam, frame_seed=3)
+    noisy = np.ascontiguousarray(host.image()[::-1])  # pixel-row order
+    out = {}
+    for dv in (dev, "cpu"):
+        feats = first_hit_features(to_torch(scene, dv), camera_to_torch(cam, dv),
+                                   bench_settings(size))
+        out[str(dv)] = noise_filter(torch.tensor(noisy, device=dv), *feats).cpu().numpy()
+    _frame_vs("app denoise", f"{size}² features + filter, card vs CPU", out[str(dev)],
+              out["cpu"])
+
+
+def app_fit_phase(dev, size: int = FIT_SIZE, steps: int = FIT_STEPS, big: int = SIZE) -> dict:
+    """``fit`` on the Cornell box (it must converge), then ``fit --scene
+    multiroom`` at full width for STEPS steps, with its peak memory."""
+    tag = "app fit"
+    res, launched, _ = _cli(tag, ["fit", "--scene", "cornell", "--size", str(size), "--steps",
+                                  str(steps)], dev)
+    losses = res["losses"] + [res["final_loss"]]
+    rises = [i for i, (a, b) in enumerate(zip(losses, losses[1:])) if b > a]
+    phase(tag, f"{size}² Cornell, {steps} steps: loss {losses[0]:.6f} -> {res['final_loss']:.6f} "
+               f"({res['final_loss'] / losses[0]:.4f} of the first), max albedo error "
+               f"{res['kd_err']:.4f}, {sum(res['accepted'])} steps accepted, "
+               f"{res['ms_step']:.3f} ms/step")
+    if set(launched) != {"K1"}:
+        raise AssertionError(f"{tag}: expected only K1 launches, got {launched}")
+    if res["final_loss"] > 0.25 * losses[0] or res["kd_err"] > 0.1 or rises:
+        raise AssertionError(f"{tag}: no convergence (rises at steps {rises})")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res2, launched2, _ = _cli(tag, ["fit", "--scene", "multiroom", "--size", str(big),
+                                    "--steps", str(STEPS)], dev)
+    peak = torch.cuda.max_memory_allocated() - base
+    phase(tag, f"{big}² multiroom, {STEPS} steps: {res2['ms_step']:.3f} ms/step, peak memory "
+               f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before, loss "
+               f"{res2['losses'][0]:.6f} -> {res2['final_loss']:.6f}")
+    if set(launched2) != {"K3", "K3 any-hit"} or launched2["K3"] != launched2["K3 any-hit"]:
+        raise AssertionError(f"{tag}: expected K3's two instances alike, got {launched2}")
+    if not np.isfinite(res2["final_loss"]) or res2["final_loss"] > res2["losses"][0]:
+        raise AssertionError(f"{tag}: multiroom loss rose")
+    return {"ms_step": res["ms_step"], "loss_first": losses[0], "loss_final": res["final_loss"],
+            "kd_err": res["kd_err"], "multiroom_ms_step": res2["ms_step"],
+            "multiroom_peak_mib": peak / 2**20}
+
+
+def app_gemm_phase(scene, cam, dev, k1: dict, k1_ms: float, size: int = SIZE) -> dict:
+    """The ``gemm`` mode on the Cornell box's camera rays against K1's
+    nearest instance (faces and t), timed, with its chunk and peak memory;
+    then one frame through it against the K1 frame."""
+    tag = "app gemm"
+    o, d, tris = k1["o"], k1["d"], k1["tris"]
+    t_k, f_k = ci.intersect_fused(o, d, tris)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_g, f_g = gi.intersect_gemm(o, d, tris)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    agree = f_g == f_k
+    share = float(agree.float().mean())
+    both = agree & torch.isfinite(t_k)
+    t_bad = int(((t_g - t_k).abs() > 1e-4 + 1e-4 * t_k.abs())[both].sum())
+    # The caller's TF32 setting changes nothing: the product runs in full
+    # float32, and the setting comes back as it was.
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    try:
+        matmul.allow_tf32 = True
+        t_32, f_32 = gi.intersect_gemm(o, d, tris)
+        restored = matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = saved
+    if not (restored and torch.equal(t_32, t_g) and torch.equal(f_32, f_g)):
+        raise AssertionError(f"{tag}: the caller's TF32 setting changed the product")
+    ms = _time_ms(lambda: gi.intersect_gemm(o, d, tris), 5)
+    feats, w = gi.ray_features(o, d), gi.triangle_coefficients(tris)
+    with gi.full_float32():
+        product_ms = _time_ms(lambda: feats @ w, 5)
+    nf = int(tris.mtl.shape[0])
+    phase(tag, f"{o.x.shape[0]} camera rays x {nf} faces: faces agree with K1' on {share:.4%}, "
+               f"{t_bad} agreeing rays with t off by more than 1e-4, bitwise the same with "
+               f"TF32 asked for; {ms:.4f} ms per call, of which the (B, 16) x (16, {4 * nf}) "
+               f"product {product_ms:.4f} ms (K1' {k1_ms:.4f} ms), chunk {gi.chunk_rays(nf)} "
+               f"rays, peak memory {peak / 2**20:.1f} MiB")
+    if share <= 0.995 or t_bad:
+        raise AssertionError(f"{tag}: gemm disagrees with K1")
+    ref = PathTracer(scene, bench_settings(size), device=dev, lane_order="scanline")
+    ref.render(cam, frame_seed=0)
+    pt = PathTracer(scene, bench_settings(size, intersector="gemm"), device=dev,
+                    lane_order="scanline")
+    _expect(tag, _one_frame_launches(tag, pt, cam, seed=0), {})  # cuBLAS, no kernel of ours
+    _frame_vs(tag, "a frame through 'gemm' vs K1", pt.image(), ref.image())
+    return {"ms": ms, "product_ms": product_ms, "k1_nearest_ms": k1_ms,
+            "chunk_rays": gi.chunk_rays(nf),
+            "peak_mib": peak / 2**20, "faces_agree": share}
+
+
+def app_view_phase(dev, size: int = VIEW_SIZE) -> dict:
+    """``view`` with a key script: 'wasd' move the camera (4 restarts of
+    the accumulation), 'l' toggles light mode, then 2 frames accumulate."""
+    tag = "app view"
+    v, launched, sec = _cli(tag, ["view", "--scene", "cornell", "--size", str(size), "--frames",
+                                  "6", "--keys", "wasdl", "--no-draw"], dev)
+    got = (v.frame, v._resets, v.tracer.sample_count, v.move_light)
+    phase(tag, f"frames, restarts, sample_count, light mode: {got}; startup {v.startup}")
+    if got != (6, 4, 3, True):
+        raise AssertionError(f"{tag}: expected (6, 4, 3, True), got {got}")
+    # K1 once a bounce: 6 frames and the first frame's two lane-order probes.
+    _expect(tag, launched, {"K1": v.tracer.settings.max_total_depth * (6 + 2)})
+    return {"s": sec}
+
+
 def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
     """Device time by kernel over one frame, or over one call of ``step``
     (torch.profiler)."""
@@ -1802,6 +2030,14 @@ def main() -> None:
     s10 = soup10k_phase(dev)
     tk = {**tree_kernel_phase(dev, tp["k7"]["pt"], cam_s, s10["pt"], s10["cam"]),
           **tp["k8"]["shadow"]}
+    del tp["k7"]["pt"], s10["pt"]
+
+    ap = {"device": smi, "render": app_render_phase(cam, dev)}
+    app_denoise_phase(scene, cam, dev)
+    ap["fit"] = app_fit_phase(dev)
+    ap["gemm"] = app_gemm_phase(scene, cam, dev, k1, corn["times"]["K1'"][0])
+    ap["view"] = app_view_phase(dev)
+    print(json.dumps({"app": ap}), flush=True)
     phase("done", f"all phases passed on {smi}")
 
     t = {**corn["times"], **mk_times, **mc["times"], **sk["times"], **msw["times"],

@@ -12,17 +12,22 @@ scenes come from the port's own NumPy host layer (``scene/``, ``io/``,
 
 Package layout (each module mirrors its ``pbr_tpu`` counterpart)
 ----------------------------------------------------------------
+- ``app.py``   the command line (``python -m pbr_tpu_torch.app render|fit|view``)
+- ``viewer.py`` the terminal viewer
 - ``ops/``     SoA vec math, counter RNG, intersection math, BRDFs, the
                intersect dispatch, the cull verdicts and candidate lists,
-               and the kernels' wrappers and plain versions
+               the kernels' wrappers and plain versions, the ``gemm`` mode
+               and the denoiser
 - ``csrc/``    kernel sources (CUDA C++), built with nvcc at first use, and
                the native BVH builder (C++, built with g++ at first use)
 - ``models/``  the wavefront integrator and the progressive ``PathTracer``
 - ``scene/``   scene types, OBJ assembly, procedural scenes, the camera,
                and ``device.py``: NumPy scene and camera -> tensors
 - ``io/``      OBJ/MTL/.lights parsing and ``load_model``
-- ``accel/``   BVH builders (NumPy and native) and the cluster tables
-- ``utils/``   settings, logging, Morton pixel order
+- ``accel/``   BVH builders (NumPy and native), the cluster tables and the
+               BVH/light overlays
+- ``utils/``   settings, logging, Morton pixel order, PNG/PPM, npz
+               checkpoints, the stage timer
 """
 
 from pbr_tpu_torch.models.integrator import trace_rays  # noqa: F401

@@ -23,8 +23,10 @@ port has so far:
   kernel K8, ``pallas_bvh`` kernel K6, ``pallas_bvh_forest`` K6's seeded
   chain over the scene's forest and ``pallas_bvh_hbm`` kernel K7
   (``ops/cuda_bvh.py``); ``brute`` is the plain sweep for CPU tensors only
-  (on a card the sweep is K1). On a CPU tensor every kernel's wrapper
-  runs its plain version.
+  (on a card the sweep is K1); ``gemm`` is the sweep as one matrix
+  product a chunk of rays (``ops/gemm_intersect.py``: ``torch.matmul`` in
+  full float32 on either device, no kernel of the port's own). On a CPU
+  tensor every kernel's wrapper runs its plain version.
 - ``auto`` mirrors the JAX package's TPU dispatch
   (``pbr_tpu/ops/traverse.py:424-435``) so that both packages run the same
   algorithm on the same scene, on either device: clusters and
@@ -33,11 +35,7 @@ port has so far:
   takes K1 (the plain sweep on a CPU tensor); above it a scene with a
   forest takes ``pallas_bvh_forest`` and one with a BVH and no forest
   ``bvh``. K1 serves the rest: a big scene with neither. ``auto`` never
-  picks ``sweep``, as in the JAX package.
-
-The GEMM form (``gemm``) is not ported yet; asking for it raises
-``NotImplementedError`` naming its ROADMAP item. Nothing is substituted
-silently.
+  picks ``sweep`` or ``gemm``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -47,14 +45,10 @@ import torch
 from pbr_tpu_torch.accel.forest import FOREST_MAX_LEAF
 from pbr_tpu_torch.ops import cuda_bvh, cuda_cull, cuda_gated, cuda_intersect, cuda_sweep
 from pbr_tpu_torch.ops.cull import coherence_keys
+from pbr_tpu_torch.ops.gemm_intersect import intersect_gemm
 from pbr_tpu_torch.ops.intersect import INF, gather_vec3, moller_trumbore
 from pbr_tpu_torch.ops.vec import Vec3
 
-# JAX dispatch modes that have no port yet, with the ROADMAP item that
-# ports each.
-_NOT_PORTED = {
-    "gemm": '"The `gemm` mode", ops/gemm_intersect.py',
-}
 _TREE_MODES = ("bvh", "pallas_bvh", "pallas_bvh_forest", "pallas_bvh_hbm")
 
 # The gated band of ``auto``, and ``cull`` above it: the bounds of the JAX
@@ -133,8 +127,9 @@ def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False
     (kernel K1, the port of the TPU kernel of that name),
     'bvh' (K8), 'pallas_bvh' (K6), 'pallas_bvh_forest' (K6 seeded),
     'pallas_bvh_hbm' (K7) — on a CPU tensor their wrappers run the plain
-    versions — or 'brute' (the plain sweep, CPU tensors only: on a card the
-    sweep is K1). Raises for modes the port does not have."""
+    versions — 'gemm' (the sweep as a matrix product, either device; never
+    picked by 'auto') or 'brute' (the plain sweep, CPU tensors only: on a
+    card the sweep is K1). Raises for unknown modes."""
     if mode == "auto":
         if has_clusters and GATED_MIN_FACES < n_faces <= GATED_MAX_FACES:
             return "gated"
@@ -150,13 +145,8 @@ def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False
             f"intersector 'brute' is the plain sweep for CPU tensors; on a "
             f"{device.type} device use 'auto' or 'pallas' (kernel K1)"
         )
-    if mode in ("brute", "pallas", "gated", "cull", "sweep", *_TREE_MODES):
+    if mode in ("brute", "pallas", "gated", "cull", "sweep", "gemm", *_TREE_MODES):
         return mode
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"intersector mode {mode!r} is not ported to pbr_tpu_torch yet "
-            f"(ROADMAP.md, {_NOT_PORTED[mode]})"
-        )
     raise ValueError(f"unknown intersector mode {mode!r}")
 
 
@@ -186,13 +176,14 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
 
     ``with_counts``: also return ``(tests, visits)`` last, per-ray int32
     counters, as in the JAX package: ``tests`` is F, or 2F with the fused
-    shadow leg, on the full sweeps, the exact executed real-face tests
-    on 'gated', and on 'sweep' the faces its rows' verdicts ask for
-    (``cuda_sweep.intersect_sweep``, both passes; early-out savings not
-    subtracted); on 'bvh' both are exact (the reference's two debug
-    channels); a sweep visits no nodes, so its ``visits`` is None; 'cull',
-    the packet walks and the forest count nothing (None, None): their
-    tile- or warp-dynamic work is not a per-ray count.
+    shadow leg, on the full sweeps (F on 'gemm', which has no fused leg),
+    the exact executed real-face tests on 'gated', and on 'sweep' the
+    faces its rows' verdicts ask for (``cuda_sweep.intersect_sweep``, both
+    passes; early-out savings not subtracted); on 'bvh' both are exact
+    (the reference's two debug channels); a sweep visits no nodes, so its
+    ``visits`` is None; 'cull', the packet walks and the forest count
+    nothing (None, None): their tile- or warp-dynamic work is not a
+    per-ray count.
     """
     mode = resolve_mode(mode, o.x.device, int(tris.mtl.shape[0]), clusters is not None,
                         bvh is not None, forest is not None)
@@ -259,6 +250,8 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
             occ = out[2]
         if with_counts:
             counts = out[-1]
+    elif mode == "gemm":
+        _, face = intersect_gemm(o_s, d_s, tris_s)
     elif mode == "pallas":
         if light_pos is not None:
             _, face, occ = cuda_intersect.intersect_fused(o_s, d_s, tris_s, light_pos=light_s)
@@ -277,7 +270,7 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
     if light_pos is not None:
         out.append(occ)
     if with_counts:
-        if mode in ("brute", "pallas"):  # the full sweeps test every face, twice with NEE
+        if mode in ("brute", "pallas", "gemm"):  # every face, twice with a fused NEE leg
             counts = face.new_full(face.shape, int(tris.mtl.shape[0]) * (2 if occ is not None else 1))
         out.append((counts, visits))
     return tuple(out)

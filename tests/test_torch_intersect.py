@@ -241,8 +241,14 @@ def test_dispatch_modes():
     with pytest.raises(ValueError, match="'auto' or 'pallas'"):
         tt.resolve_mode("brute", cuda)
     assert tt.resolve_mode("sweep", dev) == tt.resolve_mode("sweep", cuda) == "sweep"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.resolve_mode("gemm", dev)
+    # 'gemm' (the sweep as a matrix product) resolves on either device and
+    # runs: its faces are the brute sweep's on all but grazing rays.
+    assert tt.resolve_mode("gemm", dev) == tt.resolve_mode("gemm", cuda) == "gemm"
+    tris = to_torch(_scene(), "cpu").tris
+    o, d = _rays(n=2048, seed=5)
+    _, f_g = tt.intersect_scene(_t3(o), _t3(d), tris, mode="gemm")
+    _, f_b = tt.intersect_scene(_t3(o), _t3(d), tris, mode="brute")
+    assert (f_g == f_b).float().mean() > 0.995
     with pytest.raises(ValueError):
         tt.resolve_mode("nonsense", dev)
 

@@ -44,6 +44,15 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.tools.k6_chain",
     "pbr_tpu_torch.tools.k6_walk",
     "pbr_tpu_torch.tools.k1_sweep",
+    "pbr_tpu_torch.app",
+    "pbr_tpu_torch.viewer",
+    "pbr_tpu_torch.ops.denoise",
+    "pbr_tpu_torch.ops.gemm_intersect",
+    "pbr_tpu_torch.utils.image",
+    "pbr_tpu_torch.utils.checkpoint",
+    "pbr_tpu_torch.utils.profiling",
+    "pbr_tpu_torch.accel.visualize",
+    "pbr_tpu_torch.tools.colormatrix",
 ])
 def test_import_leaves_jax_out(module):
     out = _run(f"import sys, {module}; print('jax' in sys.modules, 'pbr_tpu' in sys.modules)")
@@ -127,3 +136,22 @@ def test_multiroom_renders_with_jax_blocked():
         "print(mode, img.shape, bool(np.isfinite(img).all()), float(img.mean()) > 0.0)\n"
     )
     assert out.strip().splitlines()[-1] == "gated (8, 8, 3) True True"
+
+
+def test_cli_runs_with_jax_blocked(tmp_path):
+    """The port's CLI (``python -m pbr_tpu_torch.app``) without JAX or the
+    JAX package: an 8x8 render, a 2-step fit and a 2-frame scripted view on
+    ``--device cpu``."""
+    out = tmp_path / "r.png"
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['pbr_tpu'] = None\n"
+        "from pbr_tpu_torch import app\n"
+        f"app.main(['render', '--size', '8', '--frames', '2', '--out', {str(out)!r},\n"
+        "          '--device', 'cpu'])\n"
+        "r = app.main(['fit', '--size', '8', '--steps', '2', '--device', 'cpu'])\n"
+        "v = app.main(['view', '--size', '8', '--frames', '2', '--keys', 'w', '--no-draw',\n"
+        "              '--device', 'cpu'])\n"
+        "print(len(r['losses']), v.frame)\n"
+    )
+    assert _run(code).strip().splitlines()[-1] == "2 2"
+    assert out.stat().st_size > 0

@@ -31,6 +31,7 @@ from pbr_tpu_torch.models.pathtracer import (
     schedule_cost,
 )
 from pbr_tpu_torch.ops import cuda_gated
+from pbr_tpu_torch.scene.build import scene_from_text as port_scene_from_text
 
 # The suite runs in parallel worker processes; torch's default of one
 # thread per core in each of them oversubscribes the machine (measured: a
@@ -311,9 +312,22 @@ def test_phong_tessellation_is_refused(cornell):
 
 
 def test_unported_intersector_is_refused(cornell):
-    scene, cam = cornell
+    """Every intersector of the JAX package is ported ('gemm' renders, below);
+    what is still unported is refused where a scene is built: Phong
+    tessellation, whose intersection is the unported ops/phongtess.py."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trace(scene, cam, _bench_settings(8, intersector="gemm"), 0)
+        port_scene_from_text(*cornell_box(), use_bvh=False, phong_tess_alpha=0.5)
+
+
+def test_gemm_intersector_renders(cornell):
+    """intersector='gemm' (the sweep as a matrix product; NEE through the
+    separate shadow search) renders the brute sweep's frame within the frame
+    gate."""
+    scene, cam = cornell
+    settings = _bench_settings(16)
+    got = _rgb(_trace(scene, cam, settings.replace(intersector="gemm"), 2), settings)
+    assert np.isfinite(got).all()
+    _assert_close(got, _rgb(_trace(scene, cam, settings, 2), settings))
 
 
 def _gated_spy(monkeypatch):

@@ -435,13 +435,18 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
 
 
 def test_dispatch_runs_sweep_and_gemm_still_raises():
-    """'sweep' resolves on either device and 'auto' never picks it; 'gemm'
-    is the one mode left unported."""
+    """'sweep' and 'gemm' resolve on either device and 'auto' picks
+    neither (every mode is ported; test_torch_render.py holds the refusal
+    of what is not, Phong tessellation); 'gemm' runs on the soup and finds
+    the brute sweep's faces on all but grazing rays."""
     for dev in (torch.device("cpu"), torch.device("cuda")):
         assert traverse.resolve_mode("sweep", dev, 100_000, True) == "sweep"
+        assert traverse.resolve_mode("gemm", dev, 100_000, True) == "gemm"
         assert traverse.resolve_mode("auto", dev, 100_000, True) == "cull"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            traverse.resolve_mode("gemm", dev)
+    (o, d, _), _, _, ts = _inputs("masked-alive-nee")
+    _, f_g = traverse.intersect_scene(o, d, ts.tris, mode="gemm")
+    _, f_b = traverse.intersect_brute(o, d, ts.tris)
+    assert (f_g == f_b).float().mean() > 0.995
 
 
 @pytest.mark.parametrize("name", ["masked-alive-nee", "sorted-early-out-alive-nee"])
