@@ -175,6 +175,29 @@ read just after; a kernel of the path that did not launch fails the run.
      the two probes.
    The app's numbers are one JSON line {"app": ...} before the kernels'
    line.
+8. Phong tessellation (``ops/phongtess.py``; torch ops, as the JAX
+   package's XLA, so no kernel of the port launches): the Cornell box and
+   a smooth 24 x 12 sphere (562 faces, 9 clusters of 64 over the
+   curved-patch-inflated bounds) at alpha 0.8 with bench.py's settings:
+   a 64² card frame against the port's CPU frame (at least 99% of pixels
+   within 1e-3, no NaN); the 64² card gradients against the CPU's; the
+   first 1024² frame, compacted, bitwise the full-width frame; after it,
+   PHONG_FRAMES timed frames, then one profiled frame (launches and
+   device time a frame), with the peak memory; one cluster search pass
+   on the 1M camera rays and on 1M rays in the box, timed, with its
+   rounds and tile-rounds and the chunk; no launch of the 25 kernel rows
+   in any of it; then the first frame against the same scene built and
+   rendered flat (alpha 0: K1), which must differ;
+9. sharding (``pbr_tpu_torch.parallel``): 2 ranks spawned on the one card
+   over gloo (NCCL refuses two ranks on one device): Cornell at 1024² as
+   dp=2 (bitwise the unsharded frame) and sp=2 (within 1e-6 of the mean
+   of the two shard seeds' frames), and one dp=2 training step (loss and
+   gradients within 1e-4 of their largest magnitude of one process's);
+   then a one-rank NCCL group through sharded_render (bitwise the
+   unsharded frame). Every spawn is joined under SHARD_TIMEOUT. The ranks'
+   times show that the code runs on the card, not how it scales.
+   The Phong and sharded numbers are one JSON line {"phong": ...,
+   "sharded": ...} before the kernels' line.
 
 Every failure raises, so the exit code is not 0. The last two lines of
 standard output are the kernels' JSON record (with each kernel's bound: the
@@ -213,11 +236,21 @@ from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
 from pbr_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from pbr_tpu_torch.ops import cuda_sweep as cs  # noqa: E402
 from pbr_tpu_torch.ops import gemm_intersect as gi  # noqa: E402
+from pbr_tpu_torch.ops import phongtess  # noqa: E402
 from pbr_tpu_torch.ops import traverse as tt  # noqa: E402
 from pbr_tpu_torch.ops.denoise import first_hit_features, noise_filter  # noqa: E402
 from pbr_tpu_torch.ops.intersect import EPS5  # noqa: E402
 from pbr_tpu_torch.ops.rng import PixelRng  # noqa: E402
 from pbr_tpu_torch.ops.vec import Vec3  # noqa: E402
+from pbr_tpu_torch.parallel.mesh import (  # noqa: E402
+    _leaf_camera,
+    _shard_seed,
+    make_mesh,
+    render_params,
+    sharded_render,
+    sharded_train_step,
+)
+from pbr_tpu_torch.parallel.multihost import shard_index_map, spawn_ranks  # noqa: E402
 from pbr_tpu_torch.scene.build import apply_scene_constants, scene_from_text  # noqa: E402
 from pbr_tpu_torch.scene.camera import make_camera_state  # noqa: E402
 from pbr_tpu_torch.scene.device import ForestTables  # noqa: E402
@@ -550,14 +583,14 @@ def cornell_kernel_phase(scene, cam, dev) -> dict:
     return {"errs": errs, "tris": ts.tris, "o": cam_o, "d": cam_d, "light": l0}
 
 
-def oracle_phase(tag: str, scene, cam, dev, size: int = 128) -> None:
+def oracle_phase(tag: str, scene, cam, dev, size: int = 128, **kw) -> None:
     """The card's path (auto, probed schedule and lane order, compaction on
     the device) against the CPU's (plain versions, full width, scanline),
-    at ``size``²."""
-    pt = PathTracer(scene, bench_settings(size, compact_schedule="auto"), device=dev)
+    at ``size``² (``kw``: settings, such as Phong tessellation)."""
+    pt = PathTracer(scene, bench_settings(size, compact_schedule="auto", **kw), device=dev)
     pt.render(cam, frame_seed=5)
     got = pt.image()
-    host = PathTracer(scene, bench_settings(size), device="cpu", lane_order="scanline")
+    host = PathTracer(scene, bench_settings(size, **kw), device="cpu", lane_order="scanline")
     host.render(cam, frame_seed=5)
     ref = host.image()
     if np.isnan(got).any():
@@ -884,6 +917,44 @@ def _grads(ts, cam_t, settings, ids, weights=None) -> tuple:
     return loss, grads, res.color.stack().detach()
 
 
+def _grads_card_vs_cpu(tag: str, scene, cam, dev, settings: RenderSettings) -> None:
+    """The card's gradients of bench.py's step against the CPU path's, over
+    the pixels whose colors agree within 1e-3 (a ULP of a transcendental
+    can flip a path's discrete decision, and a flipped pixel has another
+    gradient): every parameter within 1e-3 of its largest magnitude."""
+    size = settings.width
+    out = {}
+    for dv in (dev, "cpu"):
+        tsd = to_torch(scene, dv).requires_grad_()
+        cd = camera_to_torch(cam, dv)
+        for c in cd.eye:
+            c.requires_grad_()
+        out[str(dv)] = (tsd, cd, torch.arange(size * size, dtype=torch.int32, device=dv))
+    names = [n for n, _ in out["cpu"][0].named_parameters()] + ["eye.x", "eye.y", "eye.z"]
+    with torch.no_grad():  # _grads' seed
+        col = {k: trace_rays(*v[:2], settings, v[2], 1).color.stack().cpu().numpy()
+               for k, v in out.items()}
+    agree = (np.abs(col[str(dev)] - col["cpu"]).max(axis=1) <= 1e-3)
+    if agree.mean() < 0.99:
+        raise AssertionError(f"{tag}: {size}² colors: only {agree.mean():.4%} of pixels agree")
+    w = torch.tensor(agree.astype(np.float32))
+    g_card = _grads(*out[str(dev)][:2], settings, out[str(dev)][2], w.to(dev))[1]
+    g_cpu = _grads(*out["cpu"][:2], settings, out["cpu"][2], w)[1]
+    worst = 0.0
+    for name, a, b in zip(names, g_card, g_cpu):
+        a, b = a.cpu().double(), b.double()
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        tol = 1e-3 * scale + 1e-5
+        worst = max(worst, err / tol if tol else 0.0)
+        if err > tol:
+            raise AssertionError(f"{tag}: {size}² gradient {name}: card vs CPU max |diff| "
+                                 f"{err} > {tol}")
+    phase(tag, f"{size}² gradients, card vs CPU, over the {agree.mean():.4%} of pixels "
+               f"whose colors agree: every parameter within 1e-3 of its largest "
+               f"magnitude (worst at {worst:.3f} of that bound)")
+
+
 def multiroom_grad_phase(scene, cam, dev, pt: PathTracer, profile: bool) -> dict:
     """Path "multiroom, forward+backward" at 1024², then the card's 64²
     gradients against the CPU's."""
@@ -919,36 +990,8 @@ def multiroom_grad_phase(scene, cam, dev, pt: PathTracer, profile: bool) -> dict
                       lambda: _grads(ts, cam_t, pt.settings, pt.pixel_ids))
     ts.requires_grad_(False)
 
-    # 64²: the card's gradients against the CPU path's, over the pixels
-    # whose colors agree within 1e-3 (a ULP of a transcendental can flip a
-    # path's discrete decision, and a flipped pixel has another gradient).
-    settings = bench_settings(64, no_transparency=pt.settings.no_transparency)
-    out = {}
-    for dv in (dev, "cpu"):
-        tsd = to_torch(scene, dv).requires_grad_()
-        cd = camera_to_torch(cam, dv)
-        for c in cd.eye:
-            c.requires_grad_()
-        out[str(dv)] = (tsd, cd, torch.arange(64 * 64, dtype=torch.int32, device=dv))
-    col = {k: _grads(*v[:2], settings, v[2])[2].cpu().numpy() for k, v in out.items()}
-    agree = (np.abs(col[str(dev)] - col["cpu"]).max(axis=1) <= 1e-3)
-    if agree.mean() < 0.99:
-        raise AssertionError(f"64² colors: only {agree.mean():.4%} of pixels agree")
-    w = torch.tensor(agree.astype(np.float32))
-    g_card = _grads(*out[str(dev)][:2], settings, out[str(dev)][2], w.to(dev))[1]
-    g_cpu = _grads(*out["cpu"][:2], settings, out["cpu"][2], w)[1]
-    worst = 0.0
-    for name, a, b in zip(names, g_card, g_cpu):
-        a, b = a.cpu().double(), b.double()
-        scale = float(b.abs().max()) if b.numel() else 0.0
-        err = float((a - b).abs().max()) if b.numel() else 0.0
-        tol = 1e-3 * scale + 1e-5
-        worst = max(worst, err / tol if tol else 0.0)
-        if err > tol:
-            raise AssertionError(f"64² gradient {name}: card vs CPU max |diff| {err} > {tol}")
-    phase("fwd+bwd", f"64² gradients, card vs CPU, over the {agree.mean():.4%} of pixels "
-                     f"whose colors agree: every parameter within 1e-3 of its largest "
-                     f"magnitude (worst at {worst:.3f} of that bound)")
+    _grads_card_vs_cpu("fwd+bwd", scene, cam, dev,
+                       bench_settings(64, no_transparency=pt.settings.no_transparency))
     return {"launches": launched, "ms_step": ms_step, "peak": peak}
 
 
@@ -1956,6 +1999,271 @@ def app_view_phase(dev, size: int = VIEW_SIZE) -> dict:
     _expect(tag, launched, {"K1": v.tracer.settings.max_total_depth * (6 + 2)})
     return {"s": sec}
 
+# ----------------------------------------------------------------- Phong --
+
+PHONG_ALPHA, PHONG_FRAMES = 0.8, 2
+
+
+def cornell_sphere(rings: int = 12, segments: int = 24, center=(-0.45, 0.3, 0.45),
+                   radius: float = 0.3):
+    """The Cornell box with every face given its flat normal as ``vn``, and
+    a smooth UV sphere (``segments`` x ``rings``: 528 faces, radial vertex
+    normals) on the floor: (obj, mtl, lights) text. A mesh keeps its vertex
+    normals only when every face has them."""
+    obj, mtl, lights = cornell_box()
+    verts = [[float(c) for c in ln.split()[1:4]] for ln in obj.splitlines()
+             if ln.startswith("v ")]
+    out, normals = [], []
+    for ln in obj.splitlines():
+        if ln.startswith("f "):
+            a, b, c = (int(i) - 1 for i in ln.split()[1:4])
+            p = np.array([verts[a], verts[b], verts[c]])
+            n = np.cross(p[1] - p[0], p[2] - p[0])
+            normals.append(n / np.linalg.norm(n))
+            k = len(normals)
+            out.append(f"f {a + 1}//{k} {b + 1}//{k} {c + 1}//{k}")
+        else:
+            out.append(ln)
+    out += [f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}" for n in normals]
+    base_v, base_n = len(verts), len(normals)
+    dirs = [(0.0, 1.0, 0.0)]
+    for j in range(1, rings):
+        th = np.pi * j / rings
+        dirs += [(np.sin(th) * np.cos(2 * np.pi * i / segments), np.cos(th),
+                  np.sin(th) * np.sin(2 * np.pi * i / segments)) for i in range(segments)]
+    dirs.append((0.0, -1.0, 0.0))
+    out.append("usemtl white")
+    for x, y, z in dirs:
+        out.append(f"v {center[0] + radius * x:.6f} {center[1] + radius * y:.6f} "
+                   f"{center[2] + radius * z:.6f}")
+        out.append(f"vn {x:.6f} {y:.6f} {z:.6f}")
+    idx = lambda k: f"{base_v + k + 1}//{base_n + k + 1}"  # noqa: E731
+    ring = lambda j, i: 1 + (j - 1) * segments + i % segments  # noqa: E731
+    last = len(dirs) - 1
+    for i in range(segments):
+        out.append(f"f {idx(0)} {idx(ring(1, i + 1))} {idx(ring(1, i))}")
+        out.append(f"f {idx(last)} {idx(ring(rings - 1, i))} {idx(ring(rings - 1, i + 1))}")
+        for j in range(1, rings - 1):
+            a, b, c, d = ring(j, i), ring(j, i + 1), ring(j + 1, i + 1), ring(j + 1, i)
+            out.append(f"f {idx(a)} {idx(b)} {idx(c)}")
+            out.append(f"f {idx(a)} {idx(c)} {idx(d)}")
+    return "\n".join(out) + "\n", mtl, lights
+
+
+def _phong_pass(tag: str, what: str, o, d, ts) -> dict:
+    """One cluster search pass (``intersect_clusters_phongtess``) timed, with
+    its rounds and tile-rounds."""
+    stats = {}
+    phongtess.intersect_clusters_phongtess(o, d, ts.clusters, ts.tris, PHONG_ALPHA, stats=stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    face = phongtess.intersect_clusters_phongtess(o, d, ts.clusters, ts.tris, PHONG_ALPHA)[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    tiles = -(-o.x.shape[0] // 128)
+    phase(tag, f"cluster search on {what} ({o.x.shape[0]} rays, chunk "
+               f"{phongtess.PHONG_CHUNK_RAYS}): {ms:.1f} ms, {stats['rounds']} rounds, "
+               f"{stats['tile_rounds']} tile-rounds ({stats['tile_rounds'] / tiles:.2f} a tile), "
+               f"{float((face >= 0).float().mean()):.4f} hit")
+    return {"ms": ms, **stats, "tiles": tiles}
+
+
+def phong_phase(cam, dev, size: int = SIZE) -> dict:
+    """Path "phong": the Cornell box and a smooth sphere (562 faces, 9
+    clusters of 64 over the curved-patch-inflated bounds) at alpha 0.8 with
+    bench.py's settings. No kernel of the port launches: the search is torch
+    ops (ops/phongtess.py), as in the JAX package's XLA."""
+    tag = "phong"
+    scene, _ = scene_from_text(*cornell_sphere(), use_bvh=True, phong_tess_alpha=PHONG_ALPHA)
+    curved = int((~phongtess.face_is_flat(to_torch(scene, "cpu").tris)).sum())
+    phase(tag, f"{scene.tris.count} faces ({curved} curved), {scene.clusters.bb_min.x.shape[0]} "
+               f"clusters of {scene.clusters.size} (real and padding), BVH {scene.bvh.count} "
+               f"nodes, alpha {PHONG_ALPHA}")
+    kw = dict(phong_tessellation=PHONG_ALPHA)
+    t0 = time.perf_counter()
+    sec = {}
+
+    def lap(what):
+        nonlocal t0
+        sec[what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    zero_counts()
+    oracle_phase(tag, scene, cam, dev, size=64, **kw)
+    lap("64² frames")
+    _grads_card_vs_cpu(tag, scene, cam, dev, bench_settings(64, **kw))
+    lap("64² gradients")
+    pt = _first_frame_checks(tag, scene, cam, dev, **kw)
+    first = pt.image()
+    lap("first frame, compacted and full width")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(1, 1 + PHONG_FRAMES):
+        pt.render(cam, frame_seed=i)
+    end.record()
+    end.synchronize()
+    ms_frame = start.elapsed_time(end) / PHONG_FRAMES
+    peak = torch.cuda.max_memory_allocated()
+    img = pt.image()
+    if not np.isfinite(img).all() or not 0.05 < float(img.mean()) < 5.0:
+        raise AssertionError(f"{tag}: implausible image: mean {img.mean()}")
+    lap("timed frames")
+    n_launch, dev_ms, ours_ms, prof_wall = _device_launches(
+        lambda: pt.render(cam, frame_seed=1 + PHONG_FRAMES))
+    lap("profiled frame")
+    ts = pt.scene
+    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)
+    passes = {"camera": _phong_pass(tag, "the camera rays", cam_o, cam_d, ts),
+              "bounce": _phong_pass(tag, "1M rays in the box",
+                                    *_rays_in_box(BOUNCE_RAYS, 5, dev), ts)}
+    lap("passes")
+    launched = {k: v for k, v in counts().items() if v}
+    phase(tag, f"{size}²: {ms_frame:.1f} ms/frame over {PHONG_FRAMES} frames after the first, "
+               f"peak memory {peak / 2**20:.1f} MiB; one more frame under the profiler "
+               f"({prof_wall:.1f} ms): {n_launch} kernel launches, {dev_ms:.1f} ms of device "
+               f"time ({dev_ms / ms_frame:.1%} of a timed frame); the port's kernels: "
+               f"{launched}")
+    if launched or ours_ms:
+        raise AssertionError(f"{tag}: kernels of the port launched: {launched}, {ours_ms} ms")
+    # The same scene built and rendered flat (alpha 0: K1): the feature
+    # changes the image.
+    flat_scene, _ = scene_from_text(*cornell_sphere(), use_bvh=True)
+    flat = PathTracer(flat_scene, bench_settings(size), device=dev, lane_order=pt.lane_order)
+    flat.render(cam, frame_seed=0)
+    moved = float((np.abs(first - flat.image()).max(axis=-1) > 1e-3).mean())
+    phase(tag, f"first frame vs the flat scene's: {moved:.4%} of pixels differ by more than 1e-3")
+    if moved < 0.005:
+        raise AssertionError(f"{tag}: alpha {PHONG_ALPHA} barely changed the image ({moved})")
+    lap("flat frame")
+    phase(tag, "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sec.items()))
+    return {"ms_frame": ms_frame, "frames": PHONG_FRAMES, "launches_per_frame": n_launch,
+            "device_ms_per_frame": dev_ms, "profiled_frame_ms": prof_wall,
+            "peak_mib": peak / 2**20,
+            "chunk_rays": phongtess.PHONG_CHUNK_RAYS, "passes": passes,
+            "pixels_moved_by_alpha": moved, "seconds": sec}
+
+
+# --------------------------------------------------------------- sharded --
+
+SHARD_DIR = Path(__file__).resolve().parent / "build" / "pbr_tpu_torch" / "shard"
+SHARD_SEED, SHARD_TIMEOUT = 3, 600.0
+
+
+def shard_rank(rank: int, size: int, seed: int, target, dev) -> dict:
+    """A spawned rank of the sharded phase, on ``dev`` with gloo: the
+    Cornell box at ``size``² as a dp=2 and an sp=2 frame, then one dp=2
+    training step; the results go back to the parent."""
+    scene, cam = cornell()
+    ts, cam_t = to_torch(scene, dev), camera_to_torch(cam, dev)
+    settings = bench_settings(size)
+    out = {}
+    for n_dp, n_sp in ((2, 1), (1, 2)):
+        mesh = make_mesh(n_dp, n_sp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        color, _ = sharded_render(mesh, ts, cam_t, settings, seed)
+        torch.cuda.synchronize()
+        out[f"{n_dp}x{n_sp}"] = (shard_index_map(mesh, size * size)[rank],
+                                 color.stack().cpu().numpy(), (time.perf_counter() - t0) * 1e3)
+    mesh = make_mesh(2, 1)
+    t0 = time.perf_counter()
+    loss, grads, _ = sharded_train_step(mesh, ts, cam_t, settings, target, seed)
+    torch.cuda.synchronize()
+    out["train"] = (float(loss), {k: g.cpu().numpy() for k, g in grads.items()},
+                    (time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def nccl_rank(rank: int, size: int, seed: int, dev):
+    """A one-rank NCCL group: the Cornell frame through sharded_render."""
+    scene, cam = cornell()
+    color, _ = sharded_render(make_mesh(1, 1), to_torch(scene, dev), camera_to_torch(cam, dev),
+                              bench_settings(size), seed)
+    return torch.distributed.get_backend(), color.stack().cpu().numpy()
+
+
+def _spawn(fn, world: int, args, dev, backend) -> tuple:
+    """``spawn_ranks`` on ``dev`` with a fresh rendezvous file; the kernels
+    are built already, so the ranks only load them."""
+    SHARD_DIR.mkdir(parents=True, exist_ok=True)
+    rdv = SHARD_DIR / "rendezvous"
+    rdv.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    res = spawn_ranks(fn, world, f"file://{rdv}", args=(*args, str(dev)), device=str(dev),
+                      backend=backend, timeout=SHARD_TIMEOUT)
+    return res, time.perf_counter() - t0
+
+
+def sharded_phase(dev, size: int = SIZE) -> dict:
+    """Path "sharded" (pbr_tpu_torch/parallel): 2 spawned ranks on the one
+    card over gloo (NCCL refuses two ranks on one device) against one
+    process: dp=2 bitwise the unsharded frame, sp=2 within 1e-6 of the mean
+    of the two shard seeds' frames, one dp=2 step's loss and gradients
+    within 1e-4 of their largest magnitude; then a one-rank NCCL group
+    through sharded_render, bitwise the unsharded frame. The times show
+    that the code runs on the card; two ranks sharing one card say nothing
+    of scaling, and NCCL across cards is not measured."""
+    tag = "sharded"
+    scene, cam = cornell()
+    ts, cam_t = to_torch(scene, dev), camera_to_torch(cam, dev)
+    settings = bench_settings(size)
+    npx = size * size
+    ids = torch.arange(npx, dtype=torch.int32, device=dev)
+    frames = [trace_rays(ts, cam_t, settings, ids, _shard_seed(SHARD_SEED, k)).color.stack()
+              .cpu().numpy() for k in range(2)]
+    target = np.full((npx, 3), 0.5, dtype=np.float32)
+    res, sec = _spawn(shard_rank, 2, (size, SHARD_SEED, target), dev, "gloo")
+    dp = np.full((npx, 3), np.nan, dtype=np.float32)
+    for r in res:
+        sl, color, _ = r["2x1"]
+        dp[sl] = color
+    n_dp = int((dp != frames[0]).any(axis=1).sum())
+    mean = (frames[0] + frames[1]) / 2.0
+    sp_err = max(float(np.abs(r["1x2"][1] - mean).max()) for r in res)
+    # One process's step: the loss of the frame of shard seed 0.
+    ts.requires_grad_()
+    leaf = _leaf_camera(cam_t)
+    params = render_params(ts, leaf)
+    color = trace_rays(ts, leaf, settings, ids, _shard_seed(SHARD_SEED, 0)).color.stack()
+    loss = ((color - torch.tensor(target, device=dev)) ** 2).sum() / float(3 * npx)
+    loss_1 = float(loss.detach())
+    ref = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    ref = {k: (torch.zeros_like(p) if g is None else g).cpu().numpy()
+           for (k, p), g in zip(params.items(), ref)}
+    ts.requires_grad_(False)
+    worst = 0.0
+    for r in res:
+        got_loss, got, _ = r["train"]
+        worst = max(worst, abs(got_loss - loss_1) / abs(loss_1))
+        for k, g in ref.items():
+            scale = float(np.abs(g).max()) if g.size else 0.0
+            if scale:
+                worst = max(worst, float(np.abs(got[k] - g).max()) / scale)
+    times = {k: [round(r[k][-1], 1) for r in res] for k in ("2x1", "1x2", "train")}
+    phase(tag, f"2 gloo ranks on one card, {size}² Cornell ({sec:.1f} s with start-up): dp=2 "
+               f"vs the unsharded frame {n_dp} pixels differ; sp=2 vs the mean of the two "
+               f"seeds' frames max |diff| {sp_err:.3g}; dp=2 step vs one process: loss "
+               f"{res[0]['train'][0]:.6f} vs {loss_1:.6f}, worst relative error "
+               f"{worst:.3g}; ms per rank {times} (not a scaling figure: two ranks share one "
+               f"card)")
+    if n_dp or sp_err > 1e-6 or worst > 1e-4:
+        raise AssertionError(f"{tag}: dp {n_dp} pixels, sp {sp_err}, step {worst}")
+    ((backend, color),), sec1 = _spawn(nccl_rank, 1, (size, SHARD_SEED), dev, None)
+    n_nccl = int((color != frames[0]).any(axis=1).sum())
+    phase(tag, f"one-rank {backend} group ({sec1:.1f} s with start-up): sharded_render vs the "
+               f"unsharded frame: {n_nccl} pixels differ")
+    if backend != "nccl" or n_nccl:
+        raise AssertionError(f"{tag}: the {backend} frame differs on {n_nccl} pixels")
+    return {"dp2_pixels_differ": n_dp, "sp2_max_abs_err": sp_err, "step_max_rel_err": worst,
+            "rank_ms": times, "spawn_s": sec, "nccl_pixels_differ": n_nccl}
+
+
+# The port's kernels' names, as the profiler shows them.
+PORT_KERNELS = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "rows_kernel",
+                "packet_kernel", "chain_kernel", "slab_kernel", "walk_kernel")
+
 
 def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
     """Device time by kernel over one frame, or over one call of ``step``
@@ -1974,14 +2282,32 @@ def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
     rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     total = sum(r[1] for r in rows)
-    names = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "rows_kernel",
-             "packet_kernel", "chain_kernel", "slab_kernel", "walk_kernel")
-    ours = sum(r[1] for r in rows if any(k in r[0] for k in names))
+    ours = sum(r[1] for r in rows if any(k in r[0] for k in PORT_KERNELS))
     phase("profile", f"{tag}: device time over one {'frame' if step is None else 'step'}: "
                      f"{total / 1e3:.3f} ms in {sum(r[2] for r in rows)} kernel launches; "
                      f"the port's kernels {ours / 1e3:.3f} ms")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         phase("profile", f"{us / 1e3:9.3f} ms {count:6d}x {key[:100]}")
+
+
+def _device_launches(fn) -> tuple:
+    """(kernel launches, their device ms, the port's kernels' ms, wall ms)
+    over one call of ``fn``: torch.profiler with CUDA activity only, read
+    from its raw events (a Phong frame launches over a million kernels,
+    too many for its per-operator tables)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ev = [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA and not e.name().startswith(("Memcpy", "Memset"))]
+    ours = sum(ns for name, ns in ev if any(k in name for k in PORT_KERNELS))
+    return len(ev), sum(ns for _, ns in ev) / 1e6, ours / 1e6, wall
 
 
 def main() -> None:
@@ -2038,6 +2364,8 @@ def main() -> None:
     ap["gemm"] = app_gemm_phase(scene, cam, dev, k1, corn["times"]["K1'"][0])
     ap["view"] = app_view_phase(dev)
     print(json.dumps({"app": ap}), flush=True)
+    print(json.dumps({"device": smi, "phong": phong_phase(cam, dev),
+                      "sharded": sharded_phase(dev)}), flush=True)
     phase("done", f"all phases passed on {smi}")
 
     t = {**corn["times"], **mk_times, **mc["times"], **sk["times"], **msw["times"],

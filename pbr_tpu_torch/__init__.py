@@ -16,8 +16,10 @@ Package layout (each module mirrors its ``pbr_tpu`` counterpart)
 - ``viewer.py`` the terminal viewer
 - ``ops/``     SoA vec math, counter RNG, intersection math, BRDFs, the
                intersect dispatch, the cull verdicts and candidate lists,
-               the kernels' wrappers and plain versions, the ``gemm`` mode
-               and the denoiser
+               the kernels' wrappers and plain versions, the ``gemm`` mode,
+               the denoiser and Phong tessellation (``phongtess.py``)
+- ``parallel/`` pixel (dp) and sample (sp) sharding on ``torch.distributed``,
+               one process a device
 - ``csrc/``    kernel sources (CUDA C++), built with nvcc at first use, and
                the native BVH builder (C++, built with g++ at first use)
 - ``models/``  the wavefront integrator and the progressive ``PathTracer``

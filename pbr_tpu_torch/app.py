@@ -80,7 +80,8 @@ def _load_scene(spec: str, settings, bvh_cfg=None):
         raise SystemExit(f"unknown scene spec: {spec}")
     objd = parse_obj(obj, mtl=parse_mtl(mtl) if mtl else None,
                      lights=parse_lights(li) if li else [])
-    scene = build_scene(objd, bvh_cfg=bvh_cfg, use_bvh=use_bvh)
+    scene = build_scene(objd, bvh_cfg=bvh_cfg, use_bvh=use_bvh,
+                        phong_tess_alpha=settings.phong_tessellation)
     return scene, apply_scene_constants(settings, objd)
 
 

@@ -28,7 +28,10 @@ def load_model(
     t = Timer()
     obj = parse_obj_file(path, load_lights=settings.shadow_rays > 0)
     use_bvh = settings.accel_struct == ACCEL_BVH
-    scene = build_scene(obj, bvh_cfg=bvh_cfg, use_bvh=use_bvh)
+    # The Phong alpha goes to the build: a tree over flat bounds would cull
+    # the patches' bulges (the JAX package's load_model does not pass it).
+    scene = build_scene(obj, bvh_cfg=bvh_cfg, use_bvh=use_bvh,
+                        phong_tess_alpha=settings.phong_tessellation)
     settings = apply_scene_constants(settings, obj)
     Logger.info(f"[loader] Loaded model '{path}' in {t.s():.3g} s.")
     return scene, settings, obj

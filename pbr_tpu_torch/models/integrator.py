@@ -4,7 +4,9 @@ The counterpart of ``pbr_tpu/models/integrator.py::trace_rays``: the whole
 ray batch advances together through generate (camera rays, AA jitter,
 thin-lens DoF), intersect (``ops/traverse.py``: kernel K1, kernel K3
 over the cluster verdicts on a scene in the gated band, kernel K4 over
-the candidate lists above it, or a BVH walk, K6, K7 or K8), and shade (NEE,
+the candidate lists above it, or a BVH walk, K6, K7 or K8; with Phong
+tessellation the curved-patch search of ``ops/phongtess.py``, torch ops as
+in the JAX version's XLA), and shade (NEE,
 BRDF sample, throughput update, Russian roulette), with per-ray liveness
 as masks. Same estimator, same quirks,
 same counter-based RNG, so the port's frame agrees with the NumPy oracle
@@ -42,6 +44,12 @@ from pbr_tpu_torch.ops.brdf import (
     schlick_sample,
 )
 from pbr_tpu_torch.ops.intersect import INF, gather_vec3, geometric_normal, sphere
+from pbr_tpu_torch.ops.phongtess import (
+    face_is_flat,
+    intersect_scene_phongtess,
+    patch_constants,
+    phongtess_normal,
+)
 from pbr_tpu_torch.ops.rng import (
     S_AA_PHI,
     S_AA_R,
@@ -229,13 +237,22 @@ def _orb_pass(o, d, lights, t_geom):
     return torch.where(torch.isfinite(t_geom), -1, orb_idx)
 
 
-def _shadow_occluded(tris, hit_p, l_dir, t_light, casts, mode, tables):
+def _shadow_occluded(tris, hit_p, l_dir, t_light, casts, mode, tables, pt_alpha=0.0):
     """Any-hit shadow test (traverseShadows, pt_bvh.cl:133-177): occluded
     iff some geometry hit lies closer than the light. Used when the
     intersector has no fused shadow leg; ``casts``: the lanes whose bit the
     caller reads (``ops/traverse.py::occluded_scene``: the per-ray BVH walk
     runs kernel K8's any-hit instance on those lanes only, the plain sweep
-    a second nearest-hit search over every lane)."""
+    a second nearest-hit search over every lane). With Phong tessellation
+    (``pt_alpha`` > 0) the shadow ray tests the curved patches too: the
+    nearest Phong search, then t < t_light. The JAX version searches every
+    lane there; the port closes the lanes that cast no shadow ray (the
+    cluster search's ``alive``), whose bit is never read."""
+    if pt_alpha > 0.0:
+        t_sh = intersect_scene_phongtess(hit_p, l_dir, tris, pt_alpha, bvh=tables["bvh"],
+                                         clusters=tables["clusters"],
+                                         max_leaf=tables["max_leaf"], alive=casts)[0]
+        return t_sh < t_light
     return occluded_scene(hit_p, l_dir, t_light, tris, mode=mode, alive=casts, **tables)
 
 
@@ -276,12 +293,12 @@ def trace_rays(
     ``prev_t``: the previous frame's first-hit distances, or None;
     ``max_leaf``: the faces a leaf of the scene's BVH may hold
     (``scene/build.py::bvh_max_leaf``), for the tree walks.
+
+    ``settings.phong_tessellation`` > 0 traces curved patches
+    (``ops/phongtess.py``; build the scene with the same
+    ``phong_tess_alpha``) and ignores ``settings.intersector``, as the JAX
+    version does.
     """
-    if settings.phong_tessellation > 0.0:
-        raise NotImplementedError(
-            "phong_tessellation > 0 is not ported to pbr_tpu_torch yet "
-            '(ROADMAP.md, "Phong tessellation", ops/phongtess.py)'
-        )
     dev = pixel_ids.device
     ids = pixel_ids
     px = (ids % settings.width).to(torch.float32)
@@ -296,6 +313,8 @@ def trace_rays(
     # The acceleration tables every intersect call of the frame takes.
     tables = dict(clusters=scene.clusters, bvh=scene.bvh, forest=scene.forest,
                   max_leaf=max_leaf)
+    pt_alpha = float(settings.phong_tessellation)
+    flat = face_is_flat(tris) if pt_alpha > 0.0 else None
     mats = scene.materials
     lights = scene.lights
     num_lights = lights.count
@@ -344,7 +363,15 @@ def trace_rays(
 
         # ---- intersect -----------------------------------------------------
         occ_fused = None
-        if nee_enabled:
+        pt_u = pt_v = None
+        if pt_alpha > 0.0:
+            # Curved patches: the BVH walk or the cluster search over bounds
+            # inflated at build time, the all-faces sweep without a BVH.
+            t, face, pt_u, pt_v = intersect_scene_phongtess(
+                o, d, tris, pt_alpha, bvh=scene.bvh, clusters=scene.clusters,
+                max_leaf=max_leaf, alive=alive)
+            out = ((None, None),)  # no counters, as in the JAX version
+        elif nee_enabled:
             l0 = Vec3(lights.pos.x[0], lights.pos.y[0], lights.pos.z[0])
             out = intersect_scene(o, d, tris, mode=settings.intersector, light_pos=l0,
                                   alive=alive, with_counts=with_stats, **tables)
@@ -390,8 +417,17 @@ def trace_rays(
         m_d, m_ni, m_rough, m_p, m_nu, m_nv, m_rs, m_rd, m_kd, m_ks = (
             _gather_materials(mats, midx)
         )
-        normal = geometric_normal(gather_vec3(tris.e1, face_safe),
-                                  gather_vec3(tris.e2, face_safe))
+        e1 = gather_vec3(tris.e1, face_safe)
+        e2 = gather_vec3(tris.e2, face_safe)
+        normal = geometric_normal(e1, e2)
+        if pt_u is not None:
+            # A curved winner's shading normal (getPhongTessNormal,
+            # pt_utils.cl:282-294).
+            v0 = gather_vec3(tris.v0, face_safe)
+            n1, n2, n3 = (gather_vec3(n, face_safe) for n in (tris.n0, tris.n1, tris.n2))
+            consts = patch_constants(v0, v0 + e1, v0 + e2, n1, n2, n3, pt_alpha)
+            normal = where3(flat[face_safe], normal,
+                            phongtess_normal(d, n1, n2, n3, *consts, pt_u, pt_v))
 
         # ---- path extension decision (extendDepth, pt_utils.cl:89-96) ------
         rb = rng.at(s, depth)
@@ -417,7 +453,7 @@ def trace_rays(
             occluded = occ_fused
             if occluded is None:
                 occluded = _shadow_occluded(tris, hit_p, l_dir, t_light, casts,
-                                            settings.intersector, tables)
+                                            settings.intersector, tables, pt_alpha)
             nee_ok = casts & ~occluded
             if with_stats:
                 n_shadow = n_shadow + casts.sum()

@@ -10,13 +10,13 @@ and K4m, ``ops/cuda_cull.py``) and the row sweep (kernels K5 and K5m,
 ``_part1by2`` of ``pbr_tpu/ops/traverse.py``), the near-to-far candidate
 lists ``candidates``, and the row sweep's per-row lists
 ``candidates_rows`` and verdict words ``row_hit_words`` (with
-``_row_minmax_v``, here ``_tile_bounds``). In the JAX package this stage
-is plain XLA, not Pallas, so here it is plain torch ops on any device.
-Every verdict is conservative: a cluster that any live ray of a tile could
-hit is set; extra clusters cost sweep work, never a wrong answer.
-
-Only ``candidates_fine``, the lists of the Phong-tessellated path, waits
-for the slice that ports Phong tessellation (ROADMAP.md, "Phong tessellation").
+``_row_minmax_v``, here ``_tile_bounds``), and the fine lists of the
+Phong-tessellated search (``candidates_fine``, read by
+``ops/phongtess.py::intersect_clusters_phongtess``). In the JAX package
+this stage is plain XLA, not Pallas, so here it is plain torch ops on any
+device. Every verdict is conservative: a cluster that any live ray of a
+tile could hit is set; extra clusters cost sweep work, never a wrong
+answer.
 """
 
 from __future__ import annotations
@@ -225,6 +225,31 @@ def candidates(o: Vec3, d: Vec3, clusters, tile: int, t_cap=None):
     ok = torch.gather(hit_f, 1, cand)
     cand = torch.where(ok, cand, cand + CAND_MISS).to(torch.int32)
     return cand, counts2 * SUPER, tent
+
+
+def candidates_fine(o: Vec3, d: Vec3, clusters, tile: int, t_cap=None):
+    """Per-tile candidate lists over the fine clusters, near-to-far: the
+    Phong-tessellated cluster search's input
+    (``pbr_tpu/ops/cull.py::candidates_fine``). No supercluster expansion
+    and no miss bit: the search runs one cluster a tile a round, and a
+    slot it cannot hit would waste a whole round.
+
+    Arguments as ``candidates``. Returns ``(cand, counts, tent)``: ``cand``
+    (T, C) int32 fine cluster ids ordered by their entry bound (stable
+    argsort: ties keep ascending ids), padding slots repeating the last
+    valid entry; ``counts`` (T,) int32 valid entries; ``tent`` (T, C)
+    float32 each slot's entry lower bound, 3e38 on padding slots.
+    """
+    c = clusters.bb_min.x.shape[0]
+    hit, t_entry = frustum_hits(*_tile_bounds(o, d, tile), clusters.bb_min, clusters.bb_max,
+                                t_cap)
+    counts = hit.sum(dim=1, dtype=torch.int32)
+    order = torch.argsort(torch.where(hit, t_entry, _BIG), dim=1, stable=True)
+    j = torch.arange(c, dtype=torch.int32, device=o.x.device)[None, :]
+    take = torch.minimum(j, torch.clamp_min(counts[:, None] - 1, 0))
+    cand = torch.gather(order, 1, take.long())
+    tent = torch.where(j < counts[:, None], torch.gather(t_entry, 1, cand), _BIG)
+    return cand.to(torch.int32), counts, tent
 
 
 def _row_verdicts(o: Vec3, d: Vec3, rg: int, bb_min: Vec3, bb_max: Vec3, t_cap, octants: bool,

@@ -1,0 +1,631 @@
+"""Phong-tessellation patch intersection on torch tensors.
+
+The counterpart of ``pbr_tpu/ops/phongtess.py`` (the reference's curved-patch
+intersector, ``pt_phongtess.cl``, after "Direct Ray Tracing of Phong
+Tessellation", Ogaki & Tokuyoshi): a triangle whose vertex normals differ is
+a quadratic Phong patch controlled by ``alpha`` (config
+``render.phong_tessellation``). The ray becomes two Hesse-form planes, the
+patch intersection a cubic in one plane parameter and then quadratics in a
+barycentric coordinate, each root polished by Newton.
+
+Everything is elementwise over ray batches with masks in place of the
+reference's early-outs, in the JAX version's operation order, on any
+device. The JAX package runs this stage in plain XLA, not Pallas, so it has
+no kernel here either: the patch math is torch ops, and the cluster search
+(``intersect_clusters_phongtess``) is a Python loop of rounds over them.
+
+- ``solve_cubic`` (and ``solve_quadratic``, its branch without the cubic
+  term, which the patch test's second solve is), ``phongtess_patch_intersect``,
+  ``phongtess_normal``, ``patch_constants``, ``face_is_flat``;
+- the searches: ``intersect_brute_phongtess`` (all faces), the stackless
+  BVH walk ``intersect_bvh_phongtess`` (a host-driven loop, one step a
+  node) and the cluster search ``intersect_clusters_phongtess`` (dense
+  rounds over the near-to-far lists of ``ops/cull.py::candidates_fine``,
+  ``PHONG_CHUNK_RAYS`` rays at a time);
+- ``intersect_scene_phongtess``, their dispatch with a differentiable
+  re-evaluation of the winner's t;
+- the host layer's build-time bounds, NumPy: ``_tess_point`` and
+  ``phongtess_face_aabbs`` (copies of the JAX package's, byte-equal).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pbr_tpu_torch.ops.intersect import EPS5, INF, gather_vec3, moller_trumbore, slab_box
+from pbr_tpu_torch.ops.traverse import detach_tris
+from pbr_tpu_torch.ops.vec import Vec3, f32, project_on_plane, safe_normalized, where3
+
+_THIRD = f32(1.0 / 3.0)
+_THIRD_HALF = f32(1.0 / 6.0)
+_TWO_PI, _FOUR_PI = f32(2.0 * np.pi), f32(4.0 * np.pi)
+_BIG, _BIGN = f32(3.0e38), f32(-3.0e38)
+
+# Rays a chunk of the cluster search: a multiple of the 128-ray tile. A
+# round's temporaries are (chunk x cluster size) float32 tensors, 64 MiB
+# each with 64-face clusters. On the H100 a 1024² frame of chip_smoke.py's
+# Phong scene took 23.6 / 22.0 / 20.8 / 18.8 s at 65,536 / 131,072 /
+# 262,144 / 524,288 rays, peaking at 1,988 / 3,420 / 6,259 / 11,926 MiB
+# (tools/phong_chunks.py): this one halves the launches of 131,072 at a
+# peak that leaves room for 128-face clusters. The JAX package's 16,384 is
+# a TPU size.
+PHONG_CHUNK_RAYS = 262_144
+# Rays from which the dispatch takes the cluster search on a scene with
+# clusters (pbr_tpu/ops/phongtess.py:496); fewer rays walk the BVH.
+CLUSTER_MIN_RAYS = 4096
+
+
+def _guard_div(num, den):
+    ok = den != 0.0
+    return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
+
+
+def cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Real cube root with the sign of ``x`` (torch has no ``cbrt``): the
+    float64 power of |x|, rounded to float32 once."""
+    return torch.copysign(torch.abs(x).double().pow(1.0 / 3.0).to(x.dtype), x)
+
+
+def solve_quadratic(a1, a2, a3):
+    """Roots of a1 x² + a2 x + a3 = 0 with Newton polish: solveCubic's
+    branches without the cubic term (pt_utils.cl:108-199), bitwise
+    ``solve_cubic`` with a0 = 0. Returns ``(x0, x1, count)``, count in
+    {0, 1, 2}; x1 is -1 unless there are two roots."""
+    pq = 0.5 * _guard_div(a2, a1)
+    qdis = pq * pq - _guard_div(a3, a1)
+    qs = torch.sqrt(torch.clamp_min(qdis, 0.0))
+
+    def newton2(x):
+        num = a3 + x * (a2 + x * a1)
+        den = a2 + x * 2.0 * a1
+        return x - _guard_div(num, den)
+
+    q_x0 = newton2(-pq - qs)
+    q_x1 = newton2(-pq + qs)
+    l_x0 = _guard_div(-a3, a2)
+    is_quad = torch.abs(a1) > 0.0
+    is_lin = ~is_quad & (torch.abs(a2) > 0.0)
+    two_q = is_quad & (qdis >= 0.0)
+    x0 = torch.where(two_q, q_x0, l_x0)
+    x1 = torch.where(two_q, q_x1, -1.0)
+    count = (two_q.to(torch.int32) * 2 + is_lin.to(torch.int32))
+    return x0, x1, count
+
+
+def solve_cubic(a0, a1, a2, a3):
+    """Roots of a0 x³ + a1 x² + a2 x + a3 = 0 with Newton polish
+    (solveCubic, pt_utils.cl:108-199; ``pbr_tpu/ops/phongtess.py:39``).
+
+    Returns ``(x0, x1, x2, count)``; only the first ``count`` slots are
+    meaningful (count in {0, 1, 2, 3}), the others are -1 except x0."""
+    w = _guard_div(a1, a0) * _THIRD
+    p_lin = _guard_div(a2, a0) * _THIRD - w * w
+    p = p_lin * p_lin * p_lin
+    q = 0.5 * _guard_div(a2 * w - a3, a0) - w * w * w
+    dis = q * q + p
+
+    # three real roots (dis < 0); the reference computes q / sqrt(-p)
+    neg_p = torch.clamp_min(-p, 0.0)
+    phi = torch.acos(torch.clamp(_guard_div(q, torch.sqrt(neg_p)), -1.0, 1.0))
+    pp = 2.0 * torch.pow(neg_p, _THIRD_HALF)
+    u0 = pp * torch.cos(phi * _THIRD) - w
+    u1 = pp * torch.cos((phi + _TWO_PI) * _THIRD) - w
+    u2 = pp * torch.cos((phi + _FOUR_PI) * _THIRD) - w
+    c_x0 = torch.minimum(u0, torch.minimum(u1, u2))
+    c_x2 = torch.maximum(u0, torch.maximum(u1, u2))
+    c_x1 = torch.maximum(torch.minimum(u0, u1),
+                         torch.maximum(torch.minimum(u0, u2), torch.minimum(u1, u2)))
+
+    def newton3(x):
+        num = a3 + x * (a2 + x * (a1 + x * a0))
+        den = a2 + x * (2.0 * a1 + x * 3.0 * a0)
+        return x - _guard_div(num, den)
+
+    c_x0, c_x1, c_x2 = newton3(c_x0), newton3(c_x1), newton3(c_x2)
+
+    # single real root (dis >= 0)
+    sq = torch.sqrt(torch.clamp_min(dis, 0.0))
+    s_x0 = newton3(cbrt(q + sq) + cbrt(q - sq) - w)
+
+    q_x0, q_x1, q_count = solve_quadratic(a1, a2, a3)
+    is_cubic = torch.abs(a0) > 0.0
+    three = is_cubic & (dis < 0.0)
+    one_c = is_cubic & ~three
+    x0 = torch.where(three, c_x0, torch.where(one_c, s_x0, q_x0))
+    x1 = torch.where(three, c_x1, torch.where(is_cubic, -1.0, q_x1))
+    x2 = torch.where(three, c_x2, -1.0)
+    count = torch.where(three, 3, torch.where(one_c, 1, q_count)).to(torch.int32)
+    return x0, x1, x2, count
+
+
+def _ray_planes(o: Vec3, d: Vec3):
+    """Two planes intersecting in the ray (getPlanesFromRay,
+    pt_utils.cl:208-218)."""
+    n1 = safe_normalized(o.cross(d))
+    n2 = safe_normalized(n1.cross(d))
+    return n1, n2, n1.dot(o), n2.dot(o)
+
+
+def _axis_component(v: Vec3, domain):
+    """v[domain] per lane (getBestRayDomain's consumer, pt_phongtess.cl:196)."""
+    return torch.where(domain == 0, v.x, torch.where(domain == 1, v.y, v.z))
+
+
+def _ray_domain(d: Vec3):
+    """The axis of |d|'s largest component (ties: y before z, z before x)."""
+    ax, ay, az = torch.abs(d.x), torch.abs(d.y), torch.abs(d.z)
+    domain = torch.where(ay > az, 1, 2)
+    return torch.where(ax > ay, torch.where(ax > az, 0, 2), domain)
+
+
+def _tess(P1: Vec3, P2: Vec3, P3: Vec3, N1: Vec3, N2: Vec3, N3: Vec3, alpha: float, uu, vv):
+    """The tessellated point at patch coordinates (uu, vv)
+    (phongTessellation, pt_phongtess.cl:14-26)."""
+    ww = 1.0 - uu - vv
+    p_bary = P1 * uu + P2 * vv + P3 * ww
+    p_tess = (project_on_plane(p_bary, P1, N1) * uu + project_on_plane(p_bary, P2, N2) * vv
+              + project_on_plane(p_bary, P3, N3) * ww)
+    return p_bary * f32(1.0 - alpha) + p_tess * alpha
+
+
+def phongtess_patch_intersect(o: Vec3, d: Vec3, P1: Vec3, P2: Vec3, P3: Vec3, N1: Vec3,
+                              N2: Vec3, N3: Vec3, alpha: float, t_best, t_near=0.0,
+                              t_far=None):
+    """Ray vs one Phong patch (phongTessTriAndRayIntersect,
+    pt_phongtess.cl:56-212), elementwise over broadcast shapes.
+
+    ``alpha``: a Python float (rounded to float32); ``t_best``: a tensor.
+    Returns ``(t, u, v, valid)``: the nearest acceptable root with t in
+    [|t_near|, min(t_best, t_far)], t = +inf where there is none."""
+    alpha = f32(alpha)
+    E01 = P2 - P1
+    E12 = P3 - P2
+    E20 = P1 - P3
+    C1 = (N2 * N2.dot(E01) - N1 * N1.dot(E01)) * alpha
+    C2 = (N3 * N3.dot(E12) - N2 * N2.dot(E12)) * alpha
+    C3 = (N1 * N1.dot(E20) - N3 * N3.dot(E20)) * alpha
+
+    n1, n2, o1, o2 = _ray_planes(o, d)
+    a = (-n1).dot(C3)
+    b = (-n1).dot(C2)
+    c = n1.dot(P3) - o1
+    dd = n1.dot(C1 - C2 - C3) * 0.5
+    e = n1.dot(C3 + E20) * 0.5
+    f = n1.dot(C2 - E12) * 0.5
+    l = (-n2).dot(C3)  # noqa: E741
+    m = (-n2).dot(C2)
+    n_ = n2.dot(P3) - o2
+    o_ = n2.dot(C1 - C2 - C3) * 0.5
+    p = n2.dot(C3 + E20) * 0.5
+    q = n2.dot(C2 - E12) * 0.5
+
+    a3c = (l * m * n_ + 2.0 * o_ * p * q) - (l * q * q + m * p * p + n_ * o_ * o_)
+    a2c = (a * m * n_ + l * b * n_ + l * m * c + 2.0 * (dd * p * q + o_ * e * q + o_ * p * f)) - (
+        a * q * q + b * p * p + c * o_ * o_ + 2.0 * (l * f * q + m * e * p + n_ * dd * o_)
+    )
+    a1c = (a * b * n_ + a * m * c + l * b * c + 2.0 * (o_ * e * f + dd * e * q + dd * p * f)) - (
+        l * f * f + m * e * e + n_ * dd * dd + 2.0 * (a * f * q + b * e * p + c * dd * o_)
+    )
+    a0c = (a * b * c + 2.0 * dd * e * f) - (a * f * f + b * e * e + c * dd * dd)
+
+    # The reference's "a0" is the x³ coefficient and "a3" the constant
+    # (pt_phongtess.cl:99-106); solveCubic takes the highest first.
+    x0, x1, x2, count = solve_cubic(a0c, a1c, a2c, a3c)
+
+    # The x minimising mD² - mA·mB (sequential strict-greater update,
+    # pt_phongtess.cl:117-125).
+    x = torch.zeros_like(a)
+    determinant = torch.full_like(a, INF)
+    for i, xi in enumerate((x0, x1, x2)):
+        mA = a * xi + l
+        mB = b * xi + m
+        mD = dd * xi + o_
+        tmp = mD * mD - mA * mB
+        use = (i < count) & (determinant > tmp)
+        x = torch.where(use, xi, x)
+        determinant = torch.where(use, tmp, determinant)
+    ok = (count > 0) & (determinant > 0.0)
+
+    domain = _ray_domain(d)
+    mA = a * x + l
+    mB = b * x + m
+    mC = c * x + n_
+    mD = dd * x + o_
+    mE = e * x + p
+    mF = f * x + q
+    a_less_b = torch.abs(mA) < torch.abs(mB)
+    mBorA = torch.where(a_less_b, mB, mA)
+    inv = _guard_div(torch.ones_like(mBorA), mBorA)
+    mA, mB, mC, mD, mE, mF = (v * inv for v in (mA, mB, mC, mD, mE, mF))
+
+    mAorB = torch.where(a_less_b, mA, mB)
+    mEorF = torch.where(a_less_b, 2.0 * mE, 2.0 * mF)
+    mForE = torch.where(a_less_b, mF, mE)
+    ab = torch.where(a_less_b, a, b)
+    ba = torch.where(a_less_b, b, a)
+    ef = torch.where(a_less_b, e, f)
+    fe = torch.where(a_less_b, f, e)
+
+    sqrtAorB = torch.sqrt(torch.clamp_min(mD * mD - mAorB, 0.0))
+    sqrtC = torch.sqrt(torch.clamp_min(mForE * mForE - mC, 0.0))
+    lab1 = mD + sqrtAorB
+    lab2 = mD - sqrtAorB
+    lc1 = mForE + sqrtC
+    lc2 = mForE - sqrtC
+    # The factored product's u-coefficient is the cross pairing
+    # lab1*lc2 + lab2*lc1; if the same-index pairing matches mEorF better,
+    # the lc labels are crossed: swap them (pt_phongtess.cl:166-168).
+    swap_lc = torch.abs(mEorF - lab1 * lc1 - lab2 * lc2) < torch.abs(
+        mEorF - lab1 * lc2 - lab2 * lc1)
+    lc1, lc2 = torch.where(swap_lc, lc2, lc1), torch.where(swap_lc, lc1, lc2)
+
+    limit = t_best if t_far is None else torch.minimum(t_best, t_far)
+    t_out = torch.full_like(a, INF)
+    u_out = torch.zeros_like(a)
+    v_out = torch.zeros_like(a)
+    for g, h in ((-lab1, -lc1), (-lab2, -lc2)):
+        c0 = ab + g * (2.0 * dd + ba * g)
+        c1 = 2.0 * (h * (dd + ba * g) + ef + fe * g)
+        c2 = h * (ba * h + 2.0 * fe) + c
+        r0, r1, rcount = solve_quadratic(c0, c1, c2)
+        for i, u in enumerate((r0, r1)):
+            v = g * u + h
+            wbar = 1.0 - u - v
+            root_ok = ok & (i < rcount) & (u >= 0.0) & (v >= 0.0) & (wbar >= 0.0)
+            uu = torch.where(a_less_b, u, v)
+            vv = torch.where(a_less_b, v, u)
+            pt = _tess(P1, P2, P3, N1, N2, N3, alpha, uu, vv) - o
+            t_param = _guard_div(_axis_component(pt, domain), _axis_component(d, domain))
+            accept = (root_ok & (t_param >= abs(t_near))
+                      & (t_param <= torch.minimum(t_out, limit)))
+            t_out = torch.where(accept, t_param, t_out)
+            u_out = torch.where(accept, uu, u_out)
+            v_out = torch.where(accept, vv, v_out)
+    return t_out, u_out, v_out, torch.isfinite(t_out)
+
+
+def phongtess_normal(d: Vec3, N1: Vec3, N2: Vec3, N3: Vec3, C1: Vec3, C2: Vec3, C3: Vec3,
+                     E12: Vec3, E20: Vec3, u, v) -> Vec3:
+    """Patch shading normal (getPhongTessNormal, pt_utils.cl:282-294): the
+    surface-derivative normal unless it back-faces the reflection of the
+    smooth normal."""
+    w = 1.0 - u - v
+    du = C3 * (w - u) + (C1 - C2) * v + E20
+    dv = C2 * (w - v) + (C1 - C3) * u - E12
+    ns = safe_normalized(du.cross(dv))
+    npn = safe_normalized(N1 * u + N2 * v + N3 * w)
+    r = d - npn * (2.0 * npn.dot(d))
+    return where3(ns.dot(r) < 0.0, ns, npn)
+
+
+def patch_constants(P1: Vec3, P2: Vec3, P3: Vec3, N1: Vec3, N2: Vec3, N3: Vec3, alpha: float):
+    """(C1, C2, C3, E12, E20) for the normal evaluation."""
+    alpha = f32(alpha)
+    E01 = P2 - P1
+    E12 = P3 - P2
+    E20 = P1 - P3
+    C1 = (N2 * N2.dot(E01) - N1 * N1.dot(E01)) * alpha
+    C2 = (N3 * N3.dot(E12) - N2 * N2.dot(E12)) * alpha
+    C3 = (N1 * N1.dot(E20) - N3 * N3.dot(E20)) * alpha
+    return C1, C2, C3, E12, E20
+
+
+def _tess_point(p1, p2, p3, n1, n2, n3, alpha, u, v):
+    """Vectorized MathHelp::phongTessellate (MathHelp.cpp:213-226) on
+    (F, 3) NumPy arrays; ``u``/``v`` are scalars or (F, 1) arrays."""
+    dot = lambda a, b: np.sum(a * b, axis=-1, keepdims=True)  # noqa: E731
+    proj = lambda q, p, n: q - dot(q - p, n) * n  # noqa: E731
+    w = 1.0 - u - v
+    p_bary = p1 * u + p2 * v + p3 * w
+    p_tess = (
+        proj(p_bary, p1, n1) * u + proj(p_bary, p2, n2) * v + proj(p_bary, p3, n3) * w
+    )
+    return (1.0 - alpha) * p_bary + alpha * p_tess
+
+
+def phongtess_face_aabbs(p1, p2, p3, n1, n2, n3, alpha):
+    """Per-face AABBs inflated to cover the curved Phong patch: the
+    build-time bound that lets curved patches trace through the BVH and the
+    clusters (the JAX package's improvement on the reference's sampled
+    bound, MathHelp.cpp:250-378). The patch is a quadratic Bézier triangle
+    whose six control points are {p1, p2, p3, q12/2, q23/2, q13/2}, with
+    q_ij = (1-α)(p_i+p_j) + α(π_i(p_j) + π_j(p_i)) and π_i the projection
+    onto vertex i's tangent plane; the control points' AABB contains the
+    patch. Faces whose vertex normals agree (within 1e-6) keep the flat
+    AABB.
+
+    Inputs: (F, 3) float arrays. Returns ``(bb_min, bb_max)`` (F, 3) f32.
+    """
+    p1 = np.asarray(p1, dtype=np.float32)
+    p2 = np.asarray(p2, dtype=np.float32)
+    p3 = np.asarray(p3, dtype=np.float32)
+    n1 = np.asarray(n1, dtype=np.float32)
+    n2 = np.asarray(n2, dtype=np.float32)
+    n3 = np.asarray(n3, dtype=np.float32)
+    alpha = np.float32(alpha)
+    dot = lambda a, b: np.sum(a * b, axis=-1, keepdims=True)  # noqa: E731
+    proj = lambda q, p, n: q - dot(q - p, n) * n  # noqa: E731
+
+    bb_min = np.minimum(np.minimum(p1, p2), p3)
+    bb_max = np.maximum(np.maximum(p1, p2), p3)
+
+    test = (n1 - n2) + (n2 - n3)
+    curved = np.any(np.abs(test) > 1e-6, axis=-1, keepdims=True)
+    if alpha <= 0.0 or not curved.any():
+        return bb_min, bb_max
+
+    with np.errstate(all="ignore"):
+        grow_min, grow_max = bb_min.copy(), bb_max.copy()
+        for (pa, na), (pb, nb) in (
+            ((p1, n1), (p2, n2)),
+            ((p2, n2), (p3, n3)),
+            ((p1, n1), (p3, n3)),
+        ):
+            q = (1.0 - alpha) * (pa + pb) + alpha * (proj(pb, pa, na) + proj(pa, pb, nb))
+            b = np.float32(0.5) * q  # mid-edge Bézier control point
+            grow_min = np.minimum(grow_min, b)
+            grow_max = np.maximum(grow_max, b)
+
+    bb_min = np.where(curved, grow_min, bb_min)
+    bb_max = np.where(curved, grow_max, bb_max)
+    return bb_min.astype(np.float32), bb_max.astype(np.float32)
+
+
+def face_is_flat(tris) -> torch.Tensor:
+    """(F,) bool: all three vertex normals equal (checkFaceIntersection,
+    pt_intersect.cl:151-165). Flat faces take plain Möller-Trumbore."""
+    eq = lambda a, b: (a.x == b.x) & (a.y == b.y) & (a.z == b.z)  # noqa: E731
+    return eq(tris.n0, tris.n1) & eq(tris.n1, tris.n2)
+
+
+def _face_hit(o: Vec3, d: Vec3, tris, fidx, flat, alpha: float, t_best):
+    """One face a lane (``fidx``: an int or a per-lane index): its
+    Möller-Trumbore t when it is flat, its patch t (at least EPSILON5) when
+    it is curved. Returns ``(t, u, v, valid)``, u and v 0 on flat faces."""
+    P1 = gather_vec3(tris.v0, fidx)
+    e1 = gather_vec3(tris.e1, fidx)
+    e2 = gather_vec3(tris.e2, fidx)
+    t_f, valid_f = moller_trumbore(o, d, P1, e1, e2)
+    t_c, uu, vv, valid_c = phongtess_patch_intersect(
+        o, d, P1, P1 + e1, P1 + e2, gather_vec3(tris.n0, fidx), gather_vec3(tris.n1, fidx),
+        gather_vec3(tris.n2, fidx), alpha, t_best)
+    is_flat = flat[fidx]
+    t = torch.where(is_flat, t_f, t_c)
+    valid = torch.where(is_flat, valid_f, valid_c & (t_c >= EPS5))
+    return t, torch.where(is_flat, 0.0, uu), torch.where(is_flat, 0.0, vv), valid
+
+
+def intersect_brute_phongtess(o: Vec3, d: Vec3, tris, alpha: float):
+    """Nearest hit over all faces, one face at a time: Phong patches for
+    curved faces, Möller-Trumbore for flat ones (first face wins ties).
+    Returns ``(t, face, u, v)``, u and v the patch coordinates of a curved
+    winner (0 for a flat one)."""
+    flat = face_is_flat(tris)
+    t_best = torch.full_like(o.x, INF)
+    f_best = torch.full(o.x.shape, -1, dtype=torch.int32, device=o.x.device)
+    u_best = torch.zeros_like(o.x)
+    v_best = torch.zeros_like(o.x)
+    for f in range(int(tris.mtl.shape[0])):
+        t, uu, vv, valid = _face_hit(o, d, tris, f, flat, alpha, t_best)
+        better = valid & (t < t_best)
+        t_best = torch.where(better, t, t_best)
+        f_best = torch.where(better, f, f_best)
+        u_best = torch.where(better, uu, u_best)
+        v_best = torch.where(better, vv, v_best)
+    return t_best, f_best, u_best, v_best
+
+
+def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf: int = 2):
+    """Nearest hit through the stackless BVH with the flat/curved face
+    dispatch (the reference's shared leaf test, pt_intersect.cl:142-176,
+    through traverse, pt_bvh.cl:82-123); contract and ties as
+    ``intersect_brute_phongtess``. The tree must be built over
+    ``phongtess_face_aabbs`` bounds (``scene/build.py`` with
+    ``phong_tess_alpha``). ``bvh``: a ``BVHTables``. A host-driven loop,
+    one node step a pass over every lane until all have left the tree (the
+    JAX version's ``while np.any(...)``), with one host check a step. A
+    step's leaf faces are tested in one batch, and only on steps where some
+    lane reached a leaf: a face whose t lies beyond the bound an earlier
+    face of the leaf set cannot win, so the order of the updates decides
+    as the one-face-at-a-time loop does. Returns ``(t, face, u, v)``."""
+    n = bvh.count
+    nf = int(tris.mtl.shape[0])
+    inv_d = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
+    o1, d1 = Vec3(*(c[None] for c in o)), Vec3(*(c[None] for c in d))
+    flat = face_is_flat(tris)
+    dev = o.x.device
+    ks = torch.arange(max_leaf, dtype=torch.int32, device=dev)[:, None]
+    idx = torch.zeros(o.x.shape, dtype=torch.int32, device=dev)
+    t_best = torch.full_like(o.x, INF)
+    f_best = torch.full(o.x.shape, -1, dtype=torch.int32, device=dev)
+    u_best = torch.zeros_like(o.x)
+    v_best = torch.zeros_like(o.x)
+    more = o.x.numel() > 0 and n > 0
+    while more:
+        safe = idx.clamp_max(n - 1).long()
+        bb_min = Vec3(*bvh.bb_min[:, safe])
+        bb_max = Vec3(*bvh.bb_max[:, safe])
+        leaf_first = bvh.leaf_first[safe]
+        t_near, t_far, hit_box = slab_box(o, inv_d, bb_min, bb_max)
+        hit_box = hit_box & (t_far > EPS5) & (t_best > t_near)
+        do_leaf = hit_box & (leaf_first >= 0)
+        nxt = torch.where(hit_box, safe.to(torch.int32) + 1, bvh.exit[safe])
+        idx = torch.where(idx >= n, n, nxt).to(torch.int32)
+        any_leaf, more = torch.stack([do_leaf.any(), (idx < n).any()]).tolist()
+        if not any_leaf:
+            continue
+        fidx = (leaf_first[None] + ks).clamp(0, nf - 1).long()  # (max_leaf, B)
+        t, uu, vv, valid = _face_hit(o1, d1, tris, fidx, flat, alpha, t_best[None])
+        ok = do_leaf[None] & (ks < bvh.leaf_count[safe][None]) & valid
+        for k in range(max_leaf):
+            better = ok[k] & (t[k] < t_best)
+            t_best = torch.where(better, t[k], t_best)
+            f_best = torch.where(better, fidx[k].to(torch.int32), f_best)
+            u_best = torch.where(better, uu[k], u_best)
+            v_best = torch.where(better, vv[k], v_best)
+    return t_best, f_best, u_best, v_best
+
+
+def _face_table(tris, n_pad: int) -> torch.Tensor:
+    """(19, n_pad) float32: rows v0, e1, e2, n0, n1, n2 (x, y, z each) and
+    the flat flag, zero faces padding to ``n_pad`` (flat, with zero edges:
+    Möller-Trumbore's det is 0 there, never valid)."""
+    rows = [c for v in (tris.v0, tris.e1, tris.e2, tris.n0, tris.n1, tris.n2) for c in v]
+    table = torch.stack([*rows, face_is_flat(tris).to(torch.float32)])
+    pad = n_pad - table.shape[1]
+    if pad:
+        fill = torch.zeros((19, pad), dtype=table.dtype, device=table.device)
+        fill[18] = 1.0
+        table = torch.cat([table, fill], dim=1)
+    return table
+
+
+def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float, alive=None,
+                                 tile: int = 128, chunk_rays: Optional[int] = None,
+                                 stats: Optional[dict] = None):
+    """Detached nearest-hit search over the clusters' candidate lists with
+    mixed flat and curved faces (``pbr_tpu/ops/phongtess.py:590``): the
+    path at full width. Returns ``(face, u, v)``.
+
+    ``clusters``: a ``scene.ClusterTables`` built over the inflated face
+    bounds. The rays go ``chunk_rays`` (default ``PHONG_CHUNK_RAYS``) at a
+    time, rounded to whole ``tile``-ray tiles; each chunk gets its
+    near-to-far lists (``ops/cull.py::candidates_fine``), then rounds: a
+    round evaluates the next cluster of a tile's list densely, all its faces
+    against all the tile's rays (patch test for curved faces, t at least
+    EPSILON5, Möller-Trumbore for flat ones), and keeps the
+    (t, face)-lexicographic minimum. A tile stops when it has run out of
+    candidates or its rays' best t lies before the next entry bound (one
+    host check a round, the JAX version's ``while_loop`` condition taken a
+    tile at a time), and a round runs only the tiles still open. The JAX
+    version runs every tile until the last is done; a done tile's later
+    clusters start at or beyond its rays' best t, so that changes a result
+    only where a face lies exactly at the entry bound with a lower id.
+    Results are per tile, so they do not depend on the chunk.
+
+    ``alive``: dead lanes keep their rays (the tiles stay tight) but are
+    seeded closed and report face -1. ``stats``: a dict that gets the
+    rounds of the longest chunk (``rounds``) and the tile-rounds run
+    (``tile_rounds``), added to what it holds.
+    """
+    # Imported here: ops/cull.py imports accel/, whose import reaches this
+    # module through models/integrator.py.
+    from pbr_tpu_torch.ops.cull import candidates_fine
+
+    alpha = f32(alpha)
+    s, c = clusters.size, clusters.count
+    shape = o.x.shape
+    dev = o.x.device
+    flat_n = o.x.numel()
+    chunk_rays = PHONG_CHUNK_RAYS if chunk_rays is None else chunk_rays
+    chunk = min(max(tile, (chunk_rays // tile) * tile), -(-flat_n // tile) * tile)
+    n_tiles = chunk // tile
+    table = _face_table(tris, c * s)
+    offs = torch.arange(s, dtype=torch.int64, device=dev)
+    alive_f = (torch.ones(flat_n, dtype=torch.bool, device=dev) if alive is None
+               else alive.reshape(-1))
+
+    def chunk_search(lo: int):
+        hi = min(lo + chunk, flat_n)
+        pad = chunk - (hi - lo)
+
+        def take(a, fill=None):
+            a = a.reshape(-1)[lo:hi]
+            if pad:  # the last ray repeats (dead): the tile bounds stay tight
+                tail = a[-1:].expand(pad) if fill is None else a.new_full((pad,), fill)
+                a = torch.cat([a, tail])
+            return a
+
+        ov, dv = Vec3(*(take(a) for a in o)), Vec3(*(take(a) for a in d))
+        live = take(alive_f, False)
+        cand, cnt, tent = candidates_fine(ov, dv, clusters, tile)
+        tent = torch.cat([tent, torch.full((n_tiles, 1), _BIG, device=dev)], dim=1)
+        o3 = Vec3(*(a.reshape(n_tiles, tile, 1) for a in ov))
+        d3 = Vec3(*(a.reshape(n_tiles, tile, 1) for a in dv))
+        t_b = torch.where(live, INF, _BIGN).reshape(n_tiles, tile)
+        f_b = torch.full((n_tiles, tile), -1, dtype=torch.int32, device=dev)
+        u_b = torch.zeros((n_tiles, tile), dtype=torch.float32, device=dev)
+        v_b = torch.zeros_like(u_b)
+        act = torch.arange(n_tiles, device=dev)  # the tiles still open
+        for r in range(c):
+            # A tile is done once its list is out or its rays' best t lies
+            # before the next entry bound; done stays done (the bounds rise,
+            # the best t only falls). The mask index syncs the host: one
+            # check a round.
+            act = act[(cnt[act] > r) & (t_b[act].amax(dim=1) > tent[act, r])]
+            if act.numel() == 0:
+                break
+            if stats is not None:
+                stats["rounds"] = max(stats.get("rounds", 0), r + 1)
+                stats["tile_rounds"] = stats.get("tile_rounds", 0) + act.numel()
+            fids = cand[act, r].long()[:, None] * s + offs  # (A, S)
+            g = table[:, fids][:, :, None, :]  # (19, A, 1, S)
+            oa, da = Vec3(*(a[act] for a in o3)), Vec3(*(a[act] for a in d3))
+            tb, fb = t_b[act], f_b[act]
+            P1, E1, E2 = Vec3(*g[0:3]), Vec3(*g[3:6]), Vec3(*g[6:9])
+            t_mt, ok_mt = moller_trumbore(oa, da, P1, E1, E2)
+            t_pt, u_pt, v_pt, ok_pt = phongtess_patch_intersect(
+                oa, da, P1, P1 + E1, P1 + E2, Vec3(*g[9:12]), Vec3(*g[12:15]),
+                Vec3(*g[15:18]), alpha, tb[:, :, None])
+            is_flat = g[18] > 0.5
+            # A curved face's t at least EPSILON5, as in the sweep and the
+            # walk (the JAX version's search takes t from 0: a ray leaving a
+            # curved patch hits it again).
+            tt = torch.where(is_flat, torch.where(ok_mt, t_mt, INF),
+                             torch.where(ok_pt & (t_pt >= EPS5), t_pt, INF))
+            # The first face with the least t (argmin's tie rule, as jnp's).
+            k = torch.argmin(tt, dim=2)
+            at_k = lambda a: torch.gather(a, 2, k[:, :, None])[:, :, 0]  # noqa: E731
+            tmin = at_k(tt)
+            fid = torch.gather(fids, 1, k).to(torch.int32)
+            flat_k = torch.gather(is_flat[:, 0, :], 1, k)
+            better = (tmin < INF) & ((tmin < tb) | ((tmin == tb) & (fid < fb)))
+            t_b[act] = torch.where(better, tmin, tb)
+            f_b[act] = torch.where(better, fid, fb)
+            u_b[act] = torch.where(better, torch.where(flat_k, 0.0, at_k(u_pt)), u_b[act])
+            v_b[act] = torch.where(better, torch.where(flat_k, 0.0, at_k(v_pt)), v_b[act])
+        return f_b.reshape(-1), u_b.reshape(-1), v_b.reshape(-1)
+
+    with torch.no_grad():
+        outs = [chunk_search(lo) for lo in range(0, flat_n, chunk)]
+    return tuple(torch.cat([out[j] for out in outs])[:flat_n].reshape(shape) for j in range(3))
+
+
+def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, clusters=None,
+                              max_leaf: int = 2, alive=None):
+    """The Phong nearest-hit dispatch (``pbr_tpu/ops/phongtess.py:467``):
+    no BVH, the all-faces sweep; clusters and at least
+    ``CLUSTER_MIN_RAYS`` rays, the cluster search; otherwise the BVH walk.
+    Returns ``(t, face, u, v)``.
+
+    The search runs detached; the winner's t is then re-evaluated on live
+    ``o``/``d`` and detached geometry and patch coordinates, which is where
+    gradients flow: Möller-Trumbore for a flat winner, the tessellated
+    point along the ray's dominant axis for a curved one (the same
+    expression on the same inputs as the search, so the same forward
+    value). ``alive`` (B,) bool: dead lanes report face -1 on the cluster
+    search and cost it nothing; the other searches ignore it."""
+    o_s, d_s, tris_s = o.detach(), d.detach(), detach_tris(tris)
+    with torch.no_grad():
+        if bvh is None:
+            _, face, uu, vv = intersect_brute_phongtess(o_s, d_s, tris_s, alpha)
+        elif clusters is not None and o.x.numel() >= CLUSTER_MIN_RAYS:
+            face, uu, vv = intersect_clusters_phongtess(o_s, d_s, clusters, tris_s, alpha,
+                                                        alive=alive)
+        else:
+            _, face, uu, vv = intersect_bvh_phongtess(o_s, d_s, bvh, tris_s, alpha, max_leaf)
+
+    safe = face.clamp_min(0).long()
+    P1 = gather_vec3(tris_s.v0, safe)
+    e1 = gather_vec3(tris_s.e1, safe)
+    e2 = gather_vec3(tris_s.e2, safe)
+    t_f, _ = moller_trumbore(o, d, P1, e1, e2)
+    pt = _tess(P1, P1 + e1, P1 + e2, gather_vec3(tris_s.n0, safe), gather_vec3(tris_s.n1, safe),
+               gather_vec3(tris_s.n2, safe), alpha, uu, vv) - o
+    domain = _ray_domain(d_s)
+    t_c = _guard_div(_axis_component(pt, domain), _axis_component(d, domain))
+    t = torch.where(face_is_flat(tris_s)[safe], t_f, t_c)
+    return t.masked_fill(face < 0, INF), face, uu, vv

@@ -174,6 +174,12 @@ def reflect(d: Vec3, n: Vec3) -> Vec3:
     return d - n * (2.0 * n.dot(d))
 
 
+def project_on_plane(q: Vec3, p: Vec3, n: Vec3) -> Vec3:
+    """Project point q on the plane through p with unit normal n
+    (reference pt_utils.cl:397-399)."""
+    return q - n * (q - p).dot(n)
+
+
 def bisect(v: Vec3, w: Vec3) -> Vec3:
     """Normalized half-vector; zero (not NaN) for opposite inputs."""
     return safe_normalized(v + w)

@@ -9,9 +9,8 @@ so the caller can fix them into ``RenderSettings`` — the jit-static
 equivalent of the reference's ``#SKY_LIGHT#`` / ``#NUM_LIGHTS#``
 substitutions (PathTracer.cpp:209-210,468-474,514-516).
 
-The port's copy of ``pbr_tpu/scene/build.py``. One thing differs:
-``phong_tess_alpha`` > 0 raises ``NotImplementedError`` (ROADMAP.md, "Phong
-tessellation"). ``to_device`` is ``pbr_tpu_torch.scene.to_torch``.
+The port's copy of ``pbr_tpu/scene/build.py``; its ``to_device`` is
+``pbr_tpu_torch.scene.to_torch``.
 """
 
 from __future__ import annotations
@@ -35,13 +34,11 @@ def build_scene(
 ) -> Scene:
     """Assemble a Scene from parsed OBJ data (host-side, NumPy).
 
-    ``phong_tess_alpha`` > 0 (Phong tessellation) is not ported and raises.
+    ``phong_tess_alpha`` > 0 builds the BVH and the clusters over
+    curved-patch-inflated face bounds (``ops/phongtess.py::
+    phongtess_face_aabbs``), so that Phong-tessellated patches trace through
+    them; pass the same alpha as ``RenderSettings.phong_tessellation``.
     """
-    if phong_tess_alpha > 0.0:
-        raise NotImplementedError(
-            "phong_tess_alpha > 0 is not ported to pbr_tpu_torch yet "
-            '(ROADMAP.md, "Phong tessellation", ops/phongtess.py)'
-        )
     tris = make_triangles(
         obj.vertices,
         obj.faces_v,
@@ -50,6 +47,7 @@ def build_scene(
         obj.faces_mtl,
     )
     bvh = None
+    face_min = face_max = None  # per-face bounds: the flat triangles' unless Phong
     if use_bvh:
         v0 = tris.v0.stack(np)
         v1 = (tris.v0 + tris.e1).stack(np)
@@ -61,11 +59,19 @@ def build_scene(
             cfg = BVHConfig(max_faces=64)
         else:
             cfg = bvh_cfg or BVHConfig()
+        if phong_tess_alpha > 0.0:
+            from pbr_tpu_torch.ops.phongtess import phongtess_face_aabbs
+
+            face_min, face_max = phongtess_face_aabbs(
+                v0, v1, v2, tris.n0.stack(np), tris.n1.stack(np), tris.n2.stack(np),
+                phong_tess_alpha,
+            )
         # The native C++ builder is byte-identical to the NumPy one
         # (tests/test_torch_host.py); prefer it when the build is big
-        # enough for Python overhead to matter.
+        # enough for Python overhead to matter. It takes no face bounds, so
+        # a Phong build takes the NumPy build_bvh.
         bvh = None
-        if tris.count >= 4096:
+        if tris.count >= 4096 and face_min is None:
             try:
                 from pbr_tpu_torch.accel.native import build_bvh_native
 
@@ -73,8 +79,11 @@ def build_scene(
             except RuntimeError:
                 bvh = None
         if bvh is None:
-            bvh, leaf_order, _ = build_bvh(v0, v1, v2, cfg)
+            bvh, leaf_order, _ = build_bvh(v0, v1, v2, cfg, face_min=face_min,
+                                           face_max=face_max)
         tris = permute_triangles(tris, leaf_order)
+        if face_min is not None:
+            face_min, face_max = face_min[leaf_order], face_max[leaf_order]
     clusters = None
     if tris.count > 256 and use_bvh:
         # Cull-and-sweep intersector tables (accel/clusters.py): cheap to
@@ -85,9 +94,11 @@ def build_scene(
         # 64-face clusters, and 128 above 50,000 faces: the JAX package's
         # sizes (chosen from TPU measurements), kept so that both packages
         # build the same tables.
-        clusters = build_clusters(tris, size=128 if tris.count > 50_000 else 64)
+        # A Phong build's cluster bounds cover the curved patches too.
+        clusters = build_clusters(tris, size=128 if tris.count > 50_000 else 64,
+                                  face_min=face_min, face_max=face_max)
     forest = None
-    if bvh is not None and clusters is None:
+    if bvh is not None and phong_tess_alpha == 0.0 and clusters is None:
         from pbr_tpu_torch.accel.forest import build_forest
         from pbr_tpu_torch.ops.cuda_bvh import packet_fits
 

@@ -53,6 +53,11 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.utils.profiling",
     "pbr_tpu_torch.accel.visualize",
     "pbr_tpu_torch.tools.colormatrix",
+    "pbr_tpu_torch.ops.phongtess",
+    "pbr_tpu_torch.parallel",
+    "pbr_tpu_torch.parallel.mesh",
+    "pbr_tpu_torch.parallel.multihost",
+    "pbr_tpu_torch.tools.phong_chunks",
 ])
 def test_import_leaves_jax_out(module):
     out = _run(f"import sys, {module}; print('jax' in sys.modules, 'pbr_tpu' in sys.modules)")

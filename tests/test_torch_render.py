@@ -306,17 +306,29 @@ def test_to_torch_round_trips_the_numpy_scene(cornell):
 
 
 def test_phong_tessellation_is_refused(cornell):
+    """Phong tessellation is ported (ops/phongtess.py): phong_tessellation >
+    0 renders, on the Cornell box's flat faces the same frame as without
+    it (a face whose vertex normals agree takes Möller-Trumbore)."""
     scene, cam = cornell
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trace(scene, cam, _bench_settings(8, phong_tessellation=0.5), 0)
+    settings = _bench_settings(8)
+    got = _rgb(_trace(scene, cam, settings.replace(phong_tessellation=0.5), 0), settings)
+    assert np.isfinite(got).all()
+    _assert_close(got, _rgb(_trace(scene, cam, settings, 0), settings))
 
 
 def test_unported_intersector_is_refused(cornell):
-    """Every intersector of the JAX package is ported ('gemm' renders, below);
-    what is still unported is refused where a scene is built: Phong
-    tessellation, whose intersection is the unported ops/phongtess.py."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_scene_from_text(*cornell_box(), use_bvh=False, phong_tess_alpha=0.5)
+    """Every intersector of the JAX package is ported ('gemm' renders, below),
+    and so is Phong tessellation, which is taken where a scene is built: a
+    Cornell box built with phong_tess_alpha > 0 is the JAX package's build,
+    its BVH over the (here flat) face bounds and no forest."""
+    ref, _ = scene_from_text(*cornell_box(), use_bvh=True, phong_tess_alpha=0.5)
+    got, _ = port_scene_from_text(*cornell_box(), use_bvh=True, phong_tess_alpha=0.5)
+    for name in ("bb_min", "bb_max"):
+        for c in "xyz":
+            np.testing.assert_array_equal(getattr(getattr(got.bvh, name), c),
+                                          getattr(getattr(ref.bvh, name), c))
+    np.testing.assert_array_equal(got.tris.v0.x, ref.tris.v0.x)
+    assert got.forest is None and ref.forest is None
 
 
 def test_gemm_intersector_renders(cornell):
