@@ -81,17 +81,30 @@ read just after; a kernel of the path that did not launch fails the run.
      1M bounce-like rays with an alive mask, timed, with its bound, and
      from the copy with a record a block (tools/k5_rows.py) its active rows
      a staged table, staging share, span and tail;
+   - the device golden of the bands the card's table moved
+     (docs/BAND_TABLE_H100.json; ``auto_golden_phase``) on soup:1025 (now
+     K1's band) and multiroom:6,6,30 (14,460 faces, now K8's): the first
+     1024² auto frame, compacted, equals bitwise the full-width frame and
+     is within 1e-3 of the same frame through K1 (intersector='pallas', 8
+     K1 launches and no other kernel) on at least 99% of pixels, no NaN;
+     one auto frame launches the table's pick (``AUTO_PICKS``) once a
+     bounce and nothing else; at 64², the card's gradients through auto
+     against those through K1 (every parameter within 1e-3 of its largest
+     magnitude over the pixels whose colors agree); on soup:1025 auto is K1
+     itself, so only the launch check tells there;
 5. soup:100000 (bench.py --scene soup:100000: 100,000 faces, 784 clusters of
-   128 in 49 superclusters; auto runs K4 over the candidate lists of
-   ops/cull.py, with the coherence sort and the early-out):
+   128 in 49 superclusters; auto runs K8, the per-ray walk, on its BVH of
+   64-face leaves):
    - a 64² frame on the card against the port's CPU path, at least 99% of
      pixels within 1e-3;
-   - path "soup:100000": the first 1024² frame, compacted, equals bitwise
-     the full-width frame; the auto frame against the same frame through K1
-     (intersector='pallas', 8 K1 launches and no other kernel) at least
-     99% of pixels within 1e-3; 8 timed frames after 2 warm-up frames, in
-     which K4's nearest and any-hit
-     instances launch once a bounce each and K1, K3 and K4m not, 0 lanes
+   - path "soup:100000": the device golden, as above (auto launches K8
+     and K8 any-hit);
+   - path "soup:100000 cull" (intersector='cull': K4 over the candidate
+     lists of ops/cull.py, with the coherence sort and the early-out): the
+     first 1024² frame, compacted, equals bitwise the full-width frame and
+     is within 1e-3 of the auto frame on at least 99% of pixels; 8 timed
+     frames after 2 warm-up frames, in which K4's nearest and any-hit
+     instances launch once a bounce each and nothing else, 0 lanes
      dropped;
    - K4 (nearest and any-hit) against its plain version, bitwise, on all
      the path's 1024² camera rays (in its lane order) and on 1M bounce-like
@@ -104,7 +117,7 @@ read just after; a kernel of the path that did not launch fails the run.
      sweep: 784 lin clusters of 128, so K5, the slotted row sweep, with the
      coherence sort and the row early-out): a 64² card frame against the
      CPU frame of the tree phase below; the first 1024² frame, compacted,
-     equals bitwise the full-width frame and is within 1e-3 of the auto
+     equals bitwise the full-width frame and is within 1e-3 of the 'cull'
      (K4) frame on at least 99% of pixels; 8 timed frames in which K5's
      nearest and any-hit instances launch once a bounce each and nothing
      else, 0 lanes dropped, with the frame's test counter; K5 against its
@@ -124,7 +137,7 @@ read just after; a kernel of the path that did not launch fails the run.
      every intersector returns the same faces), at least 99% of pixels
      within 1e-3;
    - path "soup:100000, pallas_bvh_hbm": the first 1024² frame, compacted,
-     equals bitwise the full-width frame and is within 1e-3 of the auto
+     equals bitwise the full-width frame and is within 1e-3 of the 'cull'
      (K4) frame on at least 99% of pixels; 8 timed frames in which K7 NEE
      launches once a bounce and nothing else launches, 0 lanes dropped;
      one frame with NEE off through K7's nearest instance;
@@ -146,9 +159,11 @@ read just after; a kernel of the path that did not launch fails the run.
      and the forest's chain, against the plain chain of one walk a
      sub-tree, also on 1M bounce-like rays with an alive mask; K8 also
      against intersect_bvh_chunked), with its kernel time, plain time and
-     bound (the per-ray walk's node steps x 25 operations and face tests x
-     51, against the tables' and rays' bytes; one bound for the seeded
-     chain's sub-trees together);
+     bound (the per-ray walk's node steps x 25 operations, its face tests
+     x 35 for t and x 16 more for u and v only where t can change the
+     result, as K1's, against the tables' and rays' bytes; one bound for
+     the seeded chain's sub-trees together; the bound with the whole test,
+     51, on every face beside it);
 7. the app layer (``pbr_tpu_torch.app``, run in-process as ``app.main``
    on the card; its files under build/pbr_tpu_torch/app/):
    - ``render`` on the Cornell box at 1024², FRAMES frames with --stats
@@ -281,7 +296,7 @@ PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 # Floating-point operations of one ray-face test, as the function needs
 # them. Classic Moller-Trumbore (K1): p = d x e2 9, det 5, 1/det 1,
 # o - v0 3, q = (o - v0) x e1 9, t, u, v 6 each, the gates 5, the minimum
-# 1: 51 (the tree walks' charge, OPS_CLASSIC), which K1's bound splits:
+# 1: 51 (OPS_CLASSIC, printed beside the walks' bounds), which the bounds split:
 # every test needs t (p, det, 1/det, o - v0, q, t 6, the gate t >= 1e-5 and
 # the comparison with the ray's bound 2: 35), and only a face whose t can
 # change the result needs u and v (6 each, their gates 4: 16). Linear form
@@ -298,6 +313,13 @@ OPS_LIN_T, OPS_LIN_UV = 15, 29
 # t_near and t_far 4, the gates t_near <= t_far, t_far > EPSILON5 and
 # t_best > t_near 3.
 OPS_SLAB = 25
+# What ``auto`` launches a bounce on each scene of the device golden
+# (``auto_golden_phase``), by the card's band table (docs/BAND_TABLE_H100.json).
+AUTO_PICKS = {
+    "soup:1025": ("K1",),  # K1's band, moved up from 1,024 faces
+    "multiroom:6,6,30": ("K8", "K8 any-hit"),  # K8's band, K4's before: 14,460 faces
+    "soup:100000": ("K8", "K8 any-hit"),
+}
 # The TPU kernel each instance replaces (pbr_tpu/ops/...: the body's line).
 REPLACES = {
     "K1": "pbr_tpu/ops/pallas_intersect.py:182",  # _kernel_nee around _sweep
@@ -918,41 +940,47 @@ def _grads(ts, cam_t, settings, ids, weights=None) -> tuple:
 
 
 def _grads_card_vs_cpu(tag: str, scene, cam, dev, settings: RenderSettings) -> None:
-    """The card's gradients of bench.py's step against the CPU path's, over
-    the pixels whose colors agree within 1e-3 (a ULP of a transcendental
-    can flip a path's discrete decision, and a flipped pixel has another
-    gradient): every parameter within 1e-3 of its largest magnitude."""
-    size = settings.width
-    out = {}
-    for dv in (dev, "cpu"):
+    """The card's gradients of bench.py's step against the CPU path's
+    (``_grads_agree``)."""
+    _grads_agree(tag, scene, cam, (dev, settings), ("cpu", settings), "card vs CPU")
+
+
+def _grads_agree(tag: str, scene, cam, run, ref, what: str) -> None:
+    """The gradients of bench.py's step in ``run`` against those in ``ref``,
+    each a (device, settings), over the pixels whose colors agree within
+    1e-3 (a ULP of a transcendental can flip a path's discrete decision,
+    and a flipped pixel has another gradient): every parameter within 1e-3
+    of its largest magnitude."""
+    size = run[1].width
+    out = []
+    for dv, settings in (run, ref):
         tsd = to_torch(scene, dv).requires_grad_()
         cd = camera_to_torch(cam, dv)
         for c in cd.eye:
             c.requires_grad_()
-        out[str(dv)] = (tsd, cd, torch.arange(size * size, dtype=torch.int32, device=dv))
-    names = [n for n, _ in out["cpu"][0].named_parameters()] + ["eye.x", "eye.y", "eye.z"]
+        out.append((tsd, cd, settings, torch.arange(size * size, dtype=torch.int32, device=dv)))
+    names = [n for n, _ in out[1][0].named_parameters()] + ["eye.x", "eye.y", "eye.z"]
     with torch.no_grad():  # _grads' seed
-        col = {k: trace_rays(*v[:2], settings, v[2], 1).color.stack().cpu().numpy()
-               for k, v in out.items()}
-    agree = (np.abs(col[str(dev)] - col["cpu"]).max(axis=1) <= 1e-3)
+        col = [trace_rays(*v, 1).color.stack().cpu().numpy() for v in out]
+    agree = (np.abs(col[0] - col[1]).max(axis=1) <= 1e-3)
     if agree.mean() < 0.99:
-        raise AssertionError(f"{tag}: {size}² colors: only {agree.mean():.4%} of pixels agree")
+        raise AssertionError(f"{tag}: {size}² colors, {what}: only {agree.mean():.4%} of "
+                             f"pixels agree")
     w = torch.tensor(agree.astype(np.float32))
-    g_card = _grads(*out[str(dev)][:2], settings, out[str(dev)][2], w.to(dev))[1]
-    g_cpu = _grads(*out["cpu"][:2], settings, out["cpu"][2], w)[1]
+    g_run, g_ref = (_grads(*v, w.to(v[3].device))[1] for v in out)
     worst = 0.0
-    for name, a, b in zip(names, g_card, g_cpu):
-        a, b = a.cpu().double(), b.double()
+    for name, a, b in zip(names, g_run, g_ref):
+        a, b = a.cpu().double(), b.cpu().double()
         scale = float(b.abs().max()) if b.numel() else 0.0
         err = float((a - b).abs().max()) if b.numel() else 0.0
         tol = 1e-3 * scale + 1e-5
         worst = max(worst, err / tol if tol else 0.0)
         if err > tol:
-            raise AssertionError(f"{tag}: {size}² gradient {name}: card vs CPU max |diff| "
+            raise AssertionError(f"{tag}: {size}² gradient {name}, {what}: max |diff| "
                                  f"{err} > {tol}")
-    phase(tag, f"{size}² gradients, card vs CPU, over the {agree.mean():.4%} of pixels "
-               f"whose colors agree: every parameter within 1e-3 of its largest "
-               f"magnitude (worst at {worst:.3f} of that bound)")
+    phase(tag, f"{size}² gradients, {what}, over the {agree.mean():.4%} of pixels whose "
+               f"colors agree: every parameter within 1e-3 of its largest magnitude (worst "
+               f"at {worst:.3f} of that bound)")
 
 
 def multiroom_grad_phase(scene, cam, dev, pt: PathTracer, profile: bool) -> dict:
@@ -1171,22 +1199,56 @@ def _rays_in_soup(n: int, seed: int, dev) -> tuple:
     return _to_dev(o, dev), _to_dev(d, dev)
 
 
-def soup_path_phase(scene, cam, dev, profile: bool) -> dict:
-    """Path "soup:100000": auto (K4) at 1024²."""
-    tag = "soup:100000"
+def auto_golden_phase(tag: str, scene, cam, dev) -> dict:
+    """The device golden of ``auto`` on one scene (the counterpart of the
+    JAX package's tools/golden_device.py): the first-frame checks at 1024²;
+    the frame against the same frame through K1 (intersector='pallas',
+    whose one frame launches K1 8 times and nothing else): at least 99% of
+    pixels within 1e-3, no NaN; one frame's launches: those of the band
+    table's pick (``AUTO_PICKS``) and no other; at 64², the card's
+    gradients through ``auto`` against those through K1 (``_grads_agree``)."""
     pt = _first_frame_checks(tag, scene, cam, dev)
     first = pt.image()
     k1 = PathTracer(scene, pt.settings.replace(intersector="pallas"), device=dev,
                     lane_order=pt.lane_order)
     k1_launches = _one_frame_launches(f"{tag}, pallas", k1, cam, seed=0)
-    _expect(f"{tag}, pallas", k1_launches, {"K1": k1.settings.max_total_depth})
-    d = np.abs(first - k1.image()).max(axis=-1)
-    within = float((d <= 1e-3).mean())
-    phase(tag, f"first frame, auto (K4) vs intersector='pallas' (K1): {within:.4%} of pixels "
-               f"within 1e-3, means {first.mean():.6f} / {k1.image().mean():.6f}")
-    if within < 0.99:
-        raise AssertionError(f"{tag}: K4 and K1 frames agree on only {within:.4%}")
+    mtd = k1.settings.max_total_depth
+    _expect(f"{tag}, pallas", k1_launches, {"K1": mtd})
+    _frame_vs(tag, "first frame, auto vs intersector='pallas' (K1)", first, k1.image())
     del k1
+    launched = _one_frame_launches(f"{tag}, auto", pt, cam)
+    _expect(f"{tag}, auto", launched, dict.fromkeys(AUTO_PICKS[tag], mtd))
+    small = bench_settings(64, no_transparency=pt.settings.no_transparency)
+    _grads_agree(tag, scene, cam, (dev, small), (dev, small.replace(intersector="pallas")),
+                 "auto vs K1 on the card")
+    return {"pt": pt, "first": first, "k1_launches": k1_launches["K1"], "launches": launched}
+
+
+def band_golden_phase(dev) -> None:
+    """``auto_golden_phase`` on a scene in each band the card's table moved
+    (besides soup:100000, which the soup path takes): soup:1025, now K1's,
+    and multiroom:6,6,30, now K8's. On soup:1025 auto is K1 itself, so its
+    frame and gradient goldens hold K1 against K1 and can only pass: there
+    the launch check (``AUTO_PICKS``) is what shows the band moved."""
+    soup_cam = make_camera_state(eye=(0.0, 0.0, 3.5), center_dir=(0.0, 0.0, 1.0))
+    room_cam = make_camera_state(eye=(0.0, 1.0, 3.0), center_dir=(0.0, 0.0, 1.0))
+    for tag, text, cam in (("soup:1025", grey_soup(1_025), soup_cam),
+                           ("multiroom:6,6,30", multi_room(6, 6, 30), room_cam)):
+        scene, _ = scene_from_text(*text, use_bvh=True)
+        auto_golden_phase(tag, scene, cam, dev)
+
+
+def soup_path_phase(scene, cam, dev, profile: bool) -> dict:
+    """Path "soup:100000": ``auto_golden_phase``; then path "soup:100000,
+    cull" (K4, intersector='cull') at 1024²: the first-frame checks, the
+    frame against auto's, 8 timed frames."""
+    tag = "soup:100000"
+    auto = auto_golden_phase(tag, scene, cam, dev)
+    tag = "soup:100000 cull"
+    pt = _first_frame_checks(tag, scene, cam, dev, intersector="cull")
+    first = pt.image()
+    _frame_vs(tag, "first frame, 'cull' (K4) vs auto", first, auto["first"])
+    del auto["pt"]
     launched, ms_frame = _timed_frames(tag, pt, cam)
     expect = FRAMES * pt.settings.max_total_depth * pt.settings.samples
     if launched["K4"] != expect or launched["K4 any-hit"] != expect \
@@ -1196,7 +1258,7 @@ def soup_path_phase(scene, cam, dev, profile: bool) -> dict:
     if profile:
         profile_phase(tag, pt, cam)
     return {"pt": pt, "launches": launched, "ms_frame": ms_frame, "first": first,
-            "k1_launches": k1_launches["K1"]}
+            "k1_launches": auto["k1_launches"]}
 
 
 def soup_kernel_phase(dev, pt: PathTracer, cam) -> dict:
@@ -1445,11 +1507,11 @@ def multiroom_sweep_phase(scene, cam, dev, mr_pt: PathTracer) -> dict:
 
 def sweep_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dict:
     """Path "soup:100000, sweep" (K5 with the sort and the row early-out):
-    the first frame against the full-width frame and the auto (K4) frame,
+    the first frame against the full-width frame and the 'cull' (K4) frame,
     8 timed frames with only K5 launching, and frame 0's test counter."""
     tag = "soup:100000 K5"
     pt = _first_frame_checks(tag, scene, cam, dev, intersector="sweep")
-    _frame_vs(tag, "first frame, 'sweep' (K5) vs auto (K4)", pt.image(), k4_first)
+    _frame_vs(tag, "first frame, 'sweep' (K5) vs 'cull' (K4)", pt.image(), k4_first)
     launched, ms = _timed_frames(tag, pt, cam)
     mtd = pt.settings.max_total_depth * pt.settings.samples
     _expect(tag, launched, {"K5": FRAMES * mtd, "K5 any-hit": FRAMES * mtd})
@@ -1551,12 +1613,12 @@ def tree_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dic
     """Paths "soup:100000, pallas_bvh_hbm" (K7, timed), "..., K7 NEE off",
     "soup:100000, bvh" (K8, timed, with the frame's counters) and
     "soup:100000, forest" (K6's chain, one frame), each first frame against
-    the auto (K4) frame."""
+    the 'cull' (K4) frame."""
     out = {}
     mtd = bench_settings(SIZE).max_total_depth
     tag = "soup:100000 K7"
     pt = _first_frame_checks(tag, scene, cam, dev, intersector="pallas_bvh_hbm")
-    _frame_vs(tag, "first frame, 'pallas_bvh_hbm' (K7) vs auto (K4)", pt.image(), k4_first)
+    _frame_vs(tag, "first frame, 'pallas_bvh_hbm' (K7) vs 'cull' (K4)", pt.image(), k4_first)
     launched, ms = _timed_frames(tag, pt, cam)
     _expect(tag, launched, {"K7 NEE": FRAMES * mtd})
     if profile:
@@ -1570,7 +1632,7 @@ def tree_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dic
 
     tag = "soup:100000 K8"
     pt8 = _first_frame_checks(tag, scene, cam, dev, intersector="bvh")
-    _frame_vs(tag, "first frame, 'bvh' (K8) vs auto (K4)", pt8.image(), k4_first)
+    _frame_vs(tag, "first frame, 'bvh' (K8) vs 'cull' (K4)", pt8.image(), k4_first)
     launched, ms = _timed_frames(tag, pt8, cam)
     _expect(tag, launched, {"K8": FRAMES * mtd, "K8 any-hit": FRAMES * mtd})
     res = trace_rays(pt8.scene, camera_to_torch(cam, dev), pt8.settings, pt8.pixel_ids, 0,
@@ -1590,7 +1652,7 @@ def tree_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dic
 
     tag = "soup:100000 forest"
     ptf = _first_frame_checks(tag, scene, cam, dev, intersector="pallas_bvh_forest")
-    _frame_vs(tag, "first frame, 'pallas_bvh_forest' (K6 chain) vs auto (K4)", ptf.image(),
+    _frame_vs(tag, "first frame, 'pallas_bvh_forest' (K6 chain) vs 'cull' (K4)", ptf.image(),
               k4_first)
     if ptf.scene.forest.count < 2:
         raise AssertionError(f"{tag}: the forest must have several sub-trees")
@@ -1687,16 +1749,20 @@ def _recorded(call) -> list:
     return walks
 
 
-def _walk_bound(w, work: list) -> tuple:
+def _walk_bound(w, work: list, uv: list) -> tuple:
     """Bound of one walk: the per-ray walk's node steps and leaf-face tests
     on these rays (what the plain version counted, both legs of NEE: each
     hit leaf's faces whole, and on an any-hit walk those up to and
     including the occluding face, where it stops; summed over a seeded
-    chain's sub-trees); bytes: the rays, the per-ray inputs and outputs,
+    chain's sub-trees), t for every test and u and v only where t can
+    change the result (``uv``: ``cuda_bvh.uv_counts`` of each leg, as K1's
+    bound counts them); bytes: the rays, the per-ray inputs and outputs,
     each once, the tree's nodes (9 words each; every sub-tree's for a
-    chain) and its faces (9 words)."""
+    chain) and its faces (9 words). Returns (that bound, tests, visits, u-v
+    tests, the bound with the whole test charged on every face)."""
     tests = sum(int(t.sum()) for t, _ in work)
     visits = sum(int(v.sum()) for _, v in work)
+    uv_tests = sum(int(u.sum()) for u in uv)
     n = w.o.x.shape[0]
     per_ray = 24 + sum(a.element_size() for a in (w.alive, w.order, w.t_limit, w.t_seed,
                                                   w.f_seed, w.occ_seed) if a is not None)
@@ -1704,19 +1770,22 @@ def _walk_bound(w, work: list) -> tuple:
     per_ray += 8 if w.with_counts else 0
     nodes = w.tree.trees.exit.numel() if isinstance(w.tree, ForestTables) else w.tree.count
     nbytes = per_ray * n + 36 * nodes + 36 * w.faces.shape[1]
-    return _bound(OPS_SLAB * visits + OPS_CLASSIC * tests, nbytes), tests, visits
+    ops = OPS_SLAB * visits + OPS_CLASSIC_T * tests + OPS_CLASSIC_UV * uv_tests
+    return (_bound(ops, nbytes), tests, visits, uv_tests,
+            _bound(OPS_SLAB * visits + OPS_CLASSIC * tests, nbytes))
 
 
 def _check_walks(tag: str, walks: list, what: str, timed: bool) -> dict:
     """Each recorded walk replayed by its kernel and by the plain version,
-    bitwise; per instance, summed over its walks: kernel ms (CUDA events,
-    3 launches each), plain ms (one run), bound, largest |t| error."""
+    bitwise; per instance, summed over its walks: largest |t| error and,
+    ``timed``, kernel ms (CUDA events, 3 launches each), plain ms (one run,
+    with the walk's counts) and bound."""
     res = {}
     for w in walks:
-        work = []
+        work, uv = [], [] if timed else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ref = cb._run_plain(w, work)
+        ref = cb._run_plain(w, work, uv)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         got = cb._run_kernel(w)
@@ -1724,13 +1793,16 @@ def _check_walks(tag: str, walks: list, what: str, timed: bool) -> dict:
         _equal_or_raise(f"{w.kernel} on {what}", got, ref)
         err = 0.0 if w.t_limit is not None else _max_err(got[0], ref[0])
         ms = _time_ms(lambda: cb._run_kernel(w), 3) if timed else None
-        (b_ms, b_by), tests, visits = _walk_bound(w, work)
+        (b_ms, b_by), tests, visits, uv_tests, whole = _walk_bound(w, work, uv or [])
         r = res.setdefault(w.kernel, {"walks": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                       "bound_by": b_by, "err": 0.0, "tests": 0, "visits": 0,
+                                      "uv_tests": 0, "whole_test_bound_ms": 0.0,
                                       "shadow_visits": 0})
         r["walks"] += 1
         r["plain_ms"] += plain_ms
         r["bound_ms"] += b_ms
+        r["whole_test_bound_ms"] += whole[0]
+        r["uv_tests"] += uv_tests
         r["ms"] = r["ms"] + ms if timed else None
         r["err"] = max(r["err"], err)
         r["tests"] += tests
@@ -1739,13 +1811,15 @@ def _check_walks(tag: str, walks: list, what: str, timed: bool) -> dict:
             r["shadow_visits"] += int(work[-1][1].sum())
     for name, r in res.items():
         n = walks[0].o.x.shape[0]
-        t = f"{r['ms']:.4f} ms" if timed else "not timed"
         legs = (f" ({r['shadow_visits'] / n:.1f} of them on the shadow leg)"
                 if r["shadow_visits"] else "")
+        bound = (f", {r['uv_tests'] / n:.1f} of them whose t can change the result; kernel "
+                 f"{r['ms']:.4f} ms; plain {r['plain_ms']:.1f} ms; bound {r['bound_ms']:.4f} ms "
+                 f"({r['bound_by']}; the whole test on every face: "
+                 f"{r['whole_test_bound_ms']:.4f} ms)" if timed else "")
         phase(tag, f"{name} on {what} ({r['walks']} launch(es)): equal to the plain version "
                    f"bitwise; {r['visits'] / n:.1f} node steps{legs} and {r['tests'] / n:.1f} "
-                   f"face tests a ray; kernel {t}; plain {r['plain_ms']:.1f} ms; bound "
-                   f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                   f"face tests a ray{bound}")
     return res
 
 
@@ -2333,6 +2407,7 @@ def main() -> None:
     mc = multiroom_cull_phase(scene_m, cam_m, dev, mr["pt"])
     msw = multiroom_sweep_phase(scene_m, cam_m, dev, mr["pt"])
     del mr, mk
+    band_golden_phase(dev)
 
     scene_s, cam_s = soup()
     oracle_phase("soup:100000", scene_s, cam_s, dev, size=64)

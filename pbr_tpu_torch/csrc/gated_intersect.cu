@@ -41,8 +41,9 @@
 //     max it already holds, so the exit is exact;
 //   - no staging: the table is read through L1 (a broadcast 16-byte load a
 //     face and warp), so warps need no barrier and a warp that leaves does
-//     not hold its block. The table may reach GATED_MAX_FACES = 12,288
-//     faces (768 KB): no design may need it whole in shared memory;
+//     not hold its block. Under auto the table reaches 12,288 faces (the
+//     top of K3's band, ops/traverse.py::AUTO_BANDS; 768 KB), and an
+//     explicit 'gated' more: no design may need it whole in shared memory;
 //   - one ray a thread in 64-ray blocks: a 1,024-ray tile is 16 blocks,
 //     each reading its tile's verdict row, so 1M rays make 16,384 blocks
 //     and the last wave is short; 16 blocks an SM, 48 / 46 registers.

@@ -282,7 +282,7 @@ def trace_rays(
     frame_seed,
     prev_t: Optional[torch.Tensor] = None,
     with_stats: bool = False,
-    max_leaf: int = 2,
+    max_leaf: Optional[int] = None,
 ) -> TraceResult:
     """Trace ``settings.samples`` paths for each pixel id.
 
@@ -291,8 +291,8 @@ def trace_rays(
     ``pixel_ids``: (B,) int32 global pixel indices (y * width + x) on the
     scene's device; ``frame_seed``: a Python int or a 0-d integer tensor;
     ``prev_t``: the previous frame's first-hit distances, or None;
-    ``max_leaf``: the faces a leaf of the scene's BVH may hold
-    (``scene/build.py::bvh_max_leaf``), for the tree walks.
+    ``max_leaf``: the faces a leaf of the scene's BVH may hold, for the
+    tree walks; None takes the BVH's own (``ops/traverse.py::leaf_bound``).
 
     ``settings.phong_tessellation`` > 0 traces curved patches
     (``ops/phongtess.py``; build the scene with the same

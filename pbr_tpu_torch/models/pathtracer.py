@@ -51,7 +51,7 @@ def init_frame_state(num_pixels: int, device) -> FrameState:
 
 
 def render_frame(scene, cam, settings: RenderSettings, state: FrameState,
-                 pixel_ids, frame_seed, with_dropped: bool = False, max_leaf: int = 2):
+                 pixel_ids, frame_seed, with_dropped: bool = False, max_leaf=None):
     """One progressive frame: trace, then blend (setColors, pt_rgb.cl:9-21).
     ``with_dropped`` also returns the compaction-overflow lane count (None
     when no schedule is active)."""
@@ -96,7 +96,7 @@ def schedule_cost(schedule, max_total_depth: int) -> float:
 
 
 def probe_compact_schedule(scene, cam, settings: RenderSettings, headroom: float = 1.5,
-                           probe_rows: int = 64, pixel_ids=None, max_leaf: int = 2):
+                           probe_rows: int = 64, pixel_ids=None, max_leaf=None):
     """A compaction schedule from a cheap occupancy probe: trace a band of
     rows (or, for a non-scanline lane order, a strided subset of whole
     ``compact_block`` lane blocks of ``pixel_ids``), then place a cap at

@@ -194,12 +194,15 @@ class Walk(NamedTuple):
     with_counts: bool = False
 
 
-def _leaf_tests(o, d, faces, rays, first, cnt, face_base, t_best, f_best, occ, t_limit):
+def _leaf_tests(o, d, faces, rays, first, cnt, face_base, t_best, f_best, occ, t_limit,
+                uv=None):
     """The leaf faces ``first .. first + cnt - 1`` of each ray in ``rays``
     (1-D int64), in ascending order, a cut of rays at a time: nearest
     (strict '<', so the first face wins ties) into ``t_best``/``f_best``,
     or any-hit against ``t_limit`` into ``occ``. Returns each ray's face
-    tests: ``cnt``, or on any-hit up to and including the occluding face."""
+    tests: ``cnt``, or on any-hit up to and including the occluding face.
+    ``uv``: a list to which the tests whose t can change the result are
+    appended as (rays, t) (``walk_plain``)."""
     kmax = int(cnt.max())
     nf = faces.shape[1]
     k = torch.arange(kmax, device=first.device)
@@ -215,12 +218,17 @@ def _leaf_tests(o, d, faces, rays, first, cnt, face_base, t_best, f_best, occ, t
                                    Vec3(tab[3], tab[4], tab[5]), Vec3(tab[6], tab[7], tab[8]))
         valid = valid & (k < ct[:, None])
         if t_limit is not None:
-            hit = valid & (t < t_limit[r, None])
+            below = (t >= EPS5) & (t < t_limit[r, None])
+            hit = valid & below
             found = hit.any(dim=1)
             occ[r] = occ[r] | found
             first_hit = torch.where(hit, k, kmax).amin(dim=1)
             ran[lo:lo + step] = torch.where(found, first_hit + 1, ct)
+            if uv is not None:
+                _candidates(uv, r, t, below & (k < ran[lo:lo + step, None]))
             continue
+        if uv is not None:
+            _candidates(uv, r, t, (t >= EPS5) & (t <= t_best[r, None]) & (k < ct[:, None]))
         tt = torch.where(valid, t, INF)
         t_min = tt.amin(dim=1)
         k_first = torch.where(tt == t_min[:, None], k, kmax).amin(dim=1)
@@ -230,8 +238,33 @@ def _leaf_tests(o, d, faces, rays, first, cnt, face_base, t_best, f_best, occ, t
     return ran
 
 
+def _candidates(uv: list, r, t, mask) -> None:
+    rows, cols = torch.nonzero(mask, as_tuple=True)
+    uv.append((r[rows], t[rows, cols]))
+
+
+def _within(uv: list, t_best: torch.Tensor) -> tuple:
+    """The candidates of ``uv`` joined, those with t above ``t_best`` dropped."""
+    r, t = torch.cat([c[0] for c in uv]), torch.cat([c[1] for c in uv])
+    keep = t <= t_best[r]
+    return r[keep], t[keep]
+
+
+def uv_counts(uv: list, n: int, device, t_final=None) -> torch.Tensor:
+    """Per ray of ``n``, the face tests whose t can change the result,
+    from the candidates ``walk_plain`` appended to ``uv``: on a nearest
+    walk those with ``1e-5 <= t <= t_final`` (the ray's final t, as
+    chip_smoke.py's K1 bound counts them), on an any-hit walk (``t_final``
+    None) every candidate."""
+    if not uv:
+        return torch.zeros((n,), dtype=torch.int64, device=device)
+    r = _within(uv, t_final)[0] if t_final is not None else torch.cat([c[0] for c in uv])
+    return torch.bincount(r, minlength=n)
+
+
 def walk_plain(o: Vec3, d: Vec3, tree, faces: torch.Tensor, max_leaf: int, alive=None,
-               face_base: int = 0, t_seed=None, f_seed=None, t_limit=None, occ_seed=None):
+               face_base: int = 0, t_seed=None, f_seed=None, t_limit=None, occ_seed=None,
+               uv=None):
     """The per-ray stackless walk in torch ops (any device): K8's plain
     version, and K6's and K7's (module docstring).
 
@@ -241,7 +274,13 @@ def walk_plain(o: Vec3, d: Vec3, tree, faces: torch.Tensor, max_leaf: int, alive
     the walk that ran, those of ``pbr_tpu/ops/traverse.py:302-314`` on the
     nearest walk (node steps; min(leaf_count, max_leaf) per hit leaf); the
     any-hit walk counts a leaf's faces up to and including the one that
-    occludes the ray, where it stops."""
+    occludes the ray, where it stops.
+
+    ``uv``: a list to which each leaf appends the (rays, t) of its tests
+    whose t can change the result, for ``uv_counts``: on a nearest walk
+    ``1e-5 <= t <=`` the ray's bound before the leaf (a superset of those
+    within its final t), on an any-hit walk ``1e-5 <= t < t_limit`` up to
+    and including the occluding face."""
     n, dev = o.x.shape[0], o.x.device
     any_hit = t_limit is not None
     inv = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
@@ -272,7 +311,9 @@ def walk_plain(o: Vec3, d: Vec3, tree, faces: torch.Tensor, max_leaf: int, alive
             rays = act[leaf]
             cnt = tree.leaf_count[i][leaf].clamp_max(max_leaf)
             tests[rays] += _leaf_tests(o, d, faces, rays, lf[leaf].long(), cnt.long(), face_base,
-                                       t_best, f_best, occ, t_limit).to(torch.int32)
+                                       t_best, f_best, occ, t_limit, uv).to(torch.int32)
+        if uv is not None and not any_hit and len(uv) >= 32:  # t_best only falls
+            uv[:] = [_within(uv, t_best)]
         nxt = torch.where(hit, i + 1, tree.exit[i].long())
         idx[act] = nxt
         keep = nxt < tree.count
@@ -292,19 +333,26 @@ def _subtrees(w: Walk) -> list:
             for i in range(w.tree.count)]
 
 
-def _run_plain(w: Walk, work: Optional[list] = None):
+def _run_plain(w: Walk, work: Optional[list] = None, uv: Optional[list] = None):
     """``w`` through the plain version: (t, face), (t, face, occluded),
     occluded, or K8's (t, face[, tests, visits]) and (occluded[, tests,
     visits]); a forest's sub-trees walked one after another, each seeded by
     the one before. ``work``: a list to which each tree's walk appends its
-    per-ray ``(tests, visits)`` (chip_smoke.py's bounds count them)."""
+    per-ray ``(tests, visits)``; ``uv``: a list to which each leg (the
+    nearest walk, the shadow walk) appends its per-ray tests whose t can
+    change the result (``uv_counts``: over a chain, against the chain's
+    final t). chip_smoke.py's bounds count them."""
     def walk(o, d, alive=w.alive, t_seed=None, f_seed=None, t_limit=None, occ_seed=None):
+        cands = None if uv is None else []
         for tree, faces, base in _subtrees(w):
             out = walk_plain(o, d, tree, faces, w.max_leaf, alive, base, t_seed=t_seed,
-                             f_seed=f_seed, t_limit=t_limit, occ_seed=occ_seed)
+                             f_seed=f_seed, t_limit=t_limit, occ_seed=occ_seed, uv=cands)
             if work is not None:
                 work.append(out[3:])
             t_seed, f_seed, occ_seed = out[:3]
+        if uv is not None:
+            uv.append(uv_counts(cands, o.x.shape[0], o.x.device,
+                                None if t_limit is not None else out[0]))
         return out
     counts = w.with_counts and w.kernel in _K8
     if w.t_limit is not None:

@@ -33,7 +33,7 @@ from pbr_tpu_torch.scene.camera import pixel_dim
 _B3 = (1.0 / 16.0, 1.0 / 4.0, 3.0 / 8.0, 1.0 / 4.0, 1.0 / 16.0)
 
 
-def first_hit_features(scene, cam, settings, max_leaf: int = 2):
+def first_hit_features(scene, cam, settings, max_leaf=None):
     """One deterministic primary-hit pass -> ``(normal, depth, albedo)``.
 
     ``scene``: a ``SceneParams``; ``cam``: a ``CameraState`` of 0-d
@@ -137,7 +137,7 @@ def noise_filter(color, normal, depth, albedo=None, *, iterations: int = 3,
     return img
 
 
-def denoise_render(color_img, scene, cam, settings, max_leaf: int = 2, **kwargs):
+def denoise_render(color_img, scene, cam, settings, max_leaf=None, **kwargs):
     """Features from the scene, then the filter, in one call.
     ``color_img``: (H, W, 3) linear radiance in pixel-row order (row 0
     first), on the scene's device."""

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from pbr_tpu_torch.ops.intersect import EPS5, INF, gather_vec3, moller_trumbore, slab_box
-from pbr_tpu_torch.ops.traverse import detach_tris
+from pbr_tpu_torch.ops.traverse import detach_tris, leaf_bound
 from pbr_tpu_torch.ops.vec import Vec3, f32, project_on_plane, safe_normalized, where3
 
 _THIRD = f32(1.0 / 3.0)
@@ -595,7 +595,7 @@ def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float,
 
 
 def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, clusters=None,
-                              max_leaf: int = 2, alive=None):
+                              max_leaf=None, alive=None):
     """The Phong nearest-hit dispatch (``pbr_tpu/ops/phongtess.py:467``):
     no BVH, the all-faces sweep; clusters and at least
     ``CLUSTER_MIN_RAYS`` rays, the cluster search; otherwise the BVH walk.
@@ -616,7 +616,8 @@ def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, cl
             face, uu, vv = intersect_clusters_phongtess(o_s, d_s, clusters, tris_s, alpha,
                                                         alive=alive)
         else:
-            _, face, uu, vv = intersect_bvh_phongtess(o_s, d_s, bvh, tris_s, alpha, max_leaf)
+            _, face, uu, vv = intersect_bvh_phongtess(o_s, d_s, bvh, tris_s, alpha,
+                                                      leaf_bound(bvh, max_leaf))
 
     safe = face.clamp_min(0).long()
     P1 = gather_vec3(tris_s.v0, safe)

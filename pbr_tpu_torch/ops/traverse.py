@@ -27,15 +27,16 @@ port has so far:
   product a chunk of rays (``ops/gemm_intersect.py``: ``torch.matmul`` in
   full float32 on either device, no kernel of the port's own). On a CPU
   tensor every kernel's wrapper runs its plain version.
-- ``auto`` mirrors the JAX package's TPU dispatch
-  (``pbr_tpu/ops/traverse.py:424-435``) so that both packages run the same
-  algorithm on the same scene, on either device: clusters and
-  ``GATED_MIN_FACES`` < F <= ``GATED_MAX_FACES`` take ``gated``; clusters
-  and F > ``GATED_MAX_FACES`` take ``cull``; F <= ``BRUTE_SMEM_MAX_FACES``
-  takes K1 (the plain sweep on a CPU tensor); above it a scene with a
-  forest takes ``pallas_bvh_forest`` and one with a BVH and no forest
-  ``bvh``. K1 serves the rest: a big scene with neither. ``auto`` never
-  picks ``sweep`` or ``gemm``, as in the JAX package.
+- ``auto`` is the H100's measured policy (``AUTO_BANDS``, from the band
+  table ``docs/BAND_TABLE_H100.json``), the same on either device so that
+  the CPU runs the algorithm the card runs: a scene with clusters takes K1
+  up to 1,025 faces, ``gated`` up to 12,288 and ``bvh`` (K8) above; a
+  scene without clusters takes K1 up to 10,000 faces and above it the
+  forest where it has one, else ``bvh`` where it has a BVH, else K1. On a
+  CPU tensor K1 is the plain sweep. ``auto`` never picks ``cull``,
+  ``sweep``, ``gemm`` or the packet walks: each stays an explicit mode.
+- The tree walks test at most ``max_leaf`` faces of a leaf; the dispatch
+  takes the tree's own bound where the caller gives none (``leaf_bound``).
 """
 
 from __future__ import annotations
@@ -51,18 +52,34 @@ from pbr_tpu_torch.ops.vec import Vec3
 
 _TREE_MODES = ("bvh", "pallas_bvh", "pallas_bvh_forest", "pallas_bvh_hbm")
 
-# The gated band of ``auto``, and ``cull`` above it: the bounds of the JAX
-# package's TPU dispatch (pbr_tpu/ops/traverse.py:424-427, GATED_MAX_FACES
-# of ops/pallas_gated.py),
-# mirrored so that both packages run the same algorithm on the same scene.
-# They are TPU measurements and a TPU SMEM budget, not H100 measurements:
-# moving them is the work of a PR that measures the band on the card.
-GATED_MIN_FACES = 1024  # exclusive
-GATED_MAX_FACES = 12_288
-# Above this many faces a scene without clusters leaves K1 for a tree walk
-# (pbr_tpu/ops/pallas_intersect.py::BRUTE_SMEM_MAX_FACES, a TPU SMEM
-# budget), mirrored like the two above.
-BRUTE_SMEM_MAX_FACES = 10_000
+# The bands of ``auto``: per class of scene ("clusters": the scene has a
+# ClusterSet; "plain": it has none), (largest face count or None, mode)
+# in rising face count; "tree" walks the forest where the scene has one,
+# else its BVH (K8), else K1. They are band_policy of the H100's band
+# table, docs/BAND_TABLE_H100.json (pbr_tpu_torch/tools/band_table.py;
+# NVIDIA H100 80GB HBM3 at 700 W; a mode takes a row where it beats the
+# incumbent in all 3 rounds on ms/frame, device ms and ms/step), and
+# tests/test_torch_band_policy.py holds them equal.
+AUTO_BANDS = {
+    "clusters": (
+        # K1 beats K3 on soup:1025 in every round; the rounds disagree on
+        # multiroom:3,3,10 (1,428 faces), so K3 holds from there.
+        (1_025, "pallas"),
+        # K3 holds soup:12288 (the rounds disagree); K8 beats K4 on every
+        # row above: soup:12289 to soup:100000 and multiroom:6,6,30 to
+        # 10,10,40.
+        (12_288, "gated"),
+        (None, "bvh"),
+    ),
+    "plain": (
+        # No cluster-less row lies between Cornell (34 faces: K1) and
+        # soup:10001 without clusters, where K8 beats K1 in every round and
+        # holds against K6 and K7 (the rounds disagree): the edge stays
+        # where it was.
+        (10_000, "pallas"),
+        (None, "tree"),
+    ),
+}
 # Rays a chunk of intersect_bvh_chunked (pbr_tpu/ops/traverse.py:170).
 BVH_CHUNK = 8_192
 
@@ -118,6 +135,33 @@ def intersect_bvh_chunked(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2,
     return tuple(res)
 
 
+def leaf_bound(bvh, max_leaf=None) -> int:
+    """The leaf bound a walk of ``bvh`` runs with: ``max_leaf``, or where it
+    is None the tree's own (``scene/build.py::bvh_max_leaf``: its largest
+    leaf, at least 2). Raises where ``max_leaf`` is below the tree's largest
+    leaf (``BVHTables.leaf_max``, where the tables carry it): the walk would
+    never test that leaf's faces past the bound."""
+    most = bvh.leaf_max
+    if max_leaf is None:
+        return max(2, most if most is not None else int(bvh.leaf_count.max()))
+    if most is not None and max_leaf < most:
+        raise ValueError(f"max_leaf {max_leaf} is below the BVH's largest leaf, {most} "
+                         f"faces; pass max_leaf=None for the tree's own bound")
+    return max_leaf
+
+
+def band_mode(bands, n_faces: int, has_bvh: bool = False, has_forest: bool = False) -> str:
+    """The mode of the band of ``bands`` (``AUTO_BANDS``' form) that holds
+    ``n_faces``, "tree" resolved for a scene with or without a BVH and a
+    forest."""
+    for top, mode in bands:
+        if top is None or n_faces <= top:
+            if mode == "tree":
+                return "pallas_bvh_forest" if has_forest else "bvh" if has_bvh else "pallas"
+            return mode
+    raise ValueError("the last band must have no upper edge")
+
+
 def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False,
                  has_bvh: bool = False, has_forest: bool = False) -> str:
     """What the ``RenderSettings.intersector`` value ``mode`` runs on
@@ -131,15 +175,9 @@ def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False
     picked by 'auto') or 'brute' (the plain sweep, CPU tensors only: on a
     card the sweep is K1). Raises for unknown modes."""
     if mode == "auto":
-        if has_clusters and GATED_MIN_FACES < n_faces <= GATED_MAX_FACES:
-            return "gated"
-        if has_clusters and n_faces > GATED_MAX_FACES:
-            return "cull"
-        if n_faces > BRUTE_SMEM_MAX_FACES and has_forest:
-            return "pallas_bvh_forest"
-        if n_faces > BRUTE_SMEM_MAX_FACES and has_bvh:
-            return "bvh"
-        return "pallas" if device.type == "cuda" else "brute"
+        mode = band_mode(AUTO_BANDS["clusters" if has_clusters else "plain"], n_faces, has_bvh,
+                         has_forest)
+        return "brute" if mode == "pallas" and device.type == "cpu" else mode
     if mode == "brute" and device.type != "cpu":
         raise ValueError(
             f"intersector 'brute' is the plain sweep for CPU tensors; on a "
@@ -152,7 +190,7 @@ def resolve_mode(mode: str, device, n_faces: int = 0, has_clusters: bool = False
 
 def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
                     light_pos=None, alive=None, clusters=None,
-                    with_counts: bool = False, bvh=None, forest=None, max_leaf: int = 2):
+                    with_counts: bool = False, bvh=None, forest=None, max_leaf=None):
     """Nearest-hit dispatch (``pbr_tpu.ops.traverse.intersect_scene``).
 
     The search for the nearest face runs detached; the winner's ``t`` is
@@ -171,8 +209,8 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
     'cull' and 'sweep' need them, 'sweep' with its lin tables);
     ``bvh``/``forest``: its ``BVHTables``/``ForestTables`` or None
     (the tree walks need them); ``max_leaf``: the faces a leaf may hold
-    (``scene/build.py::bvh_max_leaf``); the forest's sub-trees have their
-    own, ``FOREST_MAX_LEAF``.
+    (``leaf_bound``: None takes the BVH's own); the forest's sub-trees have
+    their own, ``FOREST_MAX_LEAF``.
 
     ``with_counts``: also return ``(tests, visits)`` last, per-ray int32
     counters, as in the JAX package: ``tests`` is F, or 2F with the fused
@@ -198,6 +236,8 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
             f"packet walk cannot hold a scene without clusters — scene/build.py — or "
             f"explicitly via accel.forest.build_forest)"
         )
+    if mode in ("bvh", "pallas_bvh", "pallas_bvh_hbm"):
+        max_leaf = leaf_bound(bvh, max_leaf)
     if mode == "bvh":
         out = cuda_bvh.intersect_bvh_walk(o_s, d_s, bvh, tris_s, max_leaf=max_leaf,
                                           alive=alive, with_counts=with_counts)
@@ -277,7 +317,7 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
 
 
 def occluded_scene(o: Vec3, d: Vec3, t_limit: torch.Tensor, tris, mode: str = "auto",
-                   alive=None, clusters=None, bvh=None, forest=None, max_leaf: int = 2):
+                   alive=None, clusters=None, bvh=None, forest=None, max_leaf=None):
     """Any-hit dispatch: the NEE shadow leg of the modes that have no fused
     one (``intersect_scene`` returns ``occluded`` None for them), the bit
     ``t_sh < t_light`` of ``pbr_tpu/models/integrator.py:352-353``: True
@@ -293,7 +333,8 @@ def occluded_scene(o: Vec3, d: Vec3, t_limit: torch.Tensor, tris, mode: str = "a
     if bvh is not None and resolve_mode(mode, o.x.device, n_faces, clusters is not None, True,
                                         forest is not None) == "bvh":
         return cuda_bvh.occluded_bvh_walk(o.detach(), d.detach(), t_limit.detach(), bvh,
-                                          detach_tris(tris), max_leaf, alive=alive)
+                                          detach_tris(tris), leaf_bound(bvh, max_leaf),
+                                          alive=alive)
     t_sh, _ = intersect_scene(o, d, tris, mode=mode, clusters=clusters, bvh=bvh, forest=forest,
                               max_leaf=max_leaf)
     return t_sh < t_limit

@@ -81,7 +81,7 @@ def _shard_seed(frame_seed: int, sp_index: int) -> int:
 
 
 def _trace_shard(scene, cam, settings: RenderSettings, ids, frame_seed, mesh: Mesh,
-                 max_leaf: int):
+                 max_leaf):
     """This rank's block traced with its sample shard's seed, then color and
     focus averaged over the sp group. The all-reduce is differentiable: its
     backward sums the sp ranks' cotangents."""
@@ -95,7 +95,7 @@ def _trace_shard(scene, cam, settings: RenderSettings, ids, frame_seed, mesh: Me
 
 
 def sharded_render(mesh: Mesh, scene, cam: CameraState, settings: RenderSettings, frame_seed,
-                   pixel_ids=None, max_leaf: int = 2):
+                   pixel_ids=None, max_leaf=None):
     """One frame over the mesh (``pbr_tpu/parallel/mesh.py:74``). Returns
     ``(color: Vec3, focus_t)``: this rank's dp block of the flat image,
     pixels ``shard_index_map(mesh, npx)[rank]``, the mean of the sp group's
@@ -134,7 +134,7 @@ def _leaf_camera(cam: CameraState) -> CameraState:
 
 
 def sharded_train_step(mesh: Mesh, scene, cam: CameraState, settings: RenderSettings,
-                       target_rgb, frame_seed, lr: float = 0.0, max_leaf: int = 2):
+                       target_rgb, frame_seed, lr: float = 0.0, max_leaf=None):
     """One differentiable frame, MSE loss and gradient step over the mesh
     (``pbr_tpu/parallel/mesh.py:124``).
 

@@ -83,7 +83,7 @@ def shard_global_array(mesh, arr, device="cuda") -> torch.Tensor:
     return torch.tensor(arr[shard_index_map(mesh, arr.shape[0])[mesh.rank]], device=device)
 
 
-def multihost_train_step(mesh, scene, cam, settings, target_rgb, frame_seed, max_leaf: int = 2):
+def multihost_train_step(mesh, scene, cam, settings, target_rgb, frame_seed, max_leaf=None):
     """One differentiable frame, MSE loss and gradient all-reduce over the
     mesh (``pbr_tpu/parallel/multihost.py:110``): ``sharded_train_step``
     without the update. Returns ``(loss, grads)``, the same on every rank."""

@@ -132,7 +132,10 @@ class BVHTables(NamedTuple):
     copies of the same values and of the faces the tree indexes
     (``ops/cuda_bvh.py::node_records``,
     ``ops/cuda_intersect.py::face_records``); ``to_torch`` builds them for
-    a scene's tree, and a tree without them has None. A
+    a scene's tree, and a tree without them has None. ``leaf_max``: the
+    faces of the tree's largest leaf, a Python int that ``to_torch`` sets
+    (the walks' default leaf bound, ``ops/traverse.py::leaf_bound``), or
+    None. A
     forest's ``ForestTables.trees`` has the first five fields with a
     leading (K,) axis; ``ForestTables.tree(i)`` gives sub-tree i with
     views of its records."""
@@ -144,6 +147,7 @@ class BVHTables(NamedTuple):
     exit: torch.Tensor
     node_records: Optional[torch.Tensor] = None
     face_records: Optional[torch.Tensor] = None
+    leaf_max: Optional[int] = None
 
     @property
     def count(self) -> int:
@@ -224,7 +228,8 @@ class SceneParams(nn.Module):
     ``clu_sup_max`` (3, C / 16) and ``clu_scene_min`` / ``clu_scene_max``
     (3,); when it has a BVH, ``bvh_bb_min`` / ``bvh_bb_max`` (3, N),
     ``bvh_leaf_first`` / ``bvh_leaf_count`` / ``bvh_exit`` (N,) and K8's
-    ``bvh_node_records`` (N, 8) / ``bvh_face_records`` (F, 12); when it has
+    ``bvh_node_records`` (N, 8) / ``bvh_face_records`` (F, 12), and the
+    int ``bvh_leaf_max``, its largest leaf's faces; when it has
     a forest, ``forest_<field>`` for the K sub-trees' stacked node tables,
     ``forest_faces`` (9, K * chunk), ``forest_face_ids`` and the seeded
     chain's ``forest_node_records`` (K, N, 8) / ``forest_face_records``
@@ -288,6 +293,7 @@ class SceneParams(nn.Module):
                 self.register_buffer(f"bvh_{name}", getattr(tree, name))
             self.register_buffer("bvh_node_records", node_records(tree))
             self.register_buffer("bvh_face_records", face_records(face_table(self.tris)))
+            self.bvh_leaf_max = int(np.max(scene.bvh.leaf_count))
         fo = scene.forest
         self.has_forest = fo is not None
         if self.has_forest:

@@ -250,16 +250,18 @@ def plain_and_bounds(w: cb.Walk) -> tuple:
     that missed, as the former contract did."""
     import chip_smoke as smoke
 
-    work = []
-    out = cb._run_plain(w, work)
-    bounds = {"bound_ms": smoke._walk_bound(w, work)[0][0]}
+    work, uv = [], []
+    out = cb._run_plain(w, work, uv)
+    bounds = {"bound_ms": smoke._walk_bound(w, work, uv)[0][0]}
     if w.light is not None:
         hit_p, s_dir, t_light = ci._shadow_ray(w.o, w.d, out[0], w.light)
         missed = out[0] == float("inf")
         missed = missed if w.alive is None else missed & w.alive
+        cands = []
         work.append(cb.walk_plain(hit_p, s_dir, w.tree, w.faces, w.max_leaf, missed,
-                                  t_limit=t_light)[3:])
-        bounds["bound_ms_every_live_lane"] = smoke._walk_bound(w, work)[0][0]
+                                  t_limit=t_light, uv=cands)[3:])
+        uv.append(cb.uv_counts(cands, w.o.x.shape[0], w.o.x.device))
+        bounds["bound_ms_every_live_lane"] = smoke._walk_bound(w, work, uv)[0][0]
     return out, bounds
 
 

@@ -239,6 +239,89 @@ def test_any_hit_counters_stop_at_the_occluding_face(n_faces, leaves):
         assert int((ref_tests < whole).sum()) > 10
 
 
+def _uv_by_hand(o, d, t_limit, trees, max_leaf):
+    """Each ray's walk over ``trees`` ((tree, faces, face offset) in order,
+    the best of one seeding the next), one node step at a time in Python:
+    its face tests whose t can change the result. Nearest (``t_limit``
+    None): ``1e-5 <= t <=`` the ray's final t over every tree; any-hit:
+    ``1e-5 <= t < t_limit`` up to and including the occluding face."""
+    out = []
+    for j in range(o.x.shape[0]):
+        oj, dj = Vec3(o.x[j:j + 1], o.y[j:j + 1], o.z[j:j + 1]), \
+            Vec3(d.x[j:j + 1], d.y[j:j + 1], d.z[j:j + 1])
+        inv = Vec3(1.0 / dj.x, 1.0 / dj.y, 1.0 / dj.z)
+        best, occ, seen = float("inf"), False, []
+        for bvh, faces, _ in trees:
+            i = 0
+            while i < bvh.count and not occ:
+                lo, hi = bvh.bb_min[:, i:i + 1], bvh.bb_max[:, i:i + 1]
+                t_near, t_far, hit = slab_box(oj, inv, Vec3(*lo), Vec3(*hi))
+                gate = best if t_limit is None else float(t_limit[j])
+                hit = bool(hit & (t_far > EPS5) & (lo[0] <= hi[0]) & (gate > t_near))
+                first = int(bvh.leaf_first[i])
+                if hit and first >= 0:
+                    cnt = min(int(bvh.leaf_count[i]), max_leaf)
+                    tab = faces[:, first:first + cnt]
+                    t, valid = moller_trumbore(oj, dj, Vec3(*tab[0:3]), Vec3(*tab[3:6]),
+                                               Vec3(*tab[6:9]))
+                    for k in range(cnt):
+                        tk = float(t[k])
+                        if t_limit is None:
+                            seen.append(tk)
+                            if bool(valid[k]) and tk < best:
+                                best = tk
+                            continue
+                        if EPS5 <= tk < float(t_limit[j]):
+                            seen.append(tk)
+                        if bool(valid[k]) and tk < float(t_limit[j]):
+                            occ = True
+                            break
+                i = i + 1 if hit else int(bvh.exit[i])
+        out.append(sum(1 for tk in seen if EPS5 <= tk and (t_limit is not None or tk <= best)))
+    return torch.tensor(out)
+
+
+@pytest.mark.parametrize("tree", ["2-face leaves", "64-face leaves", "forest"])
+@pytest.mark.parametrize("leg", ["nearest", "any-hit"])
+def test_uv_counts_equal_a_walk_by_hand(tree, leg):
+    """The plain walk's count of the face tests whose t can change the
+    result (``_run_plain``'s ``uv``, chip_smoke's walk bounds: t for every
+    test, u and v only for these) equals a walk written out ray by ray: on
+    the nearest leg ``1e-5 <= t <=`` the ray's final t (over a forest's
+    chain, the chain's), on the any-hit leg ``1e-5 <= t < t_limit`` up to
+    and including the occluding face; dead lanes count nothing. It is
+    below the face tests on some rays."""
+    n_faces, leaves = (3000, 64) if tree == "64-face leaves" else (700, 2)
+    _, ps, ts = _scenes(n_faces, leaves)
+    p, d, t_light, alive = _shadow_rays(ts, 120, n_faces + 7)
+    tp, td = Vec3(*(torch.tensor(c) for c in p)), Vec3(*(torch.tensor(c) for c in d))
+    tl, al = torch.tensor(t_light), torch.tensor(alive)
+    t_limit = tl if leg == "any-hit" else None
+    if tree == "forest":
+        fo = ts.forest
+        w = cb.Walk("K6 seeded" if t_limit is None else "K6 seeded any-hit", tp, td, fo,
+                    fo.faces, 4, al, t_limit=t_limit)
+        trees = [(fo.tree(i), fo.faces[:, i * fo.chunk:(i + 1) * fo.chunk], 0)
+                 for i in range(fo.count)]
+    else:
+        ml = bvh_max_leaf(ps)
+        tab = ci.face_table(ts.tris)
+        w = cb.Walk("K8" if t_limit is None else "K8 any-hit", tp, td, ts.bvh, tab, ml, al,
+                    t_limit=t_limit)
+        trees = [(ts.bvh, tab, 0)]
+    work, uv = [], []
+    cb._run_plain(w, work, uv)
+    assert len(uv) == 1
+    live = torch.nonzero(al).flatten()
+    ref = _uv_by_hand(Vec3(tp.x[live], tp.y[live], tp.z[live]),
+                      Vec3(td.x[live], td.y[live], td.z[live]),
+                      None if t_limit is None else tl[live], trees, w.max_leaf)
+    assert torch.equal(uv[0][live], ref) and int(ref.sum()) > 0
+    assert not uv[0][~al].any()
+    tests = sum(t for t, _ in work)
+    assert bool((uv[0] <= tests).all()) and int((uv[0] < tests).sum()) > 10
+
+
 @pytest.mark.parametrize("kernel", ["K8", "K8 any-hit"])
 def test_k8_takes_no_tree_without_its_records(kernel):
     """A K8 walk of a tree without its packed records raises, on the CPU as

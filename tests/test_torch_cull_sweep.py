@@ -364,11 +364,14 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
 
 
 def test_dispatch_sends_big_clustered_scenes_to_cull():
+    """'cull' is an explicit mode: on the H100's band table ``auto`` sends
+    clustered scenes above 12,288 faces to the per-ray walk (K8), whose
+    frames beat K4's in every round (docs/BAND_TABLE_H100.json)."""
     cpu = torch.device("cpu")
     gpu = torch.device("cuda")
     for dev in (cpu, gpu):
-        assert traverse.resolve_mode("auto", dev, 12_289, True) == "cull"
-        assert traverse.resolve_mode("auto", dev, 100_000, True) == "cull"
+        assert traverse.resolve_mode("auto", dev, 12_289, True, True) == "bvh"
+        assert traverse.resolve_mode("auto", dev, 100_000, True, True) == "bvh"
         assert traverse.resolve_mode("auto", dev, 12_288, True) == "gated"
         assert traverse.resolve_mode("cull", dev, 400, True) == "cull"
     assert traverse.resolve_mode("auto", cpu, 100_000, False) == "brute"

@@ -210,17 +210,17 @@ def test_dispatch_modes():
     dev, cuda = torch.device("cpu"), torch.device("cuda")
     assert tt.resolve_mode("auto", dev) == "brute"
     assert tt.resolve_mode("auto", cuda) == "pallas"
-    # The gated band mirrors the JAX package's TPU dispatch, on either
-    # device: clusters and 1,024 < F <= 12,288 (multiroom has 1,428 faces).
+    # The gated band of the H100's band table, on either device: clusters
+    # and 1,025 < F <= 12,288 (multiroom has 1,428 faces).
     for device in (dev, cuda):
         assert tt.resolve_mode("auto", device, 1428, True) == "gated"
         assert tt.resolve_mode("auto", device, 12_288, True) == "gated"
-    assert tt.resolve_mode("auto", dev, 1024, True) == "brute"
-    assert tt.resolve_mode("auto", cuda, 1024, True) == "pallas"
+    assert tt.resolve_mode("auto", dev, 1025, True) == "brute"
+    assert tt.resolve_mode("auto", cuda, 1025, True) == "pallas"
     assert tt.resolve_mode("auto", cuda, 1428, False) == "pallas"
-    # Above the band, clusters take the cull-and-sweep (K4), on either device.
+    # Above the band, clusters take the per-ray walk (K8), on either device.
     for device in (dev, cuda):
-        assert tt.resolve_mode("auto", device, 12_289, True) == "cull"
+        assert tt.resolve_mode("auto", device, 12_289, True, True) == "bvh"
     assert tt.resolve_mode("auto", cuda, 12_289, False) == "pallas"
     assert tt.resolve_mode("pallas", dev) == "pallas"
     assert tt.resolve_mode("brute", dev) == "brute"
@@ -228,14 +228,13 @@ def test_dispatch_modes():
     assert tt.resolve_mode("cull", cuda) == "cull"
     for mode in ("bvh", "pallas_bvh", "pallas_bvh_forest", "pallas_bvh_hbm"):
         assert tt.resolve_mode(mode, dev) == tt.resolve_mode(mode, cuda) == mode
-    # The tree branches of pbr_tpu/ops/traverse.py:428-435, on either
-    # device: no clusters and F > 10,000 walk the forest if there is one,
-    # else the BVH; K1 keeps a scene with neither, and every scene of at
-    # most 10,000 faces.
+    # The tree band, on either device: no clusters and F > 10,000 walk the
+    # forest if there is one, else the BVH; K1 keeps a scene with neither,
+    # and every scene of at most 10,000 faces.
     for device in (dev, cuda):
         assert tt.resolve_mode("auto", device, 10_001, False, True, True) == "pallas_bvh_forest"
         assert tt.resolve_mode("auto", device, 10_001, False, True, False) == "bvh"
-        assert tt.resolve_mode("auto", device, 12_289, True, True, True) == "cull"
+        assert tt.resolve_mode("auto", device, 12_289, True, True, True) == "bvh"
     assert tt.resolve_mode("auto", cuda, 10_000, False, True, True) == "pallas"
     assert tt.resolve_mode("auto", dev, 10_000, False, True, False) == "brute"
     with pytest.raises(ValueError, match="'auto' or 'pallas'"):

@@ -442,7 +442,7 @@ def test_dispatch_runs_sweep_and_gemm_still_raises():
     for dev in (torch.device("cpu"), torch.device("cuda")):
         assert traverse.resolve_mode("sweep", dev, 100_000, True) == "sweep"
         assert traverse.resolve_mode("gemm", dev, 100_000, True) == "gemm"
-        assert traverse.resolve_mode("auto", dev, 100_000, True) == "cull"
+        assert traverse.resolve_mode("auto", dev, 100_000, True, True) == "bvh"
     (o, d, _), _, _, ts = _inputs("masked-alive-nee")
     _, f_g = traverse.intersect_scene(o, d, ts.tris, mode="gemm")
     _, f_b = traverse.intersect_brute(o, d, ts.tris)
