@@ -213,6 +213,22 @@ read just after; a kernel of the path that did not launch fails the run.
    times show that the code runs on the card, not how it scales.
    The Phong and sharded numbers are one JSON line {"phong": ...,
    "sharded": ...} before the kernels' line.
+10. the bench (``pbr_tpu_torch/bench.py``): first its backward step
+   (``bench.step_grads``: the gradients to every material, light and
+   camera parameter) on the Cornell box (K1) and soup:100000 (K8, K8
+   any-hit) at 64², 2 frames, the card's against the CPU's over the
+   pixels whose colours agree: the loss within 1e-4 and every parameter
+   within 1e-3 of its largest magnitude. Then the entry point
+   (``python -m pbr_tpu_torch.bench``), run from
+   the checkout's root in a subprocess each, as the benchmark runs it:
+   ``--iters 3`` (Cornell, forward+backward, 1024²) and ``--scene
+   soup:100000 --fwd-only --iters 3``. Each exits 0 and its last line has
+   exactly bench.py's keys, unit rays/s and a finite positive value; its
+   launch line shows K1 alone on the Cornell box and K8 with K8 any-hit on
+   soup:100000, once a bounce of each timed step; its rays a frame equal
+   those of this script's own path of the scene (paths "cornell" and
+   "soup:100000, bvh") at seed 0. The phase's time is printed, and its
+   results are one JSON line {"bench": ...} before the kernels' line.
 
 Every failure raises, so the exit code is not 0. The last two lines of
 standard output are the kernels' JSON record (with each kernel's bound: the
@@ -232,6 +248,7 @@ sys.modules["jax"] = None  # the port must run where JAX is absent ...
 sys.modules["pbr_tpu"] = None  # ... and imports nothing of the JAX package
 
 import json  # noqa: E402
+import re  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
@@ -244,7 +261,10 @@ import torch  # noqa: E402
 from pbr_tpu_torch import PathTracer, app, camera_to_torch, to_torch, trace_rays  # noqa: E402
 from pbr_tpu_torch.accel import native  # noqa: E402
 from pbr_tpu_torch.accel.forest import build_forest  # noqa: E402
+from pbr_tpu_torch import bench  # noqa: E402
+from pbr_tpu_torch.bench import bench_settings, card_line, load_scene  # noqa: E402
 from pbr_tpu_torch.models.integrator import _gen_rays  # noqa: E402
+from pbr_tpu_torch.ops import counts, zero_counts  # noqa: E402
 from pbr_tpu_torch.ops import cuda_bvh as cb  # noqa: E402
 from pbr_tpu_torch.ops import cuda_cull as cc  # noqa: E402
 from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
@@ -255,11 +275,11 @@ from pbr_tpu_torch.ops import phongtess  # noqa: E402
 from pbr_tpu_torch.ops import traverse as tt  # noqa: E402
 from pbr_tpu_torch.ops.denoise import first_hit_features, noise_filter  # noqa: E402
 from pbr_tpu_torch.ops.intersect import EPS5  # noqa: E402
-from pbr_tpu_torch.ops.rng import PixelRng  # noqa: E402
+from pbr_tpu_torch.ops.rng import PixelRng, fold  # noqa: E402
 from pbr_tpu_torch.ops.vec import Vec3  # noqa: E402
 from pbr_tpu_torch.parallel.mesh import (  # noqa: E402
-    _leaf_camera,
     _shard_seed,
+    leaf_camera,
     make_mesh,
     render_params,
     sharded_render,
@@ -347,46 +367,24 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def counts() -> dict:
-    """Every kernel instance's launch count."""
-    return {**ci.launches, "K3": cg.launches["nearest"], "K3 any-hit": cg.launches["any-hit"],
-            **cc.launches, **cs.launches, **cb.launches}
-
-
-def zero_counts() -> None:
-    for table in (ci.launches, cg.launches, cc.launches, cs.launches, cb.launches):
-        for k in table:
-            table[k] = 0
-
-
-def bench_settings(size: int, **kw) -> RenderSettings:
-    """bench.py's main-path settings (bench.py:202-233) at ``size``²."""
-    base = dict(width=size, height=size, samples=1, max_depth=3, max_added_depth=5,
-                shadow_rays=1, anti_aliasing=0.7, sky_light=(0.85, 0.9, 1.0))
-    base.update(kw)
-    return RenderSettings(**base)
-
-
 def cornell():
-    scene, _ = scene_from_text(*cornell_box(), use_bvh=False)
-    cam = make_camera_state(eye=(0.0, 1.0, 3.2), center_dir=(0.0, 0.0, 1.0))
-    return scene, cam
+    """The bench's Cornell box and camera (``bench.load_scene``)."""
+    return load_scene("cornell")[:2]
 
 
 def multiroom():
-    """bench.py --scene multiroom (bench.py:187-193)."""
-    scene, _ = scene_from_text(*multi_room(), use_bvh=True)
-    cam = make_camera_state(eye=(0.0, 1.0, 3.0), center_dir=(0.0, 0.0, 1.0))
+    """The bench's --scene multiroom (``bench.load_scene``)."""
+    scene, cam = load_scene("multiroom")[:2]
     if scene.clusters is None or scene.clusters.size != 64:
         raise AssertionError("multiroom must carry a ClusterSet of 64-face clusters")
     return scene, cam
 
 
 def soup():
-    """bench.py --scene soup:100000 (bench.py:134-154), built by the port's
-    host layer (the native BVH builder) and timed."""
+    """The bench's --scene soup:100000 (``bench.load_scene``), built by the
+    port's host layer (the native BVH builder) and timed."""
     t0 = time.perf_counter()
-    scene, _ = scene_from_text(*grey_soup(100_000), use_bvh=True)
+    scene, cam = load_scene("soup:100000")[:2]
     sec = time.perf_counter() - t0
     cs = scene.clusters
     if cs is None or cs.size != 128:
@@ -395,7 +393,6 @@ def soup():
                          f"{cs.coeffs.shape[0]} clusters of {cs.size} in "
                          f"{cs.sup_min.x.shape[0]} superclusters, coefficient table "
                          f"{tuple(cs.coeffs.shape)} ({cs.coeffs.nbytes / 2**20:.1f} MiB)")
-    cam = make_camera_state(eye=(0.0, 0.0, 3.5), center_dir=(0.0, 0.0, 1.0))
     return scene, cam
 
 
@@ -413,10 +410,7 @@ def device_phase() -> str:
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs compute capability 9.0 (Hopper), got {cap}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
     phase("device", f"{torch.cuda.get_device_name(0)}, capability {cap}, torch "
                     f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -643,6 +637,11 @@ def _first_frame_checks(tag: str, scene, cam, dev, **kw) -> PathTracer:
     return pt
 
 
+# (path segments, shadow rays) of frame seed 0 of each timed path, by tag
+# (``_timed_frames``): the bench phase holds the bench's count to them.
+PATH_RAYS = {}
+
+
 def _timed_frames(tag: str, pt: PathTracer, cam) -> tuple:
     """2 warm-up frames (frame 0 already rendered), then FRAMES timed
     frames with the launch counts zeroed just before and read just after."""
@@ -673,6 +672,7 @@ def _timed_frames(tag: str, pt: PathTracer, cam) -> tuple:
     n_path, n_shadow = int(res.n_path_rays), int(res.n_shadow_rays)
     n_drop = int(res.n_dropped) if res.n_dropped is not None else 0
     rays = n_path + n_shadow
+    PATH_RAYS[tag] = (n_path, n_shadow)
     phase(tag, f"{n_path} path segments + {n_shadow} shadow rays = {rays} rays/frame; "
                f"{n_drop} lanes dropped by compaction")
     if n_drop:
@@ -1719,8 +1719,7 @@ def soup10k_phase(dev) -> dict:
     faces, 2-face leaves, 11,953 nodes: the single-tree packet walk K6
     with NEE): one 1024² frame against its auto (K3) frame."""
     tag = "soup:10000 K6"
-    scene, _ = scene_from_text(*grey_soup(10_000), use_bvh=True)
-    cam = make_camera_state(eye=(0.0, 0.0, 3.5), center_dir=(0.0, 0.0, 1.0))
+    scene, cam = load_scene("soup:10000")[:2]
     phase(tag, f"{scene.tris.count} faces, {scene.bvh.count} nodes; packet_fits "
                f"{cb.packet_fits(scene.bvh, scene.tris)}")
     auto = PathTracer(scene, bench_settings(SIZE, compact_schedule="auto"), device=dev)
@@ -2298,7 +2297,7 @@ def sharded_phase(dev, size: int = SIZE) -> dict:
     sp_err = max(float(np.abs(r["1x2"][1] - mean).max()) for r in res)
     # One process's step: the loss of the frame of shard seed 0.
     ts.requires_grad_()
-    leaf = _leaf_camera(cam_t)
+    leaf = leaf_camera(cam_t)
     params = render_params(ts, leaf)
     color = trace_rays(ts, leaf, settings, ids, _shard_seed(SHARD_SEED, 0)).color.stack()
     loss = ((color - torch.tensor(target, device=dev)) ** 2).sum() / float(3 * npx)
@@ -2332,6 +2331,140 @@ def sharded_phase(dev, size: int = SIZE) -> dict:
         raise AssertionError(f"{tag}: the {backend} frame differs on {n_nccl} pixels")
     return {"dp2_pixels_differ": n_dp, "sp2_max_abs_err": sp_err, "step_max_rel_err": worst,
             "rank_ms": times, "spawn_s": sec, "nccl_pixels_differ": n_nccl}
+
+
+# The bench runs of the bench phase: (tag, arguments, the kernels its
+# timed steps launch once a bounce each, this script's path whose count of
+# rays it must equal).
+BENCH_RUNS = (
+    ("cornell", ["--iters", "3"], ("K1",), "cornell"),
+    ("soup:100000", ["--scene", "soup:100000", "--fwd-only", "--iters", "3"],
+     ("K8", "K8 any-hit"), "soup:100000 K8"),
+)
+BENCH_TIMEOUT = 300
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+# The bench's backward step held card against CPU: (scene, the kernels the
+# card's step launches, once a bounce of each frame), at BENCH_STEP_SIZE²
+# over BENCH_STEP_FRAMES frames from seed0 1.
+BENCH_STEPS = (("cornell", ("K1",)), ("soup:100000", ("K8", "K8 any-hit")))
+BENCH_STEP_SIZE = 64
+BENCH_STEP_FRAMES = 2
+
+
+def bench_step_check(name: str, kernels: tuple, dev) -> dict:
+    """``bench.step_grads`` (bench.py's backward step: the gradients to
+    every material and light parameter and every camera field, summed over
+    BENCH_STEP_FRAMES frames) on the bench's scene ``name`` at
+    BENCH_STEP_SIZE², the card's against the CPU's (the plain versions),
+    both with the card's settings and over the pixels whose colours agree
+    within 1e-3 in every frame (at least 99%; ``_grads_agree``'s mask):
+    the loss within 1e-4 of its magnitude and every parameter within 1e-3
+    of its largest magnitude, as ``_grads_agree`` holds them. The card's
+    step launches ``kernels``, each once a bounce of each frame, and no
+    other."""
+    tag = f"bench step {name}"
+    size, frames = BENCH_STEP_SIZE, BENCH_STEP_FRAMES
+    card = bench.differentiable(bench.bench_scene(name, size, dev))
+    host = bench.differentiable(bench.bench_scene(name, size, "cpu"))
+    host = host._replace(settings=card.settings)
+    if not torch.equal(card.pixel_ids.cpu(), host.pixel_ids):
+        raise AssertionError(f"{tag}: the lanes' pixels differ between card and CPU")
+    col = []
+    with torch.no_grad():
+        for b in (card, host):
+            col.append(np.stack([trace_rays(b.scene, b.cam, b.settings, b.pixel_ids,
+                                            fold(1, k)).color.stack().cpu().numpy()
+                                 for k in range(frames)]))
+    agree = (np.abs(col[0] - col[1]).max(axis=2) <= 1e-3).all(axis=0)
+    if agree.mean() < 0.99:
+        raise AssertionError(f"{tag}: {size}² colours, card vs CPU: only {agree.mean():.4%} "
+                             f"of pixels agree")
+    w = torch.tensor(agree.astype(np.float32))
+    zero_counts()
+    loss_c, g_c = bench.step_grads(card.scene, card.cam, card.settings, card.pixel_ids, 1,
+                                   frames=frames, weights=w.to(dev))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    _expect(tag, launched, dict.fromkeys(kernels, frames * card.settings.max_total_depth))
+    loss_h, g_h = bench.step_grads(host.scene, host.cam, host.settings, host.pixel_ids, 1,
+                                   frames=frames, weights=w)
+    loss_c, loss_h = float(loss_c), float(loss_h)
+    if not np.isfinite(loss_c) or abs(loss_c - loss_h) > 1e-4 * abs(loss_h):
+        raise AssertionError(f"{tag}: loss {loss_c} on the card, {loss_h} on the CPU")
+    if set(g_c) != set(g_h):
+        raise AssertionError(f"{tag}: parameters {sorted(g_c)} vs {sorted(g_h)}")
+    worst = 0.0
+    for pname, ref in g_h.items():
+        a, r = g_c[pname].cpu().double(), ref.double()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag}: gradient {pname} is not finite on the card")
+        tol = 1e-3 * float(r.abs().max()) + 1e-5
+        err = float((a - r).abs().max())
+        worst = max(worst, err / tol)
+        if err > tol:
+            raise AssertionError(f"{tag}: {size}² gradient {pname}, card vs CPU: max |diff| "
+                                 f"{err} > {tol}")
+    phase("bench", f"{tag}: {size}² step_grads over {frames} frames, card vs CPU over the "
+                   f"{agree.mean():.4%} of pixels whose colours agree: loss {loss_c:.4f} vs "
+                   f"{loss_h:.4f}, all {len(g_h)} parameters within 1e-3 of their largest "
+                   f"magnitude (worst at {worst:.3f} of that bound); launches {launched}")
+    return {"size": size, "frames": frames, "agree": float(agree.mean()), "loss": loss_c,
+            "loss_cpu": loss_h, "params": len(g_h), "worst_of_bound": worst, "launches": launched}
+
+
+def bench_phase(dev) -> dict:
+    """The bench's backward step on the card against the CPU for each of
+    ``BENCH_STEPS`` (``bench_step_check``); then ``python -m
+    pbr_tpu_torch.bench`` in a subprocess from the checkout's root for
+    each of ``BENCH_RUNS``, as the benchmark runs it: exit code 0; the last
+    line exactly bench.py's keys, unit rays/s, a finite positive value; the
+    launch line the run's kernels, each once a bounce of each timed step,
+    and nothing else; rays a frame (path segments and shadow rays) equal
+    to this script's count of the same scene at seed 0 (``PATH_RAYS``; the
+    count depends on neither lane order nor schedule while no lane
+    drops)."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {"step": {name: bench_step_check(name, kernels, dev) for name, kernels in BENCH_STEPS}}
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    depth = bench_settings(SIZE).max_total_depth
+    for tag, argv, kernels, path in BENCH_RUNS:
+        cmd = [sys.executable, "-m", "pbr_tpu_torch.bench", *argv]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT)
+        sec = time.perf_counter() - t0
+        for line in proc.stderr.splitlines():
+            if line.startswith("[bench] "):
+                phase("bench", f"{tag}: {line[len('[bench] '):]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"bench {tag}: exit code {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        value = last.get("value")
+        if set(last) != BENCH_KEYS or last["unit"] != "rays/s" \
+                or not isinstance(value, (int, float)) or not np.isfinite(value) or value <= 0:
+            raise AssertionError(f"bench {tag}: last line {last}")
+        iters = int(argv[argv.index("--iters") + 1])
+        launched = json.loads(re.search(r"\[bench\] launches over \d+ timed steps: (\{.*\})",
+                                        proc.stderr).group(1))
+        _expect(f"bench {tag}", launched, dict.fromkeys(kernels, iters * depth))
+        m = re.search(r"\[bench\] \d+x\d+: (\d+) path segments \+ (\d+) shadow rays",
+                      proc.stderr)
+        rays = (int(m.group(1)), int(m.group(2)))
+        if rays != PATH_RAYS[path]:
+            raise AssertionError(f"bench {tag}: (path segments, shadow rays) {rays} a frame, "
+                                 f"path {path!r} counted {PATH_RAYS[path]}")
+        phase("bench", f"{tag}: {' '.join(argv)} in {sec:.1f} s: {last['metric']} = "
+                       f"{value} rays/s; launches {launched}; {sum(rays)} rays a frame, as "
+                       f"path {path!r} counts them")
+        out[tag] = {"argv": argv, "seconds": sec, "result": last, "launches": launched,
+                    "rays": sum(rays)}
+    sec = time.perf_counter() - t_phase
+    phase("bench", f"phase took {sec:.1f} s")
+    out["seconds"] = sec
+    return out
 
 
 # The port's kernels' names, as the profiler shows them.
@@ -2432,6 +2565,8 @@ def main() -> None:
     tk = {**tree_kernel_phase(dev, tp["k7"]["pt"], cam_s, s10["pt"], s10["cam"]),
           **tp["k8"]["shadow"]}
     del tp["k7"]["pt"], s10["pt"]
+
+    print(json.dumps({"bench": bench_phase(dev)}), flush=True)
 
     ap = {"device": smi, "render": app_render_phase(cam, dev)}
     app_denoise_phase(scene, cam, dev)

@@ -34,7 +34,7 @@ import torch
 FIT_SEED = 5
 
 
-def _device(name: str) -> torch.device:
+def resolve_device(name: str) -> torch.device:
     """The device a command runs on; raises where it asks for a card and
     there is none (no fallback to the CPU)."""
     dev = torch.device(name)
@@ -164,7 +164,7 @@ def cmd_render(args) -> dict:
     from pbr_tpu_torch.utils.log import Logger, Timer
     from pbr_tpu_torch.utils.profiling import StageTimer
 
-    dev = _device(args.device)
+    dev = resolve_device(args.device)
     cfg = load_config(args.config)
     Logger.set_level(cfg.logging_level)
     settings = _render_settings(args, cfg)
@@ -337,7 +337,7 @@ def cmd_fit(args) -> dict:
     from pbr_tpu_torch.utils.log import Logger, Timer
     from pbr_tpu_torch.utils.profiling import synchronize
 
-    dev = _device(args.device)
+    dev = resolve_device(args.device)
     cfg = load_config(args.config)
     settings = cfg.render.replace(
         width=args.size or 64, height=args.size or 64, shadow_rays=1, brdf=0,
@@ -418,7 +418,7 @@ def cmd_view(args):
     from pbr_tpu_torch.utils.log import Logger
     from pbr_tpu_torch.viewer import Viewer
 
-    dev = _device(args.device)
+    dev = resolve_device(args.device)
     cfg = load_config(args.config)
     Logger.set_level(cfg.logging_level)
     scene, settings = _load_scene(args.scene, _render_settings(args, cfg), cfg.bvh)

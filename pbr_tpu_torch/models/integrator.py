@@ -292,7 +292,7 @@ def trace_rays(
     scene's device; ``frame_seed``: a Python int or a 0-d integer tensor;
     ``prev_t``: the previous frame's first-hit distances, or None;
     ``max_leaf``: the faces a leaf of the scene's BVH may hold, for the
-    tree walks; None takes the BVH's own (``ops/traverse.py::leaf_bound``).
+    tree walks; None takes the BVH's own (``ops/cuda_bvh.py::leaf_bound``).
 
     ``settings.phong_tessellation`` > 0 traces curved patches
     (``ops/phongtess.py``; build the scene with the same

@@ -62,7 +62,10 @@ equal the JAX package's on every tree the builders make.
 The capacity rules of the TPU kernels are kept, and checked here rather
 than found by a crash: a packet walk needs ``packet_fits`` (nodes + faces
 <= ``PALLAS_BVH_MAX_ROWS``), a slab walk ``packet_hbm_fits`` (nodes <=
-``PACKET_HBM_MAX_NODES``) and ``max_leaf`` <= ``SLAB_MAX_LEAF``.
+``PACKET_HBM_MAX_NODES``) and ``max_leaf`` <= ``SLAB_MAX_LEAF``. Every
+walk tests at most ``max_leaf`` faces a leaf: the entry points given none
+take the tree's own bound (``leaf_bound``), and ``_check`` raises where a
+bound lies below the tree's largest leaf (``BVHTables.leaf_max``).
 """
 
 from __future__ import annotations
@@ -368,6 +371,21 @@ def _run_plain(w: Walk, work: Optional[list] = None, uv: Optional[list] = None):
     return t, f, walk(hit_p, s_dir, casts, t_limit=t_light)[2]
 
 
+def leaf_bound(bvh, max_leaf=None) -> int:
+    """The leaf bound a walk of ``bvh`` runs with: ``max_leaf``, or where it
+    is None the tree's own (``scene/build.py::bvh_max_leaf``: its largest
+    leaf, at least 2). Raises where ``max_leaf`` is below the tree's largest
+    leaf (``BVHTables.leaf_max``, where the tables carry it): the walk would
+    never test that leaf's faces past the bound."""
+    most = bvh.leaf_max
+    if max_leaf is None:
+        return max(2, most if most is not None else int(bvh.leaf_count.max()))
+    if most is not None and max_leaf < most:
+        raise ValueError(f"max_leaf {max_leaf} is below the BVH's largest leaf, {most} "
+                         f"faces; pass max_leaf=None for the tree's own bound")
+    return max_leaf
+
+
 def _ptr(a: Optional[torch.Tensor]):
     return None if a is None else a.data_ptr()
 
@@ -407,6 +425,8 @@ def _check(w: Walk) -> None:
         raise ValueError(f"light position must be (3,) float32 on {dev}")
     if w.max_leaf < 1:
         raise ValueError(f"max_leaf must be at least 1, not {w.max_leaf}")
+    if not chain:
+        leaf_bound(tr, w.max_leaf)
     if chain and (f.data_ptr() != tr.faces.data_ptr() or f.shape != tr.faces.shape
                   or f.shape[1] % tr.count):
         raise ValueError(f"{w.kernel}: a forest's sub-trees walk the forest's own faces, "
@@ -516,22 +536,22 @@ def _light(light_pos) -> Optional[torch.Tensor]:
     return torch.stack([light_pos.x, light_pos.y, light_pos.z]).to(torch.float32)
 
 
-def intersect_bvh_walk(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2, alive=None,
-                       with_counts: bool = False):
+def intersect_bvh_walk(o: Vec3, d: Vec3, bvh, tris, max_leaf: Optional[int] = None,
+                       alive=None, with_counts: bool = False):
     """Nearest hit by the per-ray walk, kernel K8
     (``pbr_tpu/ops/traverse.py::intersect_bvh``'s contract).
 
     ``bvh``: the scene's ``BVHTables``; ``tris``: its triangles (leaf
-    order); ``max_leaf``: the faces a leaf may hold
-    (``scene/build.py::bvh_max_leaf``). Returns ``(t, face)``, or ``(t,
-    face, tests, visits)`` with the exact int32 counters."""
-    w = Walk("K8", o, d, bvh, face_table(tris), max_leaf, alive,
+    order); ``max_leaf``: the faces a leaf may hold (``leaf_bound``: None
+    takes the tree's own). Returns ``(t, face)``, or ``(t, face, tests,
+    visits)`` with the exact int32 counters."""
+    w = Walk("K8", o, d, bvh, face_table(tris), leaf_bound(bvh, max_leaf), alive,
              ray_order(o, d, bvh, alive), with_counts=with_counts)
     return run(w)
 
 
-def occluded_bvh_walk(o: Vec3, d: Vec3, t_limit: torch.Tensor, bvh, tris, max_leaf: int = 2,
-                      alive=None, with_counts: bool = False):
+def occluded_bvh_walk(o: Vec3, d: Vec3, t_limit: torch.Tensor, bvh, tris,
+                      max_leaf: Optional[int] = None, alive=None, with_counts: bool = False):
     """Any hit closer than ``t_limit`` by the per-ray walk, kernel K8's
     any-hit instance: a ray is occluded iff some valid face has t <
     ``t_limit``, which is the bit ``t_sh < t_light`` that the JAX package
@@ -540,17 +560,18 @@ def occluded_bvh_walk(o: Vec3, d: Vec3, t_limit: torch.Tensor, bvh, tris, max_le
     float32. Returns the (B,) bool ``occluded`` (False on a dead lane), or
     ``(occluded, tests, visits)``: the any-hit walk's node steps, and its
     face tests up to and including each ray's occluding face."""
-    w = Walk("K8 any-hit", o, d, bvh, face_table(tris), max_leaf, alive,
+    w = Walk("K8 any-hit", o, d, bvh, face_table(tris), leaf_bound(bvh, max_leaf), alive,
              ray_order(o, d, bvh, alive), t_limit=t_limit, with_counts=with_counts)
     return run(w)
 
 
-def intersect_bvh_packet(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2, light_pos=None,
-                         alive=None):
+def intersect_bvh_packet(o: Vec3, d: Vec3, bvh, tris, max_leaf: Optional[int] = None,
+                         light_pos=None, alive=None):
     """Nearest hit by kernel K6's per-ray walk
     (``pallas_bvh.py::intersect_bvh_packet``'s contract): ``(t, face)``,
     or with ``light_pos`` (a Vec3 of 0-d tensors, light 0) ``(t, face,
-    occluded)`` from the fused NEE shadow leg. Needs ``packet_fits``."""
+    occluded)`` from the fused NEE shadow leg; ``max_leaf`` as
+    ``intersect_bvh_walk``. Needs ``packet_fits``."""
     if not packet_fits(bvh, tris):
         raise ValueError(
             f"the packet BVH walk takes at most {PALLAS_BVH_MAX_ROWS} node + face rows; this "
@@ -558,11 +579,11 @@ def intersect_bvh_packet(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2, light_p
             f"'pallas_bvh_forest' or 'bvh')")
     light = _light(light_pos)
     w = Walk("K6 NEE" if light is not None else "K6 nearest", o, d, bvh, face_table(tris),
-             max_leaf, alive, ray_order(o, d, bvh, alive), light=light)
+             leaf_bound(bvh, max_leaf), alive, ray_order(o, d, bvh, alive), light=light)
     return run(w)
 
 
-def intersect_bvh_packet_hbm(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 64,
+def intersect_bvh_packet_hbm(o: Vec3, d: Vec3, bvh, tris, max_leaf: Optional[int] = None,
                              light_pos=None, alive=None):
     """Nearest hit by the leaf-slab packet walk, kernel K7
     (``pallas_bvh.py::intersect_bvh_packet_hbm``'s contract): as
@@ -572,6 +593,7 @@ def intersect_bvh_packet_hbm(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 64,
         raise ValueError(
             f"the slab BVH walk takes at most {PACKET_HBM_MAX_NODES} nodes; this tree has "
             f"{bvh.count} (build 64-face leaves: scene/build.py does above 20,000 faces)")
+    max_leaf = leaf_bound(bvh, max_leaf)
     if not 1 <= max_leaf <= SLAB_MAX_LEAF:
         raise ValueError(f"the slab BVH walk stages at most {SLAB_MAX_LEAF} faces a leaf; "
                          f"max_leaf is {max_leaf}")

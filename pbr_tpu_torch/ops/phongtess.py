@@ -418,7 +418,7 @@ def intersect_brute_phongtess(o: Vec3, d: Vec3, tris, alpha: float):
     return t_best, f_best, u_best, v_best
 
 
-def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf: int = 2):
+def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf=None):
     """Nearest hit through the stackless BVH with the flat/curved face
     dispatch (the reference's shared leaf test, pt_intersect.cl:142-176,
     through traverse, pt_bvh.cl:82-123); contract and ties as
@@ -430,7 +430,10 @@ def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf:
     step's leaf faces are tested in one batch, and only on steps where some
     lane reached a leaf: a face whose t lies beyond the bound an earlier
     face of the leaf set cannot win, so the order of the updates decides
-    as the one-face-at-a-time loop does. Returns ``(t, face, u, v)``."""
+    as the one-face-at-a-time loop does. ``max_leaf``: the faces a leaf may
+    hold (``leaf_bound``: None takes the tree's own). Returns ``(t, face,
+    u, v)``."""
+    max_leaf = leaf_bound(bvh, max_leaf)
     n = bvh.count
     nf = int(tris.mtl.shape[0])
     inv_d = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
@@ -616,8 +619,7 @@ def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, cl
             face, uu, vv = intersect_clusters_phongtess(o_s, d_s, clusters, tris_s, alpha,
                                                         alive=alive)
         else:
-            _, face, uu, vv = intersect_bvh_phongtess(o_s, d_s, bvh, tris_s, alpha,
-                                                      leaf_bound(bvh, max_leaf))
+            _, face, uu, vv = intersect_bvh_phongtess(o_s, d_s, bvh, tris_s, alpha, max_leaf)
 
     safe = face.clamp_min(0).long()
     P1 = gather_vec3(tris_s.v0, safe)

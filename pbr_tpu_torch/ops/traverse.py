@@ -36,7 +36,9 @@ port has so far:
   CPU tensor K1 is the plain sweep. ``auto`` never picks ``cull``,
   ``sweep``, ``gemm`` or the packet walks: each stays an explicit mode.
 - The tree walks test at most ``max_leaf`` faces of a leaf; the dispatch
-  takes the tree's own bound where the caller gives none (``leaf_bound``).
+  and every walk take the tree's own bound where the caller gives none
+  (``leaf_bound``, from ``ops/cuda_bvh.py``), and a bound below the tree's
+  largest leaf raises.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 
 from pbr_tpu_torch.accel.forest import FOREST_MAX_LEAF
 from pbr_tpu_torch.ops import cuda_bvh, cuda_cull, cuda_gated, cuda_intersect, cuda_sweep
+from pbr_tpu_torch.ops.cuda_bvh import leaf_bound
 from pbr_tpu_torch.ops.cull import coherence_keys
 from pbr_tpu_torch.ops.gemm_intersect import intersect_gemm
 from pbr_tpu_torch.ops.intersect import INF, gather_vec3, moller_trumbore
@@ -97,20 +100,22 @@ def intersect_brute(o: Vec3, d: Vec3, tris):
     return cuda_intersect.intersect_fused_plain(o, d, cuda_intersect.face_table(tris))
 
 
-def intersect_bvh(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2, with_counts: bool = False):
+def intersect_bvh(o: Vec3, d: Vec3, bvh, tris, max_leaf=None, with_counts: bool = False):
     """Nearest hit via the stackless linear BVH, in torch ops
     (``pbr_tpu.ops.traverse.intersect_bvh``; kernel K8's plain version).
 
-    ``bvh``: a ``BVHTables``; ``max_leaf`` >= the builder's leaf size.
+    ``bvh``: a ``BVHTables``; ``max_leaf``: the faces a leaf may hold
+    (``leaf_bound``: None takes the tree's own, a bound below its largest
+    leaf raises).
     Returns ``(t, face)``, or ``(t, face, tests, visits)``: the exact
     per-ray int32 counters of ray-face tests and node steps (the
     reference's debug channels, pt_bvh.cl:23 and :89)."""
     t, face, _, tests, visits = cuda_bvh.walk_plain(o, d, bvh, cuda_intersect.face_table(tris),
-                                                    max_leaf)
+                                                    leaf_bound(bvh, max_leaf))
     return (t, face, tests, visits) if with_counts else (t, face)
 
 
-def intersect_bvh_chunked(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2,
+def intersect_bvh_chunked(o: Vec3, d: Vec3, bvh, tris, max_leaf=None,
                           chunk: int = BVH_CHUNK, with_counts: bool = False):
     """``intersect_bvh`` over the rays sorted by the coherence key of the
     root box (``pbr_tpu.ops.traverse._coherence_keys``; the formula of
@@ -118,6 +123,7 @@ def intersect_bvh_chunked(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2,
     working set (chip_smoke.py holds K8 to it on a million rays). Results
     are per ray, so it is bitwise equal to the unchunked walk."""
     n = o.x.shape[0]
+    max_leaf = leaf_bound(bvh, max_leaf)
     perm = torch.argsort(coherence_keys(o, d, *bvh.root), stable=True)
     table = cuda_intersect.face_table(tris)
     outs = []
@@ -133,21 +139,6 @@ def intersect_bvh_chunked(o: Vec3, d: Vec3, bvh, tris, max_leaf: int = 2,
         out[perm] = a
         res.append(out)
     return tuple(res)
-
-
-def leaf_bound(bvh, max_leaf=None) -> int:
-    """The leaf bound a walk of ``bvh`` runs with: ``max_leaf``, or where it
-    is None the tree's own (``scene/build.py::bvh_max_leaf``: its largest
-    leaf, at least 2). Raises where ``max_leaf`` is below the tree's largest
-    leaf (``BVHTables.leaf_max``, where the tables carry it): the walk would
-    never test that leaf's faces past the bound."""
-    most = bvh.leaf_max
-    if max_leaf is None:
-        return max(2, most if most is not None else int(bvh.leaf_count.max()))
-    if most is not None and max_leaf < most:
-        raise ValueError(f"max_leaf {max_leaf} is below the BVH's largest leaf, {most} "
-                         f"faces; pass max_leaf=None for the tree's own bound")
-    return max_leaf
 
 
 def band_mode(bands, n_faces: int, has_bvh: bool = False, has_forest: bool = False) -> str:
@@ -236,8 +227,6 @@ def intersect_scene(o: Vec3, d: Vec3, tris, mode: str = "auto",
             f"packet walk cannot hold a scene without clusters — scene/build.py — or "
             f"explicitly via accel.forest.build_forest)"
         )
-    if mode in ("bvh", "pallas_bvh", "pallas_bvh_hbm"):
-        max_leaf = leaf_bound(bvh, max_leaf)
     if mode == "bvh":
         out = cuda_bvh.intersect_bvh_walk(o_s, d_s, bvh, tris_s, max_leaf=max_leaf,
                                           alive=alive, with_counts=with_counts)
@@ -333,8 +322,7 @@ def occluded_scene(o: Vec3, d: Vec3, t_limit: torch.Tensor, tris, mode: str = "a
     if bvh is not None and resolve_mode(mode, o.x.device, n_faces, clusters is not None, True,
                                         forest is not None) == "bvh":
         return cuda_bvh.occluded_bvh_walk(o.detach(), d.detach(), t_limit.detach(), bvh,
-                                          detach_tris(tris), leaf_bound(bvh, max_leaf),
-                                          alive=alive)
+                                          detach_tris(tris), max_leaf, alive=alive)
     t_sh, _ = intersect_scene(o, d, tris, mode=mode, clusters=clusters, bvh=bvh, forest=forest,
                               max_leaf=max_leaf)
     return t_sh < t_limit

@@ -126,7 +126,7 @@ def render_params(scene, cam: CameraState) -> dict:
     return params
 
 
-def _leaf_camera(cam: CameraState) -> CameraState:
+def leaf_camera(cam: CameraState) -> CameraState:
     """``cam`` with every tensor a fresh leaf that requires grad."""
     leaf = lambda t: t.detach().clone().requires_grad_()  # noqa: E731
     return CameraState(*(Vec3(*(leaf(c) for c in f)) if isinstance(f, Vec3) else leaf(f)
@@ -158,7 +158,7 @@ def sharded_train_step(mesh: Mesh, scene, cam: CameraState, settings: RenderSett
     ids = host_local_pixel_ids(mesh, settings.width, settings.height, dev)
     target = shard_global_array(mesh, np.asarray(target_rgb, dtype=np.float32), dev)
     scene.requires_grad_()
-    cam = _leaf_camera(cam)
+    cam = leaf_camera(cam)
     params = render_params(scene, cam)
     color, _ = _trace_shard(scene, cam, settings, ids, frame_seed, mesh, max_leaf)
     err = ((color.x - target[:, 0]) ** 2 + (color.y - target[:, 1]) ** 2

@@ -134,7 +134,7 @@ class BVHTables(NamedTuple):
     ``ops/cuda_intersect.py::face_records``); ``to_torch`` builds them for
     a scene's tree, and a tree without them has None. ``leaf_max``: the
     faces of the tree's largest leaf, a Python int that ``to_torch`` sets
-    (the walks' default leaf bound, ``ops/traverse.py::leaf_bound``), or
+    (the walks' default leaf bound, ``ops/cuda_bvh.py::leaf_bound``), or
     None. A
     forest's ``ForestTables.trees`` has the first five fields with a
     leading (K,) axis; ``ForestTables.tree(i)`` gives sub-tree i with

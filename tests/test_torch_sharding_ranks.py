@@ -16,8 +16,8 @@ import torch
 from pbr_tpu_torch import camera_to_torch, to_torch, trace_rays
 from pbr_tpu_torch.parallel.mesh import (
     Mesh,
-    _leaf_camera,
     _shard_seed,
+    leaf_camera,
     make_mesh,
     render_params,
     sharded_render,
@@ -134,7 +134,7 @@ def true_grads(n_sp: int, size: int, seed: int, target):
     over 3 npx."""
     scene, cam, settings = train_settings(size)
     ts = to_torch(scene, "cpu").requires_grad_()
-    tc = _leaf_camera(camera_to_torch(cam, "cpu"))
+    tc = leaf_camera(camera_to_torch(cam, "cpu"))
     params = render_params(ts, tc)
     npx = size * size
     ids = torch.arange(npx, dtype=torch.int32)
