@@ -11,6 +11,10 @@ bench.py's settings (1024², 1 sample per pixel, 8 bounces, NEE,
 Shirley-Ashikhmin, compaction and lane order from the occupancy probes).
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that did not launch fails the run.
+A frame of ``PathTracer`` is a replay of a CUDA graph: its launches are
+the graph's kernel nodes of the port's kernels, read from the driver at
+the capture, once a replay (``ops.counts``); phase 11 holds them to an
+eager frame's launches and to what the device ran (torch.profiler).
 
 1. device: a CUDA card of compute capability 9.0, its name and power limit;
 2. build: K1/K2 (csrc/brute_intersect.cu), K3 (csrc/gated_intersect.cu),
@@ -186,8 +190,9 @@ read just after; a kernel of the path that did not launch fails the run.
      frame through it (no kernel of the port launches) against the K1
      frame, the frame gate;
    - ``view`` at 256² with the keys 'wasdl' over 6 frames: 4 restarts,
-     sample_count 3, light mode on, K1 once a bounce of each frame and of
-     the two probes.
+     sample_count 3, light mode on, K1 once a bounce of each frame, of
+     the two probes and of the eager frame of the tracer's ``warmup``
+     (its capture, undone).
    The app's numbers are one JSON line {"app": ...} before the kernels'
    line.
 8. Phong tessellation (``ops/phongtess.py``; torch ops, as the JAX
@@ -221,14 +226,43 @@ read just after; a kernel of the path that did not launch fails the run.
    within 1e-3 of its largest magnitude. Then the entry point
    (``python -m pbr_tpu_torch.bench``), run from
    the checkout's root in a subprocess each, as the benchmark runs it:
-   ``--iters 3`` (Cornell, forward+backward, 1024²) and ``--scene
-   soup:100000 --fwd-only --iters 3``. Each exits 0 and its last line has
-   exactly bench.py's keys, unit rays/s and a finite positive value; its
-   launch line shows K1 alone on the Cornell box and K8 with K8 any-hit on
-   soup:100000, once a bounce of each timed step; its rays a frame equal
+   ``--iters 3`` (Cornell, forward+backward, 1024², the default 32
+   frames a step) and ``--scene soup:100000 --fwd-only --iters 3
+   --frames-per-step 4``. Each exits 0 and its last line has exactly
+   bench.py's keys, unit rays/s and a finite positive value; its log shows
+   the frame step's capture; its launch line shows K1 alone on the Cornell
+   box and K8 with K8 any-hit on soup:100000, once a bounce of each frame
+   of each timed step (a replay of the frame's graph); its rays a frame equal
    those of this script's own path of the scene (paths "cornell" and
    "soup:100000, bvh") at seed 0. The phase's time is printed, and its
    results are one JSON line {"bench": ...} before the kernels' line.
+11. CUDA graphs (``pbr_tpu_torch/utils/graph.py``), before the bench: a
+   step that reads the host raises before its capture, naming the line;
+   the captured frame step of ``PathTracer`` on every band of ``auto``
+   (Cornell: K1; multiroom: K3; soup:100000: K8; the band table's
+   soup:10001 without clusters: K8) and every explicit mode that the
+   card serves ('pallas' K1, 'cull' K4m and 'sweep' K5m and 'gemm' on
+   multiroom; 'cull' K4, 'sweep' K5, 'pallas_bvh_hbm' K7 and
+   'pallas_bvh_forest' K6's chain on soup:100000; 'pallas_bvh' K6 NEE on
+   soup:10000), at 1024²: ``warmup`` captures it (seconds, graph nodes,
+   pool bytes); 4 replayed frames with a camera move after the second,
+   each bitwise (accumulator, depth and count) the eager ``render_frame``
+   frame; the graph's kernel nodes of the port's kernels (read from the
+   driver, ``CapturedStep.kernels``) those of an eager frame, the path's
+   kernels once a bounce, and the port's kernels that the device ran over
+   4 bare replays (torch.profiler) 4 times those; eager and graphed
+   ms/frame in two interleaved rounds. Then the bench's graphed step
+   (``tools/graph_steps.py::measure``: ``bench.FrameStep``, 2 frames) on
+   Cornell (K1) and soup:100000 (K8) at 1024², forward and backward,
+   bitwise ``bench.step`` and ``bench.step_grads`` (the loss and all 28
+   gradients), the eager step's launches and the device's over 2 bare
+   replays twice the graph's port kernel nodes, each timed eager and
+   graphed; and
+   ``fit``'s graphed steps
+   (``app.fit_steps``) on Cornell at 64² and multiroom at 1024², bitwise
+   the eager step at three points. Every other phase's ``PathTracer``
+   frames are replays too: frame 0 of a tracer is the capture's eager run.
+   The phase's results are one JSON line {"graph": ...}.
 
 Every failure raises, so the exit code is not 0. The last two lines of
 standard output are the kernels' JSON record (with each kernel's bound: the
@@ -264,7 +298,8 @@ from pbr_tpu_torch.accel.forest import build_forest  # noqa: E402
 from pbr_tpu_torch import bench  # noqa: E402
 from pbr_tpu_torch.bench import bench_settings, card_line, load_scene  # noqa: E402
 from pbr_tpu_torch.models.integrator import _gen_rays  # noqa: E402
-from pbr_tpu_torch.ops import counts, zero_counts  # noqa: E402
+from pbr_tpu_torch.models.pathtracer import init_frame_state, render_frame  # noqa: E402
+from pbr_tpu_torch.ops import counts, kernel_counts, zero_counts  # noqa: E402
 from pbr_tpu_torch.ops import cuda_bvh as cb  # noqa: E402
 from pbr_tpu_torch.ops import cuda_cull as cc  # noqa: E402
 from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
@@ -296,8 +331,9 @@ from pbr_tpu_torch.scene.procedural import (  # noqa: E402
     random_soup,
 )
 from pbr_tpu_torch.scene.types import TrianglesSoA  # noqa: E402
-from pbr_tpu_torch.tools import k1_sweep, k3_tiles, k4_tiles, k5_rows  # noqa: E402
+from pbr_tpu_torch.tools import graph_steps, k1_sweep, k3_tiles, k4_tiles, k5_rows  # noqa: E402
 from pbr_tpu_torch.utils.config import RenderSettings  # noqa: E402
+from pbr_tpu_torch.utils.graph import CapturedStep  # noqa: E402
 from pbr_tpu_torch.utils.image import read_png  # noqa: E402
 
 SIZE = 1024
@@ -677,8 +713,10 @@ def _timed_frames(tag: str, pt: PathTracer, cam) -> tuple:
                f"{n_drop} lanes dropped by compaction")
     if n_drop:
         raise AssertionError(f"{tag}: compaction dropped {n_drop} live lanes")
-    phase(tag, f"{ms_frame:.3f} ms/frame, {rays / ms_frame / 1e3:.3f} M rays/s forward, "
-               f"peak memory {peak / 2**20:.1f} MiB")
+    pool = pt.graph.pool_bytes if pt.graph is not None and pt.graph.pool_bytes else 0
+    phase(tag, f"{ms_frame:.3f} ms/frame (replays of the frame's CUDA graph), "
+               f"{rays / ms_frame / 1e3:.3f} M rays/s forward, peak memory "
+               f"{peak / 2**20:.1f} MiB allocated and the graph's pool {pool / 2**20:.1f} MiB")
     return launched, ms_frame
 
 
@@ -1603,6 +1641,17 @@ def _one_frame_launches(tag: str, pt: PathTracer, cam, seed: int = 1) -> dict:
     return launched
 
 
+def eager_frame(pt: PathTracer, cam, seed: int):
+    """One frame of ``pt`` (its scene, settings, lanes and accumulator) by
+    the eager ``render_frame``, not folded into ``pt``'s accumulator: the
+    frame step that ``PathTracer.render`` replays from a CUDA graph, run op
+    by op, so that a recorder swapped into a wrapper sees its calls.
+    Returns the new ``FrameState``."""
+    with torch.no_grad():
+        return render_frame(pt.scene, camera_to_torch(cam, pt.device), pt.settings, pt.state,
+                            pt.pixel_ids, seed, max_leaf=pt.max_leaf)
+
+
 def _expect(tag: str, launched: dict, expect: dict) -> None:
     got = {k: v for k, v in launched.items() if v}
     if got != expect:
@@ -1681,7 +1730,7 @@ def shadow_leg_phase(tag: str, pt: PathTracer, cam) -> dict:
     K8 nearest on every lane). Returns bounce 0's walk checked and timed
     (the kernel row)."""
     tris = pt.scene.tris
-    shadow = [w for w in _recorded(lambda: pt.render(cam, frame_seed=FRAMES + 3))
+    shadow = [w for w in _recorded(lambda: eager_frame(pt, cam, FRAMES + 3))
               if w.kernel == "K8 any-hit"]
     if len(shadow) != pt.settings.max_total_depth:
         raise AssertionError(f"{tag}: {len(shadow)} shadow walks in a frame")
@@ -2068,8 +2117,9 @@ def app_view_phase(dev, size: int = VIEW_SIZE) -> dict:
     phase(tag, f"frames, restarts, sample_count, light mode: {got}; startup {v.startup}")
     if got != (6, 4, 3, True):
         raise AssertionError(f"{tag}: expected (6, 4, 3, True), got {got}")
-    # K1 once a bounce: 6 frames and the first frame's two lane-order probes.
-    _expect(tag, launched, {"K1": v.tracer.settings.max_total_depth * (6 + 2)})
+    # K1 once a bounce: 6 frames, the two lane-order probes and the eager
+    # frame of the warm-up's capture (undone), all at the viewer's start.
+    _expect(tag, launched, {"K1": v.tracer.settings.max_total_depth * (6 + 3)})
     return {"s": sec}
 
 # ----------------------------------------------------------------- Phong --
@@ -2333,14 +2383,268 @@ def sharded_phase(dev, size: int = SIZE) -> dict:
             "rank_ms": times, "spawn_s": sec, "nccl_pixels_differ": n_nccl}
 
 
+# ----------------------------------------------------------- CUDA graphs --
+
+# The graph phase's frames: (tag, scene, settings, the kernels its frame
+# launches, each once a bounce). Every band of ``auto`` (ops/traverse.py::
+# AUTO_BANDS: K1, K3, K8, and on a scene without clusters above 10,000
+# faces the tree: K8 where the single-tree walk holds it, as on the band
+# table's soup:10001), then every explicit mode.
+GRAPH_PATHS = (
+    ("cornell", "cornell", {}, ("K1",)),
+    ("multiroom", "multiroom", {}, ("K3", "K3 any-hit")),
+    ("soup:100000", "soup:100000", {}, ("K8", "K8 any-hit")),
+    ("soup:10001, no clusters", "soup:10001 plain", {}, ("K8", "K8 any-hit")),
+    ("multiroom, pallas", "multiroom", {"intersector": "pallas"}, ("K1",)),
+    ("multiroom, cull", "multiroom", {"intersector": "cull"}, ("K4m", "K4m any-hit")),
+    ("multiroom, sweep", "multiroom", {"intersector": "sweep"}, ("K5m", "K5m any-hit")),
+    ("multiroom, gemm", "multiroom", {"intersector": "gemm"}, ()),
+    ("soup:100000, cull", "soup:100000", {"intersector": "cull"}, ("K4", "K4 any-hit")),
+    ("soup:100000, sweep", "soup:100000", {"intersector": "sweep"}, ("K5", "K5 any-hit")),
+    ("soup:100000, pallas_bvh_hbm", "soup:100000", {"intersector": "pallas_bvh_hbm"},
+     ("K7 NEE",)),
+    ("soup:100000, pallas_bvh_forest", "soup:100000 forest",
+     {"intersector": "pallas_bvh_forest"},
+     ("K6 nearest", "K6 seeded", "K6 any-hit", "K6 seeded any-hit")),
+    ("soup:10000, pallas_bvh", "soup:10000", {"intersector": "pallas_bvh"}, ("K6 NEE",)),
+)
+GRAPH_FRAMES = 4  # frames a check and a timing round
+
+
+def _state_copy(state) -> tuple:
+    return tuple(t.clone() for t in (*state.rgb, state.depth, state.sample_count))
+
+
+def _timed_ms(fn, n: int) -> float:
+    """CUDA-event ms a call over ``n`` calls of ``fn(i)`` in a row."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(n):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_frame_check(tag: str, scene, cam, dev, kernels: tuple, **kw) -> dict:
+    """One path's captured frame step (``PathTracer``, ``kw``: settings):
+    ``warmup`` captures it; GRAPH_FRAMES replayed frames, the camera moved
+    after the second, each bitwise the frame of the eager ``render_frame``
+    on the same scene, settings and lanes; the graph's kernel nodes of the
+    port (read from the driver) equal an eager frame's launches,
+    ``kernels`` each once a bounce and no other, and ``counts()`` over the
+    replays GRAPH_FRAMES times those, and so the port's kernels that the
+    device ran over GRAPH_FRAMES bare replays (torch.profiler,
+    ``graph_steps.profiled_replays``); then eager and
+    graphed ms/frame, two interleaved rounds of GRAPH_FRAMES frames
+    each."""
+    pt = PathTracer(scene, bench_settings(SIZE, compact_schedule="auto", **kw), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.warmup(cam)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    g = pt.graph
+    if g is None or g.graph is None or pt.sample_count != 0:
+        raise AssertionError(f"graph {tag}: warmup did not capture the frame step")
+    nodes = kernel_counts(g.kernels)  # the port's kernel nodes, as the driver holds them
+    eye = cam.eye
+    moved = cam._replace(eye=eye._replace(x=np.float32(eye.x + 0.05)))
+    cams = [cam, cam, moved, moved]
+    zero_counts()
+    got = []
+    for i, c in enumerate(cams):
+        pt.render(c, frame_seed=i)
+        got.append(_state_copy(pt.state))
+    replayed = {k: v for k, v in counts().items() if v}
+    mtd = pt.settings.max_total_depth
+    state = init_frame_state(SIZE * SIZE, dev)
+    eager_launches = None
+    for i, c in enumerate(cams):
+        zero_counts()
+        with torch.no_grad():
+            state = render_frame(pt.scene, camera_to_torch(c, dev), pt.settings, state,
+                                 pt.pixel_ids, i, max_leaf=pt.max_leaf)
+        if i == 0:
+            eager_launches = {k: v for k, v in counts().items() if v}
+        ref = _state_copy(state)
+        bad = [j for j, (a, b) in enumerate(zip(got[i], ref)) if not torch.equal(a, b)]
+        if bad:
+            n_px = int((got[i][0] != ref[0]).sum())
+            raise AssertionError(f"graph {tag}: frame {i} differs from the eager frame in "
+                                 f"state fields {bad} ({n_px} pixels of rgb.x)")
+    _expect(f"graph {tag}, eager", eager_launches, dict.fromkeys(kernels, mtd))
+    if nodes != eager_launches:
+        raise AssertionError(f"graph {tag}: the graph holds {nodes} of the port's kernel "
+                             f"nodes, an eager frame launches {eager_launches}")
+    frames_of = {k: GRAPH_FRAMES * v for k, v in eager_launches.items()}
+    _expect(f"graph {tag}, counts() over {GRAPH_FRAMES} replays", replayed, frames_of)
+    # The port's kernels that the device ran over bare replays.
+    _expect(f"graph {tag}, the device over {GRAPH_FRAMES} replays",
+            graph_steps.profiled_replays(g, GRAPH_FRAMES), frames_of)
+    ct = camera_to_torch(cam, dev)
+
+    def eager(i):
+        with torch.no_grad():
+            render_frame(pt.scene, ct, pt.settings, state, pt.pixel_ids, 10 + i,
+                         max_leaf=pt.max_leaf)
+
+    ms = {"eager": [], "graph": []}
+    for r in range(2):
+        ms["eager"].append(_timed_ms(eager, GRAPH_FRAMES))
+        ms["graph"].append(_timed_ms(lambda i: pt.render(cam, frame_seed=20 + 10 * r + i),
+                                     GRAPH_FRAMES))
+    st = g.stats()
+    phase("graph", f"{tag}: warmup {warm_s:.3f} s (probes, the eager frame, capture "
+                   f"{st['capture_s']:.3f} s), {st['nodes']} nodes, pool "
+                   f"{st['pool_bytes'] / 2**20:.1f} MiB; {GRAPH_FRAMES} replayed frames with a "
+                   f"camera move bitwise the eager frames; the port's kernel nodes {nodes}, an "
+                   f"eager frame's launches, and the device ran them {GRAPH_FRAMES} times; "
+                   f"ms/frame eager {ms['eager'][0]:.3f}, {ms['eager'][1]:.3f}, graphed "
+                   f"{ms['graph'][0]:.3f}, {ms['graph'][1]:.3f}")
+    return {"warmup_s": warm_s, **st, "launches_a_replay": nodes, "ms_eager": ms["eager"],
+            "ms_graph": ms["graph"], "lane_order": pt.lane_order}
+
+
+def _graph_scene(name: str, scene_s, scene_t, cam_s):
+    """(scene, camera) of a graph path's scene name."""
+    if name == "cornell":
+        return cornell()
+    if name == "multiroom":
+        return multiroom()
+    if name == "soup:100000":
+        return scene_s, cam_s
+    if name == "soup:100000 forest":
+        return scene_t, cam_s
+    if name == "soup:10000":
+        return load_scene("soup:10000")[:2]
+    from pbr_tpu_torch.tools.band_table import build_row
+
+    return build_row("soup_plain", 10_001)
+
+
+def graph_bench_check(name: str, kernels: tuple, dev, frames: int = 2) -> dict:
+    """The bench's graphed step on scene ``name`` at SIZE², forward and
+    backward, by ``tools/graph_steps.py::measure`` (one round of
+    ``frames`` frames): ``bench.FrameStep`` bitwise ``bench.step`` and
+    ``bench.step_grads``, the eager step's launches ``frames`` times the
+    graph's kernel nodes of the port, and the device's run of them over
+    ``frames`` bare replays (torch.profiler) the same. Here
+    also: all 28 gradients, and ``kernels`` each once a bounce of a replay
+    and no other."""
+    out = {}
+    depth = bench_settings(SIZE).max_total_depth
+    for fwd_only in (True, False):
+        mode = "forward" if fwd_only else "fwd+bwd"
+        row = graph_steps.measure(name, fwd_only, SIZE, frames, 1, dev)
+        if not fwd_only and row["grads"] != 28:
+            raise AssertionError(f"graph bench {name}: {row['grads']} parameters")
+        _expect(f"graph bench {name} {mode}", row["launches_a_replay"],
+                dict.fromkeys(kernels, depth))
+        phase("graph", f"bench {name} {mode}: {frames} replayed frames bitwise the eager step"
+                       f"{'' if fwd_only else ' (loss and all 28 gradients)'}; capture "
+                       f"{row['capture_s']:.3f} s, {row['nodes']} nodes, pool "
+                       f"{row['pool_bytes'] / 2**20:.1f} MiB; over {frames} replays the device "
+                       f"ran {row['device_launches']} of the port's kernels; ms/frame "
+                       f"eager {row['ms_eager'][0]:.3f}, graphed {row['ms_graph'][0]:.3f}; "
+                       f"device ms/frame eager {row['device_ms_eager']:.3f}, graphed "
+                       f"{row['device_ms_graph']:.3f}")
+        out[mode] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def graph_fit_check(name: str, size: int, dev) -> dict:
+    """``fit``'s graphed steps (``app.fit_steps``) on scene ``name`` at
+    ``size``², at the CLI's starting albedos and at a second point: the
+    loss and its gradient in kd bitwise the eager step's, and ``loss_at``
+    the same loss."""
+    import argparse
+
+    settings = RenderSettings().replace(width=size, height=size, shadow_rays=1, brdf=0,
+                                        max_depth=2, max_added_depth=0)
+    scene, settings = app._load_scene(name, settings)
+    args = argparse.Namespace(eye=None, center=None, size=size)
+    from pbr_tpu_torch.utils.config import CameraConfig
+
+    cam = app._camera_for(args, CameraConfig(), name).state()
+    prob = app.fit_problem(scene, settings, cam, dev)
+    param = prob.ts.mat_kd
+    kd0 = param.detach().clone()
+    noise = torch.tensor(np.random.RandomState(0).uniform(-0.3, 0.3, kd0.shape[1]),
+                         dtype=torch.float32, device=dev)
+    start = kd0.clone()
+    start[0] = torch.clamp(kd0[0] + noise, 0.0, 1.0)
+    value_and_grad, loss_at = app.fit_steps(prob)
+    for kd in (start, torch.clamp(start - 0.05, 0.0, 1.0), start):
+        loss, g = value_and_grad(kd)
+        g = g.clone()
+        lo = loss_at(kd)
+        with torch.no_grad():
+            param.copy_(kd)
+        param.requires_grad_(True)
+        eager = prob.loss()
+        (eager_g,) = torch.autograd.grad(eager, param)
+        param.requires_grad_(False)
+        if loss != float(eager) or lo != loss or not torch.equal(g, eager_g):
+            raise AssertionError(f"graph fit {name}: the graphed step differs from the eager "
+                                 f"one (loss {loss} vs {float(eager)}, loss_at {lo})")
+    phase("graph", f"fit {name} {size}²: value_and_grad and loss_at, graphed, bitwise the "
+                   f"eager step at 3 points (loss {loss:.6f})")
+    return {"loss": loss}
+
+
+def graph_no_fallback_check(dev) -> None:
+    """A step that reads the device from the host fails before its capture,
+    naming the line of the read, and leaves nothing captured: no step runs
+    eagerly in place of a graph."""
+    x = torch.ones(4, device=dev)
+    step = CapturedStep(lambda t: t * float(t.sum()), x, name="a step with a host read")
+    try:
+        step()
+    except RuntimeError as e:
+        if "chip_smoke.py" not in str(e) or step.graph is not None:
+            raise AssertionError(f"graph: the failure names no line: {e}") from e
+        phase("graph", f"a step with a host read raises: {str(e).splitlines()[0][:200]}")
+        return
+    raise AssertionError("graph: a step with a host read was run without a graph")
+
+
+def graph_phase(dev, scene_s, scene_t, cam_s) -> dict:
+    """A step with a host read raises (``graph_no_fallback_check``); every
+    path of GRAPH_PATHS through ``graph_frame_check``, then the bench's
+    graphed step on Cornell (K1) and soup:100000 (K8) and ``fit``'s on
+    Cornell (64²) and multiroom (1024²): the captured steps of the port's
+    three entry points, bitwise their eager steps."""
+    t_phase = time.perf_counter()
+    graph_no_fallback_check(dev)
+    out = {"frames": {}}
+    for tag, name, kw, kernels in GRAPH_PATHS:
+        scene, cam = _graph_scene(name, scene_s, scene_t, cam_s)
+        out["frames"][tag] = graph_frame_check(tag, scene, cam, dev, kernels, **kw)
+        torch.cuda.empty_cache()
+    out["bench"] = {n: graph_bench_check(n, kernels, dev) for n, kernels in
+                    (("cornell", ("K1",)), ("soup:100000", ("K8", "K8 any-hit")))}
+    torch.cuda.empty_cache()
+    out["fit"] = {"cornell": graph_fit_check("cornell", FIT_SIZE, dev),
+                  "multiroom": graph_fit_check("multiroom", SIZE, dev)}
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("graph", f"phase took {out['seconds']:.1f} s")
+    return out
+
+
 # The bench runs of the bench phase: (tag, arguments, the kernels its
 # timed steps launch once a bounce each, this script's path whose count of
 # rays it must equal).
+# The Cornell run takes the default frames a step (32), the other 4.
 BENCH_RUNS = (
     ("cornell", ["--iters", "3"], ("K1",), "cornell"),
-    ("soup:100000", ["--scene", "soup:100000", "--fwd-only", "--iters", "3"],
-     ("K8", "K8 any-hit"), "soup:100000 K8"),
+    ("soup:100000", ["--scene", "soup:100000", "--fwd-only", "--iters", "3",
+                     "--frames-per-step", "4"], ("K8", "K8 any-hit"), "soup:100000 K8"),
 )
+BENCH_DEFAULT_FRAMES = 32
 BENCH_TIMEOUT = 300
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
 # The bench's backward step held card against CPU: (scene, the kernels the
@@ -2417,12 +2721,14 @@ def bench_phase(dev) -> dict:
     ``BENCH_STEPS`` (``bench_step_check``); then ``python -m
     pbr_tpu_torch.bench`` in a subprocess from the checkout's root for
     each of ``BENCH_RUNS``, as the benchmark runs it: exit code 0; the last
-    line exactly bench.py's keys, unit rays/s, a finite positive value; the
-    launch line the run's kernels, each once a bounce of each timed step,
-    and nothing else; rays a frame (path segments and shadow rays) equal
-    to this script's count of the same scene at seed 0 (``PATH_RAYS``; the
-    count depends on neither lane order nor schedule while no lane
-    drops)."""
+    line exactly bench.py's keys, unit rays/s, a finite positive value; a
+    log line of the frame step's capture; the launch line the run's
+    kernels, each once a bounce of each frame of each timed step (one
+    replay of the frame's graph a frame, its kernel nodes read from the
+    driver), and nothing else; rays a frame (path segments and shadow
+    rays) equal to this script's count of the same scene at seed 0
+    (``PATH_RAYS``; the count depends on neither lane order nor schedule
+    while no lane drops)."""
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     out = {"step": {name: bench_step_check(name, kernels, dev) for name, kernels in BENCH_STEPS}}
@@ -2447,9 +2753,15 @@ def bench_phase(dev) -> dict:
                 or not isinstance(value, (int, float)) or not np.isfinite(value) or value <= 0:
             raise AssertionError(f"bench {tag}: last line {last}")
         iters = int(argv[argv.index("--iters") + 1])
+        k = (int(argv[argv.index("--frames-per-step") + 1]) if "--frames-per-step" in argv
+             else BENCH_DEFAULT_FRAMES)
         launched = json.loads(re.search(r"\[bench\] launches over \d+ timed steps: (\{.*\})",
                                         proc.stderr).group(1))
-        _expect(f"bench {tag}", launched, dict.fromkeys(kernels, iters * depth))
+        # One replay of the frame's graph a frame: each kernel once a bounce.
+        _expect(f"bench {tag}", launched, dict.fromkeys(kernels, iters * k * depth))
+        if f"({k} frames a step)" not in proc.stderr or \
+                "[bench] CUDA graph of one frame: captured in" not in proc.stderr:
+            raise AssertionError(f"bench {tag}: no capture of the frame step in its log")
         m = re.search(r"\[bench\] \d+x\d+: (\d+) path segments \+ (\d+) shadow rays",
                       proc.stderr)
         rays = (int(m.group(1)), int(m.group(2)))
@@ -2565,6 +2877,8 @@ def main() -> None:
     tk = {**tree_kernel_phase(dev, tp["k7"]["pt"], cam_s, s10["pt"], s10["cam"]),
           **tp["k8"]["shadow"]}
     del tp["k7"]["pt"], s10["pt"]
+    torch.cuda.empty_cache()
+    print(json.dumps({"graph": graph_phase(dev, scene_s, scene_t, cam_s)}), flush=True)
 
     print(json.dumps({"bench": bench_phase(dev)}), flush=True)
 

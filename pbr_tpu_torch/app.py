@@ -319,13 +319,54 @@ def fit_problem(scene, settings, cam, dev) -> FitProblem:
         return prob._replace(target=prob.colors())
 
 
+def fit_steps(prob: FitProblem) -> tuple:
+    """The fit's two steps, ``(value_and_grad, loss_at)``, each a
+    ``utils/graph.py::CapturedStep`` whose static input is the variable
+    ``prob.ts.mat_kd``: captured once as a CUDA graph on the card (the JAX
+    CLI's jitted ``value_and_grad`` and loss), eager on the CPU.
+    ``value_and_grad(kd)`` copies ``kd`` into the variable and returns the
+    loss as a float and its gradient in kd (a static tensor that the next
+    call overwrites); ``loss_at(kd)`` returns the loss alone, as a float,
+    under ``torch.no_grad()``."""
+    from pbr_tpu_torch.utils.graph import CapturedStep
+
+    param = prob.ts.mat_kd
+
+    def vg(kd):
+        param.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss = prob.loss()
+                (g,) = torch.autograd.grad(loss, param)
+        finally:
+            param.requires_grad_(False)
+        return loss.detach(), g
+
+    def lo(kd):
+        with torch.no_grad():
+            return prob.loss()
+
+    vg_step = CapturedStep(vg, param, name="fit's value_and_grad")
+    loss_step = CapturedStep(lo, param, name="fit's loss")
+
+    def value_and_grad(kd):
+        loss, g = vg_step(kd)
+        return float(loss), g
+
+    def loss_at(kd):
+        return float(loss_step(kd))
+
+    return value_and_grad, loss_at
+
+
 def cmd_fit(args) -> dict:
     """Inverse-rendering demo: perturb the albedos' red channel, recover it
     by gradient descent on ``materials.kd`` against the original render.
 
     Each step takes the loss and its gradient under ``torch.autograd``,
     then a backtracking line search (loss evaluations under
-    ``torch.no_grad()``) halves the step until the loss does not rise. A
+    ``torch.no_grad()``) halves the step until the loss does not rise;
+    both are ``fit_steps``, CUDA graphs on the card. A
     search that runs out (step at most 1e-6) keeps the current albedos: no
     accepted step raises the loss. Returns ``{"losses", "final_loss",
     "kd_err", "ms_step", "accepted", "kd"}``: the loss at the start of each
@@ -347,20 +388,7 @@ def cmd_fit(args) -> dict:
     cam = _camera_for(args, cfg.camera, args.scene).state()
     prob = fit_problem(scene, settings, cam, dev)
     param = prob.ts.mat_kd  # (3, M): the variable of the fit
-
-    def loss_at(kd):
-        with torch.no_grad():
-            param.copy_(kd)
-            return float(prob.loss())
-
-    def value_and_grad(kd):
-        with torch.no_grad():
-            param.copy_(kd)
-        param.requires_grad_(True)
-        loss = prob.loss()
-        (g,) = torch.autograd.grad(loss, param)
-        param.requires_grad_(False)
-        return float(loss.detach()), g
+    value_and_grad, loss_at = fit_steps(prob)
 
     kd0 = param.detach().clone()
     rng = np.random.RandomState(0)

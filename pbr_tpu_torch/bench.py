@@ -23,15 +23,22 @@ with the compaction drops checked over seeds 0-3), and its step
 gradients to every material and light parameter and every field of the
 camera.
 
-How a step is timed, the port's way: one untimed first step builds and
-loads the kernels ("build+first step"; a kernel builds at its first
-launch, which is in the occupancy probe where the schedule is probed);
-then ``--iters`` steps of one frame
-each run between two CUDA events, with one synchronise after the last, and
-the time a frame is the elapsed time over ``iters``. Host gaps between the
-launches count: the frame is bound by its host, and that is the time a
-user waits. ``bench.py``'s 32 frames a ``lax.scan``, ``--bounce-loop``,
-``--remat`` and its compile cache exist only for XLA and are not copied.
+How a step is timed: ``--frames-per-step`` K frames a step (default 32,
+bench.py's), frame k traced with seed ``fold(seed0, k)``, as bench.py's
+``lax.scan`` does, because sustained rendering pipelines frames. On the
+card the step is bench.py's compiled dispatch in the port's form
+(``FrameStep``): one frame's step captured once as a CUDA graph
+(``utils/graph.py``), its frame seed derived on the device from a static
+frame counter, and replayed K times, each replay adding the frame's
+colour sum (and gradients) into static sums. One untimed first step
+builds and loads the kernels (a kernel builds at its first launch, in the
+occupancy probe where the schedule is probed) and captures the graph
+("build+first step", with the capture's seconds, nodes and pool
+logged); then ``--iters`` steps run between two CUDA events, with one
+synchronise after the last, and the time a frame is the elapsed time
+over ``iters`` x K. On the CPU the same ``FrameStep`` runs eagerly.
+``--bounce-loop``, ``--remat`` and bench.py's compile cache exist only for
+XLA and are not copied.
 
 It runs on the card unless ``--device cpu`` asks for the CPU; with no
 card it exits with an error and never falls back. A CPU run's metric ends
@@ -56,12 +63,13 @@ import torch
 from pbr_tpu_torch.app import resolve_device
 from pbr_tpu_torch.models.integrator import trace_rays
 from pbr_tpu_torch.models.pathtracer import probe_compact_schedule
-from pbr_tpu_torch.ops import counts, cuda_bvh, zero_counts
+from pbr_tpu_torch.ops import counts, cuda_bvh, kernel_counts, zero_counts
 from pbr_tpu_torch.ops import rng as rng_mod
 from pbr_tpu_torch.parallel.mesh import leaf_camera, render_params
 from pbr_tpu_torch.scene.build import derive_static_flags
 from pbr_tpu_torch.scene.device import camera_to_torch, to_torch
 from pbr_tpu_torch.utils.config import RenderSettings
+from pbr_tpu_torch.utils.graph import CapturedStep
 from pbr_tpu_torch.utils.morton import morton_pixel_ids
 
 # bench.py's target (BASELINE.json): 200M rays/s a chip.
@@ -231,6 +239,58 @@ def step(scene, cam, settings: RenderSettings, pixel_ids, seed0: int, frames: in
     return loss, g["mat_kd"][0], g["light_rgb"][0], g["cam.eye.x"]
 
 
+class FrameStep:
+    """bench.py's timed step on the card: ``step`` (or, without
+    ``fwd_only``, ``step_grads`` without weights) over ``frames`` frames,
+    as one frame's step captured once as a CUDA graph and replayed once a
+    frame (``utils/graph.py::CapturedStep``; on the CPU the same step runs
+    eagerly). Its static tensors: ``seed0`` and the frame counter ``k``,
+    from which each replay derives its seed ``fold(seed0, k)`` on the
+    device, and the sums each replay adds into: ``loss`` (the colour sum)
+    and, for the backward step, ``grads``, one a parameter of
+    ``render_params`` (make them require gradients first,
+    ``differentiable``).
+
+    ``fs(seed0, frames)`` returns the step's sums, static tensors that the
+    next call overwrites: the loss, or ``(loss, {name: gradient})``.
+    ``graph`` is the captured step."""
+
+    def __init__(self, b: Bench, fwd_only: bool = False):
+        dev = b.pixel_ids.device
+        self.b, self.fwd_only = b, fwd_only
+        self.params = {} if fwd_only else render_params(b.scene, b.cam)
+        self.seed0 = torch.zeros((), dtype=torch.int64, device=dev)
+        self.k = torch.zeros((), dtype=torch.int64, device=dev)
+        self.loss = torch.zeros((), dtype=torch.float32, device=dev)
+        self.grads = [torch.zeros_like(p) for p in self.params.values()]
+        self.graph = CapturedStep(self._frame, self.seed0, self.k, self.loss, *self.grads,
+                                  name=f"the bench's {'forward' if fwd_only else 'backward'} "
+                                       f"step ({b.settings.intersector})")
+
+    def _frame(self, seed0, k, loss, *grads) -> None:
+        b = self.b
+        seed = rng_mod.fold(seed0, k)
+        if self.fwd_only:
+            with torch.no_grad():
+                loss.add_(_frame_loss(b.scene, b.cam, b.settings, b.pixel_ids, seed))
+        else:
+            val = _frame_loss(b.scene, b.cam, b.settings, b.pixel_ids, seed)
+            got = torch.autograd.grad(val, list(self.params.values()), allow_unused=True)
+            for acc, g in zip(grads, got):
+                if g is not None:
+                    acc.add_(g)
+            loss.add_(val.detach())
+        k.add_(1)
+
+    def __call__(self, seed0: int, frames: int):
+        self.seed0.fill_(int(seed0) & 0xFFFFFFFF)
+        for t in (self.k, self.loss, *self.grads):
+            t.zero_()
+        for _ in range(frames):
+            self.graph()
+        return self.loss if self.fwd_only else (self.loss, dict(zip(self.params, self.grads)))
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     return subprocess.run(
@@ -263,33 +323,48 @@ def run(args) -> dict:
 
     if not args.fwd_only:
         b = differentiable(b)
+    k_frames = args.frames_per_step
+    fstep = FrameStep(b, args.fwd_only)
 
     def go(seed0):
-        step(b.scene, b.cam, b.settings, b.pixel_ids, seed0, fwd_only=args.fwd_only)
+        fstep(seed0, k_frames)
 
     t0 = time.perf_counter()
     go(1)
     if cuda:
         torch.cuda.synchronize()
-    log(f"build+first step: {time.perf_counter() - t0:.1f}s")
+    log(f"build+first step: {time.perf_counter() - t0:.1f}s ({k_frames} frames a step)")
+    if cuda:
+        g = fstep.graph
+        log(f"CUDA graph of one frame: captured in {g.capture_s:.3f}s, {g.nodes} nodes, "
+            f"pool {g.pool_bytes / 2**20:.1f} MiB, the port's kernel nodes (launches a "
+            f"replay) {json.dumps(kernel_counts(g.kernels))}")
 
     zero_counts()
     if cuda:
+        torch.cuda.reset_peak_memory_stats()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         for i in range(args.iters):
             go(i + 2)
         end.record()
         end.synchronize()
-        ms = start.elapsed_time(end) / args.iters
+        ms = start.elapsed_time(end) / (args.iters * k_frames)
     else:
         t0 = time.perf_counter()
         for i in range(args.iters):
             go(i + 2)
-        ms = (time.perf_counter() - t0) * 1e3 / args.iters
+        ms = (time.perf_counter() - t0) * 1e3 / (args.iters * k_frames)
     launched = {k: v for k, v in counts().items() if v}
     mode = "fwd" if args.fwd_only else "fwd+bwd"
     log(f"launches over {args.iters} timed steps: {json.dumps(launched)}")
+    if cuda:
+        # A graph's pool is reserved at its capture; what its replays use
+        # is held there, not allocated anew.
+        log(f"peak memory over the timed steps: "
+            f"{torch.cuda.max_memory_reserved() / 2**20:.1f} MiB reserved, of which the "
+            f"graph's pool {fstep.graph.pool_bytes / 2**20:.1f} MiB; "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated outside it")
     rays_per_s = rays / (ms / 1e3)
     log(f"{ms:.2f} ms/frame -> {rays_per_s / 1e6:.1f} M rays/s ({mode})")
     return {"metric": f"rays/s/chip ({mode}) 1spp {size}x{size} {b.tag}"
@@ -406,7 +481,10 @@ def main(argv=None) -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--fwd-only", action="store_true", dest="fwd_only")
-    ap.add_argument("--iters", type=int, default=10, help="timed steps of one frame each")
+    ap.add_argument("--iters", type=int, default=10, help="timed steps")
+    ap.add_argument("--frames-per-step", type=int, default=32, dest="frames_per_step",
+                    help="frames a timed step (bench.py's 32; on the card one frame's CUDA "
+                    "graph replayed this many times)")
     ap.add_argument("--scene", default="cornell", help=SCENES)
     ap.add_argument("--intersector", default=None, choices=INTERSECTORS,
                     help="override the intersector dispatch (default: auto); 'brute' is "
@@ -417,6 +495,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
+    if args.frames_per_step < 1:
+        ap.error("--frames-per-step must be at least 1")
 
     from pbr_tpu_torch.utils.log import Logger
 

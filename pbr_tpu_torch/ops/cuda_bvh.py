@@ -76,6 +76,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from pbr_tpu_torch.accel.forest import FOREST_MAX_LEAF
+from pbr_tpu_torch.ops import count_launch
 from pbr_tpu_torch.ops.cuda_intersect import (
     _shadow_ray,
     check_rays,
@@ -102,7 +103,8 @@ _PLAIN_ELEMS = 1 << 22
 # (leaf_count - 1) (kCountBits of csrc/bvh_walk.cu and bvh_packet.cu).
 LEAF_COUNT_BITS = 8
 
-# Kernel launches per instance. CPU calls do not count.
+# Kernel launches per instance. CPU calls and launches under capture do not
+# count (``ops.counts`` adds a CUDA graph's at its replays).
 launches = {"K6 nearest": 0, "K6 NEE": 0, "K6 any-hit": 0, "K6 seeded": 0,
             "K6 seeded any-hit": 0, "K7 nearest": 0, "K7 NEE": 0, "K8": 0, "K8 any-hit": 0}
 _K8 = ("K8", "K8 any-hit")
@@ -502,7 +504,7 @@ def _run_kernel(w: Walk):
             out = occ if any_hit else (t, f) if w.light is None else (t, f, occ)
     if err != 0:
         raise RuntimeError(f"{w.kernel} launch failed: cudaError {err}")
-    launches[w.kernel] += 1
+    count_launch(launches, w.kernel)
     return out
 
 

@@ -73,6 +73,7 @@ import ctypes
 
 import torch
 
+from pbr_tpu_torch.ops import count_launch
 from pbr_tpu_torch.ops.cuda_intersect import check_rays, cross_od, load
 from pbr_tpu_torch.ops.cull import CAND_MISS, candidates, coherence_keys, fine_hit_mask
 from pbr_tpu_torch.ops.intersect import EPS5, INF
@@ -97,7 +98,9 @@ _BIG_NEG = f32(-3.0e38)
 # temporary holds at most this many elements.
 _PLAIN_ELEMS = 1 << 22
 
-# Kernel launches by intersect_cull, per instance. CPU calls do not count.
+# Kernel launches by intersect_cull, per instance. CPU calls and launches
+# under capture do not count (``ops.counts`` adds a CUDA graph's at its
+# replays).
 launches = {"K4": 0, "K4 any-hit": 0, "K4m": 0, "K4m any-hit": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -257,7 +260,7 @@ def _launch(name, symbol, argtypes, o, d, t_limit, table, n_tiles, gate_args, se
     name = name + (" any-hit" if any_hit else "")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launches[name] += 1
+    count_launch(launches, name)
     return occ.to(torch.float32) if any_hit else (t_out, f_out)
 
 

@@ -42,6 +42,7 @@ import ctypes
 
 import torch
 
+from pbr_tpu_torch.ops import count_launch
 from pbr_tpu_torch.ops.cuda_intersect import (
     _PLAIN_ELEMS,
     check_rays,
@@ -59,7 +60,9 @@ LANES = 128
 GATE_CLUSTER = 64  # faces per gated section: the ClusterSet's fine size
 _BIG_NEG = f32(-3.0e38)
 
-# Kernel launches by intersect_gated, per pass. CPU calls do not count.
+# Kernel launches by intersect_gated, per pass. CPU calls and launches
+# under capture do not count (``ops.counts`` adds a CUDA graph's at its
+# replays).
 launches = {"nearest": 0, "any-hit": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -144,7 +147,7 @@ def _sweep_kernel(o: Vec3, d: Vec3, tab, verdict, tile, seed_t, seed_f, t_limit)
     name = "any-hit" if any_hit else "nearest"
     if err != 0:
         raise RuntimeError(f"K3 ({name}) launch failed: cudaError {err}")
-    launches[name] += 1
+    count_launch(launches, name)
     return occ.to(torch.float32) if any_hit else (t_out, f_out)
 
 

@@ -43,6 +43,7 @@ from pathlib import Path
 
 import torch
 
+from pbr_tpu_torch.ops import count_launch
 from pbr_tpu_torch.ops.intersect import EPS5, INF, moller_trumbore
 from pbr_tpu_torch.ops.vec import Vec3, safe_div, safe_sqrt
 
@@ -61,7 +62,8 @@ NVCC_FLAGS = (
 _PLAIN_ELEMS = 1 << 24
 
 # Kernel launches by intersect_fused, per instance: K1 (NEE), K1' (nearest
-# only), K2 and K2' (the linear form). CPU calls do not count.
+# only), K2 and K2' (the linear form). CPU calls and launches under
+# capture do not count (``ops.counts`` adds a CUDA graph's at its replays).
 launches = {"K1": 0, "K1'": 0, "K2": 0, "K2'": 0}
 _libs: dict = {}
 
@@ -307,7 +309,7 @@ def intersect_fused(o: Vec3, d: Vec3, tris, light_pos=None, variant: str = "mt")
     name = ("K2" if variant == "lin" else "K1") + ("" if light is not None else "'")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launches[name] += 1
+    count_launch(launches, name)
     if light is None:
         return t, face
     return t, face, occ != 0

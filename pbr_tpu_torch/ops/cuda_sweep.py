@@ -75,6 +75,7 @@ import ctypes
 
 import torch
 
+from pbr_tpu_torch.ops import count_launch
 from pbr_tpu_torch.ops.cuda_intersect import check_rays, cross_od, load, mt_lin
 from pbr_tpu_torch.ops.cull import candidates_rows, coherence_keys, row_hit_words
 from pbr_tpu_torch.ops.intersect import INF
@@ -94,7 +95,9 @@ _BIG_NEG = f32(-3.0e38)
 # temporary holds at most this many elements.
 _PLAIN_ELEMS = 1 << 22
 
-# Kernel launches by intersect_sweep, per instance. CPU calls do not count.
+# Kernel launches by intersect_sweep, per instance. CPU calls and launches
+# under capture do not count (``ops.counts`` adds a CUDA graph's at its
+# replays).
 launches = {"K5": 0, "K5 any-hit": 0, "K5m": 0, "K5m any-hit": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -224,7 +227,7 @@ def _launch(name, symbol, argtypes, o, d, t_limit, lin, gate_args, seed_t, seed_
     name = name + (" any-hit" if any_hit else "")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launches[name] += 1
+    count_launch(launches, name)
     return occ.to(torch.float32) if any_hit else (t_out, f_out)
 
 

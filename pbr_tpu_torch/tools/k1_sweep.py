@@ -250,7 +250,7 @@ def ray_sets(dev) -> dict:
 
         ci.intersect_fused = record
         try:
-            pt.render(cam, frame_seed=1)
+            smoke.eager_frame(pt, cam, 1)  # eager: a graph's replay calls no wrapper
         finally:
             ci.intersect_fused = real
         torch.cuda.synchronize()

@@ -138,7 +138,7 @@ def ray_sets(dev) -> tuple:
     scene, cam = smoke.multiroom()
     pt = PathTracer(scene, smoke.bench_settings(smoke.SIZE, compact_schedule="auto"), device=dev)
     pt.render(cam, frame_seed=0)  # the probes, and a warm-up frame
-    frame = record_passes(lambda: pt.render(cam, frame_seed=1))
+    frame = record_passes(lambda: smoke.eager_frame(pt, cam, 1))
     torch.cuda.synchronize()
     if len(frame) != 16:
         raise AssertionError(f"expected 16 K3 passes a frame, got {len(frame)}")

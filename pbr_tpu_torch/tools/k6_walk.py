@@ -166,7 +166,7 @@ def ray_sets(dev) -> dict:
     pt = PathTracer(scene, smoke.bench_settings(smoke.SIZE, compact_schedule="auto",
                                                 intersector="pallas_bvh"), device=dev)
     pt.render(cam, frame_seed=0)  # the probes, and a warm-up frame
-    frame = smoke._recorded(lambda: pt.render(cam, frame_seed=1))
+    frame = smoke._recorded(lambda: smoke.eager_frame(pt, cam, 1))
     torch.cuda.synchronize()
     if len(frame) != 8 or any(w.kernel != "K6 NEE" for w in frame):
         raise AssertionError(f"expected 8 K6 NEE walks a frame, got {[w.kernel for w in frame]}")
@@ -180,7 +180,7 @@ def ray_sets(dev) -> dict:
     pt = PathTracer(scene, smoke.bench_settings(smoke.SIZE, compact_schedule="auto",
                                                 intersector="pallas_bvh_forest"), device=dev)
     pt.render(cam, frame_seed=0)  # the probes, and a warm-up frame
-    frame = smoke._recorded(lambda: pt.render(cam, frame_seed=1))
+    frame = smoke._recorded(lambda: smoke.eager_frame(pt, cam, 1))
     ts = pt.scene
     o, d = smoke._camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)
     camera = smoke._recorded(lambda: cb.intersect_bvh_forest(o, d, ts.forest, ts.bvh,

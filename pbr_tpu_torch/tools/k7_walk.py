@@ -163,7 +163,7 @@ def ray_sets(dev) -> tuple:
     pt = PathTracer(scene, smoke.bench_settings(smoke.SIZE, compact_schedule="auto",
                                                 intersector="pallas_bvh_hbm"), device=dev)
     pt.render(cam, frame_seed=0)  # the probes, and a warm-up frame
-    frame = smoke._recorded(lambda: pt.render(cam, frame_seed=1))
+    frame = smoke._recorded(lambda: smoke.eager_frame(pt, cam, 1))
     torch.cuda.synchronize()
     if len(frame) != 8 or any(w.kernel != "K7 NEE" for w in frame):
         raise AssertionError(f"expected 8 K7 NEE walks a frame, got {[w.kernel for w in frame]}")

@@ -168,7 +168,7 @@ def ray_sets(dev) -> tuple:
     pt = PathTracer(scene, smoke.bench_settings(smoke.SIZE, compact_schedule="auto",
                                                 intersector="bvh"), device=dev)
     pt.render(cam, frame_seed=0)  # the probes, and a warm-up frame
-    frame = smoke._recorded(lambda: pt.render(cam, frame_seed=1))
+    frame = smoke._recorded(lambda: smoke.eager_frame(pt, cam, 1))
     torch.cuda.synchronize()
     ts = pt.scene
     o, d = smoke._camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)

@@ -174,9 +174,16 @@ class Viewer:
         # (light boxes), drawn over the displayed frame each redraw.
         self.show_bvh = False
         self.show_lights = False
+        # The tracer's probes and its frame step's capture (a CUDA graph on
+        # the card), before the first frame, as the JAX viewer compiles its
+        # step ahead of the first frame.
+        t_warm0 = time.perf_counter()
+        self.tracer.warmup(self.camera.state(focus=self.focus))
         # Startup breakdown: wall times of the path to the first visible
-        # frame (tracer init, first frame, first draw).
-        self.startup = {"init_s": round(time.perf_counter() - t_ctor0, 3)}
+        # frame (tracer init with the warm-up, the warm-up alone, first
+        # frame, first draw).
+        self.startup = {"init_s": round(time.perf_counter() - t_ctor0, 3),
+                        "warmup_s": round(time.perf_counter() - t_warm0, 3)}
 
     # ---- state hooks ----------------------------------------------------
     def _on_camera_update(self) -> None:

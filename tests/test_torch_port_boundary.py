@@ -60,6 +60,8 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.tools.phong_chunks",
     "pbr_tpu_torch.tools.band_table",
     "pbr_tpu_torch.bench",
+    "pbr_tpu_torch.utils.graph",
+    "pbr_tpu_torch.tools.graph_steps",
 ])
 def test_import_leaves_jax_out(module):
     out = _run(f"import sys, {module}; print('jax' in sys.modules, 'pbr_tpu' in sys.modules)")
