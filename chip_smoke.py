@@ -19,7 +19,8 @@ eager frame's launches and to what the device ran (torch.profiler).
 1. device: a CUDA card of compute capability 9.0, its name and power limit;
 2. build: K1/K2 (csrc/brute_intersect.cu), K3 (csrc/gated_intersect.cu),
    K4/K4m (csrc/cull_intersect.cu), K5/K5m (csrc/row_sweep.cu), K6/K7
-   (csrc/bvh_packet.cu) and K8 (csrc/bvh_walk.cu) with nvcc, and the native
+   (csrc/bvh_packet.cu), K8 (csrc/bvh_walk.cu), K9 (csrc/phong_walk.cu) and
+   K10 (csrc/phong_clusters.cu) with nvcc, and the native
    BVH builder (csrc/bvh_builder.cpp) with g++, all in parallel, timed;
 3. Cornell box (34 faces; auto runs K1):
    - K1 and K2 (NEE, and K1', K2' nearest only) against their plain
@@ -195,19 +196,28 @@ eager frame's launches and to what the device ran (torch.profiler).
      (its capture, undone).
    The app's numbers are one JSON line {"app": ...} before the kernels'
    line.
-8. Phong tessellation (``ops/phongtess.py``; torch ops, as the JAX
-   package's XLA, so no kernel of the port launches): the Cornell box and
-   a smooth 24 x 12 sphere (562 faces, 9 clusters of 64 over the
-   curved-patch-inflated bounds) at alpha 0.8 with bench.py's settings:
-   a 64² card frame against the port's CPU frame (at least 99% of pixels
-   within 1e-3, no NaN); the 64² card gradients against the CPU's; the
-   first 1024² frame, compacted, bitwise the full-width frame; after it,
-   PHONG_FRAMES timed frames, then one profiled frame (launches and
-   device time a frame), with the peak memory; one cluster search pass
-   on the 1M camera rays and on 1M rays in the box, timed, with its
-   rounds and tile-rounds and the chunk; no launch of the 25 kernel rows
-   in any of it; then the first frame against the same scene built and
-   rendered flat (alpha 0: K1), which must differ;
+8. Phong tessellation (``ops/phongtess.py``; its searches are kernels K10,
+   the cluster search, and K9, the Phong BVH walk, ``ops/cuda_phong.py``):
+   the Cornell box and a smooth 24 x 12 sphere (562 faces, 9 clusters of 64
+   over the curved-patch-inflated bounds) at alpha 0.8 with bench.py's
+   settings: a 64² card frame against the port's CPU frame (at least 99%
+   of pixels within 1e-3, no NaN); the 64² card gradients against the
+   CPU's; the first 1024² frame, compacted, bitwise the full-width frame;
+   the frame step's graph holding K10 once a search of CLUSTER_MIN_RAYS
+   (4,096) rays or more and K9 once a search of fewer (an eager frame's
+   searches, recorded) and no other kernel of the port; PHONG_FRAMES
+   replayed frames, timed, each bitwise the eager frame, which is timed
+   too, with the launches over the replays, one replay under the profiler
+   (launches and device time a frame) and the peak memory; K9 against its
+   plain version on the card, bitwise (t, face, u, v), on 4,095 camera
+   rays and on 1M rays in the box, and K10 (face, u, v and each tile's
+   rounds) on the 1M camera rays and the 1M rays in the box, each with its
+   kernel, wrapper and plain times and its bound; ``fit``'s graphed steps on
+   the scene at 64² (K10) bitwise the eager step; the first frame against
+   the same scene built and rendered flat (alpha 0: K1), which must
+   differ; then the 1024² frames and the four kernel checks again on a
+   denser sphere (PHONG_DENSE: 9,058 faces, 142 clusters). The phase's
+   seconds are printed;
 9. sharding (``pbr_tpu_torch.parallel``): 2 ranks spawned on the one card
    over gloo (NCCL refuses two ranks on one device): Cornell at 1024² as
    dp=2 (bitwise the unsharded frame) and sp=2 (within 1e-6 of the mean
@@ -298,12 +308,17 @@ from pbr_tpu_torch.accel.forest import build_forest  # noqa: E402
 from pbr_tpu_torch import bench  # noqa: E402
 from pbr_tpu_torch.bench import bench_settings, card_line, load_scene  # noqa: E402
 from pbr_tpu_torch.models.integrator import _gen_rays  # noqa: E402
-from pbr_tpu_torch.models.pathtracer import init_frame_state, render_frame  # noqa: E402
+from pbr_tpu_torch.models.pathtracer import (  # noqa: E402
+    FrameState,
+    init_frame_state,
+    render_frame,
+)
 from pbr_tpu_torch.ops import counts, kernel_counts, zero_counts  # noqa: E402
 from pbr_tpu_torch.ops import cuda_bvh as cb  # noqa: E402
 from pbr_tpu_torch.ops import cuda_cull as cc  # noqa: E402
 from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
 from pbr_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
+from pbr_tpu_torch.ops import cuda_phong as cp  # noqa: E402
 from pbr_tpu_torch.ops import cuda_sweep as cs  # noqa: E402
 from pbr_tpu_torch.ops import gemm_intersect as gi  # noqa: E402
 from pbr_tpu_torch.ops import phongtess  # noqa: E402
@@ -345,6 +360,8 @@ K4_SOURCE = "pbr_tpu_torch/csrc/cull_intersect.cu"
 K5_SOURCE = "pbr_tpu_torch/csrc/row_sweep.cu"
 K67_SOURCE = "pbr_tpu_torch/csrc/bvh_packet.cu"
 K8_SOURCE = "pbr_tpu_torch/csrc/bvh_walk.cu"
+K9_SOURCE = "pbr_tpu_torch/csrc/phong_walk.cu"
+K10_SOURCE = "pbr_tpu_torch/csrc/phong_clusters.cu"
 # The H100's published peaks (SXM, at its 700 W limit): float32 outside the
 # tensor cores, and device memory. --fmad=false halves the issue ceiling
 # the kernels can reach (33.5 T op/s), which the bound does not assume.
@@ -396,6 +413,8 @@ REPLACES = {
     "K7 NEE": "pbr_tpu/ops/pallas_bvh.py:600",  # _kernel_hbm_nee
     "K8": "pbr_tpu/ops/traverse.py:276",  # the XLA while_loop body of intersect_bvh
     "K8 any-hit": "pbr_tpu/models/integrator.py:352",  # its shadow leg: t_sh < t_light
+    "K9": "pbr_tpu/ops/phongtess.py:458",  # the XLA while_loop of intersect_bvh_phongtess
+    "K10": "pbr_tpu/ops/phongtess.py:730",  # the XLA while_loop of intersect_clusters_phongtess
 }
 
 
@@ -479,7 +498,7 @@ def build_phase() -> None:
 
     t0 = time.perf_counter()
     names = ("brute_intersect", "gated_intersect", "cull_intersect", "row_sweep", "bvh_packet",
-             "bvh_walk", "bvh_builder", "k5 record")
+             "bvh_walk", "phong_walk", "phong_clusters", "bvh_builder", "k5 record")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         done = list(pool.map(timed, names))
     for name, sec, lib in done:
@@ -2125,6 +2144,9 @@ def app_view_phase(dev, size: int = VIEW_SIZE) -> dict:
 # ----------------------------------------------------------------- Phong --
 
 PHONG_ALPHA, PHONG_FRAMES = 0.8, 2
+# The denser sphere: 9,024 curved faces and the box's 34, 142 clusters of
+# 64 (long candidate lists) and a deep tree.
+PHONG_DENSE = dict(rings=48, segments=96)
 
 
 def cornell_sphere(rings: int = 12, segments: int = 24, center=(-0.45, 0.3, 0.45),
@@ -2173,29 +2195,223 @@ def cornell_sphere(rings: int = 12, segments: int = 24, center=(-0.45, 0.3, 0.45
     return "\n".join(out) + "\n", mtl, lights
 
 
-def _phong_pass(tag: str, what: str, o, d, ts) -> dict:
-    """One cluster search pass (``intersect_clusters_phongtess``) timed, with
-    its rounds and tile-rounds."""
-    stats = {}
-    phongtess.intersect_clusters_phongtess(o, d, ts.clusters, ts.tris, PHONG_ALPHA, stats=stats)
+def _graph_iters(fn) -> int:
+    """Calls of ``fn`` a CUDA graph replay holds for ``k1_sweep.graph_ms``:
+    about half a second of work, 1 to 20 calls."""
+    ms = k1_sweep.time_once(fn)[0]
+    return int(min(20, max(1, 500.0 / max(ms, 1e-3))))
+
+
+def phong_walk_check(tag: str, what: str, o, d, ts) -> dict:
+    """K9 against its plain version on the card, bitwise (t, face, u, v):
+    the kernel's ms (its launch alone, replayed from a CUDA graph), the
+    wrapper's (with the ray order), the plain version's, and the bound from
+    the plain walk's work (node steps, flat and curved face tests)."""
+    faces, ml = ts.phong_records, tt.leaf_bound(ts.bvh)
+    got = cp.intersect_walk(o, d, ts.bvh, faces, PHONG_ALPHA)
+    work = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    face = phongtess.intersect_clusters_phongtess(o, d, ts.clusters, ts.tris, PHONG_ALPHA)[0]
+    ref = phongtess.intersect_bvh_phongtess(o, d, ts.bvh, None, PHONG_ALPHA, faces=faces,
+                                            work=work)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    tiles = -(-o.x.shape[0] // 128)
-    phase(tag, f"cluster search on {what} ({o.x.shape[0]} rays, chunk "
-               f"{phongtess.PHONG_CHUNK_RAYS}): {ms:.1f} ms, {stats['rounds']} rounds, "
-               f"{stats['tile_rounds']} tile-rounds ({stats['tile_rounds'] / tiles:.2f} a tile), "
-               f"{float((face >= 0).float().mean()):.4f} hit")
-    return {"ms": ms, **stats, "tiles": tiles}
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _equal_or_raise(f"{tag}: K9 on {what}", got, ref)
+    order = cb.ray_order(o, d, ts.bvh)
+    launch = lambda: cp.walk_kernel(o, d, ts.bvh, faces, PHONG_ALPHA, ml, None, order)  # noqa: E731
+    ms = k1_sweep.graph_ms(launch, _graph_iters(launch))
+    wrapped = lambda: cp.intersect_walk(o, d, ts.bvh, faces, PHONG_ALPHA)  # noqa: E731
+    wrapper_ms = k1_sweep.graph_ms(wrapped, _graph_iters(wrapped))
+    n = o.x.shape[0]
+    ops = (work["visits"] * cp.OPS_NODE + work["flat"] * cp.OPS_MT
+           + work["curved"] * cp.OPS_PATCH + n * cp.OPS_RAY)
+    nbytes = n * (24 + 16) + ts.bvh.count * 32 + faces.numel() * 4
+    bound, by = _bound(ops, nbytes)
+    hit = float((got[1] >= 0).float().mean())
+    phase(tag, f"K9 on {what} ({n} rays): bitwise its plain version (t, face, u, v), hit "
+               f"{hit:.4f}; kernel {ms:.4f} ms, with the ray order {wrapper_ms:.4f} ms, plain "
+               f"{plain_ms:.1f} ms; {work['visits']} node steps, {work['flat']} flat and "
+               f"{work['curved']} curved face tests; bound {bound:.4f} ms ({by})")
+    return {"rays": n, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "err": _max_err(got[0], ref[0]), **work}
+
+
+def phong_clusters_check(tag: str, what: str, o, d, ts) -> dict:
+    """K10 against its plain version on the card, bitwise (face, u, v) and
+    each tile's rounds: the kernel's ms (its launch alone, replayed from a
+    CUDA graph), the wrapper's (with the candidate lists), the plain
+    version's, and the bound from the tile-rounds run (every real face of a
+    round's cluster against each live ray of the tile)."""
+    faces, cl = ts.phong_records, ts.clusters
+    got = cp.intersect_clusters(o, d, cl, faces, PHONG_ALPHA, with_rounds=True)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = phongtess.intersect_clusters_phongtess(o, d, cl, None, PHONG_ALPHA, stats=stats,
+                                                 faces=faces)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _equal_or_raise(f"{tag}: K10 on {what}", got[:3], ref)
+    if not torch.equal(got[3], stats["per_tile"]):
+        raise AssertionError(f"{tag}: K10 on {what}: rounds a tile differ from the plain "
+                             f"version's on {int((got[3] != stats['per_tile']).sum())} tiles")
+    lists = cp.candidate_lists(o, d, cl)
+    launch = lambda: cp.clusters_kernel(o, d, faces, cl.size, lists, PHONG_ALPHA, None)  # noqa
+    ms = k1_sweep.graph_ms(launch, _graph_iters(launch))
+    wrapped = lambda: cp.intersect_clusters(o, d, cl, faces, PHONG_ALPHA)  # noqa: E731
+    wrapper_ms = k1_sweep.graph_ms(wrapped, _graph_iters(wrapped))
+    n, tiles = o.x.shape[0], got[3].shape[0]
+    live = torch.arange(tiles * cp.TILE, device=o.x.device) < n
+    flat, curved = cp.cluster_tests(lists[0], got[3], live, faces, cl.size)
+    ops = flat * cp.OPS_MT + curved * cp.OPS_PATCH + n * cp.OPS_RAY
+    nbytes = n * (24 + 12) + sum(a.numel() * 4 for a in lists) + faces.numel() * 4
+    bound, by = _bound(ops, nbytes)
+    rounds = got[3].float()
+    hit = float((got[0] >= 0).float().mean())
+    phase(tag, f"K10 on {what} ({n} rays, {tiles} tiles, lists of {cl.count}): bitwise its "
+               f"plain version (face, u, v) and rounds a tile, hit {hit:.4f}; rounds a tile "
+               f"mean {float(rounds.mean()):.2f}, max {int(rounds.max())}; kernel {ms:.4f} ms, "
+               f"with the lists {wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; {flat} flat and "
+               f"{curved} curved face tests; bound {bound:.4f} ms ({by})")
+    return {"rays": n, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "err": _max_err(got[1], ref[1]),
+            "tile_rounds": stats["tile_rounds"], "max_rounds": stats["rounds"], "tiles": tiles,
+            "flat_tests": flat, "curved_tests": curved}
+
+
+def _recorded_searches(pt: PathTracer, cam, seed: int) -> list:
+    """(kernel, rays) of each Phong search an eager frame of ``pt`` makes,
+    in order (the wrappers swapped for recorders for the frame)."""
+    calls = []
+    real = {"K9": cp.intersect_walk, "K10": cp.intersect_clusters}
+
+    def recorder(name):
+        def call(o, *a, **k):
+            calls.append((name, o.x.shape[0]))
+            return real[name](o, *a, **k)
+        return call
+
+    cp.intersect_walk, cp.intersect_clusters = recorder("K9"), recorder("K10")
+    try:
+        eager_frame(pt, cam, seed)
+    finally:
+        cp.intersect_walk, cp.intersect_clusters = real["K9"], real["K10"]
+    return calls
+
+
+def phong_path(tag: str, scene, cam, dev) -> dict:
+    """A Phong path at 1024² (bench.py's settings, alpha PHONG_ALPHA): the
+    first frame, compacted, bitwise the full-width frame; the frame step's
+    graph holds K10 once a search of CLUSTER_MIN_RAYS rays or more and K9
+    once a search of fewer (an eager frame's searches, recorded) and no other
+    kernel of the port; PHONG_FRAMES replayed frames, timed, each bitwise the
+    eager ``render_frame`` frame from the same state, which is timed too;
+    the launches over the replays; one more replay under the profiler
+    (launches and device ms a frame); the peak memory."""
+    pt = _first_frame_checks(tag, scene, cam, dev, phong_tessellation=PHONG_ALPHA)
+    first = pt.image()
+    g = pt.graph
+    if g is None or g.graph is None:
+        raise AssertionError(f"{tag}: the Phong frame step was not captured")
+    nodes = kernel_counts(g.kernels)
+    calls = _recorded_searches(pt, cam, 1)
+    big = phongtess.CLUSTER_MIN_RAYS
+    wrong = [(k, n) for k, n in calls if (k == "K10") != (n >= big)]
+    expect = {k: sum(1 for c, _ in calls if c == k) for k in ("K9", "K10")}
+    expect = {k: v for k, v in expect.items() if v}
+    if wrong or nodes != expect or "K10" not in nodes:
+        raise AssertionError(f"{tag}: the graph's kernel nodes {nodes}, an eager frame's "
+                             f"searches {calls} (K10 from {big} rays, K9 below)")
+    phase(tag, f"the frame step's graph: {g.stats()['nodes']} nodes, the port's kernels "
+               f"{nodes}: an eager frame's searches by their rays {calls}")
+    saved = _state_copy(pt.state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    got = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms_graph = 0.0
+    for i in range(1, 1 + PHONG_FRAMES):
+        start.record()
+        pt.render(cam, frame_seed=i)
+        end.record()
+        end.synchronize()
+        ms_graph += start.elapsed_time(end) / PHONG_FRAMES
+        got.append(_state_copy(pt.state))
+    launched = {k: v for k, v in counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    _expect(f"{tag}, {PHONG_FRAMES} replays", launched,
+            {k: PHONG_FRAMES * v for k, v in nodes.items()})
+    state = FrameState(Vec3(*saved[:3]), saved[3], saved[4])
+    ct = camera_to_torch(cam, dev)
+    ms_eager = 0.0
+    for i in range(1, 1 + PHONG_FRAMES):
+        start.record()
+        with torch.no_grad():
+            state = render_frame(pt.scene, ct, pt.settings, state, pt.pixel_ids, i,
+                                 max_leaf=pt.max_leaf)
+        end.record()
+        end.synchronize()
+        ms_eager += start.elapsed_time(end) / PHONG_FRAMES
+        bad = [j for j, (a, b) in enumerate(zip(got[i - 1], _state_copy(state)))
+               if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"{tag}: replayed frame {i} differs from the eager frame in "
+                                 f"state fields {bad}")
+    img = pt.image()
+    if not np.isfinite(img).all() or not 0.05 < float(img.mean()) < 5.0:
+        raise AssertionError(f"{tag}: implausible image: mean {img.mean()}")
+    n_launch, dev_ms, ours_ms, prof_wall = _device_launches(
+        lambda: pt.render(cam, frame_seed=1 + PHONG_FRAMES))
+    phase(tag, f"1024²: {PHONG_FRAMES} replayed frames bitwise the eager frames; ms/frame "
+               f"graphed {ms_graph:.3f}, eager {ms_eager:.3f}; launches over the replays "
+               f"{launched}; peak memory {peak / 2**20:.1f} MiB; one replay under the profiler "
+               f"({prof_wall:.1f} ms): {n_launch} kernel launches, {dev_ms:.3f} ms of device "
+               f"time, the port's kernels {ours_ms:.3f} ms")
+    return {"pt": pt, "first": first, "launches": launched, "frames": PHONG_FRAMES,
+            "ms_graph": ms_graph, "ms_eager": ms_eager, "launches_per_frame": n_launch,
+            "graph_nodes": g.stats()["nodes"], "kernel_nodes": nodes,
+            "device_ms_per_frame": dev_ms, "port_kernels_ms": ours_ms,
+            "profiled_frame_ms": prof_wall, "peak_mib": peak / 2**20,
+            "lane_order": pt.lane_order, "schedule": pt.settings.compact_schedule}
+
+
+def phong_kernel_checks(tag: str, pt: PathTracer, cam, dev) -> dict:
+    """K9 on 4,095 of the path's camera rays and on 1M rays in the box, and
+    K10 on all 1M camera rays and the 1M rays in the box, each bitwise its
+    plain version (``phong_walk_check``, ``phong_clusters_check``)."""
+    ts = pt.scene
+    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)
+    box = _rays_in_box(BOUNCE_RAYS, 5, dev)
+    cut = lambda v: Vec3(*(c[:phongtess.CLUSTER_MIN_RAYS - 1].contiguous() for c in v))  # noqa
+    return {"K9 camera": phong_walk_check(tag, "4,095 camera rays", cut(cam_o), cut(cam_d), ts),
+            "K9 box": phong_walk_check(tag, "1M rays in the box", *box, ts),
+            "K10 camera": phong_clusters_check(tag, "the camera rays", cam_o, cam_d, ts),
+            "K10 box": phong_clusters_check(tag, "1M rays in the box", *box, ts)}
+
+
+def phong_fit_check(scene, cam, dev, size: int = 64) -> dict:
+    """``fit``'s graphed steps (``app.fit_steps``) on the Phong scene at
+    ``size``² (every pass of 4,096 rays: K10), bitwise the eager step at
+    three points; K10 launches and no other kernel of the port."""
+    settings = RenderSettings().replace(width=size, height=size, shadow_rays=1, brdf=0,
+                                        max_depth=2, max_added_depth=0,
+                                        phong_tessellation=PHONG_ALPHA)
+    zero_counts()
+    out = _fit_steps_bitwise(f"Phong {size}²", app.fit_problem(scene, settings, cam, dev))
+    launched = {k: v for k, v in counts().items() if v}
+    if set(launched) != {"K10"}:
+        raise AssertionError(f"fit on the Phong scene launched {launched}")
+    phase("phong", f"fit's graphed steps on the Phong scene at {size}² bitwise the eager "
+                   f"step at 3 points; launches {launched}")
+    return {**out, "launches": launched}
 
 
 def phong_phase(cam, dev, size: int = SIZE) -> dict:
     """Path "phong": the Cornell box and a smooth sphere (562 faces, 9
     clusters of 64 over the curved-patch-inflated bounds) at alpha 0.8 with
-    bench.py's settings. No kernel of the port launches: the search is torch
-    ops (ops/phongtess.py), as in the JAX package's XLA."""
+    bench.py's settings, through kernels K10 and K9; then the same on the
+    denser sphere (PHONG_DENSE: 9,058 faces, 142 clusters)."""
     tag = "phong"
     scene, _ = scene_from_text(*cornell_sphere(), use_bvh=True, phong_tess_alpha=PHONG_ALPHA)
     curved = int((~phongtess.face_is_flat(to_torch(scene, "cpu").tris)).sum())
@@ -2211,61 +2427,45 @@ def phong_phase(cam, dev, size: int = SIZE) -> dict:
         sec[what] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    zero_counts()
     oracle_phase(tag, scene, cam, dev, size=64, **kw)
     lap("64² frames")
     _grads_card_vs_cpu(tag, scene, cam, dev, bench_settings(64, **kw))
     lap("64² gradients")
-    pt = _first_frame_checks(tag, scene, cam, dev, **kw)
-    first = pt.image()
-    lap("first frame, compacted and full width")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(1, 1 + PHONG_FRAMES):
-        pt.render(cam, frame_seed=i)
-    end.record()
-    end.synchronize()
-    ms_frame = start.elapsed_time(end) / PHONG_FRAMES
-    peak = torch.cuda.max_memory_allocated()
-    img = pt.image()
-    if not np.isfinite(img).all() or not 0.05 < float(img.mean()) < 5.0:
-        raise AssertionError(f"{tag}: implausible image: mean {img.mean()}")
-    lap("timed frames")
-    n_launch, dev_ms, ours_ms, prof_wall = _device_launches(
-        lambda: pt.render(cam, frame_seed=1 + PHONG_FRAMES))
-    lap("profiled frame")
-    ts = pt.scene
-    cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)
-    passes = {"camera": _phong_pass(tag, "the camera rays", cam_o, cam_d, ts),
-              "bounce": _phong_pass(tag, "1M rays in the box",
-                                    *_rays_in_box(BOUNCE_RAYS, 5, dev), ts)}
-    lap("passes")
-    launched = {k: v for k, v in counts().items() if v}
-    phase(tag, f"{size}²: {ms_frame:.1f} ms/frame over {PHONG_FRAMES} frames after the first, "
-               f"peak memory {peak / 2**20:.1f} MiB; one more frame under the profiler "
-               f"({prof_wall:.1f} ms): {n_launch} kernel launches, {dev_ms:.1f} ms of device "
-               f"time ({dev_ms / ms_frame:.1%} of a timed frame); the port's kernels: "
-               f"{launched}")
-    if launched or ours_ms:
-        raise AssertionError(f"{tag}: kernels of the port launched: {launched}, {ours_ms} ms")
+    path = phong_path(tag, scene, cam, dev)
+    lap("1024² frames")
+    passes = phong_kernel_checks(tag, path["pt"], cam, dev)
+    lap("kernels")
+    fit = phong_fit_check(scene, cam, dev)
+    lap("fit")
     # The same scene built and rendered flat (alpha 0: K1): the feature
     # changes the image.
     flat_scene, _ = scene_from_text(*cornell_sphere(), use_bvh=True)
-    flat = PathTracer(flat_scene, bench_settings(size), device=dev, lane_order=pt.lane_order)
+    flat = PathTracer(flat_scene, bench_settings(size), device=dev,
+                      lane_order=path["pt"].lane_order)
     flat.render(cam, frame_seed=0)
-    moved = float((np.abs(first - flat.image()).max(axis=-1) > 1e-3).mean())
-    phase(tag, f"first frame vs the flat scene's: {moved:.4%} of pixels differ by more than 1e-3")
+    moved = float((np.abs(path.pop("first") - flat.image()).max(axis=-1) > 1e-3).mean())
+    phase(tag, f"first frame vs the flat scene's: {moved:.4%} of pixels differ by more than "
+               f"1e-3")
     if moved < 0.005:
         raise AssertionError(f"{tag}: alpha {PHONG_ALPHA} barely changed the image ({moved})")
+    del path["pt"], flat
     lap("flat frame")
+    dtag = "phong dense"
+    t1 = time.perf_counter()
+    dense, _ = scene_from_text(*cornell_sphere(**PHONG_DENSE), use_bvh=True,
+                               phong_tess_alpha=PHONG_ALPHA)
+    phase(dtag, f"built in {time.perf_counter() - t1:.3f} s: {dense.tris.count} faces, "
+                f"{dense.clusters.bb_min.x.shape[0]} clusters of {dense.clusters.size} (real "
+                f"and padding), BVH {dense.bvh.count} nodes")
+    dpath = phong_path(dtag, dense, cam, dev)
+    lap("dense 1024² frames")
+    dpasses = phong_kernel_checks(dtag, dpath.pop("pt"), cam, dev)
+    lap("dense kernels")
+    dpath.pop("first")
+    sec["phase"] = sum(sec.values())
     phase(tag, "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sec.items()))
-    return {"ms_frame": ms_frame, "frames": PHONG_FRAMES, "launches_per_frame": n_launch,
-            "device_ms_per_frame": dev_ms, "profiled_frame_ms": prof_wall,
-            "peak_mib": peak / 2**20,
-            "chunk_rays": phongtess.PHONG_CHUNK_RAYS, "passes": passes,
-            "pixels_moved_by_alpha": moved, "seconds": sec}
+    return {"path": path, "passes": passes, "fit": fit, "pixels_moved_by_alpha": moved,
+            "dense": {"path": dpath, "passes": dpasses}, "seconds": sec}
 
 
 # --------------------------------------------------------------- sharded --
@@ -2557,9 +2757,7 @@ def graph_bench_check(name: str, kernels: tuple, dev, frames: int = 2) -> dict:
 
 def graph_fit_check(name: str, size: int, dev) -> dict:
     """``fit``'s graphed steps (``app.fit_steps``) on scene ``name`` at
-    ``size``², at the CLI's starting albedos and at a second point: the
-    loss and its gradient in kd bitwise the eager step's, and ``loss_at``
-    the same loss."""
+    ``size``² (``_fit_steps_bitwise``)."""
     import argparse
 
     settings = RenderSettings().replace(width=size, height=size, shadow_rays=1, brdf=0,
@@ -2569,11 +2767,20 @@ def graph_fit_check(name: str, size: int, dev) -> dict:
     from pbr_tpu_torch.utils.config import CameraConfig
 
     cam = app._camera_for(args, CameraConfig(), name).state()
-    prob = app.fit_problem(scene, settings, cam, dev)
+    out = _fit_steps_bitwise(f"{name} {size}²", app.fit_problem(scene, settings, cam, dev))
+    phase("graph", f"fit {name} {size}²: value_and_grad and loss_at, graphed, bitwise the "
+                   f"eager step at 3 points (loss {out['loss']:.6f})")
+    return out
+
+
+def _fit_steps_bitwise(tag: str, prob) -> dict:
+    """``app.fit_steps`` of ``prob`` at the CLI's starting albedos and at a
+    second point: the loss and its gradient in kd bitwise the eager step's,
+    and ``loss_at`` the same loss."""
     param = prob.ts.mat_kd
     kd0 = param.detach().clone()
     noise = torch.tensor(np.random.RandomState(0).uniform(-0.3, 0.3, kd0.shape[1]),
-                         dtype=torch.float32, device=dev)
+                         dtype=torch.float32, device=kd0.device)
     start = kd0.clone()
     start[0] = torch.clamp(kd0[0] + noise, 0.0, 1.0)
     value_and_grad, loss_at = app.fit_steps(prob)
@@ -2587,11 +2794,9 @@ def graph_fit_check(name: str, size: int, dev) -> dict:
         eager = prob.loss()
         (eager_g,) = torch.autograd.grad(eager, param)
         param.requires_grad_(False)
-        if loss != float(eager) or lo != loss or not torch.equal(g, eager_g):
-            raise AssertionError(f"graph fit {name}: the graphed step differs from the eager "
-                                 f"one (loss {loss} vs {float(eager)}, loss_at {lo})")
-    phase("graph", f"fit {name} {size}²: value_and_grad and loss_at, graphed, bitwise the "
-                   f"eager step at 3 points (loss {loss:.6f})")
+        if loss != float(eager.detach()) or lo != loss or not torch.equal(g, eager_g):
+            raise AssertionError(f"graph fit {tag}: the graphed step differs from the eager "
+                                 f"one (loss {loss} vs {float(eager.detach())}, loss_at {lo})")
     return {"loss": loss}
 
 
@@ -2781,7 +2986,8 @@ def bench_phase(dev) -> dict:
 
 # The port's kernels' names, as the profiler shows them.
 PORT_KERNELS = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "rows_kernel",
-                "packet_kernel", "chain_kernel", "slab_kernel", "walk_kernel")
+                "packet_kernel", "chain_kernel", "slab_kernel", "walk_kernel",
+                "phong_clusters_kernel")
 
 
 def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
@@ -2888,18 +3094,23 @@ def main() -> None:
     ap["gemm"] = app_gemm_phase(scene, cam, dev, k1, corn["times"]["K1'"][0])
     ap["view"] = app_view_phase(dev)
     print(json.dumps({"app": ap}), flush=True)
-    print(json.dumps({"device": smi, "phong": phong_phase(cam, dev),
-                      "sharded": sharded_phase(dev)}), flush=True)
+    ph = phong_phase(cam, dev)
+    print(json.dumps({"device": smi, "phong": ph, "sharded": sharded_phase(dev)}), flush=True)
     phase("done", f"all phases passed on {smi}")
 
     t = {**corn["times"], **mk_times, **mc["times"], **sk["times"], **msw["times"],
          **swk["times"], **{k: (v["ms"], v["plain_ms"]) for k, v in tk.items()}}
+    # K9 at the shapes the main path gives it (a pass under
+    # CLUSTER_MIN_RAYS: 4,095 camera rays), K10 on the 1M camera rays.
+    phong = {"K9": ph["passes"]["K9 camera"], "K10": ph["passes"]["K10 camera"]}
+    t.update({k: (v["ms"], v["plain_ms"]) for k, v in phong.items()})
     bounds = {**corn["bounds"], **mk_bounds,
               **{k: v[2] for times in (mc["times"], sk["times"], msw["times"], swk["times"])
                  for k, v in times.items() if len(v) == 3},
-              **{k: (v["bound_ms"], v["bound_by"]) for k, v in tk.items()}}
+              **{k: (v["bound_ms"], v["bound_by"]) for k, v in tk.items()},
+              **{k: (v["bound_ms"], v["bound_by"]) for k, v in phong.items()}}
     errs = {**k1["errs"], **mk_errs, **mc["errs"], **sk["errs"], **msw["errs"], **swk["errs"],
-            **{k: v["err"] for k, v in tk.items()}}
+            **{k: v["err"] for k, v in tk.items()}, **{k: v["err"] for k, v in phong.items()}}
     fo = tp["forest"]["launches"]
     # (instance, source, launches on its path, frames of the path's run
     # that the count covers: the timed frames, or one frame; the linear
@@ -2930,11 +3141,13 @@ def main() -> None:
         ("K7 NEE", K67_SOURCE, tp["k7"]["launches"]["K7 NEE"], FRAMES),
         ("K8", K8_SOURCE, tp["k8"]["launches"]["K8"], FRAMES),
         ("K8 any-hit", K8_SOURCE, tp["k8"]["launches"]["K8 any-hit"], FRAMES),
+        ("K9", K9_SOURCE, ph["path"]["launches"].get("K9", 0), PHONG_FRAMES),
+        ("K10", K10_SOURCE, ph["path"]["launches"]["K10"], PHONG_FRAMES),
     ]
     # No one PyTorch call computes a nearest-hit search or a BVH walk:
     # library_ms is null.
-    if len(rows) != 25:
-        raise AssertionError(f"expected 25 kernel rows, got {len(rows)}")
+    if len(rows) != 27:
+        raise AssertionError(f"expected 27 kernel rows, got {len(rows)}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src,
         "replaces": REPLACES[name] if name in REPLACES else REPLACES[name.split()[0]],

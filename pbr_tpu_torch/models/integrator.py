@@ -5,8 +5,8 @@ ray batch advances together through generate (camera rays, AA jitter,
 thin-lens DoF), intersect (``ops/traverse.py``: kernel K1, kernel K3
 over the cluster verdicts on a scene in the gated band, kernel K4 over
 the candidate lists above it, or a BVH walk, K6, K7 or K8; with Phong
-tessellation the curved-patch search of ``ops/phongtess.py``, torch ops as
-in the JAX version's XLA), and shade (NEE,
+tessellation the curved-patch search of ``ops/phongtess.py``: kernel K10
+over the clusters' candidate lists or the Phong BVH walk K9), and shade (NEE,
 BRDF sample, throughput update, Russian roulette), with per-ray liveness
 as masks. Same estimator, same quirks,
 same counter-based RNG, so the port's frame agrees with the NumPy oracle
@@ -237,7 +237,8 @@ def _orb_pass(o, d, lights, t_geom):
     return torch.where(torch.isfinite(t_geom), -1, orb_idx)
 
 
-def _shadow_occluded(tris, hit_p, l_dir, t_light, casts, mode, tables, pt_alpha=0.0):
+def _shadow_occluded(tris, hit_p, l_dir, t_light, casts, mode, tables, pt_alpha=0.0,
+                     pt_faces=None):
     """Any-hit shadow test (traverseShadows, pt_bvh.cl:133-177): occluded
     iff some geometry hit lies closer than the light. Used when the
     intersector has no fused shadow leg; ``casts``: the lanes whose bit the
@@ -245,13 +246,15 @@ def _shadow_occluded(tris, hit_p, l_dir, t_light, casts, mode, tables, pt_alpha=
     runs kernel K8's any-hit instance on those lanes only, the plain sweep
     a second nearest-hit search over every lane). With Phong tessellation
     (``pt_alpha`` > 0) the shadow ray tests the curved patches too: the
-    nearest Phong search, then t < t_light. The JAX version searches every
-    lane there; the port closes the lanes that cast no shadow ray (the
-    cluster search's ``alive``), whose bit is never read."""
+    nearest Phong search (``pt_faces``: its face table), then t < t_light.
+    The JAX version searches every lane there; the port closes the lanes
+    that cast no shadow ray (the ``alive`` of the cluster search and the
+    walk), whose bit is never read."""
     if pt_alpha > 0.0:
         t_sh = intersect_scene_phongtess(hit_p, l_dir, tris, pt_alpha, bvh=tables["bvh"],
                                          clusters=tables["clusters"],
-                                         max_leaf=tables["max_leaf"], alive=casts)[0]
+                                         max_leaf=tables["max_leaf"], alive=casts,
+                                         faces=pt_faces)[0]
         return t_sh < t_light
     return occluded_scene(hit_p, l_dir, t_light, tris, mode=mode, alive=casts, **tables)
 
@@ -315,6 +318,9 @@ def trace_rays(
                   max_leaf=max_leaf)
     pt_alpha = float(settings.phong_tessellation)
     flat = face_is_flat(tris) if pt_alpha > 0.0 else None
+    # The Phong searches' face table (None: a scene of flat faces alone,
+    # whose searches build their own).
+    pt_faces = getattr(scene, "phong_records", None)
     mats = scene.materials
     lights = scene.lights
     num_lights = lights.count
@@ -369,7 +375,7 @@ def trace_rays(
             # inflated at build time, the all-faces sweep without a BVH.
             t, face, pt_u, pt_v = intersect_scene_phongtess(
                 o, d, tris, pt_alpha, bvh=scene.bvh, clusters=scene.clusters,
-                max_leaf=max_leaf, alive=alive)
+                max_leaf=max_leaf, alive=alive, faces=pt_faces)
             out = ((None, None),)  # no counters, as in the JAX version
         elif nee_enabled:
             l0 = Vec3(lights.pos.x[0], lights.pos.y[0], lights.pos.z[0])
@@ -453,7 +459,7 @@ def trace_rays(
             occluded = occ_fused
             if occluded is None:
                 occluded = _shadow_occluded(tris, hit_p, l_dir, t_light, casts,
-                                            settings.intersector, tables, pt_alpha)
+                                            settings.intersector, tables, pt_alpha, pt_faces)
             nee_ok = casts & ~occluded
             if with_stats:
                 n_shadow = n_shadow + casts.sum()

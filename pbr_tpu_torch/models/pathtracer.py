@@ -181,9 +181,9 @@ class PathTracer:
     ``render`` or at ``warmup``, once the probes have fixed the lane order
     and the schedule, and again only when the settings or the lanes
     change; on the CPU the same step runs eagerly. A frame with Phong
-    tessellation runs eagerly on either device: its patch search reads the
-    host (``ops/phongtess.py``). ``graph`` is the captured step (None
-    before the first capture).
+    tessellation is captured as every other frame is: its searches are
+    kernels K9 and K10 (``ops/cuda_phong.py``). ``graph`` is the captured
+    step (None before the first capture).
     """
 
     def __init__(self, scene: Scene, settings: RenderSettings, device="cuda",
@@ -300,10 +300,7 @@ class PathTracer:
 
     def _step(self):
         """The frame step of the current settings and lanes: the captured
-        one, built anew where they changed, or None for an eager frame
-        (Phong tessellation)."""
-        if self.settings.phong_tessellation > 0.0:
-            return None
+        one, built anew where they changed."""
         key = (self.settings, self.pixel_ids)
         if self.graph is None or self._graph_key[0] != key[0] or self._graph_key[1] is not key[1]:
             self.graph = CapturedStep(self._frame, self._seed, self._cam_buf, *_state_tensors(
@@ -315,12 +312,11 @@ class PathTracer:
         """Resolve the probes and capture the frame step without folding a
         frame into the accumulator (the JAX version's ahead-of-time
         compile): the capture's eager run is undone. The next ``render``
-        replays the graph. On the CPU, and for a Phong frame, only the
-        probes run."""
+        replays the graph. On the CPU only the probes run."""
         cam = self._camera(cam)
         self._resolve_auto_compact(cam)
         step = self._step()
-        if step is None or self.device.type != "cuda" or step.graph is not None:
+        if self.device.type != "cuda" or step.graph is not None:
             return
         saved = FrameState(*(_clone(f) for f in self._state))
         step.capture()
@@ -349,12 +345,8 @@ class PathTracer:
         the captured frame step (its capture at the first call)."""
         cam = self._camera(cam)
         self._resolve_auto_compact(cam)
-        step = self._step()
-        if step is None:
-            n_dropped = self._frame(frame_seed)
-        else:
-            self._seed.fill_(int(frame_seed) & 0xFFFFFFFF)
-            n_dropped = step()
+        self._seed.fill_(int(frame_seed) & 0xFFFFFFFF)
+        n_dropped = self._step()()
         # Compaction-overflow guard: a nonzero count means live lanes were
         # cut short, a biased render. int() syncs the host, so it is read
         # on the first frames and then every 32nd only.

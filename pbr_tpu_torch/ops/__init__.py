@@ -5,7 +5,7 @@ import re
 
 # Each kernel instance of ``counts()`` by its CUDA function: a pattern of
 # the demangled name (csrc/*.cu; the template arguments tell instances of
-# one function apart).
+# one function apart; a function that is no template is its own name).
 KERNELS = {
     "K1": r"brute_intersect_kernel<true, false>",
     "K1'": r"brute_intersect_kernel<false, false>",
@@ -30,17 +30,21 @@ KERNELS = {
     "K7 NEE": r"slab_kernel<1>",
     "K8": r"walk_kernel<false>",
     "K8 any-hit": r"walk_kernel<true>",
+    "K9": r"phong_walk_kernel",
+    "K10": r"phong_clusters_kernel",
 }
 
 
 def _launch_tables() -> tuple:
     """(launch table, {name in ``counts()``: key in the table}) of every
     kernel wrapper module."""
-    from pbr_tpu_torch.ops import cuda_bvh, cuda_cull, cuda_gated, cuda_intersect, cuda_sweep
+    from pbr_tpu_torch.ops import (cuda_bvh, cuda_cull, cuda_gated, cuda_intersect, cuda_phong,
+                                   cuda_sweep)
 
     gated = {"K3": "nearest", "K3 any-hit": "any-hit"}
     return tuple((mod.launches, gated if mod is cuda_gated else {k: k for k in mod.launches})
-                 for mod in (cuda_intersect, cuda_gated, cuda_cull, cuda_sweep, cuda_bvh))
+                 for mod in (cuda_intersect, cuda_gated, cuda_cull, cuda_sweep, cuda_bvh,
+                             cuda_phong))
 
 
 def count_launch(table: dict, key: str) -> None:

@@ -10,17 +10,20 @@ barycentric coordinate, each root polished by Newton.
 
 Everything is elementwise over ray batches with masks in place of the
 reference's early-outs, in the JAX version's operation order, on any
-device. The JAX package runs this stage in plain XLA, not Pallas, so it has
-no kernel here either: the patch math is torch ops, and the cluster search
-(``intersect_clusters_phongtess``) is a Python loop of rounds over them.
+device. The JAX package runs its two searches as device loops in XLA
+(``jax.lax.while_loop``); on the card the port runs them as kernels K9 and
+K10 (``ops/cuda_phong.py``), whose plain versions are the searches here.
 
 - ``solve_cubic`` (and ``solve_quadratic``, its branch without the cubic
   term, which the patch test's second solve is), ``phongtess_patch_intersect``,
   ``phongtess_normal``, ``patch_constants``, ``face_is_flat``;
+- ``phong_records``: the searches' face table, 20 floats a face, which
+  ``scene/device.py::to_torch`` builds once a scene with curved faces;
 - the searches: ``intersect_brute_phongtess`` (all faces), the stackless
-  BVH walk ``intersect_bvh_phongtess`` (a host-driven loop, one step a
-  node) and the cluster search ``intersect_clusters_phongtess`` (dense
-  rounds over the near-to-far lists of ``ops/cull.py::candidates_fine``,
+  BVH walk ``intersect_bvh_phongtess`` (K9's plain version: a host-driven
+  loop, one step a node) and the cluster search
+  ``intersect_clusters_phongtess`` (K10's plain version: dense rounds over
+  the near-to-far lists of ``ops/cull.py::candidates_fine``,
   ``PHONG_CHUNK_RAYS`` rays at a time);
 - ``intersect_scene_phongtess``, their dispatch with a differentiable
   re-evaluation of the winner's t;
@@ -30,7 +33,7 @@ no kernel here either: the patch math is torch ops, and the cluster search
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,14 +47,14 @@ _THIRD_HALF = f32(1.0 / 6.0)
 _TWO_PI, _FOUR_PI = f32(2.0 * np.pi), f32(4.0 * np.pi)
 _BIG, _BIGN = f32(3.0e38), f32(-3.0e38)
 
-# Rays a chunk of the cluster search: a multiple of the 128-ray tile. A
-# round's temporaries are (chunk x cluster size) float32 tensors, 64 MiB
-# each with 64-face clusters. On the H100 a 1024² frame of chip_smoke.py's
+# Rays a chunk of the cluster search's plain version: a multiple of the
+# 128-ray tile. A round's temporaries are (chunk x cluster size) float32
+# tensors, 64 MiB each with 64-face clusters. On the H100 a 1024² frame of chip_smoke.py's
 # Phong scene took 23.6 / 22.0 / 20.8 / 18.8 s at 65,536 / 131,072 /
 # 262,144 / 524,288 rays, peaking at 1,988 / 3,420 / 6,259 / 11,926 MiB
-# (tools/phong_chunks.py): this one halves the launches of 131,072 at a
-# peak that leaves room for 128-face clusters. The JAX package's 16,384 is
-# a TPU size.
+# (tools/phong_chunks.py, before kernel K10): this one halves the launches
+# of 131,072 at a peak that leaves room for 128-face clusters. The JAX
+# package's 16,384 is a TPU size. Kernel K10 takes its rays unchunked.
 PHONG_CHUNK_RAYS = 262_144
 # Rays from which the dispatch takes the cluster search on a scene with
 # clusters (pbr_tpu/ops/phongtess.py:496); fewer rays walk the BVH.
@@ -381,18 +384,66 @@ def face_is_flat(tris) -> torch.Tensor:
     return eq(tris.n0, tris.n1) & eq(tris.n1, tris.n2)
 
 
-def _face_hit(o: Vec3, d: Vec3, tris, fidx, flat, alpha: float, t_best):
+# Floats of a face record of ``phong_records``: five 16-byte words.
+PHONG_RECORD = 20
+
+
+class RecordFaces(NamedTuple):
+    """Faces as the searches read them: Vec3s of (N,) and the (N,) bool
+    flat flag (column views of a ``phong_records`` table, or a triangle
+    SoA's own tensors)."""
+
+    v0: Vec3
+    e1: Vec3
+    e2: Vec3
+    n0: Vec3
+    n1: Vec3
+    n2: Vec3
+    flat: torch.Tensor
+
+
+def phong_records(tris, n_pad: Optional[int] = None) -> torch.Tensor:
+    """The Phong searches' face table, (``n_pad``, 20) float32 (``n_pad``:
+    the face count when None): a face's v0, e1, e2, n0, n1, n2 (x, y, z
+    each), its flat flag (1.0 where ``face_is_flat``) and a 0, read by
+    kernels K9 and K10 as five 16-byte words {v0, e1.x} {e1.yz, e2.xy}
+    {e2.z, n0} {n1, n2.x} {n2.yz, flat, 0}, and by their plain versions
+    through ``record_faces``. Padding faces are flat with zero edges:
+    Möller-Trumbore's det is 0 there, never valid."""
+    cols = [c for v in (tris.v0, tris.e1, tris.e2, tris.n0, tris.n1, tris.n2) for c in v]
+    cols.append(face_is_flat(tris).to(torch.float32))
+    cols.append(torch.zeros_like(cols[0]))
+    table = torch.stack(cols, dim=1)
+    nf = table.shape[0]
+    n_pad = nf if n_pad is None else n_pad
+    if n_pad < nf:
+        raise ValueError(f"a Phong face table of {n_pad} rows cannot hold {nf} faces")
+    if n_pad > nf:
+        fill = table.new_zeros((n_pad - nf, PHONG_RECORD))
+        fill[:, 18] = 1.0
+        table = torch.cat([table, fill])
+    return table.contiguous()
+
+
+def record_faces(table: torch.Tensor) -> RecordFaces:
+    """The faces of a ``phong_records`` table, as column views."""
+    c = table.unbind(1)
+    v = lambda i: Vec3(c[i], c[i + 1], c[i + 2])  # noqa: E731
+    return RecordFaces(v(0), v(3), v(6), v(9), v(12), v(15), c[18] > 0.5)
+
+
+def _face_hit(o: Vec3, d: Vec3, faces: RecordFaces, fidx, alpha: float, t_best):
     """One face a lane (``fidx``: an int or a per-lane index): its
     Möller-Trumbore t when it is flat, its patch t (at least EPSILON5) when
     it is curved. Returns ``(t, u, v, valid)``, u and v 0 on flat faces."""
-    P1 = gather_vec3(tris.v0, fidx)
-    e1 = gather_vec3(tris.e1, fidx)
-    e2 = gather_vec3(tris.e2, fidx)
+    P1 = gather_vec3(faces.v0, fidx)
+    e1 = gather_vec3(faces.e1, fidx)
+    e2 = gather_vec3(faces.e2, fidx)
     t_f, valid_f = moller_trumbore(o, d, P1, e1, e2)
     t_c, uu, vv, valid_c = phongtess_patch_intersect(
-        o, d, P1, P1 + e1, P1 + e2, gather_vec3(tris.n0, fidx), gather_vec3(tris.n1, fidx),
-        gather_vec3(tris.n2, fidx), alpha, t_best)
-    is_flat = flat[fidx]
+        o, d, P1, P1 + e1, P1 + e2, gather_vec3(faces.n0, fidx), gather_vec3(faces.n1, fidx),
+        gather_vec3(faces.n2, fidx), alpha, t_best)
+    is_flat = faces.flat[fidx]
     t = torch.where(is_flat, t_f, t_c)
     valid = torch.where(is_flat, valid_f, valid_c & (t_c >= EPS5))
     return t, torch.where(is_flat, 0.0, uu), torch.where(is_flat, 0.0, vv), valid
@@ -403,13 +454,14 @@ def intersect_brute_phongtess(o: Vec3, d: Vec3, tris, alpha: float):
     curved faces, Möller-Trumbore for flat ones (first face wins ties).
     Returns ``(t, face, u, v)``, u and v the patch coordinates of a curved
     winner (0 for a flat one)."""
-    flat = face_is_flat(tris)
+    faces = RecordFaces(tris.v0, tris.e1, tris.e2, tris.n0, tris.n1, tris.n2,
+                        face_is_flat(tris))
     t_best = torch.full_like(o.x, INF)
     f_best = torch.full(o.x.shape, -1, dtype=torch.int32, device=o.x.device)
     u_best = torch.zeros_like(o.x)
     v_best = torch.zeros_like(o.x)
     for f in range(int(tris.mtl.shape[0])):
-        t, uu, vv, valid = _face_hit(o, d, tris, f, flat, alpha, t_best)
+        t, uu, vv, valid = _face_hit(o, d, faces, f, alpha, t_best)
         better = valid & (t < t_best)
         t_best = torch.where(better, t, t_best)
         f_best = torch.where(better, f, f_best)
@@ -418,51 +470,71 @@ def intersect_brute_phongtess(o: Vec3, d: Vec3, tris, alpha: float):
     return t_best, f_best, u_best, v_best
 
 
-def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf=None):
+def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf=None,
+                            alive=None, faces: Optional[torch.Tensor] = None,
+                            work: Optional[dict] = None):
     """Nearest hit through the stackless BVH with the flat/curved face
     dispatch (the reference's shared leaf test, pt_intersect.cl:142-176,
     through traverse, pt_bvh.cl:82-123); contract and ties as
-    ``intersect_brute_phongtess``. The tree must be built over
+    ``intersect_brute_phongtess``. Kernel K9's plain version
+    (``ops/cuda_phong.py``). The tree must be built over
     ``phongtess_face_aabbs`` bounds (``scene/build.py`` with
-    ``phong_tess_alpha``). ``bvh``: a ``BVHTables``. A host-driven loop,
-    one node step a pass over every lane until all have left the tree (the
-    JAX version's ``while np.any(...)``), with one host check a step. A
-    step's leaf faces are tested in one batch, and only on steps where some
-    lane reached a leaf: a face whose t lies beyond the bound an earlier
-    face of the leaf set cannot win, so the order of the updates decides
-    as the one-face-at-a-time loop does. ``max_leaf``: the faces a leaf may
-    hold (``leaf_bound``: None takes the tree's own). Returns ``(t, face,
-    u, v)``."""
+    ``phong_tess_alpha``). ``bvh``: a ``BVHTables``; ``faces``: the
+    ``phong_records`` table of ``tris`` (built here when None; ``tris`` may
+    then be None). A host-driven loop, one node step a pass over every lane
+    until all have left the tree (the JAX version's ``while np.any(...)``),
+    with one host check a step. A step's leaf faces are tested in one
+    batch, and only on steps where some lane reached a leaf: a face whose t
+    lies beyond the bound an earlier face of the leaf set cannot win, so
+    the order of the updates decides as the one-face-at-a-time loop does.
+    The node test is K8's: the slab test, t_far > EPSILON5, the empty-box
+    guard of ``ops/cuda_bvh.py`` (which no node the builders make fails)
+    and t_best > t_near. ``max_leaf``: the faces a leaf may hold
+    (``leaf_bound``: None takes the tree's own). ``alive`` (B,) bool: a
+    dead lane walks nothing and reports t = +inf, face -1. ``work``: a
+    dict that gets the walk's node steps (``visits``) and its tests of
+    flat and of curved faces (``flat``, ``curved``), added to what it
+    holds. Returns ``(t, face, u, v)``."""
     max_leaf = leaf_bound(bvh, max_leaf)
     n = bvh.count
-    nf = int(tris.mtl.shape[0])
+    fc = record_faces(phong_records(tris) if faces is None else faces)
+    nf = fc.flat.shape[0]
     inv_d = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
     o1, d1 = Vec3(*(c[None] for c in o)), Vec3(*(c[None] for c in d))
-    flat = face_is_flat(tris)
     dev = o.x.device
     ks = torch.arange(max_leaf, dtype=torch.int32, device=dev)[:, None]
     idx = torch.zeros(o.x.shape, dtype=torch.int32, device=dev)
+    if alive is not None:
+        idx = torch.where(alive, idx, n)
     t_best = torch.full_like(o.x, INF)
     f_best = torch.full(o.x.shape, -1, dtype=torch.int32, device=dev)
     u_best = torch.zeros_like(o.x)
     v_best = torch.zeros_like(o.x)
-    more = o.x.numel() > 0 and n > 0
+    more = o.x.numel() > 0 and n > 0 and bool((idx < n).any())
     while more:
+        walking = idx < n
         safe = idx.clamp_max(n - 1).long()
         bb_min = Vec3(*bvh.bb_min[:, safe])
         bb_max = Vec3(*bvh.bb_max[:, safe])
         leaf_first = bvh.leaf_first[safe]
         t_near, t_far, hit_box = slab_box(o, inv_d, bb_min, bb_max)
-        hit_box = hit_box & (t_far > EPS5) & (t_best > t_near)
-        do_leaf = hit_box & (leaf_first >= 0)
+        hit_box = hit_box & (t_far > EPS5) & (bb_min.x <= bb_max.x) & (t_best > t_near)
+        do_leaf = walking & hit_box & (leaf_first >= 0)
         nxt = torch.where(hit_box, safe.to(torch.int32) + 1, bvh.exit[safe])
         idx = torch.where(idx >= n, n, nxt).to(torch.int32)
+        if work is not None:
+            work["visits"] = work.get("visits", 0) + int(walking.sum())
         any_leaf, more = torch.stack([do_leaf.any(), (idx < n).any()]).tolist()
         if not any_leaf:
             continue
         fidx = (leaf_first[None] + ks).clamp(0, nf - 1).long()  # (max_leaf, B)
-        t, uu, vv, valid = _face_hit(o1, d1, tris, fidx, flat, alpha, t_best[None])
-        ok = do_leaf[None] & (ks < bvh.leaf_count[safe][None]) & valid
+        t, uu, vv, valid = _face_hit(o1, d1, fc, fidx, alpha, t_best[None])
+        tested = do_leaf[None] & (ks < bvh.leaf_count[safe][None])
+        if work is not None:
+            flat_t = tested & fc.flat[fidx]
+            work["flat"] = work.get("flat", 0) + int(flat_t.sum())
+            work["curved"] = work.get("curved", 0) + int((tested & ~flat_t).sum())
+        ok = tested & valid
         for k in range(max_leaf):
             better = ok[k] & (t[k] < t_best)
             t_best = torch.where(better, t[k], t_best)
@@ -472,47 +544,40 @@ def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf=
     return t_best, f_best, u_best, v_best
 
 
-def _face_table(tris, n_pad: int) -> torch.Tensor:
-    """(19, n_pad) float32: rows v0, e1, e2, n0, n1, n2 (x, y, z each) and
-    the flat flag, zero faces padding to ``n_pad`` (flat, with zero edges:
-    Möller-Trumbore's det is 0 there, never valid)."""
-    rows = [c for v in (tris.v0, tris.e1, tris.e2, tris.n0, tris.n1, tris.n2) for c in v]
-    table = torch.stack([*rows, face_is_flat(tris).to(torch.float32)])
-    pad = n_pad - table.shape[1]
-    if pad:
-        fill = torch.zeros((19, pad), dtype=table.dtype, device=table.device)
-        fill[18] = 1.0
-        table = torch.cat([table, fill], dim=1)
-    return table
-
-
 def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float, alive=None,
                                  tile: int = 128, chunk_rays: Optional[int] = None,
-                                 stats: Optional[dict] = None):
+                                 stats: Optional[dict] = None,
+                                 faces: Optional[torch.Tensor] = None):
     """Detached nearest-hit search over the clusters' candidate lists with
     mixed flat and curved faces (``pbr_tpu/ops/phongtess.py:590``): the
-    path at full width. Returns ``(face, u, v)``.
+    path at full width, and kernel K10's plain version
+    (``ops/cuda_phong.py``). Returns ``(face, u, v)``.
 
     ``clusters``: a ``scene.ClusterTables`` built over the inflated face
-    bounds. The rays go ``chunk_rays`` (default ``PHONG_CHUNK_RAYS``) at a
-    time, rounded to whole ``tile``-ray tiles; each chunk gets its
-    near-to-far lists (``ops/cull.py::candidates_fine``), then rounds: a
-    round evaluates the next cluster of a tile's list densely, all its faces
-    against all the tile's rays (patch test for curved faces, t at least
-    EPSILON5, Möller-Trumbore for flat ones), and keeps the
-    (t, face)-lexicographic minimum. A tile stops when it has run out of
-    candidates or its rays' best t lies before the next entry bound (one
-    host check a round, the JAX version's ``while_loop`` condition taken a
-    tile at a time), and a round runs only the tiles still open. The JAX
-    version runs every tile until the last is done; a done tile's later
-    clusters start at or beyond its rays' best t, so that changes a result
-    only where a face lies exactly at the entry bound with a lower id.
-    Results are per tile, so they do not depend on the chunk.
+    bounds; ``faces``: the ``phong_records`` table of ``tris`` padded to
+    ``clusters.count * clusters.size`` rows (built here when None; ``tris``
+    may then be None). The rays go ``chunk_rays`` (default
+    ``PHONG_CHUNK_RAYS``) at a time, rounded to whole ``tile``-ray tiles;
+    each chunk gets its near-to-far lists (``ops/cull.py::candidates_fine``),
+    then rounds: a round evaluates the next cluster of a tile's list
+    densely, all its faces against all the tile's rays (patch test with the
+    ray's best t at the start of the round as its bound, t at least
+    EPSILON5, for curved faces, Möller-Trumbore for flat ones), takes the
+    first face of the least t and keeps the (t, face)-lexicographic
+    minimum. A tile stops when it has run out of candidates or its rays'
+    best t lies before the next entry bound (one host check a round, the
+    JAX version's ``while_loop`` condition taken a tile at a time), and a
+    round runs only the tiles still open. The JAX version runs every tile
+    until the last is done; a done tile's later clusters start at or beyond
+    its rays' best t, so that changes a result only where a face lies
+    exactly at the entry bound with a lower id. Results are per tile, so
+    they do not depend on the chunk.
 
     ``alive``: dead lanes keep their rays (the tiles stay tight) but are
     seeded closed and report face -1. ``stats``: a dict that gets the
-    rounds of the longest chunk (``rounds``) and the tile-rounds run
-    (``tile_rounds``), added to what it holds.
+    rounds of the longest tile (``rounds``) and the tile-rounds run
+    (``tile_rounds``), added to what it holds, and the rounds of each tile
+    of this call (``per_tile``, (T,) int32).
     """
     # Imported here: ops/cull.py imports accel/, whose import reaches this
     # module through models/integrator.py.
@@ -526,7 +591,10 @@ def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float,
     chunk_rays = PHONG_CHUNK_RAYS if chunk_rays is None else chunk_rays
     chunk = min(max(tile, (chunk_rays // tile) * tile), -(-flat_n // tile) * tile)
     n_tiles = chunk // tile
-    table = _face_table(tris, c * s)
+    table = phong_records(tris, c * s) if faces is None else faces
+    if table.shape != (c * s, PHONG_RECORD):
+        raise ValueError(f"the face table must be ({c * s}, {PHONG_RECORD}), the clusters' "
+                         f"faces padded; got {tuple(table.shape)}")
     offs = torch.arange(s, dtype=torch.int64, device=dev)
     alive_f = (torch.ones(flat_n, dtype=torch.bool, device=dev) if alive is None
                else alive.reshape(-1))
@@ -545,13 +613,13 @@ def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float,
         ov, dv = Vec3(*(take(a) for a in o)), Vec3(*(take(a) for a in d))
         live = take(alive_f, False)
         cand, cnt, tent = candidates_fine(ov, dv, clusters, tile)
-        tent = torch.cat([tent, torch.full((n_tiles, 1), _BIG, device=dev)], dim=1)
         o3 = Vec3(*(a.reshape(n_tiles, tile, 1) for a in ov))
         d3 = Vec3(*(a.reshape(n_tiles, tile, 1) for a in dv))
         t_b = torch.where(live, INF, _BIGN).reshape(n_tiles, tile)
         f_b = torch.full((n_tiles, tile), -1, dtype=torch.int32, device=dev)
         u_b = torch.zeros((n_tiles, tile), dtype=torch.float32, device=dev)
         v_b = torch.zeros_like(u_b)
+        rounds = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
         act = torch.arange(n_tiles, device=dev)  # the tiles still open
         for r in range(c):
             # A tile is done once its list is out or its rays' best t lies
@@ -561,11 +629,9 @@ def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float,
             act = act[(cnt[act] > r) & (t_b[act].amax(dim=1) > tent[act, r])]
             if act.numel() == 0:
                 break
-            if stats is not None:
-                stats["rounds"] = max(stats.get("rounds", 0), r + 1)
-                stats["tile_rounds"] = stats.get("tile_rounds", 0) + act.numel()
+            rounds[act] = r + 1
             fids = cand[act, r].long()[:, None] * s + offs  # (A, S)
-            g = table[:, fids][:, :, None, :]  # (19, A, 1, S)
+            g = table[fids].permute(2, 0, 1)[:, :, None, :]  # (20, A, 1, S)
             oa, da = Vec3(*(a[act] for a in o3)), Vec3(*(a[act] for a in d3))
             tb, fb = t_b[act], f_b[act]
             P1, E1, E2 = Vec3(*g[0:3]), Vec3(*g[3:6]), Vec3(*g[6:9])
@@ -590,19 +656,26 @@ def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float,
             f_b[act] = torch.where(better, fid, fb)
             u_b[act] = torch.where(better, torch.where(flat_k, 0.0, at_k(u_pt)), u_b[act])
             v_b[act] = torch.where(better, torch.where(flat_k, 0.0, at_k(v_pt)), v_b[act])
-        return f_b.reshape(-1), u_b.reshape(-1), v_b.reshape(-1)
+        return f_b.reshape(-1), u_b.reshape(-1), v_b.reshape(-1), rounds
 
     with torch.no_grad():
         outs = [chunk_search(lo) for lo in range(0, flat_n, chunk)]
+    if stats is not None:
+        per_tile = torch.cat([out[3] for out in outs])[:-(-flat_n // tile)]
+        stats["rounds"] = max(stats.get("rounds", 0), int(per_tile.max()) if flat_n else 0)
+        stats["tile_rounds"] = stats.get("tile_rounds", 0) + int(per_tile.sum())
+        stats["per_tile"] = per_tile
     return tuple(torch.cat([out[j] for out in outs])[:flat_n].reshape(shape) for j in range(3))
 
 
 def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, clusters=None,
-                              max_leaf=None, alive=None):
+                              max_leaf=None, alive=None, faces: Optional[torch.Tensor] = None):
     """The Phong nearest-hit dispatch (``pbr_tpu/ops/phongtess.py:467``):
     no BVH, the all-faces sweep; clusters and at least
-    ``CLUSTER_MIN_RAYS`` rays, the cluster search; otherwise the BVH walk.
-    Returns ``(t, face, u, v)``.
+    ``CLUSTER_MIN_RAYS`` rays, the cluster search (kernel K10 on the card);
+    otherwise the BVH walk (kernel K9 on the card). ``faces``: the
+    searches' ``phong_records`` table (``SceneParams.phong_records``; built
+    here when None). Returns ``(t, face, u, v)``.
 
     The search runs detached; the winner's t is then re-evaluated on live
     ``o``/``d`` and detached geometry and patch coordinates, which is where
@@ -610,16 +683,25 @@ def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, cl
     point along the ray's dominant axis for a curved one (the same
     expression on the same inputs as the search, so the same forward
     value). ``alive`` (B,) bool: dead lanes report face -1 on the cluster
-    search and cost it nothing; the other searches ignore it."""
+    search and the walk and cost them nothing; the sweep ignores it."""
+    # Imported here: ops/cuda_phong.py imports this module.
+    from pbr_tpu_torch.ops import cuda_phong
+
     o_s, d_s, tris_s = o.detach(), d.detach(), detach_tris(tris)
     with torch.no_grad():
         if bvh is None:
             _, face, uu, vv = intersect_brute_phongtess(o_s, d_s, tris_s, alpha)
-        elif clusters is not None and o.x.numel() >= CLUSTER_MIN_RAYS:
-            face, uu, vv = intersect_clusters_phongtess(o_s, d_s, clusters, tris_s, alpha,
-                                                        alive=alive)
         else:
-            _, face, uu, vv = intersect_bvh_phongtess(o_s, d_s, bvh, tris_s, alpha, max_leaf)
+            if faces is None:
+                faces = phong_records(tris_s, None if clusters is None
+                                      else clusters.count * clusters.size)
+            live = None if alive is None else alive.contiguous()
+            if clusters is not None and o.x.numel() >= CLUSTER_MIN_RAYS:
+                face, uu, vv = cuda_phong.intersect_clusters(o_s, d_s, clusters, faces, alpha,
+                                                             alive=live)
+            else:
+                _, face, uu, vv = cuda_phong.intersect_walk(o_s, d_s, bvh, faces, alpha,
+                                                            max_leaf=max_leaf, alive=live)
 
     safe = face.clamp_min(0).long()
     P1 = gather_vec3(tris_s.v0, safe)

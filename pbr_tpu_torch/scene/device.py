@@ -26,7 +26,10 @@ a scene), and the lin-cluster AABBs as well; for the tree walks (kernels
 K6, K7 and K8, ``ops/cuda_bvh.py``) the ``LinearBVH``
 (``SceneParams.bvh``, with K8's packed node and face records, built here
 once a scene) and the ``BVHForest`` (``SceneParams.forest``, with the
-packed records of its sub-trees and faces, built here once a scene).
+packed records of its sub-trees and faces, built here once a scene); for
+the Phong searches (kernels K9 and K10, ``ops/cuda_phong.py``) of a scene
+with curved faces, their face table (``SceneParams.phong_records``, built
+here once a scene).
 """
 
 from __future__ import annotations
@@ -233,7 +236,10 @@ class SceneParams(nn.Module):
     a forest, ``forest_<field>`` for the K sub-trees' stacked node tables,
     ``forest_faces`` (9, K * chunk), ``forest_face_ids`` and the seeded
     chain's ``forest_node_records`` (K, N, 8) / ``forest_face_records``
-    (K * chunk, 12). The properties
+    (K * chunk, 12); when some face is curved (its vertex normals differ),
+    the Phong searches' face table ``phong_records`` (F', 20), F' the
+    clusters' padded face count (``count * size``) or F without clusters,
+    and None otherwise. The properties
     ``tris``, ``materials``, ``lights``, ``clusters``, ``bvh`` and ``forest``
     give the SoA NamedTuples of ``pbr_tpu_torch.scene.types`` (and
     ``ClusterTables``, ``BVHTables``, ``ForestTables``, or None) over views
@@ -311,6 +317,12 @@ class SceneParams(nn.Module):
                 node_records(BVHTables(*(getattr(tables, n)[i] for n in _NODE_FIELDS)))
                 for i in range(k)]))
             self.register_buffer("forest_face_records", face_records(self.forest_faces))
+        # The Phong searches' face table, once a scene with curved faces.
+        from pbr_tpu_torch.ops.phongtess import face_is_flat, phong_records
+
+        curved = not bool(face_is_flat(self.tris).all())
+        self.register_buffer("phong_records", phong_records(
+            self.tris, None if cs is None else cs.bb_min.x.shape[0] * cs.size) if curved else None)
 
     @property
     def device(self) -> torch.device:

@@ -34,6 +34,7 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.scene.build",
     "pbr_tpu_torch.io",
     "pbr_tpu_torch.ops.cuda_bvh",
+    "pbr_tpu_torch.ops.cuda_phong",
     "pbr_tpu_torch.accel.forest",
     "pbr_tpu_torch.tools.k4_tiles",
     "pbr_tpu_torch.tools.sweep_chunks",
