@@ -202,20 +202,32 @@ eager frame's launches and to what the device ran (torch.profiler).
    over the curved-patch-inflated bounds) at alpha 0.8 with bench.py's
    settings: a 64² card frame against the port's CPU frame (at least 99%
    of pixels within 1e-3, no NaN); the 64² card gradients against the
-   CPU's; the first 1024² frame, compacted, bitwise the full-width frame;
-   the frame step's graph holding K10 once a search of CLUSTER_MIN_RAYS
-   (4,096) rays or more and K9 once a search of fewer (an eager frame's
-   searches, recorded) and no other kernel of the port; PHONG_FRAMES
-   replayed frames, timed, each bitwise the eager frame, which is timed
-   too, with the launches over the replays, one replay under the profiler
-   (launches and device time a frame) and the peak memory; K9 against its
-   plain version on the card, bitwise (t, face, u, v), on 4,095 camera
-   rays and on 1M rays in the box, and K10 (face, u, v and each tile's
-   rounds) on the 1M camera rays and the 1M rays in the box, each with its
-   kernel, wrapper and plain times and its bound; ``fit``'s graphed steps on
-   the scene at 64² (K10) bitwise the eager step; the first frame against
-   the same scene built and rendered flat (alpha 0: K1), which must
-   differ; then the 1024² frames and the four kernel checks again on a
+   CPU's (the CPU's passes of 4,096 rays by the plain cluster search,
+   PHONG_OLD_MIN_RAYS, about a third of the plain walk's time); the first
+   1024² frame, compacted, bitwise the full-width frame; the frame step's
+   graph holding the search of the card's Phong band
+   for each pass (``phongtess.CLUSTER_MIN_RAYS``, docs/PHONG_BANDS_H100.json:
+   K10 from that many rays, K9 below; None: K9 for every pass; an eager
+   frame's searches, recorded) and no other kernel of the port;
+   PHONG_FRAMES replayed frames, timed, each bitwise the eager frame,
+   which is timed too, with the launches over the replays, one replay
+   under the profiler (launches and device time a frame) and the peak
+   memory; K9 against its plain version on the card, bitwise (t, face, u,
+   v), on 4,095 camera rays, on all 1M camera rays and on 1M rays in the
+   box, and K10 (face, u, v and each tile's rounds, on the rays in its
+   tile order, and on the rays as given) on the 1M camera rays and the 1M
+   rays in the box, each with its kernel, wrapper and plain times and its
+   bounds (K10: the tests it runs, and the yardstick, the JAX loop's
+   rule's tests); the Phong device golden: the 1024² frame and the 64²
+   gradients under the band's
+   threshold against those under the JAX package's (K10 from
+   PHONG_OLD_MIN_RAYS = 4,096 rays), at least 99% of pixels within 1e-3
+   and every gradient within 1e-3, the old threshold's frames counting
+   K10's launches and its replayed frame bitwise its eager frame;
+   ``fit``'s graphed steps on the scene at 64² (the band's kernel for
+   4,096-ray passes) bitwise the eager step; the first frame
+   against the same scene built and rendered flat (alpha 0: K1), which
+   must differ; then the 1024² frames and the kernel checks again on a
    denser sphere (PHONG_DENSE: 9,058 faces, 142 clusters). The phase's
    seconds are printed;
 9. sharding (``pbr_tpu_torch.parallel``): 2 ranks spawned on the one card
@@ -260,8 +272,9 @@ eager frame's launches and to what the device ran (torch.profiler).
    frame; the graph's kernel nodes of the port's kernels (read from the
    driver, ``CapturedStep.kernels``) those of an eager frame, the path's
    kernels once a bounce, and the port's kernels that the device ran over
-   4 bare replays (torch.profiler) 4 times those; eager and graphed
-   ms/frame in two interleaved rounds. Then the bench's graphed step
+   2 bare replays (torch.profiler) twice those; eager and graphed
+   ms/frame in two interleaved rounds (one for an explicit mode). Then
+   the bench's graphed step
    (``tools/graph_steps.py::measure``: ``bench.FrameStep``, 2 frames) on
    Cornell (K1) and soup:100000 (K8) at 1024², forward and backward,
    bitwise ``bench.step`` and ``bench.step_grads`` (the loss and all 28
@@ -280,8 +293,13 @@ larger of its operations over 67 T op/s float32 and its bytes over
 3.35 TB/s, the H100's published peaks; ``launches`` counts the launches
 over ``frames`` frames of its path; "K1 (multiroom)" and "K1
 (soup:100000)" are K1 at those scenes' face counts, launched by their
-intersector='pallas' frames) and ``{"ok": true, "device":
-{...}}``. The script needs nothing of JAX: any import of it, or of the JAX
+intersector='pallas' frames; K9's and K10's times are on the Phong path's
+1M camera rays; K10's row adds the yardstick bound ``bound_jax_ms``
+beside ``bound_ms``, the bound of the tests it runs, and its launches over
+the Phong golden's frames under the JAX package's threshold,
+``golden_launches`` over ``golden_frames``: its ``launches`` are the main
+path's, 0 under a band that sends every pass to K9) and ``{"ok": true,
+"device": {...}}``. The script needs nothing of JAX: any import of it, or of the JAX
 package, fails (``sys.modules``); scenes are built by the port's own host
 layer.
 """
@@ -654,15 +672,19 @@ def cornell_kernel_phase(scene, cam, dev) -> dict:
     return {"errs": errs, "tris": ts.tris, "o": cam_o, "d": cam_d, "light": l0}
 
 
-def oracle_phase(tag: str, scene, cam, dev, size: int = 128, **kw) -> None:
+def oracle_phase(tag: str, scene, cam, dev, size: int = 128, host_min_rays: tuple = (),
+                 **kw) -> None:
     """The card's path (auto, probed schedule and lane order, compaction on
     the device) against the CPU's (plain versions, full width, scanline),
-    at ``size``² (``kw``: settings, such as Phong tessellation)."""
+    at ``size``² (``kw``: settings, such as Phong tessellation;
+    ``host_min_rays``: the Phong dispatch's ``CLUSTER_MIN_RAYS`` for the
+    CPU frame, one element, the band's where empty)."""
     pt = PathTracer(scene, bench_settings(size, compact_schedule="auto", **kw), device=dev)
     pt.render(cam, frame_seed=5)
     got = pt.image()
     host = PathTracer(scene, bench_settings(size, **kw), device="cpu", lane_order="scanline")
-    host.render(cam, frame_seed=5)
+    with phongtess.threshold(host_min_rays[0] if host_min_rays else phongtess.CLUSTER_MIN_RAYS):
+        host.render(cam, frame_seed=5)
     ref = host.image()
     if np.isnan(got).any():
         raise AssertionError(f"{tag}: NaN in the {size}² frame")
@@ -1004,27 +1026,35 @@ def _grads_card_vs_cpu(tag: str, scene, cam, dev, settings: RenderSettings) -> N
 
 def _grads_agree(tag: str, scene, cam, run, ref, what: str) -> None:
     """The gradients of bench.py's step in ``run`` against those in ``ref``,
-    each a (device, settings), over the pixels whose colors agree within
+    each a (device, settings) or a (device, settings, the Phong dispatch's
+    ``CLUSTER_MIN_RAYS`` for it), over the pixels whose colors agree within
     1e-3 (a ULP of a transcendental can flip a path's discrete decision,
     and a flipped pixel has another gradient): every parameter within 1e-3
     of its largest magnitude."""
     size = run[1].width
-    out = []
-    for dv, settings in (run, ref):
+    out, band = [], []
+    for dv, settings, *thr in (run, ref):
         tsd = to_torch(scene, dv).requires_grad_()
         cd = camera_to_torch(cam, dv)
         for c in cd.eye:
             c.requires_grad_()
         out.append((tsd, cd, settings, torch.arange(size * size, dtype=torch.int32, device=dv)))
+        band.append(thr[0] if thr else phongtess.CLUSTER_MIN_RAYS)
     names = [n for n, _ in out[1][0].named_parameters()] + ["eye.x", "eye.y", "eye.z"]
-    with torch.no_grad():  # _grads' seed
-        col = [trace_rays(*v, 1).color.stack().cpu().numpy() for v in out]
+    col = []
+    for v, b in zip(out, band):
+        with torch.no_grad(), phongtess.threshold(b):  # _grads' seed
+            col.append(trace_rays(*v, 1).color.stack().cpu().numpy())
     agree = (np.abs(col[0] - col[1]).max(axis=1) <= 1e-3)
     if agree.mean() < 0.99:
         raise AssertionError(f"{tag}: {size}² colors, {what}: only {agree.mean():.4%} of "
                              f"pixels agree")
     w = torch.tensor(agree.astype(np.float32))
-    g_run, g_ref = (_grads(*v, w.to(v[3].device))[1] for v in out)
+    grads = []
+    for v, b in zip(out, band):
+        with phongtess.threshold(b):
+            grads.append(_grads(*v, w.to(v[3].device))[1])
+    g_run, g_ref = grads
     worst = 0.0
     for name, a, b in zip(names, g_run, g_ref):
         a, b = a.cpu().double(), b.cpu().double()
@@ -2144,6 +2174,10 @@ def app_view_phase(dev, size: int = VIEW_SIZE) -> dict:
 # ----------------------------------------------------------------- Phong --
 
 PHONG_ALPHA, PHONG_FRAMES = 0.8, 2
+# The JAX package's threshold of the Phong dispatch (pbr_tpu/ops/
+# phongtess.py:496): the Phong golden's reference, whose frames run K10
+# whatever the band, and the CPU references' threshold.
+PHONG_OLD_MIN_RAYS = 4096
 # The denser sphere: 9,024 curved faces and the box's 34, 142 clusters of
 # 64 (long candidate lists) and a deep tree.
 PHONG_DENSE = dict(rings=48, segments=96)
@@ -2237,46 +2271,73 @@ def phong_walk_check(tag: str, what: str, o, d, ts) -> dict:
 
 
 def phong_clusters_check(tag: str, what: str, o, d, ts) -> dict:
-    """K10 against its plain version on the card, bitwise (face, u, v) and
-    each tile's rounds: the kernel's ms (its launch alone, replayed from a
-    CUDA graph), the wrapper's (with the candidate lists), the plain
-    version's, and the bound from the tile-rounds run (every real face of a
-    round's cluster against each live ray of the tile)."""
+    """K10 against its plain version on the card, bitwise (face, u, v): on
+    the rays in K10's tile order (``sorted_lists``), with each tile's
+    rounds, and on the rays as given (the results do not depend on the
+    tiles). The kernel's ms (its launch alone over the sorted rays and
+    their lists, replayed from a CUDA graph), the wrapper's (with the sort
+    and the lists), the plain version's (on the sorted rays); rounds a tile
+    of K10 and of the JAX loop's rule; two bounds: that of the tests K10
+    runs (its active rays' faces and its slab tests: ``bound_ms``) and the
+    yardstick (every real face of the rounds a tile runs under the JAX
+    rule, on the tiles of the rays as given, against each live ray:
+    ``bound_jax_ms``), both from ``cluster_work`` and ``cluster_tests``."""
     faces, cl = ts.phong_records, ts.clusters
     got = cp.intersect_clusters(o, d, cl, faces, PHONG_ALPHA, with_rounds=True)
-    stats = {}
+    so, sd, _, order, lists = cp.sorted_lists(o, d, cl)
+    stats, given = {}, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = phongtess.intersect_clusters_phongtess(o, d, cl, None, PHONG_ALPHA, stats=stats,
-                                                 faces=faces)
+    ref_s = phongtess.intersect_clusters_phongtess(so, sd, cl, None, PHONG_ALPHA, stats=stats,
+                                                   faces=faces)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    ref = tuple(torch.empty_like(a).index_copy_(0, order.long(), a) for a in ref_s)
     _equal_or_raise(f"{tag}: K10 on {what}", got[:3], ref)
     if not torch.equal(got[3], stats["per_tile"]):
         raise AssertionError(f"{tag}: K10 on {what}: rounds a tile differ from the plain "
                              f"version's on {int((got[3] != stats['per_tile']).sum())} tiles")
-    lists = cp.candidate_lists(o, d, cl)
-    launch = lambda: cp.clusters_kernel(o, d, faces, cl.size, lists, PHONG_ALPHA, None)  # noqa
+    ref_g = phongtess.intersect_clusters_phongtess(o, d, cl, None, PHONG_ALPHA, stats=given,
+                                                   faces=faces)
+    _equal_or_raise(f"{tag}: K10 on {what}, the plain version on the rays as given", got[:3],
+                    ref_g)
+    launch = lambda: cp.clusters_kernel(so, sd, faces, cl, lists, PHONG_ALPHA, None, order)  # noqa
     ms = k1_sweep.graph_ms(launch, _graph_iters(launch))
     wrapped = lambda: cp.intersect_clusters(o, d, cl, faces, PHONG_ALPHA)  # noqa: E731
     wrapper_ms = k1_sweep.graph_ms(wrapped, _graph_iters(wrapped))
     n, tiles = o.x.shape[0], got[3].shape[0]
     live = torch.arange(tiles * cp.TILE, device=o.x.device) < n
-    flat, curved = cp.cluster_tests(lists[0], got[3], live, faces, cl.size)
-    ops = flat * cp.OPS_MT + curved * cp.OPS_PATCH + n * cp.OPS_RAY
+    lists_g = cp.candidate_lists(o, d, cl)
+    work, work_g = cp.cluster_work(lists, stats), cp.cluster_work(lists_g, given)
+    flat, curved = cp.cluster_tests(lists_g[0], work_g["jax_rounds"], live, faces, cl.size)
+    _, _, flat_run, curved_run = cp.cluster_tests(lists[0], work["jax_rounds"], live, faces,
+                                                  cl.size, active=stats["active"])
     nbytes = n * (24 + 12) + sum(a.numel() * 4 for a in lists) + faces.numel() * 4
-    bound, by = _bound(ops, nbytes)
-    rounds = got[3].float()
+    bound_jax, by_jax = _bound(flat * cp.OPS_MT + curved * cp.OPS_PATCH + n * cp.OPS_RAY,
+                               nbytes)
+    bound, by = _bound(work["slabs"] * cp.OPS_NODE + flat_run * cp.OPS_MT
+                       + curved_run * cp.OPS_PATCH + n * cp.OPS_RAY,
+                       nbytes + n * 4 + cl.count * 32)
+    rounds, jax_rounds = got[3].float(), work_g["jax_rounds"].float()
     hit = float((got[0] >= 0).float().mean())
     phase(tag, f"K10 on {what} ({n} rays, {tiles} tiles, lists of {cl.count}): bitwise its "
-               f"plain version (face, u, v) and rounds a tile, hit {hit:.4f}; rounds a tile "
-               f"mean {float(rounds.mean()):.2f}, max {int(rounds.max())}; kernel {ms:.4f} ms, "
-               f"with the lists {wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; {flat} flat and "
-               f"{curved} curved face tests; bound {bound:.4f} ms ({by})")
+               f"plain version (face, u, v) on the sorted rays, with the rounds a tile, and on "
+               f"the rays as given; hit {hit:.4f}; rounds a tile mean "
+               f"{float(rounds.mean()):.2f}, max {int(rounds.max())} (the JAX rule on the "
+               f"rays as given: mean {float(jax_rounds.mean()):.2f}, max "
+               f"{int(jax_rounds.max())}); kernel {ms:.4f} ms, with the sort and the lists "
+               f"{wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; K10 ran {flat_run} flat and "
+               f"{curved_run} curved face tests and {work['slabs']} slab tests, staged "
+               f"{work['staged']} (tile, cluster) rounds: bound {bound:.4f} ms ({by}); the "
+               f"JAX rule's {flat} flat and {curved} curved face tests: bound "
+               f"{bound_jax:.4f} ms ({by_jax})")
     return {"rays": n, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "err": _max_err(got[1], ref[1]),
+            "bound_ms": bound, "bound_by": by, "bound_jax_ms": bound_jax,
+            "bound_jax_by": by_jax, "err": _max_err(got[1], ref[1]),
             "tile_rounds": stats["tile_rounds"], "max_rounds": stats["rounds"], "tiles": tiles,
-            "flat_tests": flat, "curved_tests": curved}
+            "jax_tile_rounds": int(jax_rounds.sum()), "jax_max_rounds": int(jax_rounds.max()),
+            "flat_tests": flat, "curved_tests": curved, "flat_run": flat_run,
+            "curved_run": curved_run, "slab_tests": work["slabs"], "staged": work["staged"]}
 
 
 def _recorded_searches(pt: PathTracer, cam, seed: int) -> list:
@@ -2299,13 +2360,20 @@ def _recorded_searches(pt: PathTracer, cam, seed: int) -> list:
     return calls
 
 
+def _band_kernel(rays: int) -> str:
+    """The search the Phong dispatch takes for a pass of ``rays`` rays on a
+    scene with clusters."""
+    big = phongtess.CLUSTER_MIN_RAYS
+    return "K10" if big is not None and rays >= big else "K9"
+
+
 def phong_path(tag: str, scene, cam, dev) -> dict:
     """A Phong path at 1024² (bench.py's settings, alpha PHONG_ALPHA): the
     first frame, compacted, bitwise the full-width frame; the frame step's
-    graph holds K10 once a search of CLUSTER_MIN_RAYS rays or more and K9
-    once a search of fewer (an eager frame's searches, recorded) and no other
-    kernel of the port; PHONG_FRAMES replayed frames, timed, each bitwise the
-    eager ``render_frame`` frame from the same state, which is timed too;
+    graph holds the band's search for each pass (``_band_kernel``: an eager
+    frame's searches, recorded) and no other kernel of the port;
+    PHONG_FRAMES replayed frames, timed, each bitwise the eager
+    ``render_frame`` frame from the same state, which is timed too;
     the launches over the replays; one more replay under the profiler
     (launches and device ms a frame); the peak memory."""
     pt = _first_frame_checks(tag, scene, cam, dev, phong_tessellation=PHONG_ALPHA)
@@ -2315,13 +2383,13 @@ def phong_path(tag: str, scene, cam, dev) -> dict:
         raise AssertionError(f"{tag}: the Phong frame step was not captured")
     nodes = kernel_counts(g.kernels)
     calls = _recorded_searches(pt, cam, 1)
-    big = phongtess.CLUSTER_MIN_RAYS
-    wrong = [(k, n) for k, n in calls if (k == "K10") != (n >= big)]
+    wrong = [(k, n) for k, n in calls if k != _band_kernel(n)]
     expect = {k: sum(1 for c, _ in calls if c == k) for k in ("K9", "K10")}
     expect = {k: v for k, v in expect.items() if v}
-    if wrong or nodes != expect or "K10" not in nodes:
+    if wrong or nodes != expect or not calls:
         raise AssertionError(f"{tag}: the graph's kernel nodes {nodes}, an eager frame's "
-                             f"searches {calls} (K10 from {big} rays, K9 below)")
+                             f"searches {calls} (K10 from {phongtess.CLUSTER_MIN_RAYS} rays, "
+                             f"K9 below)")
     phase(tag, f"the frame step's graph: {g.stats()['nodes']} nodes, the port's kernels "
                f"{nodes}: an eager frame's searches by their rays {calls}")
     saved = _state_copy(pt.state)
@@ -2377,31 +2445,78 @@ def phong_path(tag: str, scene, cam, dev) -> dict:
 
 
 def phong_kernel_checks(tag: str, pt: PathTracer, cam, dev) -> dict:
-    """K9 on 4,095 of the path's camera rays and on 1M rays in the box, and
-    K10 on all 1M camera rays and the 1M rays in the box, each bitwise its
-    plain version (``phong_walk_check``, ``phong_clusters_check``)."""
+    """K9 on 4,095 of the path's camera rays, on all 1M of them and on 1M
+    rays in the box, and K10 on the 1M camera rays and the 1M rays in the
+    box, each bitwise its plain version (``phong_walk_check``,
+    ``phong_clusters_check``)."""
     ts = pt.scene
     cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)
     box = _rays_in_box(BOUNCE_RAYS, 5, dev)
-    cut = lambda v: Vec3(*(c[:phongtess.CLUSTER_MIN_RAYS - 1].contiguous() for c in v))  # noqa
-    return {"K9 camera": phong_walk_check(tag, "4,095 camera rays", cut(cam_o), cut(cam_d), ts),
+    cut = lambda v: Vec3(*(c[:PHONG_OLD_MIN_RAYS - 1].contiguous() for c in v))  # noqa: E731
+    return {"K9 4095": phong_walk_check(tag, "4,095 camera rays", cut(cam_o), cut(cam_d), ts),
+            "K9 camera": phong_walk_check(tag, "the camera rays", cam_o, cam_d, ts),
             "K9 box": phong_walk_check(tag, "1M rays in the box", *box, ts),
             "K10 camera": phong_clusters_check(tag, "the camera rays", cam_o, cam_d, ts),
             "K10 box": phong_clusters_check(tag, "1M rays in the box", *box, ts)}
 
 
+def phong_golden_phase(tag: str, scene, cam, pt: PathTracer, dev) -> dict:
+    """The Phong device golden: the 1024² first frame of ``pt`` (the band's
+    threshold) against the same frame under the JAX package's threshold
+    (PHONG_OLD_MIN_RAYS: K10 for every pass of 4,096 rays or more), at least
+    99% of pixels within 1e-3, no NaN; that tracer's frames (its capture's
+    eager frame and one replay) counted from zero, K10's launches under
+    that threshold, and its replayed frame bitwise the eager
+    ``render_frame`` frame from the same state; at 64² (every pass 4,096
+    rays), the card's gradients under each threshold (``_grads_agree``)."""
+    with phongtess.threshold(PHONG_OLD_MIN_RAYS):
+        zero_counts()
+        old = PathTracer(scene, pt.settings, device=dev, lane_order=pt.lane_order)
+        old.render(cam, frame_seed=0)
+        first = old.image()
+        saved = _state_copy(old.state)
+        old.render(cam, frame_seed=1)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts().items() if v}
+        with torch.no_grad():
+            state = render_frame(old.scene, camera_to_torch(cam, dev), old.settings,
+                                 FrameState(Vec3(*saved[:3]), saved[3], saved[4]),
+                                 old.pixel_ids, 1, max_leaf=old.max_leaf)
+        bad = [j for j, (a, b) in enumerate(zip(_state_copy(old.state), _state_copy(state)))
+               if not torch.equal(a, b)]
+    if "K10" not in launched or set(launched) - {"K9", "K10"}:
+        raise AssertionError(f"{tag}: the frames under {PHONG_OLD_MIN_RAYS} rays launched "
+                             f"{launched}")
+    if bad:
+        raise AssertionError(f"{tag}: under {PHONG_OLD_MIN_RAYS} rays the replayed frame "
+                             f"differs from the eager frame in state fields {bad}")
+    ref = PathTracer(scene, pt.settings, device=dev, lane_order=pt.lane_order)
+    ref.render(cam, frame_seed=0)
+    within = _frame_vs(tag, f"first frame, CLUSTER_MIN_RAYS {phongtess.CLUSTER_MIN_RAYS} vs "
+                            f"{PHONG_OLD_MIN_RAYS}", ref.image(), first)
+    del old, ref
+    small = bench_settings(64, phong_tessellation=PHONG_ALPHA)
+    _grads_agree(tag, scene, cam, (dev, small), (dev, small, PHONG_OLD_MIN_RAYS),
+                 f"CLUSTER_MIN_RAYS {phongtess.CLUSTER_MIN_RAYS} vs {PHONG_OLD_MIN_RAYS}")
+    phase(tag, f"under {PHONG_OLD_MIN_RAYS} rays, a frame's capture and one replay launched "
+               f"{launched}; the replayed frame bitwise the eager frame")
+    return {"within": within, "launches": launched, "frames": 2}
+
+
 def phong_fit_check(scene, cam, dev, size: int = 64) -> dict:
     """``fit``'s graphed steps (``app.fit_steps``) on the Phong scene at
-    ``size``² (every pass of 4,096 rays: K10), bitwise the eager step at
-    three points; K10 launches and no other kernel of the port."""
+    ``size``² (every pass of 4,096 rays: the band's search), bitwise the
+    eager step at three points; that search launches and no other kernel of
+    the port."""
     settings = RenderSettings().replace(width=size, height=size, shadow_rays=1, brdf=0,
                                         max_depth=2, max_added_depth=0,
                                         phong_tessellation=PHONG_ALPHA)
     zero_counts()
     out = _fit_steps_bitwise(f"Phong {size}²", app.fit_problem(scene, settings, cam, dev))
     launched = {k: v for k, v in counts().items() if v}
-    if set(launched) != {"K10"}:
-        raise AssertionError(f"fit on the Phong scene launched {launched}")
+    if set(launched) != {_band_kernel(size * size)}:
+        raise AssertionError(f"fit on the Phong scene launched {launched}, not "
+                             f"{_band_kernel(size * size)}")
     phase("phong", f"fit's graphed steps on the Phong scene at {size}² bitwise the eager "
                    f"step at 3 points; launches {launched}")
     return {**out, "launches": launched}
@@ -2427,14 +2542,21 @@ def phong_phase(cam, dev, size: int = SIZE) -> dict:
         sec[what] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    oracle_phase(tag, scene, cam, dev, size=64, **kw)
+    # The CPU references take the plain cluster search for their 4,096-ray
+    # passes: the plain walk, host-driven, takes about three times as long
+    # on the CPU (tools/phong_bands.py --oracle).
+    oracle_phase(tag, scene, cam, dev, size=64, host_min_rays=(PHONG_OLD_MIN_RAYS,), **kw)
     lap("64² frames")
-    _grads_card_vs_cpu(tag, scene, cam, dev, bench_settings(64, **kw))
+    small = bench_settings(64, **kw)
+    _grads_agree(tag, scene, cam, (dev, small), ("cpu", small, PHONG_OLD_MIN_RAYS),
+                 "card vs CPU (its passes of 4,096 rays by the cluster search)")
     lap("64² gradients")
     path = phong_path(tag, scene, cam, dev)
     lap("1024² frames")
     passes = phong_kernel_checks(tag, path["pt"], cam, dev)
     lap("kernels")
+    golden = phong_golden_phase(tag, scene, cam, path["pt"], dev)
+    lap("golden")
     fit = phong_fit_check(scene, cam, dev)
     lap("fit")
     # The same scene built and rendered flat (alpha 0: K1): the feature
@@ -2464,7 +2586,8 @@ def phong_phase(cam, dev, size: int = SIZE) -> dict:
     dpath.pop("first")
     sec["phase"] = sum(sec.values())
     phase(tag, "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sec.items()))
-    return {"path": path, "passes": passes, "fit": fit, "pixels_moved_by_alpha": moved,
+    return {"path": path, "passes": passes, "golden": golden, "fit": fit,
+            "cluster_min_rays": phongtess.CLUSTER_MIN_RAYS, "pixels_moved_by_alpha": moved,
             "dense": {"path": dpath, "passes": dpasses}, "seconds": sec}
 
 
@@ -2609,6 +2732,7 @@ GRAPH_PATHS = (
     ("soup:10000, pallas_bvh", "soup:10000", {"intersector": "pallas_bvh"}, ("K6 NEE",)),
 )
 GRAPH_FRAMES = 4  # frames a check and a timing round
+GRAPH_PROFILED = 2  # bare replays under the profiler
 
 
 def _state_copy(state) -> tuple:
@@ -2635,10 +2759,10 @@ def graph_frame_check(tag: str, scene, cam, dev, kernels: tuple, **kw) -> dict:
     port (read from the driver) equal an eager frame's launches,
     ``kernels`` each once a bounce and no other, and ``counts()`` over the
     replays GRAPH_FRAMES times those, and so the port's kernels that the
-    device ran over GRAPH_FRAMES bare replays (torch.profiler,
+    device ran over GRAPH_PROFILED bare replays (torch.profiler,
     ``graph_steps.profiled_replays``); then eager and
     graphed ms/frame, two interleaved rounds of GRAPH_FRAMES frames
-    each."""
+    each (one for an explicit mode, ``kw`` non-empty)."""
     pt = PathTracer(scene, bench_settings(SIZE, compact_schedule="auto", **kw), device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2681,8 +2805,9 @@ def graph_frame_check(tag: str, scene, cam, dev, kernels: tuple, **kw) -> dict:
     frames_of = {k: GRAPH_FRAMES * v for k, v in eager_launches.items()}
     _expect(f"graph {tag}, counts() over {GRAPH_FRAMES} replays", replayed, frames_of)
     # The port's kernels that the device ran over bare replays.
-    _expect(f"graph {tag}, the device over {GRAPH_FRAMES} replays",
-            graph_steps.profiled_replays(g, GRAPH_FRAMES), frames_of)
+    _expect(f"graph {tag}, the device over {GRAPH_PROFILED} replays",
+            graph_steps.profiled_replays(g, GRAPH_PROFILED),
+            {k: GRAPH_PROFILED * v for k, v in eager_launches.items()})
     ct = camera_to_torch(cam, dev)
 
     def eager(i):
@@ -2691,7 +2816,7 @@ def graph_frame_check(tag: str, scene, cam, dev, kernels: tuple, **kw) -> dict:
                          max_leaf=pt.max_leaf)
 
     ms = {"eager": [], "graph": []}
-    for r in range(2):
+    for r in range(1 if kw else 2):  # an explicit mode: one round
         ms["eager"].append(_timed_ms(eager, GRAPH_FRAMES))
         ms["graph"].append(_timed_ms(lambda i: pt.render(cam, frame_seed=20 + 10 * r + i),
                                      GRAPH_FRAMES))
@@ -2700,9 +2825,10 @@ def graph_frame_check(tag: str, scene, cam, dev, kernels: tuple, **kw) -> dict:
                    f"{st['capture_s']:.3f} s), {st['nodes']} nodes, pool "
                    f"{st['pool_bytes'] / 2**20:.1f} MiB; {GRAPH_FRAMES} replayed frames with a "
                    f"camera move bitwise the eager frames; the port's kernel nodes {nodes}, an "
-                   f"eager frame's launches, and the device ran them {GRAPH_FRAMES} times; "
-                   f"ms/frame eager {ms['eager'][0]:.3f}, {ms['eager'][1]:.3f}, graphed "
-                   f"{ms['graph'][0]:.3f}, {ms['graph'][1]:.3f}")
+                   f"eager frame's launches, and the device ran them in each of "
+                   f"{GRAPH_PROFILED} bare replays; "
+                   f"ms/frame eager {', '.join(f'{x:.3f}' for x in ms['eager'])}, graphed "
+                   f"{', '.join(f'{x:.3f}' for x in ms['graph'])}")
     return {"warmup_s": warm_s, **st, "launches_a_replay": nodes, "ms_eager": ms["eager"],
             "ms_graph": ms["graph"], "lane_order": pt.lane_order}
 
@@ -3100,8 +3226,7 @@ def main() -> None:
 
     t = {**corn["times"], **mk_times, **mc["times"], **sk["times"], **msw["times"],
          **swk["times"], **{k: (v["ms"], v["plain_ms"]) for k, v in tk.items()}}
-    # K9 at the shapes the main path gives it (a pass under
-    # CLUSTER_MIN_RAYS: 4,095 camera rays), K10 on the 1M camera rays.
+    # K9 and K10 on the 1M camera rays, the main path's first pass.
     phong = {"K9": ph["passes"]["K9 camera"], "K10": ph["passes"]["K10 camera"]}
     t.update({k: (v["ms"], v["plain_ms"]) for k, v in phong.items()})
     bounds = {**corn["bounds"], **mk_bounds,
@@ -3142,7 +3267,7 @@ def main() -> None:
         ("K8", K8_SOURCE, tp["k8"]["launches"]["K8"], FRAMES),
         ("K8 any-hit", K8_SOURCE, tp["k8"]["launches"]["K8 any-hit"], FRAMES),
         ("K9", K9_SOURCE, ph["path"]["launches"].get("K9", 0), PHONG_FRAMES),
-        ("K10", K10_SOURCE, ph["path"]["launches"]["K10"], PHONG_FRAMES),
+        ("K10", K10_SOURCE, ph["path"]["launches"].get("K10", 0), PHONG_FRAMES),
     ]
     # No one PyTorch call computes a nearest-hit search or a BVH walk:
     # library_ms is null.
@@ -3155,6 +3280,13 @@ def main() -> None:
         "max_abs_err": errs[name],
         "ms": t[name][0], "plain_ms": t[name][1],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+        # K10 beside its row: the yardstick bound, and its launches in
+        # the Phong golden's frames under PHONG_OLD_MIN_RAYS, where it runs
+        # whatever the band.
+        **({"bound_jax_ms": phong["K10"]["bound_jax_ms"],
+            "bound_jax_by": phong["K10"]["bound_jax_by"],
+            "golden_launches": ph["golden"]["launches"]["K10"],
+            "golden_frames": ph["golden"]["frames"]} if name == "K10" else {}),
     } for name, src, n, frames in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

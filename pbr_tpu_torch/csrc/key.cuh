@@ -2,8 +2,9 @@
 // (t, face) lexicographic order: t's bits made order-preserving, then the
 // face with its sign bit flipped. A shared 64-bit atomicMin of such keys
 // keeps the least t and, among equal t, the least face, whatever the order
-// of the merges. Shared by the row sweep K5 (row_sweep.cu) and the slab
-// walk K7 (bvh_packet.cu).
+// of the merges. Shared by the row sweep K5 (row_sweep.cu), the slab
+// walk K7 (bvh_packet.cu) and the Phong cluster search K10
+// (phong_clusters.cu).
 
 #pragma once
 

@@ -154,6 +154,7 @@ struct PhongRay {
   float n1x, n1y, n1z, n2x, n2y, n2z, o1, o2;
   int domain;
 };
+constexpr int kPhongRayWords = 15;  // PhongRay's words, domain last
 
 __device__ __forceinline__ PhongRay phong_ray(float ox, float oy, float oz, float dx, float dy,
                                               float dz) {
@@ -348,6 +349,24 @@ __device__ __forceinline__ PatchHit phong_face_hit(const PhongFace& fc, const Ph
   PatchHit h = patch_intersect(fc, pr, alpha, oma, t_best);
   if (!(h.t < INFINITY && h.t >= kPhongEps5)) h.t = INFINITY;
   return h;
+}
+
+// phong_face_hit for a caller that keeps only t <= t_best (a face beyond
+// the bound cannot win, a face at it can on a lower id): a flat face
+// computes t first, as K1 does (mt.cuh's mt_t and mt_uv), and its u and v
+// only where t lies in [EPSILON5, t_best]. Where it reports a hit, t is
+// phong_face_hit's; elsewhere +inf.
+__device__ __forceinline__ PatchHit phong_face_hit_within(const PhongFace& fc,
+                                                          const PhongRay& pr, float alpha,
+                                                          float oma, float t_best) {
+  if (fc.flat) {
+    const MtParts m = mt_t(fc.mt, pr.ox, pr.oy, pr.oz, pr.dx, pr.dy, pr.dz);
+    const float inv = 1.0f / m.det;
+    const float t = m.tnum * inv;
+    const bool valid = t >= kMtEps5 && t <= t_best && mt_uv(m, pr.dx, pr.dy, pr.dz, inv);
+    return PatchHit{valid ? t : INFINITY, 0.0f, 0.0f};
+  }
+  return phong_face_hit(fc, pr, alpha, oma, t_best);
 }
 
 }  // namespace pbr

@@ -11,10 +11,13 @@ same class as ``traverse.py``'s walk whose port is K8:
   version is ``ops/phongtess.py::intersect_bvh_phongtess``;
 - **K10** (``csrc/phong_clusters.cu``, ``intersect_clusters``) is the
   cluster search, ``intersect_clusters_phongtess`` (the while_loop at :730
-  over ``cond`` and ``body`` at :681-728): one block a 128-ray tile, the
-  tile's rounds over its near-to-far list (``ops/cull.py::
-  candidates_fine``, torch ops here as JAX keeps it outside its loop). Its
-  plain version is ``ops/phongtess.py::intersect_clusters_phongtess``.
+  over ``cond`` and ``body`` at :681-728): the rays sorted into coherent
+  128-ray tiles (``cluster_order``), one block a tile, the tile's rounds
+  over its near-to-far list (``ops/cull.py::candidates_fine``, torch ops
+  here as JAX keeps it outside its loop), each ray culling the round's
+  cluster by its box and closing on its own, a round's (ray, face) tests
+  dealt over the block. Its plain version is ``ops/phongtess.py::
+  intersect_clusters_phongtess``, which takes the same per-ray rules.
 
 Both read the scene's Phong face table (``ops/phongtess.py::
 phong_records``, 20 floats a face in five 16-byte words, which
@@ -31,8 +34,11 @@ The bounds of chip_smoke.py count the operations of the functions as
 written (``OPS_NODE`` a node step, ``OPS_MT`` a flat face test,
 ``OPS_PATCH`` a curved one, ``OPS_RAY`` a ray) over the work of the run's
 data: the walk's node steps and face tests (``intersect_bvh_phongtess``'s
-``work``), the cluster search's tile-rounds times its live rays and real
-faces (``cluster_tests``).
+``work``); for the cluster search (``cluster_tests``) both the tests of
+the JAX loop's rule (every real face of the rounds a tile runs under it,
+against each live ray of the tile: the yardstick) and the tests K10
+runs (the real faces of a round's cluster against its active rays), with
+its slab tests (``OPS_NODE`` each).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 from pbr_tpu_torch.ops import count_launch, phongtess
 from pbr_tpu_torch.ops.cuda_bvh import ray_order
 from pbr_tpu_torch.ops.cuda_intersect import check_rays, load
+from pbr_tpu_torch.ops.cull import coherence_keys
 from pbr_tpu_torch.ops.traverse import leaf_bound
 from pbr_tpu_torch.ops.vec import Vec3, f32
 
@@ -76,9 +83,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # rays (6), order, alive, n, node records, n_nodes, faces, max_leaf, alpha,
 # 1 - alpha, t_out, f_out, u_out, v_out, stream
 _WALK_ARGTYPES = [_P] * 8 + [_I, _P, _I, _P, _I, _F, _F] + [_P] * 5
-# rays (6), alive, n, faces, size, cand, cnt, tent, n_cand, alpha,
-# 1 - alpha, f_out, u_out, v_out, rounds_out, stream
-_CLUSTER_ARGTYPES = [_P] * 7 + [_I, _P, _I, _P, _P, _P, _I, _F, _F] + [_P] * 5
+# rays (6), alive, order, n, faces, size, boxes, cand, cnt, tent, n_cand,
+# alpha, 1 - alpha, f_out, u_out, v_out, rounds_out, stream
+_CLUSTER_ARGTYPES = [_P] * 8 + [_I, _P, _I, _P, _P, _P, _P, _I, _F, _F] + [_P] * 5
 
 
 def _alphas(alpha: float) -> tuple:
@@ -151,6 +158,43 @@ def walk_kernel(o: Vec3, d: Vec3, bvh, faces: torch.Tensor, alpha: float, max_le
     return t, f, u, v
 
 
+def cluster_order(o: Vec3, d: Vec3, clusters, alive=None) -> torch.Tensor:
+    """K10's tile order: the rays sorted by octant and Morton code of the
+    origin in the clusters' scene box (``ops/cull.py::coherence_keys``, K8's
+    and K9's sort; stable, so rays of one key keep their order: camera rays
+    share an origin), dead lanes last, (B,) int32."""
+    keys = coherence_keys(o, d, clusters.scene_min, clusters.scene_max)
+    if alive is not None:
+        keys = torch.where(alive, keys, torch.iinfo(torch.int32).max)
+    return torch.argsort(keys, stable=True).to(torch.int32)
+
+
+def in_order(o: Vec3, d: Vec3, alive, order) -> tuple:
+    """``(o, d, alive)`` gathered into ``order``."""
+    idx = order.long()
+    take = lambda v: Vec3(*(a[idx] for a in v))  # noqa: E731
+    return take(o), take(d), None if alive is None else alive[idx]
+
+
+def sorted_lists(o: Vec3, d: Vec3, clusters, alive=None) -> tuple:
+    """What ``intersect_clusters`` runs on the card before K10's launch:
+    ``(o, d, alive, order, lists)``, the rays and ``alive`` sorted into
+    ``cluster_order``, that order, and ``candidate_lists`` over the sorted
+    rays (None for no ray). The plain version takes the rays as given: its
+    results do not depend on the tiles."""
+    order = cluster_order(o, d, clusters, alive)
+    os_, ds, als = in_order(o, d, alive, order)
+    return os_, ds, als, order, candidate_lists(os_, ds, clusters) if o.x.shape[0] else None
+
+
+def cluster_boxes(clusters) -> torch.Tensor:
+    """K10's (C, 8) float32 cluster boxes, two 16-byte words a cluster:
+    ``bb_min`` and a 0, ``bb_max`` and a 0."""
+    lo, hi = clusters.bb_min, clusters.bb_max
+    zero = torch.zeros_like(lo.x)
+    return torch.stack([lo.x, lo.y, lo.z, zero, hi.x, hi.y, hi.z, zero], dim=1).contiguous()
+
+
 def candidate_lists(o: Vec3, d: Vec3, clusters) -> tuple:
     """K10's input: ``ops/cull.py::candidates_fine`` over the rays' 128-ray
     tiles (the last tile padded with the last ray, as the plain version
@@ -178,9 +222,10 @@ def intersect_clusters(o: Vec3, d: Vec3, clusters, faces: torch.Tensor, alpha: f
     (``intersect_clusters_phongtess``'s contract, tiles of 128 rays).
     ``clusters``: the scene's ``ClusterTables`` over the inflated bounds;
     ``faces``: its ``phong_records`` table padded to ``clusters.count *
-    clusters.size`` rows; ``alive`` (B,) bool: dead lanes keep their rays in
-    the tiles, report face -1 and cost nothing. Returns ``(face, u, v)``,
-    and with ``with_rounds`` also each tile's rounds, (T,) int32."""
+    clusters.size`` rows; ``alive`` (B,) bool: dead lanes report face -1 and
+    cost nothing. Returns ``(face, u, v)``, and with ``with_rounds`` also
+    each tile's rounds, (T,) int32: on the card the tiles of the sorted
+    rays (``cluster_order``), on the CPU those of the rays as given."""
     s, c = clusters.size, clusters.count
     _check("K10", o, d, faces, c * s, alive)
     if not 1 <= s <= MAX_CLUSTER:
@@ -191,16 +236,19 @@ def intersect_clusters(o: Vec3, d: Vec3, clusters, faces: torch.Tensor, alpha: f
         out = phongtess.intersect_clusters_phongtess(o, d, clusters, None, alpha, alive=alive,
                                                      tile=TILE, stats=stats, faces=faces)
         return (*out, stats["per_tile"]) if with_rounds else out
-    lists = candidate_lists(o, d, clusters) if n else None
-    return clusters_kernel(o, d, faces, s, lists, alpha, alive, with_rounds)
+    os_, ds, als, order, lists = sorted_lists(o, d, clusters, alive)
+    return clusters_kernel(os_, ds, faces, clusters, lists, alpha, als, order, with_rounds)
 
 
-def clusters_kernel(o: Vec3, d: Vec3, faces: torch.Tensor, size: int, lists, alpha: float,
-                    alive, with_rounds: bool = False):
-    """K10's launch alone over checked inputs and the candidate ``lists``
-    of ``candidate_lists`` (CUDA tensors; ``intersect_clusters`` checks them
+def clusters_kernel(o: Vec3, d: Vec3, faces: torch.Tensor, clusters, lists, alpha: float,
+                    alive, order=None, with_rounds: bool = False):
+    """K10's launch alone over checked inputs: the rays ``o``, ``d`` and
+    ``alive`` in tile order, the candidate ``lists`` of ``candidate_lists``
+    over them, and ``order`` (None: identity) giving each ray's place in the
+    output (CUDA tensors; ``intersect_clusters`` checks them, sorts the rays
     and builds the lists): ``(face, u, v)``, with ``with_rounds`` also each
-    tile's rounds. chip_smoke.py times it apart from the lists."""
+    tile's rounds. chip_smoke.py times it apart from the sort and the
+    lists."""
     dev, n = o.x.device, o.x.shape[0]
     f = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -208,26 +256,58 @@ def clusters_kernel(o: Vec3, d: Vec3, faces: torch.Tensor, size: int, lists, alp
     rounds = torch.zeros((-(-n // TILE),), dtype=torch.int32, device=dev)
     if n:
         cand, cnt, tent = lists
+        boxes = cluster_boxes(clusters)
         lib = load("phong_clusters", "pbr_phong_clusters", _CLUSTER_ARGTYPES)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.pbr_phong_clusters(
                 *(a.data_ptr() for a in (*o, *d)), None if alive is None else alive.data_ptr(),
-                n, faces.data_ptr(), size, cand.data_ptr(), cnt.data_ptr(), tent.data_ptr(),
-                cand.shape[1], *_alphas(alpha), f.data_ptr(), u.data_ptr(), v.data_ptr(),
-                rounds.data_ptr() if with_rounds else None, stream)
+                None if order is None else order.data_ptr(), n, faces.data_ptr(),
+                clusters.size, boxes.data_ptr(), cand.data_ptr(), cnt.data_ptr(),
+                tent.data_ptr(), cand.shape[1], *_alphas(alpha), f.data_ptr(), u.data_ptr(),
+                v.data_ptr(), rounds.data_ptr() if with_rounds else None, stream)
         if err != 0:
             raise RuntimeError(f"K10 launch failed: cudaError {err}")
         count_launch(launches, "K10")
     return (f, u, v, rounds) if with_rounds else (f, u, v)
 
 
+def cluster_work(lists, stats: dict) -> dict:
+    """What a call of the plain cluster search did, and what the JAX loop's
+    rule would do, from its ``stats`` (``intersect_clusters_phongtess``) and
+    the candidate ``lists`` of the same rays in the same tiles
+    (``candidate_lists``):
+
+    - ``jax_rounds`` (T,) int32: each tile's rounds under the JAX rule
+      (rounds while some ray's best t lies beyond the entry bound, the list
+      not run out). A ray's best t after the rounds it stayed open is
+      final: a cluster it then skips starts at or beyond that t or lies off
+      its path. So at round r the rule finds the ray done where r is past
+      its open rounds and its final t lies at or before the entry bound;
+    - ``slabs``: the box tests K10 runs, each live ray's scan for its last
+      entry and one a round while it is open;
+    - ``staged``: the (tile, round) pairs with an active ray, whose cluster
+      K10 stages."""
+    _, cnt, tent = lists
+    opened, t = stats["open"].reshape(-1, TILE), stats["t"].reshape(-1, TILE)
+    jax_rounds = cnt.clone()
+    for r in range(int(cnt.max()) if cnt.numel() else 0):
+        done = ((r >= opened) & (t <= tent[:, r:r + 1])).all(dim=1)
+        jax_rounds = torch.where(done & (r < jax_rounds), r, jax_rounds)
+    return {"jax_rounds": jax_rounds, "slabs": int(stats["scan"].sum() + stats["open"].sum()),
+            "staged": int((stats["active"] > 0).sum())}
+
+
 def cluster_tests(cand: torch.Tensor, rounds: torch.Tensor, live: torch.Tensor,
-                  faces: torch.Tensor, size: int) -> tuple:
-    """(flat, curved): the face tests a cluster search needs, every real
+                  faces: torch.Tensor, size: int, active: Optional[torch.Tensor] = None) -> tuple:
+    """(flat, curved): the face tests of the JAX loop's rule, every real
     face of each cluster a tile ran (its first ``rounds`` entries of
-    ``cand``) against each live ray of the tile; ``live`` (T * 128,) bool,
-    padding lanes False. Padding faces (all zero: no vertex) need no test."""
+    ``cand``, the rounds under that rule: ``cluster_work``'s
+    ``jax_rounds``) against each live ray of the tile; ``live`` (T * 128,)
+    bool, padding lanes False. With ``active`` (the plain version's (T, C)
+    active rays a tile and round) also the tests K10 runs: (flat, curved,
+    flat run, curved run). Padding faces (all zero: no vertex) need no
+    test."""
     flat = faces[:, 18] > 0.5
     real = faces[:, :18].ne(0).any(dim=1)
     per_cluster = lambda m: m.reshape(-1, size).sum(dim=1)  # noqa: E731
@@ -236,4 +316,7 @@ def cluster_tests(cand: torch.Tensor, rounds: torch.Tensor, live: torch.Tensor,
     cid = cand.long()
     rays = live.reshape(-1, TILE).sum(dim=1)
     per_tile = lambda counts: (counts[cid] * ran).sum(dim=1)  # noqa: E731
-    return (int((per_tile(n_flat) * rays).sum()), int((per_tile(n_curved) * rays).sum()))
+    out = (int((per_tile(n_flat) * rays).sum()), int((per_tile(n_curved) * rays).sum()))
+    if active is None:
+        return out
+    return (*out, *(int((counts[cid] * active.long()).sum()) for counts in (n_flat, n_curved)))

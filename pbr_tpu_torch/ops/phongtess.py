@@ -22,9 +22,10 @@ K10 (``ops/cuda_phong.py``), whose plain versions are the searches here.
 - the searches: ``intersect_brute_phongtess`` (all faces), the stackless
   BVH walk ``intersect_bvh_phongtess`` (K9's plain version: a host-driven
   loop, one step a node) and the cluster search
-  ``intersect_clusters_phongtess`` (K10's plain version: dense rounds over
-  the near-to-far lists of ``ops/cull.py::candidates_fine``,
-  ``PHONG_CHUNK_RAYS`` rays at a time);
+  ``intersect_clusters_phongtess`` (K10's plain version: rounds over the
+  near-to-far lists of ``ops/cull.py::candidates_fine``, each ray culling a
+  round's cluster by its box and closing on its own, ``PHONG_CHUNK_RAYS``
+  rays at a time);
 - ``intersect_scene_phongtess``, their dispatch with a differentiable
   re-evaluation of the winner's t;
 - the host layer's build-time bounds, NumPy: ``_tess_point`` and
@@ -33,6 +34,7 @@ K10 (``ops/cuda_phong.py``), whose plain versions are the searches here.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -48,17 +50,36 @@ _TWO_PI, _FOUR_PI = f32(2.0 * np.pi), f32(4.0 * np.pi)
 _BIG, _BIGN = f32(3.0e38), f32(-3.0e38)
 
 # Rays a chunk of the cluster search's plain version: a multiple of the
-# 128-ray tile. A round's temporaries are (chunk x cluster size) float32
-# tensors, 64 MiB each with 64-face clusters. On the H100 a 1024² frame of chip_smoke.py's
-# Phong scene took 23.6 / 22.0 / 20.8 / 18.8 s at 65,536 / 131,072 /
-# 262,144 / 524,288 rays, peaking at 1,988 / 3,420 / 6,259 / 11,926 MiB
-# (tools/phong_chunks.py, before kernel K10): this one halves the launches
-# of 131,072 at a peak that leaves room for 128-face clusters. The JAX
-# package's 16,384 is a TPU size. Kernel K10 takes its rays unchunked.
-PHONG_CHUNK_RAYS = 262_144
-# Rays from which the dispatch takes the cluster search on a scene with
-# clusters (pbr_tpu/ops/phongtess.py:496); fewer rays walk the BVH.
-CLUSTER_MIN_RAYS = 4096
+# 128-ray tile. A round tests only its active rays, ``_PAIRS`` (ray, face)
+# pairs at a time, so a chunk holds only (tile, cluster) tables; its
+# rounds are a loop on the host, one pass of launches a chunk, so one chunk
+# a 1024² pass.
+PHONG_CHUNK_RAYS = 1 << 20
+# (ray, face) pairs a batch of the plain cluster search's tests: its
+# temporaries are float32 tensors of this many elements (4 MiB).
+_PAIRS = 1 << 20
+# Rays from which the dispatch takes the cluster search (kernel K10) on a
+# scene with clusters; fewer rays walk the BVH (K9), and None sends every
+# pass to the walk. The card's band: tools/phong_bands.py's policy of
+# docs/PHONG_BANDS_H100.json (tests/test_torch_phong_bands.py holds the two
+# equal). On the H100 K9 beat K10 at 4,096 to 1,048,576 rays on both Phong
+# scenes, camera and box rays, in every round, and the frames and fit steps
+# through K9 beat those through K10. The JAX package takes the cluster
+# search from 4,096 rays (pbr_tpu/ops/phongtess.py:496), a TPU choice.
+CLUSTER_MIN_RAYS: Optional[int] = None
+
+
+@contextlib.contextmanager
+def threshold(value: Optional[int]):
+    """``CLUSTER_MIN_RAYS`` set to ``value`` for the block: the JAX
+    package's 4,096 sends the passes of that many rays to the cluster
+    search whatever the band."""
+    global CLUSTER_MIN_RAYS
+    old, CLUSTER_MIN_RAYS = CLUSTER_MIN_RAYS, value
+    try:
+        yield
+    finally:
+        CLUSTER_MIN_RAYS = old
 
 
 def _guard_div(num, den):
@@ -544,6 +565,15 @@ def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf=
     return t_best, f_best, u_best, v_best
 
 
+def cluster_box_hits(o: Vec3, inv_d: Vec3, clusters, cid):
+    """Each ray against the box of its cluster ``cid`` (an index a ray):
+    ``(hit, t_near)``, the slab test of K10 (``csrc/bvh.cuh::box_hit``:
+    NaN-conservative, t_far > EPSILON5, the empty-box guard)."""
+    lo, hi = gather_vec3(clusters.bb_min, cid), gather_vec3(clusters.bb_max, cid)
+    t_near, t_far, hit = slab_box(o, inv_d, lo, hi)
+    return hit & (t_far > EPS5) & (lo.x <= hi.x), t_near
+
+
 def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float, alive=None,
                                  tile: int = 128, chunk_rays: Optional[int] = None,
                                  stats: Optional[dict] = None,
@@ -559,25 +589,37 @@ def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float,
     may then be None). The rays go ``chunk_rays`` (default
     ``PHONG_CHUNK_RAYS``) at a time, rounded to whole ``tile``-ray tiles;
     each chunk gets its near-to-far lists (``ops/cull.py::candidates_fine``),
-    then rounds: a round evaluates the next cluster of a tile's list
-    densely, all its faces against all the tile's rays (patch test with the
-    ray's best t at the start of the round as its bound, t at least
-    EPSILON5, for curved faces, Möller-Trumbore for flat ones), takes the
-    first face of the least t and keeps the (t, face)-lexicographic
-    minimum. A tile stops when it has run out of candidates or its rays'
-    best t lies before the next entry bound (one host check a round, the
-    JAX version's ``while_loop`` condition taken a tile at a time), and a
-    round runs only the tiles still open. The JAX version runs every tile
-    until the last is done; a done tile's later clusters start at or beyond
-    its rays' best t, so that changes a result only where a face lies
-    exactly at the entry bound with a lower id. Results are per tile, so
-    they do not depend on the chunk.
+    then rounds over them, each ray culling and closing on its own:
+
+    - a live ray's last entry is the last of its tile's list whose cluster
+      box it hits (``cluster_box_hits``);
+    - at round r a ray is open while its best t lies beyond the entry bound
+      ``tent[r]`` and r is not past its last entry; a tile stops when none
+      of its rays is open or its list has run out (one host check a round);
+    - an open ray whose path hits the round's cluster box with an entry
+      before its best t tests all the cluster's faces (the patch test with
+      the ray's best t at the start of the round as its bound, t at least
+      EPSILON5, for curved faces, Möller-Trumbore for flat ones), takes the
+      first face of the least t and keeps the (t, face)-lexicographic
+      minimum.
+
+    The JAX version runs every tile until its rays' best t all lie before
+    the next entry bound and tests every ray of a running tile; a cluster
+    this search skips for a ray starts at or beyond the ray's best t, or
+    lies off its path, so that changes a result only where a face lies
+    exactly at an entry bound with a lower id. A ray's result does not
+    depend on its tile, so not on the chunk or the order of the rays.
 
     ``alive``: dead lanes keep their rays (the tiles stay tight) but are
     seeded closed and report face -1. ``stats``: a dict that gets the
     rounds of the longest tile (``rounds``) and the tile-rounds run
-    (``tile_rounds``), added to what it holds, and the rounds of each tile
-    of this call (``per_tile``, (T,) int32).
+    (``tile_rounds``), added to what it holds, and for this call each
+    tile's rounds (``per_tile``, (T,)), the active rays of each tile at
+    each round (``active``, (T, C)), and for each lane of the tiles (T *
+    ``tile``, padding lanes dead) the rounds it stayed open (``open``), the
+    box tests of its scan for its last entry (``scan``, 0 on a dead lane)
+    and its best t (``t``), all int32 but ``t``; ``cuda_phong.cluster_work``
+    reads what K10 and the JAX loop's rule do from them.
     """
     # Imported here: ops/cull.py imports accel/, whose import reaches this
     # module through models/integrator.py.
@@ -596,6 +638,9 @@ def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float,
         raise ValueError(f"the face table must be ({c * s}, {PHONG_RECORD}), the clusters' "
                          f"faces padded; got {tuple(table.shape)}")
     offs = torch.arange(s, dtype=torch.int64, device=dev)
+    lane_tile = torch.arange(chunk, device=dev) // tile
+    ar_tile = torch.arange(tile, device=dev)
+    batch = max(1, _PAIRS // s)
     alive_f = (torch.ones(flat_n, dtype=torch.bool, device=dev) if alive is None
                else alive.reshape(-1))
 
@@ -613,67 +658,105 @@ def intersect_clusters_phongtess(o: Vec3, d: Vec3, clusters, tris, alpha: float,
         ov, dv = Vec3(*(take(a) for a in o)), Vec3(*(take(a) for a in d))
         live = take(alive_f, False)
         cand, cnt, tent = candidates_fine(ov, dv, clusters, tile)
-        o3 = Vec3(*(a.reshape(n_tiles, tile, 1) for a in ov))
-        d3 = Vec3(*(a.reshape(n_tiles, tile, 1) for a in dv))
-        t_b = torch.where(live, INF, _BIGN).reshape(n_tiles, tile)
-        f_b = torch.full((n_tiles, tile), -1, dtype=torch.int32, device=dev)
-        u_b = torch.zeros((n_tiles, tile), dtype=torch.float32, device=dev)
+        cand_l, cnt_l = cand.long(), cnt[lane_tile]
+        inv = Vec3(1.0 / dv.x, 1.0 / dv.y, 1.0 / dv.z)
+        # Each live ray's last entry whose box it hits (-1: none).
+        last = torch.full((chunk,), -1, dtype=torch.int64, device=dev)
+        for r in range(int(cnt.max())):
+            hit, _ = cluster_box_hits(ov, inv, clusters, cand_l[lane_tile, r])
+            last = torch.where(hit & live & (cnt_l > r), r, last)
+        t_b = torch.where(live, INF, _BIGN)
+        f_b = torch.full((chunk,), -1, dtype=torch.int32, device=dev)
+        u_b = torch.zeros((chunk,), dtype=torch.float32, device=dev)
         v_b = torch.zeros_like(u_b)
         rounds = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
+        opened = torch.zeros((chunk,), dtype=torch.int32, device=dev)
+        active = torch.zeros((n_tiles, c), dtype=torch.int32, device=dev)
+        scan = torch.where(live, torch.where(last >= 0, cnt_l - last, cnt_l), 0).int()
         act = torch.arange(n_tiles, device=dev)  # the tiles still open
         for r in range(c):
-            # A tile is done once its list is out or its rays' best t lies
-            # before the next entry bound; done stays done (the bounds rise,
-            # the best t only falls). The mask index syncs the host: one
-            # check a round.
-            act = act[(cnt[act] > r) & (t_b[act].amax(dim=1) > tent[act, r])]
+            # The mask indexes sync the host: a few checks a round.
+            act = act[cnt[act] > r]
+            if act.numel() == 0:
+                break
+            lanes = (act[:, None] * tile + ar_tile).reshape(-1)
+            # Open: best t beyond the entry bound and an entry left. A
+            # closed ray stays closed (the bounds rise, the best t only
+            # falls), and so does a tile with no open ray.
+            is_open = (live[lanes].reshape(-1, tile)
+                       & (t_b[lanes].reshape(-1, tile) > tent[act, r][:, None])
+                       & (last[lanes].reshape(-1, tile) >= r))
+            keep = is_open.any(dim=1)
+            act = act[keep]
             if act.numel() == 0:
                 break
             rounds[act] = r + 1
-            fids = cand[act, r].long()[:, None] * s + offs  # (A, S)
-            g = table[fids].permute(2, 0, 1)[:, :, None, :]  # (20, A, 1, S)
-            oa, da = Vec3(*(a[act] for a in o3)), Vec3(*(a[act] for a in d3))
-            tb, fb = t_b[act], f_b[act]
-            P1, E1, E2 = Vec3(*g[0:3]), Vec3(*g[3:6]), Vec3(*g[6:9])
-            t_mt, ok_mt = moller_trumbore(oa, da, P1, E1, E2)
-            t_pt, u_pt, v_pt, ok_pt = phongtess_patch_intersect(
-                oa, da, P1, P1 + E1, P1 + E2, Vec3(*g[9:12]), Vec3(*g[12:15]),
-                Vec3(*g[15:18]), alpha, tb[:, :, None])
-            is_flat = g[18] > 0.5
-            # A curved face's t at least EPSILON5, as in the sweep and the
-            # walk (the JAX version's search takes t from 0: a ray leaving a
-            # curved patch hits it again).
-            tt = torch.where(is_flat, torch.where(ok_mt, t_mt, INF),
-                             torch.where(ok_pt & (t_pt >= EPS5), t_pt, INF))
-            # The first face with the least t (argmin's tie rule, as jnp's).
-            k = torch.argmin(tt, dim=2)
-            at_k = lambda a: torch.gather(a, 2, k[:, :, None])[:, :, 0]  # noqa: E731
-            tmin = at_k(tt)
-            fid = torch.gather(fids, 1, k).to(torch.int32)
-            flat_k = torch.gather(is_flat[:, 0, :], 1, k)
-            better = (tmin < INF) & ((tmin < tb) | ((tmin == tb) & (fid < fb)))
-            t_b[act] = torch.where(better, tmin, tb)
-            f_b[act] = torch.where(better, fid, fb)
-            u_b[act] = torch.where(better, torch.where(flat_k, 0.0, at_k(u_pt)), u_b[act])
-            v_b[act] = torch.where(better, torch.where(flat_k, 0.0, at_k(v_pt)), v_b[act])
-        return f_b.reshape(-1), u_b.reshape(-1), v_b.reshape(-1), rounds
+            lanes, is_open = lanes.reshape(-1, tile)[keep].reshape(-1), is_open[keep].reshape(-1)
+            opened[lanes[is_open]] = r + 1
+            hit, t_near = cluster_box_hits(Vec3(*(a[lanes] for a in ov)),
+                                           Vec3(*(a[lanes] for a in inv)), clusters,
+                                           cand_l[act, r].repeat_interleave(tile))
+            on = is_open & hit & (t_b[lanes] > t_near)
+            active[act, r] = on.reshape(-1, tile).sum(dim=1, dtype=torch.int32)
+            ids = lanes[on]
+            for b0 in range(0, ids.numel(), batch):
+                _cluster_round(ids[b0:b0 + batch], r, ov, dv, cand_l, lane_tile, table, offs,
+                               s, alpha, t_b, f_b, u_b, v_b)
+        return f_b, u_b, v_b, rounds, active, opened, scan, t_b
 
     with torch.no_grad():
         outs = [chunk_search(lo) for lo in range(0, flat_n, chunk)]
     if stats is not None:
-        per_tile = torch.cat([out[3] for out in outs])[:-(-flat_n // tile)]
+        n_t = -(-flat_n // tile)
+        per_tile = torch.cat([out[3] for out in outs])[:n_t]
         stats["rounds"] = max(stats.get("rounds", 0), int(per_tile.max()) if flat_n else 0)
         stats["tile_rounds"] = stats.get("tile_rounds", 0) + int(per_tile.sum())
         stats["per_tile"] = per_tile
+        stats["active"] = torch.cat([out[4] for out in outs])[:n_t]
+        for j, k in enumerate(("open", "scan", "t"), 5):
+            stats[k] = torch.cat([out[j] for out in outs])[:n_t * tile]
     return tuple(torch.cat([out[j] for out in outs])[:flat_n].reshape(shape) for j in range(3))
+
+
+def _cluster_round(ids, r: int, o: Vec3, d: Vec3, cand, lane_tile, table, offs, s: int,
+                   alpha, t_b, f_b, u_b, v_b) -> None:
+    """One round of the cluster search for the active rays ``ids`` of a
+    chunk: all faces of their tile's cluster ``r`` against each, bounded by
+    its best t at the round's start; the first face of the least t merged
+    by (t, face) order into ``t_b``, ``f_b``, ``u_b``, ``v_b`` in place."""
+    fids = cand[lane_tile[ids], r][:, None] * s + offs  # (A, S)
+    g = table[fids].permute(2, 0, 1)  # (20, A, S)
+    oa, da = Vec3(*(a[ids, None] for a in o)), Vec3(*(a[ids, None] for a in d))
+    tb, fb = t_b[ids], f_b[ids]
+    P1, E1, E2 = Vec3(*g[0:3]), Vec3(*g[3:6]), Vec3(*g[6:9])
+    t_mt, ok_mt = moller_trumbore(oa, da, P1, E1, E2)
+    t_pt, u_pt, v_pt, ok_pt = phongtess_patch_intersect(
+        oa, da, P1, P1 + E1, P1 + E2, Vec3(*g[9:12]), Vec3(*g[12:15]), Vec3(*g[15:18]), alpha,
+        tb[:, None])
+    is_flat = g[18] > 0.5
+    # A curved face's t at least EPSILON5, as in the sweep and the walk (the
+    # JAX version's search takes t from 0: a ray leaving a curved patch hits
+    # it again).
+    tt = torch.where(is_flat, torch.where(ok_mt, t_mt, INF),
+                     torch.where(ok_pt & (t_pt >= EPS5), t_pt, INF))
+    # The first face with the least t (argmin's tie rule, as jnp's).
+    k = torch.argmin(tt, dim=1, keepdim=True)
+    at_k = lambda a: torch.gather(a, 1, k)[:, 0]  # noqa: E731
+    tmin, fid, flat_k = at_k(tt), at_k(fids).to(torch.int32), at_k(is_flat)
+    better = (tmin < INF) & ((tmin < tb) | ((tmin == tb) & (fid < fb)))
+    t_b[ids] = torch.where(better, tmin, tb)
+    f_b[ids] = torch.where(better, fid, fb)
+    u_b[ids] = torch.where(better, torch.where(flat_k, 0.0, at_k(u_pt)), u_b[ids])
+    v_b[ids] = torch.where(better, torch.where(flat_k, 0.0, at_k(v_pt)), v_b[ids])
 
 
 def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, clusters=None,
                               max_leaf=None, alive=None, faces: Optional[torch.Tensor] = None):
     """The Phong nearest-hit dispatch (``pbr_tpu/ops/phongtess.py:467``):
     no BVH, the all-faces sweep; clusters and at least
-    ``CLUSTER_MIN_RAYS`` rays, the cluster search (kernel K10 on the card);
-    otherwise the BVH walk (kernel K9 on the card). ``faces``: the
+    ``CLUSTER_MIN_RAYS`` rays (when it is not None), the cluster search
+    (kernel K10 on the card); otherwise the BVH walk (kernel K9 on the
+    card). ``faces``: the
     searches' ``phong_records`` table (``SceneParams.phong_records``; built
     here when None). Returns ``(t, face, u, v)``.
 
@@ -696,7 +779,8 @@ def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, cl
                 faces = phong_records(tris_s, None if clusters is None
                                       else clusters.count * clusters.size)
             live = None if alive is None else alive.contiguous()
-            if clusters is not None and o.x.numel() >= CLUSTER_MIN_RAYS:
+            if (clusters is not None and CLUSTER_MIN_RAYS is not None
+                    and o.x.numel() >= CLUSTER_MIN_RAYS):
                 face, uu, vv = cuda_phong.intersect_clusters(o_s, d_s, clusters, faces, alpha,
                                                              alive=live)
             else:

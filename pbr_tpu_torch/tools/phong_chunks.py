@@ -2,7 +2,8 @@
 (``phongtess.PHONG_CHUNK_RAYS``) against pass time, frame time and peak
 memory, on a card. Since kernel K10 (``ops/cuda_phong.py``) runs the search
 on the card, unchunked, the chunk sizes only the plain version, which
-chip_smoke.py holds K10 to; the frames it times go through K10.
+chip_smoke.py holds K10 to; the frames it times go through the dispatch's
+searches (``phongtess.CLUSTER_MIN_RAYS``: K9 alone under the card's band).
 
     python3 -m pbr_tpu_torch.tools.phong_chunks [--chunks 65536,131072,262144,524288]
                                                 [--frames 1]

@@ -175,14 +175,117 @@ def emulate_walk(o: Vec3, d: Vec3, bvh, faces, alpha, max_leaf: int, alive=None)
     return tuple(torch.from_numpy(a) for a in out)
 
 
+def _key(t, face: int) -> int:
+    """csrc/key.cuh's pack_key: the (t, face) order as one unsigned int."""
+    u = int(np.float32(t).view(np.uint32))
+    ord_ = (~u & 0xFFFFFFFF) if u & 0x80000000 else u | 0x80000000
+    return (ord_ << 32) | ((face & 0xFFFFFFFF) ^ 0x80000000)
+
+
 def emulate_clusters(o: Vec3, d: Vec3, clusters, faces, alpha, alive=None, tile: int = 128):
-    """K10's loop order, one tile (a block) at a time: the tile's rounds
-    over its near-to-far list, stopped when the list runs out or no ray's
-    best t lies beyond the next entry bound; in a round every live ray
-    tests the cluster's faces in id order against its best at the round's
-    start, takes the first face of the least t, and merges it by (t, face)
-    order. Returns ``(face, u, v, rounds a tile, (flat, curved) tests of
-    real faces)``."""
+    """K10's loop order, one tile (a block) at a time: each live ray's last
+    listed entry whose box it hits (scanned from the list's end); rounds
+    while some ray is open (best t beyond the entry bound, an entry left);
+    in a round the A rays open and hitting the cluster's box before their
+    best t take slots in lane order, each slot's faces are dealt over q =
+    min(128 / A, size) threads (thread j: slot j mod A, faces j / A + q i),
+    each thread merges its tests into a packed (t, face) key, the keys
+    meet in the slot's atomicMin seeded with the ray's best,
+    the thread whose key won gives u and v, and the ray takes the slot's
+    key. Flat faces report a hit only at t <= the round's bound. Returns
+    ``(face, u, v, rounds a tile, (flat, curved) tests of real faces run,
+    slab tests)``."""
+    fc = phongtess.record_faces(faces)
+    n, s = o.x.shape[0], clusters.size
+    tiles = -(-n // tile)
+    pad = tiles * tile - n
+    op, dp = (Vec3(*(torch.cat([a, a[-1:].expand(pad)]) for a in v)) for v in (o, d))
+    cand, cnt, tent = (a.numpy() for a in candidates_fine(op, dp, clusters, tile))
+    live = np.zeros(tiles * tile, bool)
+    live[:n] = True if alive is None else alive.numpy()
+    f_out = np.full(tiles * tile, -1, np.int32)
+    u_out = np.zeros(tiles * tile, np.float32)
+    v_out = np.zeros(tiles * tile, np.float32)
+    rounds = np.zeros(tiles, np.int32)
+    real = np.asarray(faces[:, :18].ne(0).any(dim=1))
+    flat = fc.flat.numpy()
+    tests, slabs = [0, 0], 0
+    inv = Vec3(1.0 / dp.x, 1.0 / dp.y, 1.0 / dp.z)
+
+    def box(lane, cid):
+        hit, t_near = phongtess.cluster_box_hits(
+            Vec3(*(a[lane:lane + 1] for a in op)), Vec3(*(a[lane:lane + 1] for a in inv)),
+            clusters, torch.tensor([cid]))
+        return bool(hit), np.float32(t_near)
+
+    for b in range(tiles):
+        lanes = np.arange(b * tile, (b + 1) * tile)
+        t_b = np.where(live[lanes], np.float32(np.inf), np.float32(-3.0e38))
+        f_b = np.full(tile, -1)
+        last = np.full(tile, -1)
+        for j in np.flatnonzero(live[lanes]):
+            for r in range(cnt[b] - 1, -1, -1):
+                slabs += 1
+                if box(lanes[j], cand[b, r])[0]:
+                    last[j] = r
+                    break
+        r = 0
+        while r < cnt[b]:
+            is_open = live[lanes] & (t_b > tent[b, r]) & (r <= last)
+            if not is_open.any():  # __syncthreads_or
+                break
+            cid = cand[b, r]
+            act = np.zeros(tile, bool)
+            for j in np.flatnonzero(is_open):
+                slabs += 1
+                hit, t_near = box(lanes[j], cid)
+                act[j] = hit and t_b[j] > t_near
+            slot = np.flatnonzero(act)  # the ballots keep lane order
+            if slot.size:
+                fids = cid * s + np.arange(s)
+                ob = Vec3(*(a[lanes[slot], None] for a in op))
+                db = Vec3(*(a[lanes[slot], None] for a in dp))
+                bound = torch.from_numpy(t_b[slot])[:, None]
+                t, u, v, valid = phongtess._face_hit(ob, db, fc, torch.from_numpy(fids)[None],
+                                                     alpha, bound)
+                valid = valid & (~fc.flat[fids][None] | (t <= bound))
+                tt, u, v = torch.where(valid, t, INF).numpy(), u.numpy(), v.numpy()
+                tests[0] += slot.size * int((real[fids] & flat[fids]).sum())
+                tests[1] += slot.size * int((real[fids] & ~flat[fids]).sum())
+                keys = [_key(t_b[j], int(f_b[j])) for j in slot]
+                q = min(128 // slot.size, s)
+                won = []  # (slot, key, u, v) of each thread's tests
+                for th in range(slot.size * q):
+                    a, best = th % slot.size, None
+                    for k in range(th // slot.size, s, q):
+                        if tt[a, k] < np.inf:
+                            kk = _key(tt[a, k], int(fids[k]))
+                            if best is None or kk < best[0]:
+                                best = (kk, u[a, k], v[a, k])
+                    if best is not None:
+                        keys[a] = min(keys[a], best[0])  # atomicMin
+                        won.append((a, *best))
+                su, sv = {}, {}
+                for a, kk, uu, vv in won:
+                    if keys[a] == kk:
+                        su[a], sv[a] = uu, vv
+                for a, j in enumerate(slot):
+                    if keys[a] != _key(t_b[j], int(f_b[j])):
+                        face = (keys[a] & 0xFFFFFFFF) ^ 0x80000000
+                        t_b[j], f_b[j] = tt[a, face - cid * s], face
+                        u_out[lanes[j]], v_out[lanes[j]] = su[a], sv[a]
+            r += 1
+        rounds[b] = r
+        f_out[lanes] = f_b
+    return (torch.from_numpy(f_out[:n]), torch.from_numpy(u_out[:n]),
+            torch.from_numpy(v_out[:n]), torch.from_numpy(rounds), tuple(tests), slabs)
+
+
+def emulate_jax_rule(o: Vec3, d: Vec3, clusters, faces, alpha, alive=None, tile: int = 128):
+    """The JAX loop's rule a tile at a time: rounds while
+    some ray's best t lies beyond the entry bound, every live ray testing
+    every face of the round's cluster. Returns ``(face, u, v, rounds a
+    tile, (flat, curved) tests of real faces)``."""
     fc = phongtess.record_faces(faces)
     n, s = o.x.shape[0], clusters.size
     tiles = -(-n // tile)
@@ -203,7 +306,7 @@ def emulate_clusters(o: Vec3, d: Vec3, clusters, faces, alpha, alive=None, tile:
         t_b = np.where(live[lanes], np.float32(np.inf), np.float32(-3.0e38))
         r = 0
         while r < clusters.count and r < cnt[b]:
-            if not (t_b > tent[b, r]).any():  # __syncthreads_or
+            if not (t_b > tent[b, r]).any():
                 break
             fids = cand[b, r] * s + np.arange(s)
             ob = Vec3(*(a[lanes, None] for a in op))
@@ -287,31 +390,107 @@ def test_k9_loop_order_is_the_plain_walk_and_the_jax_walk(name, leaf, n):
 
 @pytest.mark.parametrize("name", ["box_sphere", "two_spheres"])
 def test_k10_loop_order_is_the_plain_search_and_the_jax_search(name):
-    """K10's per-tile rounds, emulated, against the plain version (bitwise:
-    faces, u, v and each tile's rounds) and the JAX package's jnp search
-    (live lanes); the face tests of its rounds are ``cluster_tests``' (the
-    bound's count)."""
+    """K10's per-tile rounds, emulated (per-ray culling and closure, dealt
+    pairs, the key merge), against the plain version (bitwise: faces, u, v
+    and each tile's rounds; ``cluster_work``'s slab tests and
+    ``cluster_tests``' count of the tests run), the JAX loop's rule
+    emulated (the same faces, u and v; its rounds are ``cluster_work``'s
+    ``jax_rounds`` and its tests ``cluster_tests``' yardstick count) and the JAX package's jnp search
+    (live lanes)."""
     ts, jscene = _scene(name, 2)
     n = 3 * 128 + 40  # a ragged last tile
     o, d = _rays(name, n, 11)
     alive = torch.from_numpy(np.random.default_rng(5).random(n) < 0.85)
     args = (_t3(o), _t3(d), ts.clusters, ts.phong_records, ALPHA)
     emu = emulate_clusters(*args, alive=alive)
-    plain = cuda_phong.intersect_clusters(*args, alive=alive, with_rounds=True)
-    for a, b in zip(emu, plain):
+    stats = {}
+    plain = phongtess.intersect_clusters_phongtess(*args[:3], None, ALPHA, alive=alive,
+                                                   stats=stats, faces=ts.phong_records)
+    assert torch.equal(cuda_phong.intersect_clusters(*args, alive=alive, with_rounds=True)[3],
+                       stats["per_tile"])
+    for a, b in zip(emu, (*plain, stats["per_tile"])):
         assert torch.equal(a, b)
-    assert int(plain[3].max()) >= 2
-    live = torch.zeros(plain[3].shape[0] * 128, dtype=torch.bool)
-    live[:n] = alive
     lists = cuda_phong.candidate_lists(_t3(o), _t3(d), ts.clusters)
-    assert cuda_phong.cluster_tests(lists[0], plain[3], live, ts.phong_records,
-                                    ts.clusters.size) == emu[4]
+    work = cuda_phong.cluster_work(lists, stats)
+    assert work["slabs"] == emu[5]
+    assert work["staged"] == int((stats["active"] > 0).sum()) > 0
+    jax_rule = emulate_jax_rule(*args, alive=alive)
+    for a, b in zip(jax_rule[:3], plain):
+        assert torch.equal(a, b)
+    assert torch.equal(jax_rule[3], work["jax_rounds"])
+    assert int(work["jax_rounds"].max()) >= 2
+    live = torch.zeros(stats["per_tile"].shape[0] * 128, dtype=torch.bool)
+    live[:n] = alive
+    counts = cuda_phong.cluster_tests(lists[0], work["jax_rounds"], live, ts.phong_records,
+                                      ts.clusters.size, active=stats["active"])
+    assert counts[:2] == jax_rule[4] and counts[2:] == emu[4]
     assert emu[4][0] > 0 and emu[4][1] > 0
+    assert sum(emu[4]) < sum(jax_rule[4])  # the per-ray rules test less
     js = jax.tree_util.tree_map(jnp.asarray, jscene)
     ref = J.intersect_clusters_phongtess(
         jnp, JVec3(*map(jnp.asarray, o)), JVec3(*map(jnp.asarray, d)), js.clusters, js.tris,
         np.float32(ALPHA), alive=jnp.asarray(alive.numpy()))
-    _close_to_jax(plain[:3], ref, alive.numpy(), 0.97)
+    _close_to_jax(plain, ref, alive.numpy(), 0.97)
+
+
+@pytest.mark.parametrize("how", ["shuffled", "shifted"])
+def test_k10_results_follow_the_rays_not_their_tiles(how):
+    """A permutation of the rays permutes the cluster search's results,
+    bitwise: shuffled (every tile's rays and lists change) or shifted by 37
+    rays (each ray in another tile): a ray's result does not depend on the
+    tile it sits in."""
+    ts, _ = _scene("two_spheres", 2)
+    n = 3 * 128 + 40
+    o, d = (_t3(a) for a in _rays("two_spheres", n, 13))
+    alive = torch.from_numpy(np.random.default_rng(6).random(n) < 0.9)
+    rng = np.random.default_rng(7)
+    perm = torch.from_numpy(rng.permutation(n) if how == "shuffled"
+                            else (np.arange(n) + 37) % n)
+    args = (ts.clusters, ts.phong_records, ALPHA)
+    ref = cuda_phong.intersect_clusters(o, d, *args, alive=alive, with_rounds=True)
+    got = cuda_phong.intersect_clusters(Vec3(*(a[perm] for a in o)),
+                                        Vec3(*(a[perm] for a in d)), *args, alive=alive[perm],
+                                        with_rounds=True)
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.equal(a, b[perm])
+    assert (ref[0] >= 0).float().mean() > 0.3
+
+
+def test_a_ray_that_misses_everything_closes_its_tile():
+    """A ray whose path misses every cluster box of its tile's list holds
+    its tile no longer than the rays that hit: the tile runs the rounds it
+    runs with that ray dead, where the JAX loop's rule runs every listed
+    cluster."""
+    ts, _ = _scene("two_spheres", 2)
+    # A narrow beam into the left sphere, past the right one; ray 5 starts
+    # above the scene and points up and away.
+    rng = np.random.default_rng(21)
+    o = np.stack([np.full(128, -2.5), 0.45 + rng.uniform(-0.05, 0.05, 128),
+                  -0.3 + rng.uniform(-0.05, 0.05, 128)]).astype(np.float32)
+    d = np.stack([np.ones(128), rng.uniform(-0.02, 0.02, 128), rng.uniform(-0.02, 0.02, 128)])
+    d = (d / np.linalg.norm(d, axis=0)).astype(np.float32)
+    o[:, 5], d[:, 5] = (0.3, 3.0, 0.2), (0.0, 1.0, 0.0)
+    o, d = _t3(o), _t3(d)
+    args = (ts.clusters, ts.phong_records, ALPHA)
+    lists = cuda_phong.candidate_lists(o, d, ts.clusters)
+    cand, cnt, _ = lists
+    inv = Vec3(*(1.0 / a[5:6] for a in d))
+    hits = [bool(phongtess.cluster_box_hits(Vec3(*(a[5:6] for a in o)), inv, ts.clusters,
+                                            cand[0, r:r + 1].long())[0])
+            for r in range(int(cnt[0]))]
+    assert not any(hits) and int(cnt[0]) >= 4
+    stats = {}
+    got = phongtess.intersect_clusters_phongtess(o, d, *args[:1], None, ALPHA, stats=stats,
+                                                 faces=ts.phong_records)
+    dead = torch.ones(128, dtype=torch.bool)
+    dead[5] = False
+    ref = cuda_phong.intersect_clusters(o, d, *args, alive=dead, with_rounds=True)
+    assert int(got[0][5]) == -1
+    assert torch.equal(stats["per_tile"], ref[3]) and int(ref[3][0]) < int(cnt[0]) // 2
+    assert (got[0][dead] >= 0).all()
+    assert int(cuda_phong.cluster_work(lists, stats)["jax_rounds"][0]) == int(cnt[0])
+    for a, b in zip(got, ref):
+        assert torch.equal(a[dead], b[dead])
 
 
 def test_k9_alive_mask_changes_no_live_lane():
@@ -335,7 +514,9 @@ def test_k9_alive_mask_changes_no_live_lane():
 def test_wrappers_run_the_plain_versions_on_the_cpu_and_count_no_launch(monkeypatch):
     """On CPU tensors each wrapper returns its plain version's result and
     counts no launch; the dispatch takes K10 from CLUSTER_MIN_RAYS rays on
-    a scene with clusters and K9 below."""
+    a scene with clusters and K9 below: under the card's band (the
+    module's value, docs/PHONG_BANDS_H100.json; None: K9 for every pass)
+    and under the JAX package's 4,096, the two answering alike."""
     ts, _ = _scene("box_sphere", 2)
     calls = []
     for name in ("intersect_bvh_phongtess", "intersect_clusters_phongtess"):
@@ -343,17 +524,25 @@ def test_wrappers_run_the_plain_versions_on_the_cpu_and_count_no_launch(monkeypa
         monkeypatch.setattr(phongtess, name, lambda *a, _r=real, _n=name, **k: (
             calls.append(_n), _r(*a, **k))[1])
     before = dict(cuda_phong.launches)
-    o, d = _rays("box_sphere", phongtess.CLUSTER_MIN_RAYS, 2)
+    o, d = _rays("box_sphere", 4096, 2)
     o, d = _t3(o), _t3(d)
-    t, face, _, _ = phongtess.intersect_scene_phongtess(o, d, ts.tris, ALPHA, bvh=ts.bvh,
-                                                        clusters=ts.clusters,
-                                                        faces=ts.phong_records)
-    assert calls == ["intersect_clusters_phongtess"]
-    cut = Vec3(*(c[:200] for c in o)), Vec3(*(c[:200] for c in d))
-    phongtess.intersect_scene_phongtess(*cut, ts.tris, ALPHA, bvh=ts.bvh, clusters=ts.clusters)
-    assert calls[1:] == ["intersect_bvh_phongtess"]
+    out = []
+    for big in (phongtess.CLUSTER_MIN_RAYS, 4096):
+        monkeypatch.setattr(phongtess, "CLUSTER_MIN_RAYS", big)
+        del calls[:]
+        out.append(phongtess.intersect_scene_phongtess(o, d, ts.tris, ALPHA, bvh=ts.bvh,
+                                                       clusters=ts.clusters,
+                                                       faces=ts.phong_records))
+        k10 = big is not None and big <= 4096
+        assert calls == ["intersect_clusters_phongtess" if k10 else "intersect_bvh_phongtess"]
+        cut = Vec3(*(c[:200] for c in o)), Vec3(*(c[:200] for c in d))
+        phongtess.intersect_scene_phongtess(*cut, ts.tris, ALPHA, bvh=ts.bvh,
+                                            clusters=ts.clusters)
+        assert calls[1:] == ["intersect_bvh_phongtess"]
     assert cuda_phong.launches == before
+    t, face, _, _ = out[1]
     assert (face >= 0).float().mean() > 0.5 and torch.isfinite(t[face >= 0]).all()
+    assert (out[0][1] == face).float().mean() > 0.999
 
 
 @pytest.mark.parametrize("which", ["K9", "K10"])
@@ -418,12 +607,13 @@ def test_phong_frame_reads_nothing_from_the_host(search, monkeypatch):
     """A 32² Phong frame (NEE, 8 bounces) with each search call stubbed by
     the result it gave in an earlier run of the same frame: nothing of the
     frame reads the host under the guard. At 32² every pass has 1,024 rays:
-    CLUSTER_MIN_RAYS set to 1,024 sends them to K10, the default to K9. The
-    ops the wrappers run on the card before a launch (K10's candidate
-    lists, K9's ray order) read nothing either."""
+    CLUSTER_MIN_RAYS set to 1,024 sends them to K10, None (the card's band
+    when K9 wins every pass) to K9. The ops the wrappers run on the card
+    before a launch read nothing either: K10's ``sorted_lists`` (the ray
+    sort, the gather, the candidate lists) and cluster boxes, and K9's ray
+    order."""
     ts, _ = _scene("box_sphere", 2)
-    if search == "K10":
-        monkeypatch.setattr(phongtess, "CLUSTER_MIN_RAYS", 1024)
+    monkeypatch.setattr(phongtess, "CLUSTER_MIN_RAYS", 1024 if search == "K10" else None)
     settings = bench.bench_settings(32, phong_tessellation=ALPHA)
     cam = camera_to_torch(CAM, "cpu")
     ids = torch.arange(32 * 32, dtype=torch.int32)
@@ -443,10 +633,15 @@ def test_phong_frame_reads_nothing_from_the_host(search, monkeypatch):
     for a, b in zip((*got.rgb, got.depth), (*ref.rgb, ref.depth)):
         assert torch.equal(a, b)
     o, d = (_t3(a) for a in _rays("box_sphere", 1000, 4))
+    alive = torch.ones(1000, dtype=torch.bool)
+    cl = ts.clusters
     with HostReadGuard():
-        cuda_phong.candidate_lists(o, d, ts.clusters)
+        staged = cuda_phong.sorted_lists(o, d, cl, alive)
+        cuda_phong.cluster_boxes(cl)
         torch.argsort(coherence_keys(o, d, *ts.bvh.root))
-    assert ray_order(o, d, ts.bvh) is None  # the CPU walks each ray alone
+    assert sorted(staged[3].tolist()) == list(range(1000))
+    # The CPU walks each ray alone.
+    assert ray_order(o, d, ts.bvh) is None
 
 
 def test_pathtracer_runs_a_phong_frame_through_its_static_step():

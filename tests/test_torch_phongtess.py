@@ -329,11 +329,16 @@ def test_candidates_fine_match_jax(capped):
 
 
 def test_dispatch_at_4608_rays(monkeypatch):
-    """At 4,608 rays the dispatch takes the cluster search
-    (pbr_tpu/ops/phongtess.py:496), at 4,095 the BVH walk, without a BVH
-    the sweep; each matches the NumPy form's BVH walk."""
+    """Under the JAX package's threshold (CLUSTER_MIN_RAYS 4,096,
+    pbr_tpu/ops/phongtess.py:496) the dispatch takes the cluster search at
+    4,608 rays, the BVH walk at 4,095, the sweep without a BVH; each
+    matches the NumPy form's BVH walk. Under the card's band (the module's
+    value) 4,608 rays take K10 only from its threshold, K9 otherwise, with
+    the same faces."""
     jscene, scene = _both(wavy_sheet_obj(12))
     ts = to_torch(scene, "cpu")
+    band = phongtess.CLUSTER_MIN_RAYS
+    monkeypatch.setattr(phongtess, "CLUSTER_MIN_RAYS", 4096)
     taken = []
     for name in ("intersect_clusters_phongtess", "intersect_bvh_phongtess",
                  "intersect_brute_phongtess"):
@@ -356,6 +361,13 @@ def test_dispatch_at_4608_rays(monkeypatch):
     for a, b in zip(got_w, got_b):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     _assert_hits_close(got_w, [a[cut] for a in ref], uv=False)
+    monkeypatch.setattr(phongtess, "CLUSTER_MIN_RAYS", band)
+    del taken[:]
+    got_band = phongtess.intersect_scene_phongtess(_t3(o), _t3(d), ts.tris, ALPHA, bvh=ts.bvh,
+                                                   clusters=ts.clusters)
+    k10 = band is not None and 4608 >= band
+    assert taken == ["intersect_clusters_phongtess" if k10 else "intersect_bvh_phongtess"]
+    assert (got_band[1] == got[1]).float().mean() > 0.999
 
 
 def test_cluster_search_is_independent_of_the_chunk():

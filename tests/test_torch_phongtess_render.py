@@ -127,25 +127,49 @@ def test_phong_frame_differs_from_the_flat_one():
     assert np.abs(got - flat).max() > 1e-3
 
 
+# The JAX package's threshold of the Phong dispatch: every pass of 4,096
+# rays or more takes the cluster search (the card's band may send them all
+# to the walk: phongtess.CLUSTER_MIN_RAYS).
+JAX_MIN_RAYS = 4096
+
+
 @pytest.fixture(scope="module")
 def box_sphere():
     """The Cornell box and a smooth sphere (562 faces: 9 clusters of 64,
     built over the inflated bounds) at 64², NEE on: every pass of the
-    frame has 4,096 rays, so the port runs the cluster search throughout;
-    the oracle walks the BVH."""
+    frame has 4,096 rays, so under the JAX package's threshold the port
+    runs the cluster search throughout; the oracle walks the BVH."""
     text = cornell_sphere()
     scene = scene_from_text(*text, use_bvh=True, phong_tess_alpha=ALPHA)[0]
     assert scene.tris.count == 562 and scene.clusters is not None
     settings = _settings(64, shadow_rays=1, anti_aliasing=0.7, sky_light=(0.85, 0.9, 1.0))
-    return text, scene, settings, _frame(scene, _CAM_BOX, settings, 3)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(phongtess, "CLUSTER_MIN_RAYS", JAX_MIN_RAYS)
+        got = _frame(scene, _CAM_BOX, settings, 3)
+    return text, scene, settings, got
+
+
+def _box_sphere_oracle(box_sphere):
+    text, _, settings, _ = box_sphere
+    return render_cpu(jax_scene_from_text(*text, use_bvh=True, phong_tess_alpha=ALPHA)[0],
+                      _CAM_BOX, settings, frame_seed=3)[0]
 
 
 def test_cluster_path_frame_matches_the_oracle(box_sphere):
-    text, _, settings, got = box_sphere
-    ref, _ = render_cpu(jax_scene_from_text(*text, use_bvh=True, phong_tess_alpha=ALPHA)[0],
-                        _CAM_BOX, settings, frame_seed=3)
+    got = box_sphere[3]
     assert np.isfinite(got).all()
-    assert _flips(got, ref) <= 0.01
+    assert _flips(got, _box_sphere_oracle(box_sphere)) <= 0.01
+
+
+def test_band_path_frame_matches_the_oracle(box_sphere):
+    """The same frame under the card's band (``CLUSTER_MIN_RAYS`` as the
+    module sets it): within the oracle's gate, and within it of the
+    cluster search's frame."""
+    _, scene, settings, cluster = box_sphere
+    got = _frame(scene, _CAM_BOX, settings, 3)
+    assert np.isfinite(got).all()
+    assert _flips(got, _box_sphere_oracle(box_sphere)) <= 0.01
+    assert _flips(got, cluster) <= 0.01
 
 
 def test_shadow_leg_mask_changes_no_pixel(box_sphere, monkeypatch):
@@ -161,6 +185,7 @@ def test_shadow_leg_mask_changes_no_pixel(box_sphere, monkeypatch):
         return real(tris, hit_p, l_dir, t_light, None, *rest)
 
     monkeypatch.setattr(integrator, "_shadow_occluded", unmasked)
+    monkeypatch.setattr(phongtess, "CLUSTER_MIN_RAYS", JAX_MIN_RAYS)
     ref = _frame(scene, _CAM_BOX, settings, 3)
     assert calls == [64 * 64] * settings.max_total_depth
     np.testing.assert_array_equal(got, ref)
