@@ -207,15 +207,22 @@ eager frame's launches and to what the device ran (torch.profiler).
    1024² frame, compacted, bitwise the full-width frame; the frame step's
    graph holding the search of the card's Phong band
    for each pass (``phongtess.CLUSTER_MIN_RAYS``, docs/PHONG_BANDS_H100.json:
-   K10 from that many rays, K9 below; None: K9 for every pass; an eager
-   frame's searches, recorded) and no other kernel of the port;
+   K10 from that many rays, K9 below, its any-hit instance for the shadow
+   legs; None: K9 for every nearest pass and K9 any-hit for every shadow
+   leg; an eager frame's searches, recorded) and no other kernel of the
+   port;
    PHONG_FRAMES replayed frames, timed, each bitwise the eager frame,
    which is timed too, with the launches over the replays, one replay
    under the profiler (launches and device time a frame) and the peak
    memory; K9 against its plain version on the card, bitwise (t, face, u,
    v), on 4,095 camera rays, on all 1M camera rays and on 1M rays in the
-   box, and K10 (face, u, v and each tile's rounds, on the rays in its
-   tile order, and on the rays as given) on the 1M camera rays and the 1M
+   box (each in its pass kind's launch order, with K9's registers); K9
+   any-hit against its plain version, bitwise, and against the nearest
+   search's t < t_limit on the card (any ray that differs raises), on the
+   frame's recorded shadow rays of bounces 0 and 1 and on the 1M box rays
+   with t_limit drawn around each ray's nearest t; and K10 (face, u, v
+   and each tile's rounds, on the rays in its tile order, and on the rays
+   as given) on the 1M camera rays and the 1M
    rays in the box, each with its kernel, wrapper and plain times and its
    bounds (K10: the tests it runs, and the yardstick, the JAX loop's
    rule's tests); the Phong device golden: the 1024² frame and the 64²
@@ -359,6 +366,7 @@ from pbr_tpu_torch.scene.camera import make_camera_state  # noqa: E402
 from pbr_tpu_torch.scene.device import ForestTables  # noqa: E402
 from pbr_tpu_torch.scene.procedural import (  # noqa: E402
     cornell_box,
+    cornell_sphere,
     grey_soup,
     multi_room,
     random_soup,
@@ -432,6 +440,7 @@ REPLACES = {
     "K8": "pbr_tpu/ops/traverse.py:276",  # the XLA while_loop body of intersect_bvh
     "K8 any-hit": "pbr_tpu/models/integrator.py:352",  # its shadow leg: t_sh < t_light
     "K9": "pbr_tpu/ops/phongtess.py:458",  # the XLA while_loop of intersect_bvh_phongtess
+    "K9 any-hit": "pbr_tpu/models/integrator.py:339",  # its Phong shadow leg: t_sh < t_light
     "K10": "pbr_tpu/ops/phongtess.py:730",  # the XLA while_loop of intersect_clusters_phongtess
 }
 
@@ -2183,52 +2192,6 @@ PHONG_OLD_MIN_RAYS = 4096
 PHONG_DENSE = dict(rings=48, segments=96)
 
 
-def cornell_sphere(rings: int = 12, segments: int = 24, center=(-0.45, 0.3, 0.45),
-                   radius: float = 0.3):
-    """The Cornell box with every face given its flat normal as ``vn``, and
-    a smooth UV sphere (``segments`` x ``rings``: 528 faces, radial vertex
-    normals) on the floor: (obj, mtl, lights) text. A mesh keeps its vertex
-    normals only when every face has them."""
-    obj, mtl, lights = cornell_box()
-    verts = [[float(c) for c in ln.split()[1:4]] for ln in obj.splitlines()
-             if ln.startswith("v ")]
-    out, normals = [], []
-    for ln in obj.splitlines():
-        if ln.startswith("f "):
-            a, b, c = (int(i) - 1 for i in ln.split()[1:4])
-            p = np.array([verts[a], verts[b], verts[c]])
-            n = np.cross(p[1] - p[0], p[2] - p[0])
-            normals.append(n / np.linalg.norm(n))
-            k = len(normals)
-            out.append(f"f {a + 1}//{k} {b + 1}//{k} {c + 1}//{k}")
-        else:
-            out.append(ln)
-    out += [f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}" for n in normals]
-    base_v, base_n = len(verts), len(normals)
-    dirs = [(0.0, 1.0, 0.0)]
-    for j in range(1, rings):
-        th = np.pi * j / rings
-        dirs += [(np.sin(th) * np.cos(2 * np.pi * i / segments), np.cos(th),
-                  np.sin(th) * np.sin(2 * np.pi * i / segments)) for i in range(segments)]
-    dirs.append((0.0, -1.0, 0.0))
-    out.append("usemtl white")
-    for x, y, z in dirs:
-        out.append(f"v {center[0] + radius * x:.6f} {center[1] + radius * y:.6f} "
-                   f"{center[2] + radius * z:.6f}")
-        out.append(f"vn {x:.6f} {y:.6f} {z:.6f}")
-    idx = lambda k: f"{base_v + k + 1}//{base_n + k + 1}"  # noqa: E731
-    ring = lambda j, i: 1 + (j - 1) * segments + i % segments  # noqa: E731
-    last = len(dirs) - 1
-    for i in range(segments):
-        out.append(f"f {idx(0)} {idx(ring(1, i + 1))} {idx(ring(1, i))}")
-        out.append(f"f {idx(last)} {idx(ring(rings - 1, i))} {idx(ring(rings - 1, i + 1))}")
-        for j in range(1, rings - 1):
-            a, b, c, d = ring(j, i), ring(j, i + 1), ring(j + 1, i + 1), ring(j + 1, i)
-            out.append(f"f {idx(a)} {idx(b)} {idx(c)}")
-            out.append(f"f {idx(a)} {idx(c)} {idx(d)}")
-    return "\n".join(out) + "\n", mtl, lights
-
-
 def _graph_iters(fn) -> int:
     """Calls of ``fn`` a CUDA graph replay holds for ``k1_sweep.graph_ms``:
     about half a second of work, 1 to 20 calls."""
@@ -2236,11 +2199,33 @@ def _graph_iters(fn) -> int:
     return int(min(20, max(1, 500.0 / max(ms, 1e-3))))
 
 
+def _registers(name: str) -> dict:
+    """{function: registers} of the built library ``name``, as cuobjdump's
+    resource usage gives them (``REG:N`` on the line after each function's
+    mangled name); empty where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    lines = subprocess.run([tool, "--dump-resource-usage", str(ci.build(name))],
+                           capture_output=True, text=True).stdout.splitlines()
+    return {ln.split("Function", 1)[1].strip(" :"): int(nxt.split("REG:")[1].split()[0])
+            for ln, nxt in zip(lines, lines[1:]) if "Function" in ln and "REG:" in nxt}
+
+
+def k9_registers() -> str:
+    """K9's two instances' registers (``_registers``)."""
+    regs = _registers("phong_walk")
+    inst = {"K9": "phong_walk_kernelILb0E", "K9 any-hit": "phong_walk_kernelILb1E"}
+    return ", ".join(f"{k} {next((v for f, v in regs.items() if m in f), 'not read')}"
+                     for k, m in inst.items())
+
+
 def phong_walk_check(tag: str, what: str, o, d, ts) -> dict:
     """K9 against its plain version on the card, bitwise (t, face, u, v):
-    the kernel's ms (its launch alone, replayed from a CUDA graph), the
-    wrapper's (with the ray order), the plain version's, and the bound from
-    the plain walk's work (node steps, flat and curved face tests)."""
+    the kernel's ms (its launch alone on the rays as given, replayed from a
+    CUDA graph), the wrapper's (its checks and the launch), the plain
+    version's, and the bound from the plain walk's work (node steps, flat
+    and curved face tests)."""
     faces, ml = ts.phong_records, tt.leaf_bound(ts.bvh)
     got = cp.intersect_walk(o, d, ts.bvh, faces, PHONG_ALPHA)
     work = {}
@@ -2251,8 +2236,7 @@ def phong_walk_check(tag: str, what: str, o, d, ts) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     _equal_or_raise(f"{tag}: K9 on {what}", got, ref)
-    order = cb.ray_order(o, d, ts.bvh)
-    launch = lambda: cp.walk_kernel(o, d, ts.bvh, faces, PHONG_ALPHA, ml, None, order)  # noqa: E731
+    launch = lambda: cp.walk_kernel(o, d, ts.bvh, faces, PHONG_ALPHA, ml, None, None)  # noqa: E731
     ms = k1_sweep.graph_ms(launch, _graph_iters(launch))
     wrapped = lambda: cp.intersect_walk(o, d, ts.bvh, faces, PHONG_ALPHA)  # noqa: E731
     wrapper_ms = k1_sweep.graph_ms(wrapped, _graph_iters(wrapped))
@@ -2262,12 +2246,63 @@ def phong_walk_check(tag: str, what: str, o, d, ts) -> dict:
     nbytes = n * (24 + 16) + ts.bvh.count * 32 + faces.numel() * 4
     bound, by = _bound(ops, nbytes)
     hit = float((got[1] >= 0).float().mean())
-    phase(tag, f"K9 on {what} ({n} rays): bitwise its plain version (t, face, u, v), hit "
-               f"{hit:.4f}; kernel {ms:.4f} ms, with the ray order {wrapper_ms:.4f} ms, plain "
-               f"{plain_ms:.1f} ms; {work['visits']} node steps, {work['flat']} flat and "
-               f"{work['curved']} curved face tests; bound {bound:.4f} ms ({by})")
-    return {"rays": n, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "err": _max_err(got[0], ref[0]), **work}
+    phase(tag, f"K9 on {what} ({n} rays, as given): bitwise its plain version (t, face, u, "
+               f"v), hit {hit:.4f}; kernel {ms:.4f} ms, through the wrapper {wrapper_ms:.4f} "
+               f"ms, plain {plain_ms:.1f} ms; {work['visits']} node steps, {work['flat']} flat "
+               f"and {work['curved']} curved face tests; bound {bound:.4f} ms ({by})")
+    return {"rays": n, "ms": ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "err": _max_err(got[0], ref[0]), **work}
+
+
+def phong_any_hit_check(tag: str, what: str, o, d, t_limit, alive, ts) -> dict:
+    """K9's any-hit instance against its plain version on the card,
+    bitwise, and against the nearest search's bit
+    (``intersect_scene_phongtess(...)[0] < t_limit``, the leg's old form on
+    the card): the rays whose bits differ are counted, and any raises. The
+    kernel's ms (its launch alone on the rays as given, replayed from a
+    CUDA graph), the wrapper's, the plain version's, and the bound from
+    the plain walk's work up to each ray's occluder (node steps x 25, flat
+    tests x 51, curved x 578, rays x 65; bytes: 28 in and 1 out a ray, the
+    tree's nodes and faces)."""
+    faces, ml = ts.phong_records, tt.leaf_bound(ts.bvh)
+    got = cp.occluded_walk(o, d, t_limit, ts.bvh, faces, PHONG_ALPHA, alive=alive)
+    work = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = phongtess.occluded_bvh_phongtess(o, d, t_limit, ts.bvh, None, PHONG_ALPHA,
+                                           faces=faces, alive=alive, work=work)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _equal_or_raise(f"{tag}: K9 any-hit on {what}", got, ref)
+    nearest = phongtess.intersect_scene_phongtess(o, d, ts.tris, PHONG_ALPHA, bvh=ts.bvh,
+                                                  max_leaf=ml, alive=alive, faces=faces)[0]
+    differ = int((got != (nearest < t_limit)).sum())
+    if differ:
+        raise AssertionError(f"{tag}: K9 any-hit on {what}: the bit differs from the nearest "
+                             f"search's t < t_limit on {differ} rays")
+    launch = lambda: cp.walk_kernel(o, d, ts.bvh, faces, PHONG_ALPHA, ml, alive, None,  # noqa
+                                    t_limit)
+    ms = k1_sweep.graph_ms(launch, _graph_iters(launch))
+    wrapped = lambda: cp.occluded_walk(o, d, t_limit, ts.bvh, faces, PHONG_ALPHA,  # noqa: E731
+                                       alive=alive)
+    wrapper_ms = k1_sweep.graph_ms(wrapped, _graph_iters(wrapped))
+    n = o.x.shape[0]
+    ops = (work.get("visits", 0) * cp.OPS_NODE + work.get("flat", 0) * cp.OPS_MT
+           + work.get("curved", 0) * cp.OPS_PATCH + n * cp.OPS_RAY)
+    nbytes = n * (28 + 1) + ts.bvh.count * 32 + faces.numel() * 4
+    bound, by = _bound(ops, nbytes)
+    casting = n if alive is None else int(alive.sum())
+    phase(tag, f"K9 any-hit on {what} ({n} rays, {casting} cast, {int(got.sum())} occluded, "
+               f"as given): bitwise its plain version, and the nearest search's t < t_limit on "
+               f"all but {differ} rays; kernel {ms:.4f} ms, through the wrapper "
+               f"{wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; "
+               f"{work.get('visits', 0)} node steps, {work.get('flat', 0)} flat and "
+               f"{work.get('curved', 0)} curved face tests up to the occluders; bound "
+               f"{bound:.4f} ms ({by})")
+    return {"rays": n, "casting": casting, "ms": ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "err": 0.0,
+            "differ": differ, **work}
 
 
 def phong_clusters_check(tag: str, what: str, o, d, ts) -> dict:
@@ -2341,30 +2376,42 @@ def phong_clusters_check(tag: str, what: str, o, d, ts) -> dict:
 
 
 def _recorded_searches(pt: PathTracer, cam, seed: int) -> list:
-    """(kernel, rays) of each Phong search an eager frame of ``pt`` makes,
-    in order (the wrappers swapped for recorders for the frame)."""
+    """(kernel, rays, shadow rays) of each Phong search an eager frame of
+    ``pt`` makes, in order (the wrappers swapped for recorders for the
+    frame): shadow rays ``(o, d, t_limit, alive)``, copied, for K9's
+    any-hit walks, else None."""
     calls = []
-    real = {"K9": cp.intersect_walk, "K10": cp.intersect_clusters}
+    real = {"K9": cp.intersect_walk, "K9 any-hit": cp.occluded_walk,
+            "K10": cp.intersect_clusters}
 
     def recorder(name):
         def call(o, *a, **k):
-            calls.append((name, o.x.shape[0]))
+            rays = None
+            if name == "K9 any-hit":
+                rays = (Vec3(*(c.clone() for c in o)), Vec3(*(c.clone() for c in a[0])),
+                        a[1].clone(), None if k.get("alive") is None else k["alive"].clone())
+            calls.append((name, o.x.shape[0], rays))
             return real[name](o, *a, **k)
         return call
 
-    cp.intersect_walk, cp.intersect_clusters = recorder("K9"), recorder("K10")
+    cp.intersect_walk, cp.occluded_walk, cp.intersect_clusters = (
+        recorder(k) for k in ("K9", "K9 any-hit", "K10"))
     try:
         eager_frame(pt, cam, seed)
     finally:
-        cp.intersect_walk, cp.intersect_clusters = real["K9"], real["K10"]
+        cp.intersect_walk, cp.occluded_walk, cp.intersect_clusters = (
+            real[k] for k in ("K9", "K9 any-hit", "K10"))
     return calls
 
 
-def _band_kernel(rays: int) -> str:
+def _band_kernel(rays: int, shadow: bool = False) -> str:
     """The search the Phong dispatch takes for a pass of ``rays`` rays on a
-    scene with clusters."""
+    scene with clusters: a nearest pass, or with ``shadow`` a shadow leg
+    (where the nearest pass would walk K9, its any-hit instance)."""
     big = phongtess.CLUSTER_MIN_RAYS
-    return "K10" if big is not None and rays >= big else "K9"
+    if big is not None and rays >= big:
+        return "K10"
+    return "K9 any-hit" if shadow else "K9"
 
 
 def phong_path(tag: str, scene, cam, dev) -> dict:
@@ -2382,14 +2429,17 @@ def phong_path(tag: str, scene, cam, dev) -> dict:
     if g is None or g.graph is None:
         raise AssertionError(f"{tag}: the Phong frame step was not captured")
     nodes = kernel_counts(g.kernels)
-    calls = _recorded_searches(pt, cam, 1)
-    wrong = [(k, n) for k, n in calls if k != _band_kernel(n)]
-    expect = {k: sum(1 for c, _ in calls if c == k) for k in ("K9", "K10")}
+    # The recorder's copies of the shadow rays are not the path's memory:
+    # none is held while the peak is read (the checks record them after).
+    calls = [(k, n) for k, n, _ in _recorded_searches(pt, cam, 1)]
+    # A bounce's nearest pass, then its shadow leg.
+    wrong = [(k, n) for j, (k, n) in enumerate(calls) if k != _band_kernel(n, j % 2 == 1)]
+    expect = {k: sum(1 for c, _ in calls if c == k) for k in ("K9", "K9 any-hit", "K10")}
     expect = {k: v for k, v in expect.items() if v}
     if wrong or nodes != expect or not calls:
         raise AssertionError(f"{tag}: the graph's kernel nodes {nodes}, an eager frame's "
                              f"searches {calls} (K10 from {phongtess.CLUSTER_MIN_RAYS} rays, "
-                             f"K9 below)")
+                             f"K9 and K9 any-hit below)")
     phase(tag, f"the frame step's graph: {g.stats()['nodes']} nodes, the port's kernels "
                f"{nodes}: an eager frame's searches by their rays {calls}")
     saved = _state_copy(pt.state)
@@ -2431,12 +2481,14 @@ def phong_path(tag: str, scene, cam, dev) -> dict:
         raise AssertionError(f"{tag}: implausible image: mean {img.mean()}")
     n_launch, dev_ms, ours_ms, prof_wall = _device_launches(
         lambda: pt.render(cam, frame_seed=1 + PHONG_FRAMES))
+    shadow = [r for k, _, r in _recorded_searches(pt, cam, 1) if k == "K9 any-hit"][:2]
     phase(tag, f"1024²: {PHONG_FRAMES} replayed frames bitwise the eager frames; ms/frame "
                f"graphed {ms_graph:.3f}, eager {ms_eager:.3f}; launches over the replays "
                f"{launched}; peak memory {peak / 2**20:.1f} MiB; one replay under the profiler "
                f"({prof_wall:.1f} ms): {n_launch} kernel launches, {dev_ms:.3f} ms of device "
                f"time, the port's kernels {ours_ms:.3f} ms")
     return {"pt": pt, "first": first, "launches": launched, "frames": PHONG_FRAMES,
+            "shadow_rays": shadow,
             "ms_graph": ms_graph, "ms_eager": ms_eager, "launches_per_frame": n_launch,
             "graph_nodes": g.stats()["nodes"], "kernel_nodes": nodes,
             "device_ms_per_frame": dev_ms, "port_kernels_ms": ours_ms,
@@ -2444,20 +2496,36 @@ def phong_path(tag: str, scene, cam, dev) -> dict:
             "lane_order": pt.lane_order, "schedule": pt.settings.compact_schedule}
 
 
-def phong_kernel_checks(tag: str, pt: PathTracer, cam, dev) -> dict:
-    """K9 on 4,095 of the path's camera rays, on all 1M of them and on 1M
-    rays in the box, and K10 on the 1M camera rays and the 1M rays in the
-    box, each bitwise its plain version (``phong_walk_check``,
-    ``phong_clusters_check``)."""
+def phong_kernel_checks(tag: str, pt: PathTracer, cam, dev, shadow_rays: list) -> dict:
+    """K9 on 4,095 of the path's camera rays, on all 1M of them (camera
+    passes) and on 1M rays in the box (a bounce pass), and K10 on the 1M
+    camera rays and the 1M rays in the box, each bitwise its plain version
+    (``phong_walk_check``, ``phong_clusters_check``); K9 any-hit on the
+    frame's recorded shadow rays of bounces 0 and 1 (``shadow_rays``) and
+    on the 1M box rays with t_limit drawn around each ray's nearest t
+    (``phong_any_hit_check``)."""
     ts = pt.scene
     cam_o, cam_d = _camera_rays(camera_to_torch(cam, dev), pt.settings, dev, pt.pixel_ids)
     box = _rays_in_box(BOUNCE_RAYS, 5, dev)
     cut = lambda v: Vec3(*(c[:PHONG_OLD_MIN_RAYS - 1].contiguous() for c in v))  # noqa: E731
-    return {"K9 4095": phong_walk_check(tag, "4,095 camera rays", cut(cam_o), cut(cam_d), ts),
-            "K9 camera": phong_walk_check(tag, "the camera rays", cam_o, cam_d, ts),
-            "K9 box": phong_walk_check(tag, "1M rays in the box", *box, ts),
-            "K10 camera": phong_clusters_check(tag, "the camera rays", cam_o, cam_d, ts),
-            "K10 box": phong_clusters_check(tag, "1M rays in the box", *box, ts)}
+    out = {"K9 4095": phong_walk_check(tag, "4,095 camera rays", cut(cam_o), cut(cam_d), ts),
+           "K9 camera": phong_walk_check(tag, "the camera rays", cam_o, cam_d, ts),
+           "K9 box": phong_walk_check(tag, "1M rays in the box", *box, ts)}
+    for b, (o, d, t_limit, alive) in enumerate(shadow_rays):
+        out[f"K9 any-hit {b}"] = phong_any_hit_check(
+            tag, f"the frame's recorded shadow rays of bounce {b}", o, d, t_limit, alive, ts)
+    t_box = cp.intersect_walk(*box, ts.bvh, ts.phong_records, PHONG_ALPHA)[0]
+    scale = torch.tensor(np.random.default_rng(12).uniform(0.5, 1.5, BOUNCE_RAYS),
+                         dtype=torch.float32, device=dev)
+    t_lim = torch.where(torch.isfinite(t_box), t_box * scale, 10.0).contiguous()
+    out["K9 any-hit box"] = phong_any_hit_check(
+        tag, "1M rays in the box, t_limit in [0.5, 1.5) of the nearest t", *box, t_lim, None, ts)
+    regs = k9_registers()
+    phase(tag, f"K9's registers (cuobjdump): {regs}")
+    out["K9 camera"]["registers"] = regs
+    out["K10 camera"] = phong_clusters_check(tag, "the camera rays", cam_o, cam_d, ts)
+    out["K10 box"] = phong_clusters_check(tag, "1M rays in the box", *box, ts)
+    return out
 
 
 def phong_golden_phase(tag: str, scene, cam, pt: PathTracer, dev) -> dict:
@@ -2484,7 +2552,7 @@ def phong_golden_phase(tag: str, scene, cam, pt: PathTracer, dev) -> dict:
                                  old.pixel_ids, 1, max_leaf=old.max_leaf)
         bad = [j for j, (a, b) in enumerate(zip(_state_copy(old.state), _state_copy(state)))
                if not torch.equal(a, b)]
-    if "K10" not in launched or set(launched) - {"K9", "K10"}:
+    if "K10" not in launched or set(launched) - {"K9", "K9 any-hit", "K10"}:
         raise AssertionError(f"{tag}: the frames under {PHONG_OLD_MIN_RAYS} rays launched "
                              f"{launched}")
     if bad:
@@ -2514,9 +2582,9 @@ def phong_fit_check(scene, cam, dev, size: int = 64) -> dict:
     zero_counts()
     out = _fit_steps_bitwise(f"Phong {size}²", app.fit_problem(scene, settings, cam, dev))
     launched = {k: v for k, v in counts().items() if v}
-    if set(launched) != {_band_kernel(size * size)}:
-        raise AssertionError(f"fit on the Phong scene launched {launched}, not "
-                             f"{_band_kernel(size * size)}")
+    want = {_band_kernel(size * size), _band_kernel(size * size, shadow=True)}
+    if set(launched) != want:
+        raise AssertionError(f"fit on the Phong scene launched {launched}, not {want}")
     phase("phong", f"fit's graphed steps on the Phong scene at {size}² bitwise the eager "
                    f"step at 3 points; launches {launched}")
     return {**out, "launches": launched}
@@ -2553,7 +2621,7 @@ def phong_phase(cam, dev, size: int = SIZE) -> dict:
     lap("64² gradients")
     path = phong_path(tag, scene, cam, dev)
     lap("1024² frames")
-    passes = phong_kernel_checks(tag, path["pt"], cam, dev)
+    passes = phong_kernel_checks(tag, path["pt"], cam, dev, path.pop("shadow_rays"))
     lap("kernels")
     golden = phong_golden_phase(tag, scene, cam, path["pt"], dev)
     lap("golden")
@@ -2581,7 +2649,7 @@ def phong_phase(cam, dev, size: int = SIZE) -> dict:
                 f"and padding), BVH {dense.bvh.count} nodes")
     dpath = phong_path(dtag, dense, cam, dev)
     lap("dense 1024² frames")
-    dpasses = phong_kernel_checks(dtag, dpath.pop("pt"), cam, dev)
+    dpasses = phong_kernel_checks(dtag, dpath.pop("pt"), cam, dev, dpath.pop("shadow_rays"))
     lap("dense kernels")
     dpath.pop("first")
     sec["phase"] = sum(sec.values())
@@ -3226,8 +3294,10 @@ def main() -> None:
 
     t = {**corn["times"], **mk_times, **mc["times"], **sk["times"], **msw["times"],
          **swk["times"], **{k: (v["ms"], v["plain_ms"]) for k, v in tk.items()}}
-    # K9 and K10 on the 1M camera rays, the main path's first pass.
-    phong = {"K9": ph["passes"]["K9 camera"], "K10": ph["passes"]["K10 camera"]}
+    # K9 and K10 on the 1M camera rays, the main path's first pass; K9
+    # any-hit on its first shadow leg.
+    phong = {"K9": ph["passes"]["K9 camera"], "K10": ph["passes"]["K10 camera"],
+             "K9 any-hit": ph["passes"]["K9 any-hit 0"]}
     t.update({k: (v["ms"], v["plain_ms"]) for k, v in phong.items()})
     bounds = {**corn["bounds"], **mk_bounds,
               **{k: v[2] for times in (mc["times"], sk["times"], msw["times"], swk["times"])
@@ -3267,12 +3337,13 @@ def main() -> None:
         ("K8", K8_SOURCE, tp["k8"]["launches"]["K8"], FRAMES),
         ("K8 any-hit", K8_SOURCE, tp["k8"]["launches"]["K8 any-hit"], FRAMES),
         ("K9", K9_SOURCE, ph["path"]["launches"].get("K9", 0), PHONG_FRAMES),
+        ("K9 any-hit", K9_SOURCE, ph["path"]["launches"].get("K9 any-hit", 0), PHONG_FRAMES),
         ("K10", K10_SOURCE, ph["path"]["launches"].get("K10", 0), PHONG_FRAMES),
     ]
     # No one PyTorch call computes a nearest-hit search or a BVH walk:
     # library_ms is null.
-    if len(rows) != 27:
-        raise AssertionError(f"expected 27 kernel rows, got {len(rows)}")
+    if len(rows) != 28:
+        raise AssertionError(f"expected 28 kernel rows, got {len(rows)}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src,
         "replaces": REPLACES[name] if name in REPLACES else REPLACES[name.split()[0]],

@@ -47,6 +47,7 @@ from pbr_tpu_torch.ops.intersect import INF, gather_vec3, geometric_normal, sphe
 from pbr_tpu_torch.ops.phongtess import (
     face_is_flat,
     intersect_scene_phongtess,
+    occluded_scene_phongtess,
     patch_constants,
     phongtess_normal,
 )
@@ -245,17 +246,18 @@ def _shadow_occluded(tris, hit_p, l_dir, t_light, casts, mode, tables, pt_alpha=
     caller reads (``ops/traverse.py::occluded_scene``: the per-ray BVH walk
     runs kernel K8's any-hit instance on those lanes only, the plain sweep
     a second nearest-hit search over every lane). With Phong tessellation
-    (``pt_alpha`` > 0) the shadow ray tests the curved patches too: the
-    nearest Phong search (``pt_faces``: its face table), then t < t_light.
-    The JAX version searches every lane there; the port closes the lanes
-    that cast no shadow ray (the ``alive`` of the cluster search and the
-    walk), whose bit is never read."""
+    (``pt_alpha`` > 0) the shadow ray tests the curved patches too
+    (``ops/phongtess.py::occluded_scene_phongtess``, ``pt_faces``: its face
+    table): where the nearest dispatch walks the BVH, the any-hit walk
+    (kernel K9's any-hit instance); the sweep and the cluster search, then
+    t < t_light. The JAX version searches nearest on every lane and
+    re-evaluates t; the port closes the lanes that cast no shadow ray,
+    whose bit is never read."""
     if pt_alpha > 0.0:
-        t_sh = intersect_scene_phongtess(hit_p, l_dir, tris, pt_alpha, bvh=tables["bvh"],
-                                         clusters=tables["clusters"],
-                                         max_leaf=tables["max_leaf"], alive=casts,
-                                         faces=pt_faces)[0]
-        return t_sh < t_light
+        return occluded_scene_phongtess(hit_p, l_dir, t_light, tris, pt_alpha,
+                                        bvh=tables["bvh"], clusters=tables["clusters"],
+                                        max_leaf=tables["max_leaf"], alive=casts,
+                                        faces=pt_faces)
     return occluded_scene(hit_p, l_dir, t_light, tris, mode=mode, alive=casts, **tables)
 
 

@@ -30,7 +30,8 @@ KERNELS = {
     "K7 NEE": r"slab_kernel<1>",
     "K8": r"walk_kernel<false>",
     "K8 any-hit": r"walk_kernel<true>",
-    "K9": r"phong_walk_kernel",
+    "K9": r"phong_walk_kernel<false>",
+    "K9 any-hit": r"phong_walk_kernel<true>",
     "K10": r"phong_clusters_kernel",
 }
 

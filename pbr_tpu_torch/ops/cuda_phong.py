@@ -7,8 +7,13 @@ same class as ``traverse.py``'s walk whose port is K8:
 - **K9** (``csrc/phong_walk.cu``, ``intersect_walk``) is the per-ray
   stackless walk of the Phong tree (built over ``phongtess_face_aabbs``),
   ``pbr_tpu/ops/phongtess.py::intersect_bvh_phongtess`` (the
-  ``jax.lax.while_loop`` at :458 over the step at :414-452). Its plain
-  version is ``ops/phongtess.py::intersect_bvh_phongtess``;
+  ``jax.lax.while_loop`` at :458 over the step at :414-452), each leaf's
+  curved tests dealt over the warp. Its plain version is
+  ``ops/phongtess.py::intersect_bvh_phongtess``. Its any-hit instance
+  (``occluded_walk``, "K9 any-hit") is the Phong shadow leg: the bit
+  ``t_sh < t_light`` that the JAX package takes from a nearest search
+  (``pbr_tpu/models/integrator.py:339-353``), with the plain version
+  ``ops/phongtess.py::occluded_bvh_phongtess``;
 - **K10** (``csrc/phong_clusters.cu``, ``intersect_clusters``) is the
   cluster search, ``intersect_clusters_phongtess`` (the while_loop at :730
   over ``cond`` and ``body`` at :681-728): the rays sorted into coherent
@@ -25,20 +30,27 @@ phong_records``, 20 floats a face in five 16-byte words, which
 share ``csrc/phong.cuh``, the patch test. The searches are detached, as in
 JAX (``pbr_tpu/ops/phongtess.py:475-483``): neither kernel has a backward.
 
+K9's wrappers launch the rays as given: on the card's table
+(``tools/k9_walk.py``, ``docs/K9_ORDER_H100.json``) the sort by octant and
+Morton code of the origin (``cuda_bvh.ray_order``) lost to that order on
+every kind of pass a Phong frame makes.
+
 A wrapper checks device, type, shape and contiguity; on a CUDA tensor it
 launches its kernel or raises, on a CPU tensor (and only there) it runs the
-plain version. ``launches`` counts kernel launches ("K9", "K10"); a launch
-under capture counts at its graph's replays (``ops.counts``).
+plain version. ``launches`` counts kernel launches ("K9", "K9 any-hit",
+"K10"); a launch under capture counts at its graph's replays
+(``ops.counts``).
 
 The bounds of chip_smoke.py count the operations of the functions as
 written (``OPS_NODE`` a node step, ``OPS_MT`` a flat face test,
 ``OPS_PATCH`` a curved one, ``OPS_RAY`` a ray) over the work of the run's
 data: the walk's node steps and face tests (``intersect_bvh_phongtess``'s
-``work``); for the cluster search (``cluster_tests``) both the tests of
-the JAX loop's rule (every real face of the rounds a tile runs under it,
-against each live ray of the tile: the yardstick) and the tests K10
-runs (the real faces of a round's cluster against its active rays), with
-its slab tests (``OPS_NODE`` each).
+``work``; the any-hit walk's up to each ray's occluder,
+``occluded_bvh_phongtess``'s); for the cluster search (``cluster_tests``)
+both the tests of the JAX loop's rule (every real face of the rounds a
+tile runs under it, against each live ray of the tile: the yardstick) and
+the tests K10 runs (the real faces of a round's cluster against its active
+rays), with its slab tests (``OPS_NODE`` each).
 """
 
 from __future__ import annotations
@@ -49,14 +61,13 @@ from typing import Optional
 import torch
 
 from pbr_tpu_torch.ops import count_launch, phongtess
-from pbr_tpu_torch.ops.cuda_bvh import ray_order
 from pbr_tpu_torch.ops.cuda_intersect import check_rays, load
 from pbr_tpu_torch.ops.cull import coherence_keys
 from pbr_tpu_torch.ops.traverse import leaf_bound
 from pbr_tpu_torch.ops.vec import Vec3, f32
 
 # Kernel launches. CPU calls and launches under capture do not count.
-launches = {"K9": 0, "K10": 0}
+launches = {"K9": 0, "K9 any-hit": 0, "K10": 0}
 
 # K10's tile: rays a block (kTile of csrc/phong_clusters.cu), and the
 # largest cluster it stages (kMaxSize).
@@ -80,9 +91,9 @@ OPS_RAY = 65
 OPS_PATCH = 578
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# rays (6), order, alive, n, node records, n_nodes, faces, max_leaf, alpha,
-# 1 - alpha, t_out, f_out, u_out, v_out, stream
-_WALK_ARGTYPES = [_P] * 8 + [_I, _P, _I, _P, _I, _F, _F] + [_P] * 5
+# rays (6), order, alive, t_limit, n, node records, n_nodes, faces, max_leaf,
+# alpha, 1 - alpha, t_out, f_out, u_out, v_out, occ_out, stream
+_WALK_ARGTYPES = [_P] * 9 + [_I, _P, _I, _P, _I, _F, _F] + [_P] * 6
 # rays (6), alive, order, n, faces, size, boxes, cand, cnt, tent, n_cand,
 # alpha, 1 - alpha, f_out, u_out, v_out, rounds_out, stream
 _CLUSTER_ARGTYPES = [_P] * 8 + [_I, _P, _I, _P, _P, _P, _P, _I, _F, _F] + [_P] * 5
@@ -111,6 +122,20 @@ def _check(who: str, o: Vec3, d: Vec3, faces: torch.Tensor, rows: Optional[int],
         raise ValueError(f"{who} runs on CUDA or CPU tensors, not {dev}")
 
 
+def _check_walk(who: str, o: Vec3, d: Vec3, bvh, faces, max_leaf, alive) -> int:
+    """The walk's checks (``_check``, the leaf bound, on a card the packed
+    node records); returns the leaf bound."""
+    max_leaf = leaf_bound(bvh, max_leaf)
+    _check(who, o, d, faces, None, alive)
+    dev = o.x.device
+    rec = bvh.node_records
+    if dev.type == "cuda" and (rec is None or rec.device != dev
+                               or tuple(rec.shape) != (bvh.count, 8) or not rec.is_contiguous()):
+        raise ValueError(f"{who}: the tree needs its packed node records, contiguous "
+                         f"({bvh.count}, 8) float32 on {dev} (to_torch builds them)")
+    return max_leaf
+
+
 def intersect_walk(o: Vec3, d: Vec3, bvh, faces: torch.Tensor, alpha: float,
                    max_leaf: Optional[int] = None, alive=None):
     """Nearest hit by the per-ray Phong walk, kernel K9
@@ -119,43 +144,65 @@ def intersect_walk(o: Vec3, d: Vec3, bvh, faces: torch.Tensor, alpha: float,
     ``faces``: its ``phong_records`` table; ``max_leaf``: the faces a leaf
     may hold (``leaf_bound``: None takes the tree's own, and a bound below
     the tree's largest leaf raises); ``alive`` (B,) bool: a dead lane walks
-    nothing. Returns ``(t, face, u, v)``."""
-    max_leaf = leaf_bound(bvh, max_leaf)
-    _check("K9", o, d, faces, None, alive)
-    dev, n = o.x.device, o.x.shape[0]
-    if dev.type == "cpu":
+    nothing. The rays launch as given. Returns ``(t, face, u, v)``."""
+    max_leaf = _check_walk("K9", o, d, bvh, faces, max_leaf, alive)
+    if o.x.device.type == "cpu":
         return phongtess.intersect_bvh_phongtess(o, d, bvh, None, alpha, max_leaf, alive=alive,
                                                  faces=faces)
-    rec = bvh.node_records
-    if rec is None or rec.device != dev or tuple(rec.shape) != (bvh.count, 8) \
-            or not rec.is_contiguous():
-        raise ValueError(f"K9: the tree needs its packed node records, contiguous "
-                         f"({bvh.count}, 8) float32 on {dev} (to_torch builds them)")
-    return walk_kernel(o, d, bvh, faces, alpha, max_leaf, alive, ray_order(o, d, bvh, alive))
+    return walk_kernel(o, d, bvh, faces, alpha, max_leaf, alive, None)
+
+
+def occluded_walk(o: Vec3, d: Vec3, t_limit: torch.Tensor, bvh, faces: torch.Tensor,
+                  alpha: float, max_leaf: Optional[int] = None, alive=None):
+    """Any hit closer than ``t_limit`` by the per-ray Phong walk, K9's
+    any-hit instance (``occluded_bvh_phongtess``'s contract): a ray is
+    occluded iff some valid face has t < ``t_limit``, the bit the nearest
+    search gives as t < ``t_limit``. Arguments as ``intersect_walk``;
+    ``t_limit`` (B,) float32. Returns the (B,) bool ``occluded`` (False on
+    a dead lane)."""
+    max_leaf = _check_walk("K9 any-hit", o, d, bvh, faces, max_leaf, alive)
+    n, dev = o.x.shape[0], o.x.device
+    if (t_limit.device != dev or t_limit.dtype != torch.float32 or t_limit.shape != (n,)
+            or not t_limit.is_contiguous()):
+        raise ValueError(f"K9 any-hit: t_limit must be a contiguous ({n},) float32 tensor on "
+                         f"{dev}")
+    if dev.type == "cpu":
+        return phongtess.occluded_bvh_phongtess(o, d, t_limit, bvh, None, alpha, max_leaf,
+                                                alive=alive, faces=faces)
+    return walk_kernel(o, d, bvh, faces, alpha, max_leaf, alive, None, t_limit)
 
 
 def walk_kernel(o: Vec3, d: Vec3, bvh, faces: torch.Tensor, alpha: float, max_leaf: int,
-                alive, order):
-    """K9's launch alone over checked inputs and a launch ``order`` (CUDA
-    tensors; ``intersect_walk`` checks them and computes the order):
-    ``(t, face, u, v)``. chip_smoke.py times it apart from the order."""
+                alive, order, t_limit: Optional[torch.Tensor] = None, lib=None):
+    """K9's launch alone over checked inputs and a launch ``order`` (None:
+    the rays as given, which the wrappers take; CUDA tensors, which
+    ``intersect_walk`` and ``occluded_walk`` check): the nearest instance's
+    ``(t, face, u, v)``, or with ``t_limit`` the any-hit instance's
+    ``occluded``. ``lib``: another build of the source (``tools/k9_walk.py``'s
+    copies), None for the port's."""
     dev, n = o.x.device, o.x.shape[0]
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    f = torch.empty((n,), dtype=torch.int32, device=dev)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    lib = load("phong_walk", "pbr_phong_walk", _WALK_ARGTYPES)
+    if t_limit is None:
+        t = torch.empty((n,), dtype=torch.float32, device=dev)
+        f = torch.empty((n,), dtype=torch.int32, device=dev)
+        u = torch.empty_like(t)
+        v = torch.empty_like(t)
+        outs, occ = (t.data_ptr(), f.data_ptr(), u.data_ptr(), v.data_ptr(), None), None
+    else:
+        occ = torch.empty((n,), dtype=torch.bool, device=dev)
+        outs = (None, None, None, None, occ.data_ptr())
+    lib = load("phong_walk", "pbr_phong_walk", _WALK_ARGTYPES) if lib is None else lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pbr_phong_walk(
             *(a.data_ptr() for a in (*o, *d)), None if order is None else order.data_ptr(),
-            None if alive is None else alive.data_ptr(), n, bvh.node_records.data_ptr(),
-            bvh.count, faces.data_ptr(), max_leaf, *_alphas(alpha), t.data_ptr(), f.data_ptr(),
-            u.data_ptr(), v.data_ptr(), stream)
+            None if alive is None else alive.data_ptr(),
+            None if t_limit is None else t_limit.data_ptr(), n, bvh.node_records.data_ptr(),
+            bvh.count, faces.data_ptr(), max_leaf, *_alphas(alpha), *outs, stream)
+    name = "K9" if t_limit is None else "K9 any-hit"
     if err != 0:
-        raise RuntimeError(f"K9 launch failed: cudaError {err}")
-    count_launch(launches, "K9")
-    return t, f, u, v
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    count_launch(launches, name)
+    return (t, f, u, v) if t_limit is None else occ
 
 
 def cluster_order(o: Vec3, d: Vec3, clusters, alive=None) -> torch.Tensor:

@@ -21,13 +21,15 @@ K10 (``ops/cuda_phong.py``), whose plain versions are the searches here.
   ``scene/device.py::to_torch`` builds once a scene with curved faces;
 - the searches: ``intersect_brute_phongtess`` (all faces), the stackless
   BVH walk ``intersect_bvh_phongtess`` (K9's plain version: a host-driven
-  loop, one step a node) and the cluster search
+  loop, one step a node) and its any-hit form ``occluded_bvh_phongtess``
+  (K9 any-hit's), and the cluster search
   ``intersect_clusters_phongtess`` (K10's plain version: rounds over the
   near-to-far lists of ``ops/cull.py::candidates_fine``, each ray culling a
   round's cluster by its box and closing on its own, ``PHONG_CHUNK_RAYS``
   rays at a time);
 - ``intersect_scene_phongtess``, their dispatch with a differentiable
-  re-evaluation of the winner's t;
+  re-evaluation of the winner's t, and ``occluded_scene_phongtess``, the
+  shadow leg's;
 - the host layer's build-time bounds, NumPy: ``_tess_point`` and
   ``phongtess_face_aabbs`` (copies of the JAX package's, byte-equal).
 """
@@ -516,6 +518,31 @@ def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf=
     dict that gets the walk's node steps (``visits``) and its tests of
     flat and of curved faces (``flat``, ``curved``), added to what it
     holds. Returns ``(t, face, u, v)``."""
+    return _walk(o, d, bvh, tris, alpha, max_leaf, alive, faces, work, None)
+
+
+def occluded_bvh_phongtess(o: Vec3, d: Vec3, t_limit, bvh, tris, alpha: float, max_leaf=None,
+                           alive=None, faces: Optional[torch.Tensor] = None,
+                           work: Optional[dict] = None) -> torch.Tensor:
+    """Any hit closer than ``t_limit`` through the Phong BVH: a ray is
+    occluded iff some valid face (``intersect_bvh_phongtess``'s tests, the
+    patch test bounded by ``t_limit``) has t < ``t_limit``, and it ends at
+    the first leaf that holds one. Kernel K9's any-hit instance's plain
+    version (``ops/cuda_phong.py::occluded_walk``): the Phong shadow leg,
+    the reference's any-hit ``traverseShadows`` (pt_bvh.cl:133-177), whose
+    bit the JAX package takes from a nearest search as t_sh < t_light
+    (``pbr_tpu/models/integrator.py:339-353``). The patch test returns the
+    least root in [0, bound], the same for every bound at or above the
+    nearest t, so the bit is the nearest walk's t < ``t_limit``. The node
+    test takes t_limit > t_near in place of the running best. Arguments as
+    ``intersect_bvh_phongtess``; ``t_limit`` (B,) float32; ``work`` gets
+    the node steps and the face tests up to and including each ray's
+    occluder. Returns the (B,) bool ``occluded``, False on a dead lane."""
+    return _walk(o, d, bvh, tris, alpha, max_leaf, alive, faces, work, t_limit)
+
+
+def _walk(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf, alive, faces, work, t_limit):
+    """The two Phong walks: nearest (``t_limit`` None) and any-hit."""
     max_leaf = leaf_bound(bvh, max_leaf)
     n = bvh.count
     fc = record_faces(phong_records(tris) if faces is None else faces)
@@ -527,7 +554,11 @@ def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf=
     idx = torch.zeros(o.x.shape, dtype=torch.int32, device=dev)
     if alive is not None:
         idx = torch.where(alive, idx, n)
-    t_best = torch.full_like(o.x, INF)
+    any_hit = t_limit is not None
+    # The node test's and the face tests' bound: the running best t, or
+    # t_limit.
+    t_best = t_limit if any_hit else torch.full_like(o.x, INF)
+    occluded = torch.zeros(o.x.shape, dtype=torch.bool, device=dev)
     f_best = torch.full(o.x.shape, -1, dtype=torch.int32, device=dev)
     u_best = torch.zeros_like(o.x)
     v_best = torch.zeros_like(o.x)
@@ -551,17 +582,29 @@ def intersect_bvh_phongtess(o: Vec3, d: Vec3, bvh, tris, alpha: float, max_leaf=
         fidx = (leaf_first[None] + ks).clamp(0, nf - 1).long()  # (max_leaf, B)
         t, uu, vv, valid = _face_hit(o1, d1, fc, fidx, alpha, t_best[None])
         tested = do_leaf[None] & (ks < bvh.leaf_count[safe][None])
+        ok = tested & valid
+        if any_hit:
+            hits = ok & (t < t_best[None])
+            # The tests up to and including each ray's first occluder.
+            before = torch.cumsum(hits.to(torch.int32), dim=0) - hits.to(torch.int32)
+            tested = tested & (before == 0)
+            occ_now = hits.any(dim=0)
+            occluded = occluded | occ_now
+            idx = torch.where(occ_now, n, idx)  # an occluded ray ends
         if work is not None:
             flat_t = tested & fc.flat[fidx]
             work["flat"] = work.get("flat", 0) + int(flat_t.sum())
             work["curved"] = work.get("curved", 0) + int((tested & ~flat_t).sum())
-        ok = tested & valid
+        if any_hit:
+            continue
         for k in range(max_leaf):
             better = ok[k] & (t[k] < t_best)
             t_best = torch.where(better, t[k], t_best)
             f_best = torch.where(better, fidx[k].to(torch.int32), f_best)
             u_best = torch.where(better, uu[k], u_best)
             v_best = torch.where(better, vv[k], v_best)
+    if any_hit:
+        return occluded
     return t_best, f_best, u_best, v_best
 
 
@@ -750,15 +793,21 @@ def _cluster_round(ids, r: int, o: Vec3, d: Vec3, cand, lane_tile, table, offs, 
     v_b[ids] = torch.where(better, torch.where(flat_k, 0.0, at_k(v_pt)), v_b[ids])
 
 
+def _takes_clusters(clusters, rays: int) -> bool:
+    """Whether the dispatch sends a pass of ``rays`` rays to the cluster
+    search (else, with a BVH, to the walk)."""
+    return clusters is not None and CLUSTER_MIN_RAYS is not None and rays >= CLUSTER_MIN_RAYS
+
+
 def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, clusters=None,
                               max_leaf=None, alive=None, faces: Optional[torch.Tensor] = None):
     """The Phong nearest-hit dispatch (``pbr_tpu/ops/phongtess.py:467``):
     no BVH, the all-faces sweep; clusters and at least
     ``CLUSTER_MIN_RAYS`` rays (when it is not None), the cluster search
     (kernel K10 on the card); otherwise the BVH walk (kernel K9 on the
-    card). ``faces``: the
-    searches' ``phong_records`` table (``SceneParams.phong_records``; built
-    here when None). Returns ``(t, face, u, v)``.
+    card). ``faces``: the searches' ``phong_records`` table
+    (``SceneParams.phong_records``; built here when None). Returns ``(t,
+    face, u, v)``.
 
     The search runs detached; the winner's t is then re-evaluated on live
     ``o``/``d`` and detached geometry and patch coordinates, which is where
@@ -779,8 +828,7 @@ def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, cl
                 faces = phong_records(tris_s, None if clusters is None
                                       else clusters.count * clusters.size)
             live = None if alive is None else alive.contiguous()
-            if (clusters is not None and CLUSTER_MIN_RAYS is not None
-                    and o.x.numel() >= CLUSTER_MIN_RAYS):
+            if _takes_clusters(clusters, o.x.numel()):
                 face, uu, vv = cuda_phong.intersect_clusters(o_s, d_s, clusters, faces, alpha,
                                                              alive=live)
             else:
@@ -798,3 +846,29 @@ def intersect_scene_phongtess(o: Vec3, d: Vec3, tris, alpha: float, bvh=None, cl
     t_c = _guard_div(_axis_component(pt, domain), _axis_component(d, domain))
     t = torch.where(face_is_flat(tris_s)[safe], t_f, t_c)
     return t.masked_fill(face < 0, INF), face, uu, vv
+
+
+def occluded_scene_phongtess(o: Vec3, d: Vec3, t_limit, tris, alpha: float, bvh=None,
+                             clusters=None, max_leaf=None, alive=None,
+                             faces: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The Phong shadow leg: (B,) bool, some face closer than ``t_limit``.
+    Where the nearest dispatch (``intersect_scene_phongtess``) walks the
+    BVH, the any-hit walk (kernel K9's any-hit instance on the card,
+    ``occluded_bvh_phongtess`` its plain version); the sweep (no BVH) and
+    the cluster search, then t < ``t_limit``. The JAX package searches
+    nearest and re-evaluates t on every pass (``pbr_tpu/models/
+    integrator.py:339-353``); the bit carries no gradient. ``alive``: the
+    lanes that cast, False elsewhere on the walk."""
+    from pbr_tpu_torch.ops import cuda_phong
+
+    if bvh is None or _takes_clusters(clusters, o.x.numel()):
+        t = intersect_scene_phongtess(o, d, tris, alpha, bvh=bvh, clusters=clusters,
+                                      max_leaf=max_leaf, alive=alive, faces=faces)[0]
+        return t < t_limit
+    with torch.no_grad():
+        if faces is None:
+            faces = phong_records(detach_tris(tris))
+        return cuda_phong.occluded_walk(
+            Vec3(*(c.detach() for c in o)), Vec3(*(c.detach() for c in d)),
+            t_limit.detach().contiguous(), bvh, faces, alpha, max_leaf=max_leaf,
+            alive=None if alive is None else alive.contiguous())

@@ -279,3 +279,52 @@ def grey_soup(n: int, seed: int = 11) -> Tuple[str, str, str]:
     li = "newlight orb\ntype 2\nrgb 1.6 1.5 1.4\npos 0.0 2.4 0.0\nradius 0.09\n"
     obj = random_soup(n, seed=seed).replace("o soup\n", "o soup\nusemtl grey\n", 1)
     return obj, mtl, li
+
+
+def cornell_sphere(rings: int = 12, segments: int = 24, center=(-0.45, 0.3, 0.45),
+                   radius: float = 0.3):
+    """The Cornell box with every face given its flat normal as ``vn``, and
+    a smooth UV sphere (``segments`` x ``rings``: 528 faces, radial vertex
+    normals) on the floor: (obj, mtl, lights) text, the Phong scenes of
+    chip_smoke.py and ``tools/k9_walk.py``. A mesh keeps its vertex normals
+    only when every face has them."""
+    import numpy as np
+
+    obj, mtl, lights = cornell_box()
+    verts = [[float(c) for c in ln.split()[1:4]] for ln in obj.splitlines()
+             if ln.startswith("v ")]
+    out, normals = [], []
+    for ln in obj.splitlines():
+        if ln.startswith("f "):
+            a, b, c = (int(i) - 1 for i in ln.split()[1:4])
+            p = np.array([verts[a], verts[b], verts[c]])
+            n = np.cross(p[1] - p[0], p[2] - p[0])
+            normals.append(n / np.linalg.norm(n))
+            k = len(normals)
+            out.append(f"f {a + 1}//{k} {b + 1}//{k} {c + 1}//{k}")
+        else:
+            out.append(ln)
+    out += [f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}" for n in normals]
+    base_v, base_n = len(verts), len(normals)
+    dirs = [(0.0, 1.0, 0.0)]
+    for j in range(1, rings):
+        th = np.pi * j / rings
+        dirs += [(np.sin(th) * np.cos(2 * np.pi * i / segments), np.cos(th),
+                  np.sin(th) * np.sin(2 * np.pi * i / segments)) for i in range(segments)]
+    dirs.append((0.0, -1.0, 0.0))
+    out.append("usemtl white")
+    for x, y, z in dirs:
+        out.append(f"v {center[0] + radius * x:.6f} {center[1] + radius * y:.6f} "
+                   f"{center[2] + radius * z:.6f}")
+        out.append(f"vn {x:.6f} {y:.6f} {z:.6f}")
+    idx = lambda k: f"{base_v + k + 1}//{base_n + k + 1}"  # noqa: E731
+    ring = lambda j, i: 1 + (j - 1) * segments + i % segments  # noqa: E731
+    last = len(dirs) - 1
+    for i in range(segments):
+        out.append(f"f {idx(0)} {idx(ring(1, i + 1))} {idx(ring(1, i))}")
+        out.append(f"f {idx(last)} {idx(ring(rings - 1, i))} {idx(ring(rings - 1, i + 1))}")
+        for j in range(1, rings - 1):
+            a, b, c, d = ring(j, i), ring(j, i + 1), ring(j + 1, i + 1), ring(j + 1, i)
+            out.append(f"f {idx(a)} {idx(b)} {idx(c)}")
+            out.append(f"f {idx(a)} {idx(c)} {idx(d)}")
+    return "\n".join(out) + "\n", mtl, lights

@@ -638,7 +638,9 @@ _KERNEL_NAMES = {
     "K7 NEE": "void (anonymous namespace)::slab_kernel<1>((anonymous namespace)::SlabParams)",
     "K8": "void (anonymous namespace)::walk_kernel<false>((anonymous namespace)::Params)",
     "K8 any-hit": "void (anonymous namespace)::walk_kernel<true>((anonymous namespace)::Params)",
-    "K9": "void (anonymous namespace)::phong_walk_kernel((anonymous namespace)::Params)",
+    "K9": "void (anonymous namespace)::phong_walk_kernel<false>((anonymous namespace)::Params)",
+    "K9 any-hit": "void (anonymous namespace)::phong_walk_kernel<true>((anonymous "
+                  "namespace)::Params)",
     "K10": "void (anonymous namespace)::phong_clusters_kernel((anonymous namespace)::Params)",
 }
 

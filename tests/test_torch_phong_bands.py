@@ -10,7 +10,14 @@ CLUSTER_MIN_RAYS``) and the card's record it comes from
 - ``CLUSTER_MIN_RAYS`` is ``phong_policy`` of the committed record, the
   same constant on the CPU and on the card (the dispatch reads nothing
   else), and the record holds what the tool promises: every scene, ray
-  set and pass size, both searches, both choices, in every round.
+  set and pass size, both searches, both choices, in every round;
+- K9's launch order and the card's record it comes from
+  (``docs/K9_ORDER_H100.json``, written by
+  ``pbr_tpu_torch/tools/k9_walk.py``): ``order_policy`` would sort a pass
+  kind only where the sort wins every round on every scene; on the
+  committed record, whose rows hold every scene, kind and order in every
+  round, it sorts none, which is why K9's wrappers launch the rays as
+  given.
 """
 
 import json
@@ -19,10 +26,12 @@ import os
 import pytest
 
 from pbr_tpu_torch.ops import phongtess
+from pbr_tpu_torch.tools import k9_walk as kw
 from pbr_tpu_torch.tools import phong_bands as pb
 
-RECORD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docs",
-                      "PHONG_BANDS_H100.json")
+DOCS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docs")
+RECORD = os.path.join(DOCS, "PHONG_BANDS_H100.json")
+ORDER_RECORD = os.path.join(DOCS, "K9_ORDER_H100.json")
 
 
 def _record(k10_ms, k9_ms, frames_k10=(1.0, 1.0, 1.0), frames_k9=(2.0, 2.0, 2.0), rounds=3):
@@ -86,3 +95,55 @@ def test_threshold_is_the_cards_record():
     policy = pb.phong_policy(rec)
     assert rec["policy"] == policy
     assert phongtess.CLUSTER_MIN_RAYS == policy["cluster_min_rays"]
+
+
+def _order_record(ms, rounds=3):
+    """A K9 order record whose (scene, kind) rows take ``ms[kind]``: a dict
+    {order: ms, or a list a round}."""
+    per_round = lambda v, i: v[i] if isinstance(v, list) else v  # noqa: E731
+    return {"rounds": rounds, "passes": [
+        {"scene": sc, "kind": k, "passes": 1, "rays": 1,
+         "rounds": [{o: per_round(ms[k][o], i) for o in kw.ORDERS} for i in range(rounds)]}
+        for sc in kw.SCENES for k in kw.KINDS]}
+
+
+_LANE = {"lane": 1.0, "sort": 2.0, "octant": 1.5, "live": 1.2}
+_SORT = {"lane": 2.0, "sort": 1.0, "octant": 1.5, "live": 2.5}
+
+
+@pytest.mark.parametrize("ms, want", [
+    ({k: _SORT for k in kw.KINDS}, ["bounce", "camera", "shadow"]),
+    ({k: _LANE for k in kw.KINDS}, []),
+    ({"camera": _LANE, "bounce": _SORT, "shadow": _SORT}, ["bounce", "shadow"]),
+    ({"camera": _LANE, "bounce": {**_SORT, "sort": [1.0, 2.5, 1.0]},
+      "shadow": _SORT}, ["shadow"]),  # a split round keeps the rays as given
+    ({k: {**_LANE, "live": 0.5, "octant": 0.5} for k in kw.KINDS},
+     []),  # the cheaper orders are measured, and decide nothing
+])
+def test_k9_order_policy_sorts_only_on_wins_in_every_round(ms, want):
+    assert kw.order_policy(_order_record(ms))["sort"] == want
+
+
+def test_k9_order_policy_needs_every_round_and_scene():
+    rec = _order_record({k: _SORT for k in kw.KINDS})
+    rec["passes"][0]["rounds"].pop()  # the sphere's camera row
+    assert kw.order_policy(rec)["sort"] == ["bounce", "shadow"]
+    rec = _order_record({k: _SORT for k in kw.KINDS})
+    rec["passes"] = [r for r in rec["passes"] if r["scene"] == "sphere" or r["kind"] != "shadow"]
+    assert kw.order_policy(rec)["sort"] == ["bounce", "camera"]
+
+
+def test_k9_sort_passes_are_the_cards_record():
+    """The card's record, which holds 3 interleaved rounds of every scene,
+    pass kind and order and names the card, sorts no pass kind: the
+    wrappers' launch of the rays as given is its policy."""
+    with open(ORDER_RECORD) as f:
+        rec = json.load(f)
+    assert "H100" in rec["device"] and rec["rounds"] == 3
+    assert {(r["scene"], r["kind"]) for r in rec["passes"]} == {
+        (sc, k) for sc in kw.SCENES for k in kw.KINDS}
+    assert all(len(r["rounds"]) == 3 and set(r["rounds"][0]) == set(kw.ORDERS)
+               for r in rec["passes"])
+    policy = kw.order_policy(rec)
+    assert rec["policy"] == policy
+    assert policy["sort"] == [] and not any(policy["wins"].values())

@@ -516,10 +516,12 @@ def test_wrappers_run_the_plain_versions_on_the_cpu_and_count_no_launch(monkeypa
     counts no launch; the dispatch takes K10 from CLUSTER_MIN_RAYS rays on
     a scene with clusters and K9 below: under the card's band (the
     module's value, docs/PHONG_BANDS_H100.json; None: K9 for every pass)
-    and under the JAX package's 4,096, the two answering alike."""
+    and under the JAX package's 4,096, the two answering alike. K9's
+    any-hit wrapper runs its plain version too."""
     ts, _ = _scene("box_sphere", 2)
     calls = []
-    for name in ("intersect_bvh_phongtess", "intersect_clusters_phongtess"):
+    for name in ("intersect_bvh_phongtess", "intersect_clusters_phongtess",
+                 "occluded_bvh_phongtess"):
         real = getattr(phongtess, name)
         monkeypatch.setattr(phongtess, name, lambda *a, _r=real, _n=name, **k: (
             calls.append(_n), _r(*a, **k))[1])
@@ -539,6 +541,10 @@ def test_wrappers_run_the_plain_versions_on_the_cpu_and_count_no_launch(monkeypa
         phongtess.intersect_scene_phongtess(*cut, ts.tris, ALPHA, bvh=ts.bvh,
                                             clusters=ts.clusters)
         assert calls[1:] == ["intersect_bvh_phongtess"]
+    del calls[:]
+    t_limit = torch.where(torch.isfinite(out[0][0]), out[0][0] * 0.9, 5.0)
+    occ = cuda_phong.occluded_walk(o, d, t_limit, ts.bvh, ts.phong_records, ALPHA)
+    assert calls == ["occluded_bvh_phongtess"] and not occ.any()
     assert cuda_phong.launches == before
     t, face, _, _ = out[1]
     assert (face >= 0).float().mean() > 0.5 and torch.isfinite(t[face >= 0]).all()
@@ -608,7 +614,8 @@ def test_phong_frame_reads_nothing_from_the_host(search, monkeypatch):
     the result it gave in an earlier run of the same frame: nothing of the
     frame reads the host under the guard. At 32² every pass has 1,024 rays:
     CLUSTER_MIN_RAYS set to 1,024 sends them to K10, None (the card's band
-    when K9 wins every pass) to K9. The ops the wrappers run on the card
+    when K9 wins every pass) to K9, the shadow legs to K9's any-hit
+    instance. The ops the wrappers run on the card
     before a launch read nothing either: K10's ``sorted_lists`` (the ray
     sort, the gather, the candidate lists) and cluster boxes, and K9's ray
     order."""
@@ -618,16 +625,20 @@ def test_phong_frame_reads_nothing_from_the_host(search, monkeypatch):
     cam = camera_to_torch(CAM, "cpu")
     ids = torch.arange(32 * 32, dtype=torch.int32)
     recorded = collections.defaultdict(list)
-    for name in ("intersect_walk", "intersect_clusters"):
+    for name in ("intersect_walk", "occluded_walk", "intersect_clusters"):
         real = getattr(cuda_phong, name)
         monkeypatch.setattr(cuda_phong, name, lambda *a, _r=real, _n=name, **k: (
             recorded[_n].append(_r(*a, **k)), recorded[_n][-1])[1])
     with torch.no_grad():
         ref = render_frame(ts, cam, settings, init_frame_state(1024, "cpu"), ids, 3)
-    used = "intersect_clusters" if search == "K10" else "intersect_walk"
-    assert set(recorded) == {used} and len(recorded[used]) == 2 * settings.max_total_depth
-    replay = iter(recorded[used])
-    monkeypatch.setattr(cuda_phong, used, lambda *a, **k: next(replay))
+    mtd = settings.max_total_depth
+    # K10 serves both legs of a bounce; K9 the nearest leg and its any-hit
+    # instance the shadow leg.
+    used = ({"intersect_clusters": 2 * mtd} if search == "K10"
+            else {"intersect_walk": mtd, "occluded_walk": mtd})
+    assert {k: len(v) for k, v in recorded.items()} == used
+    for name in used:
+        monkeypatch.setattr(cuda_phong, name, lambda *a, _it=iter(recorded[name]), **k: next(_it))
     with torch.no_grad(), HostReadGuard():
         got = render_frame(ts, cam, settings, init_frame_state(1024, "cpu"), ids, 3)
     for a, b in zip((*got.rgb, got.depth), (*ref.rgb, ref.depth)):
