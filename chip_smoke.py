@@ -19,9 +19,14 @@ eager frame's launches and to what the device ran (torch.profiler).
 1. device: a CUDA card of compute capability 9.0, its name and power limit;
 2. build: K1/K2 (csrc/brute_intersect.cu), K3 (csrc/gated_intersect.cu),
    K4/K4m (csrc/cull_intersect.cu), K5/K5m (csrc/row_sweep.cu), K6/K7
-   (csrc/bvh_packet.cu), K8 (csrc/bvh_walk.cu), K9 (csrc/phong_walk.cu) and
-   K10 (csrc/phong_clusters.cu) with nvcc, and the native
-   BVH builder (csrc/bvh_builder.cpp) with g++, all in parallel, timed;
+   (csrc/bvh_packet.cu), K8 (csrc/bvh_walk.cu), K9 (csrc/phong_walk.cu),
+   K10 (csrc/phong_clusters.cu) and K11/K12 (csrc/shade.cu) with nvcc, and
+   the native BVH builder (csrc/bvh_builder.cpp) with g++, all in
+   parallel, timed. Every forward frame on the card shades in K11 (camera
+   rays, once a sample) and K12 (once a bounce, or "K12 pre" and "K12
+   post" where the shadow leg is a walk of its own); the launch checks of
+   the search kernels below leave them out and print them, and the shade
+   and graph phases hold their counts;
 3. Cornell box (34 faces; auto runs K1):
    - K1 and K2 (NEE, and K1', K2' nearest only) against their plain
      versions on the card, bitwise (t, face, occluded), on the path's
@@ -294,6 +299,22 @@ eager frame's launches and to what the device ran (torch.profiler).
    frames are replays too: frame 0 of a tracer is the capture's eager run.
    The phase's results are one JSON line {"graph": ...}.
 
+12. shading (``ops/cuda_shade.py``, ``shade_phase``, after the tree
+   walks): on 1024² eager frames of Cornell (SA and Schlick, NEE on and
+   off, a glass material with transparency on), multiroom (K3, fused),
+   soup:100000 (K8: pre and post, the orb light) and the Phong sphere (K9
+   any-hit: pre and post, curved normals), every K11 and K12 call recorded
+   and held bitwise to its plain version (as bit patterns: a NaN counts;
+   a difference names the output, its lanes and its largest ULP); the
+   frames of Cornell, multiroom, soup:100000 and the Phong sphere through
+   the kernels bitwise the same frames through the plain versions under
+   autograd (the grad path, which launches no K11 or K12); K11, K12, K12
+   pre and K12 post each timed alone on its main path's bounce 0 (20
+   launches from a CUDA graph) against its plain version, with its bound
+   (bytes in once and out once). The graph phase holds each forward
+   frame's graph to K11 once a sample and K12 once a bounce (or pre and
+   post once each), and the bench's forward+backward graphs to neither.
+
 Every failure raises, so the exit code is not 0. The last two lines of
 standard output are the kernels' JSON record (with each kernel's bound: the
 larger of its operations over 67 T op/s float32 and its bytes over
@@ -301,7 +322,9 @@ larger of its operations over 67 T op/s float32 and its bytes over
 over ``frames`` frames of its path; "K1 (multiroom)" and "K1
 (soup:100000)" are K1 at those scenes' face counts, launched by their
 intersector='pallas' frames; K9's and K10's times are on the Phong path's
-1M camera rays; K10's row adds the yardstick bound ``bound_jax_ms``
+1M camera rays; K11's and K12's on Cornell's bounce 0, K12 pre's and
+post's on soup:100000's (their launches: Cornell's timed frames and the
+'bvh' path's); K10's row adds the yardstick bound ``bound_jax_ms``
 beside ``bound_ms``, the bound of the tests it runs, and its launches over
 the Phong golden's frames under the JAX package's threshold,
 ``golden_launches`` over ``golden_frames``: its ``launches`` are the main
@@ -332,7 +355,6 @@ from pbr_tpu_torch.accel import native  # noqa: E402
 from pbr_tpu_torch.accel.forest import build_forest  # noqa: E402
 from pbr_tpu_torch import bench  # noqa: E402
 from pbr_tpu_torch.bench import bench_settings, card_line, load_scene  # noqa: E402
-from pbr_tpu_torch.models.integrator import _gen_rays  # noqa: E402
 from pbr_tpu_torch.models.pathtracer import (  # noqa: E402
     FrameState,
     init_frame_state,
@@ -344,7 +366,9 @@ from pbr_tpu_torch.ops import cuda_cull as cc  # noqa: E402
 from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
 from pbr_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from pbr_tpu_torch.ops import cuda_phong as cp  # noqa: E402
+from pbr_tpu_torch.ops import cuda_shade as csh  # noqa: E402
 from pbr_tpu_torch.ops import cuda_sweep as cs  # noqa: E402
+from pbr_tpu_torch.ops.cuda_shade import gen_rays  # noqa: E402
 from pbr_tpu_torch.ops import gemm_intersect as gi  # noqa: E402
 from pbr_tpu_torch.ops import phongtess  # noqa: E402
 from pbr_tpu_torch.ops import traverse as tt  # noqa: E402
@@ -373,7 +397,7 @@ from pbr_tpu_torch.scene.procedural import (  # noqa: E402
 )
 from pbr_tpu_torch.scene.types import TrianglesSoA  # noqa: E402
 from pbr_tpu_torch.tools import graph_steps, k1_sweep, k3_tiles, k4_tiles, k5_rows  # noqa: E402
-from pbr_tpu_torch.utils.config import RenderSettings  # noqa: E402
+from pbr_tpu_torch.utils.config import BRDF_SCHLICK, RenderSettings  # noqa: E402
 from pbr_tpu_torch.utils.graph import CapturedStep  # noqa: E402
 from pbr_tpu_torch.utils.image import read_png  # noqa: E402
 
@@ -442,6 +466,8 @@ REPLACES = {
     "K9": "pbr_tpu/ops/phongtess.py:458",  # the XLA while_loop of intersect_bvh_phongtess
     "K9 any-hit": "pbr_tpu/models/integrator.py:339",  # its Phong shadow leg: t_sh < t_light
     "K10": "pbr_tpu/ops/phongtess.py:730",  # the XLA while_loop of intersect_clusters_phongtess
+    "K11": "pbr_tpu/models/integrator.py:287",  # no Pallas kernel: XLA's fusion of _gen_rays
+    "K12": "pbr_tpu/models/integrator.py:579",  # no Pallas kernel: XLA's fusion of the shade
 }
 
 
@@ -525,7 +551,7 @@ def build_phase() -> None:
 
     t0 = time.perf_counter()
     names = ("brute_intersect", "gated_intersect", "cull_intersect", "row_sweep", "bvh_packet",
-             "bvh_walk", "phong_walk", "phong_clusters", "bvh_builder", "k5 record")
+             "bvh_walk", "phong_walk", "phong_clusters", "shade", "bvh_builder", "k5 record")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         done = list(pool.map(timed, names))
     for name, sec, lib in done:
@@ -565,7 +591,7 @@ def _camera_rays(cam_t, settings: RenderSettings, dev, ids=None) -> tuple:
     px = (ids % settings.width).to(torch.float32)
     py = (ids // settings.width).to(torch.float32)
     prev_t = torch.full(px.shape, float("inf"), device=dev)
-    return _gen_rays(cam_t, settings, px, py, PixelRng(0, ids), 0, prev_t)
+    return gen_rays(cam_t, settings, px, py, PixelRng(0, ids), 0, prev_t)
 
 
 def _light0(ts) -> Vec3:
@@ -774,8 +800,9 @@ def cornell_path_phase(scene, cam, dev, k1: dict, profile: bool) -> dict:
     pt = _first_frame_checks("cornell", scene, cam, dev)
     launched, _ = _timed_frames("cornell", pt, cam)
     expect = FRAMES * pt.settings.max_total_depth * pt.settings.samples
-    if launched["K1"] != expect or sum(launched.values()) != expect:
+    if launched["K1"] != expect or sum(_searches(launched).values()) != expect:
         raise AssertionError(f"cornell: expected {expect} K1 launches and no other, got {launched}")
+    _shade_pattern("cornell", launched, FRAMES, pt.settings)
     t, o, d, light = k1["tris"], k1["o"], k1["d"], k1["light"]
     table = ci.face_table(t)
     light3 = torch.stack(list(light))
@@ -845,7 +872,7 @@ def cornell_nee_off_phase(scene, cam, dev) -> dict:
     launched = counts()
     expect = pt.settings.max_total_depth
     phase("cornell NEE off", f"launches over one frame: {launched}")
-    if launched["K1'"] != expect or sum(launched.values()) != expect:
+    if launched["K1'"] != expect or sum(_searches(launched).values()) != expect:
         raise AssertionError(f"NEE off: expected {expect} K1' launches and no other")
     img = pt.image()
     if not np.isfinite(img).all() or not img.mean() > 0.05:
@@ -1128,7 +1155,7 @@ def lin_path_phase(scene, dev, mk: dict) -> dict:
     torch.cuda.synchronize()
     launched = counts()
     phase("linear form", f"launches: {launched}")
-    if launched["K2"] != 1 or launched["K2'"] != 1 or sum(launched.values()) != 2:
+    if launched["K2"] != 1 or launched["K2'"] != 1 or sum(_searches(launched).values()) != 2:
         raise AssertionError(f"linear form: expected one K2 and one K2' launch, got {launched}")
     return launched
 
@@ -1257,7 +1284,7 @@ def multiroom_cull_phase(scene, cam, dev, mr_pt: PathTracer) -> dict:
     expect = settings.max_total_depth * settings.samples
     phase("multiroom cull", f"launches over one frame: {launched}")
     if launched["K4m"] != expect or launched["K4m any-hit"] != expect \
-            or sum(launched.values()) != 2 * expect:
+            or sum(_searches(launched).values()) != 2 * expect:
         raise AssertionError(f"multiroom cull: expected {expect} K4m launches of each pass "
                              f"and no other, got {launched}")
     ref = PathTracer(scene, mr_pt.settings, device=dev, lane_order=mr_pt.lane_order)
@@ -1348,7 +1375,7 @@ def soup_path_phase(scene, cam, dev, profile: bool) -> dict:
     launched, ms_frame = _timed_frames(tag, pt, cam)
     expect = FRAMES * pt.settings.max_total_depth * pt.settings.samples
     if launched["K4"] != expect or launched["K4 any-hit"] != expect \
-            or sum(launched.values()) != 2 * expect:
+            or sum(_searches(launched).values()) != 2 * expect:
         raise AssertionError(f"{tag}: expected {expect} K4 launches of each pass and no "
                              f"other, got {launched}")
     if profile:
@@ -1710,8 +1737,22 @@ def eager_frame(pt: PathTracer, cam, seed: int):
                             pt.pixel_ids, seed, max_leaf=pt.max_leaf)
 
 
+def _searches(launched: dict) -> dict:
+    """The launches of ``launched`` other than the shading kernels K11 and
+    K12, which every forward frame on the card launches (``shade_phase``
+    and the graph phase hold their counts)."""
+    return {k: v for k, v in launched.items() if v and k not in SHADE_KERNELS}
+
+
 def _expect(tag: str, launched: dict, expect: dict) -> None:
+    """``launched`` is ``expect`` and no other; where ``expect`` names no
+    shading kernel, its search kernels are, and the shading launches (K11,
+    K12) are printed."""
+    shading = {k: launched[k] for k in SHADE_KERNELS if launched.get(k)}
     got = {k: v for k, v in launched.items() if v}
+    if not any(k in SHADE_KERNELS for k in expect):
+        phase(tag, f"shading launches: {shading or 'none'}")
+        got = _searches(got)
     if got != expect:
         raise AssertionError(f"{tag}: expected launches {expect} and no other, got {got}")
 
@@ -1742,6 +1783,7 @@ def tree_path_phase(scene, cam, dev, k4_first: np.ndarray, profile: bool) -> dic
     _frame_vs(tag, "first frame, 'bvh' (K8) vs 'cull' (K4)", pt8.image(), k4_first)
     launched, ms = _timed_frames(tag, pt8, cam)
     _expect(tag, launched, {"K8": FRAMES * mtd, "K8 any-hit": FRAMES * mtd})
+    _shade_pattern(tag, launched, FRAMES, pt8.settings)
     res = trace_rays(pt8.scene, camera_to_torch(cam, dev), pt8.settings, pt8.pixel_ids, 0,
                      with_stats=True, max_leaf=pt8.max_leaf)
     n_tests, n_visits = int(res.heat_tests.sum()), int(res.heat_visits.sum())
@@ -2079,6 +2121,26 @@ def app_denoise_phase(scene, cam, dev, size: int = 128) -> None:
               out["cpu"])
 
 
+def _fit_shading(tag: str, launched: dict, settings: RenderSettings, steps: int,
+                 search: str) -> int:
+    """``fit``'s shading launches, from its search's (``search`` once a
+    bounce on every frame): the target frame and the loss frames of the
+    line search and the end run under ``no_grad``, K11 once a sample and
+    the fused K12 once a bounce; the ``steps`` value_and_grad frames, which
+    autograd records with the albedos requiring grad, K11 and no K12.
+    Raises otherwise; returns the frames."""
+    bounces = settings.samples * settings.max_total_depth
+    frames, rest = divmod(launched.get(search, 0), bounces)
+    want = {"K11": settings.samples * frames, "K12": bounces * (frames - steps),
+            "K12 pre": 0, "K12 post": 0}
+    got = {k: launched.get(k, 0) for k in SHADE_KERNELS}
+    if rest or frames < 2 * steps + 2 or got != want:
+        raise AssertionError(f"{tag}: {steps} steps launched {launched}: expected a whole "
+                             f"number of frames, at least {2 * steps + 2}, and the shading "
+                             f"{want} of that many")
+    return frames
+
+
 def app_fit_phase(dev, size: int = FIT_SIZE, steps: int = FIT_STEPS, big: int = SIZE) -> dict:
     """``fit`` on the Cornell box (it must converge), then ``fit --scene
     multiroom`` at full width for STEPS steps, with its peak memory."""
@@ -2091,8 +2153,9 @@ def app_fit_phase(dev, size: int = FIT_SIZE, steps: int = FIT_STEPS, big: int = 
                f"({res['final_loss'] / losses[0]:.4f} of the first), max albedo error "
                f"{res['kd_err']:.4f}, {sum(res['accepted'])} steps accepted, "
                f"{res['ms_step']:.3f} ms/step")
-    if set(launched) != {"K1"}:
+    if set(_searches(launched)) != {"K1"}:
         raise AssertionError(f"{tag}: expected only K1 launches, got {launched}")
+    frames = _fit_shading(tag, launched, res["settings"], steps, "K1")
     if res["final_loss"] > 0.25 * losses[0] or res["kd_err"] > 0.1 or rises:
         raise AssertionError(f"{tag}: no convergence (rises at steps {rises})")
     torch.cuda.synchronize()
@@ -2104,13 +2167,15 @@ def app_fit_phase(dev, size: int = FIT_SIZE, steps: int = FIT_STEPS, big: int = 
     phase(tag, f"{big}² multiroom, {STEPS} steps: {res2['ms_step']:.3f} ms/step, peak memory "
                f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before, loss "
                f"{res2['losses'][0]:.6f} -> {res2['final_loss']:.6f}")
-    if set(launched2) != {"K3", "K3 any-hit"} or launched2["K3"] != launched2["K3 any-hit"]:
+    if set(_searches(launched2)) != {"K3", "K3 any-hit"} \
+            or launched2["K3"] != launched2["K3 any-hit"]:
         raise AssertionError(f"{tag}: expected K3's two instances alike, got {launched2}")
+    frames2 = _fit_shading(tag, launched2, res2["settings"], STEPS, "K3")
     if not np.isfinite(res2["final_loss"]) or res2["final_loss"] > res2["losses"][0]:
         raise AssertionError(f"{tag}: multiroom loss rose")
     return {"ms_step": res["ms_step"], "loss_first": losses[0], "loss_final": res["final_loss"],
             "kd_err": res["kd_err"], "multiroom_ms_step": res2["ms_step"],
-            "multiroom_peak_mib": peak / 2**20}
+            "multiroom_peak_mib": peak / 2**20, "frames": frames, "multiroom_frames": frames2}
 
 
 def app_gemm_phase(scene, cam, dev, k1: dict, k1_ms: float, size: int = SIZE) -> dict:
@@ -2436,7 +2501,7 @@ def phong_path(tag: str, scene, cam, dev) -> dict:
     wrong = [(k, n) for j, (k, n) in enumerate(calls) if k != _band_kernel(n, j % 2 == 1)]
     expect = {k: sum(1 for c, _ in calls if c == k) for k in ("K9", "K9 any-hit", "K10")}
     expect = {k: v for k, v in expect.items() if v}
-    if wrong or nodes != expect or not calls:
+    if wrong or _searches(nodes) != expect or not calls:
         raise AssertionError(f"{tag}: the graph's kernel nodes {nodes}, an eager frame's "
                              f"searches {calls} (K10 from {phongtess.CLUSTER_MIN_RAYS} rays, "
                              f"K9 and K9 any-hit below)")
@@ -2552,7 +2617,7 @@ def phong_golden_phase(tag: str, scene, cam, pt: PathTracer, dev) -> dict:
                                  old.pixel_ids, 1, max_leaf=old.max_leaf)
         bad = [j for j, (a, b) in enumerate(zip(_state_copy(old.state), _state_copy(state)))
                if not torch.equal(a, b)]
-    if "K10" not in launched or set(launched) - {"K9", "K9 any-hit", "K10"}:
+    if "K10" not in launched or set(_searches(launched)) - {"K9", "K9 any-hit", "K10"}:
         raise AssertionError(f"{tag}: the frames under {PHONG_OLD_MIN_RAYS} rays launched "
                              f"{launched}")
     if bad:
@@ -2583,7 +2648,7 @@ def phong_fit_check(scene, cam, dev, size: int = 64) -> dict:
     out = _fit_steps_bitwise(f"Phong {size}²", app.fit_problem(scene, settings, cam, dev))
     launched = {k: v for k, v in counts().items() if v}
     want = {_band_kernel(size * size), _band_kernel(size * size, shadow=True)}
-    if set(launched) != want:
+    if set(_searches(launched)) != want:
         raise AssertionError(f"fit on the Phong scene launched {launched}, not {want}")
     phase("phong", f"fit's graphed steps on the Phong scene at {size}² bitwise the eager "
                    f"step at 3 points; launches {launched}")
@@ -2774,6 +2839,354 @@ def sharded_phase(dev, size: int = SIZE) -> dict:
             "rank_ms": times, "spawn_s": sec, "nccl_pixels_differ": n_nccl}
 
 
+# ------------------------------------------------------ shading, K11/K12 --
+
+SHADE_SOURCE = "pbr_tpu_torch/csrc/shade.cu"
+SHADE_KERNELS = ("K11", "K12", "K12 pre", "K12 post")
+# Operations for the bounds, counted by hand from csrc/shade.cu on a lane's
+# common path (lower estimates; both kernels are bound by bytes many times
+# over): K11 a lane (the pinhole, the jitter's frame and two normalisations,
+# the RNG's hashes), K12 a live lane (normal, the hit point and shadow ray,
+# the BRDF sample and two evaluations, throughput and the NEE sum), and
+# "K12 pre" a lane (the hit point and shadow ray).
+OPS_K11, OPS_K12_LIVE, OPS_K12_PRE = 120, 250, 30
+
+
+def _clone(x):
+    """``x`` with every tensor in it cloned (tuples and NamedTuples kept)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, PixelRng):
+        r = object.__new__(PixelRng)
+        r._base = x._base.clone()
+        return r
+    if isinstance(x, tuple):
+        vals = [_clone(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def _recorded_shading(run) -> tuple:
+    """(K11 calls, K12 calls) that ``run()`` made through the integrator's
+    two wrappers, each with copies of its inputs and outputs, the instances
+    it launched and, for "K12 pre", each shadow leg's ray and occluded bit."""
+    import pbr_tpu_torch.models.integrator as integ
+
+    gens, shades = [], []
+    real_gen, real_shade = integ.gen_rays, integ.shade
+
+    def gen(cam, settings, px, py, rng, s, prev_t):
+        args = _clone((cam, settings, px, py, rng, s, prev_t))
+        out = real_gen(cam, settings, px, py, rng, s, prev_t)
+        gens.append({"args": args, "out": _clone(out)})
+        return out
+
+    def shd(cfg, lanes, hit, rng, s, depth, scene, occlude):
+        rec = {"args": _clone((cfg, lanes, hit, rng, s, depth)), "scene": scene, "legs": []}
+
+        def leg(hit_p, l_dir, t_light, casts):
+            occ = occlude(hit_p, l_dir, t_light, casts)
+            rec["legs"].append(_clone((hit_p, l_dir, t_light, casts, occ)))
+            return occ
+
+        before = dict(csh.launches)
+        out = real_shade(cfg, lanes, hit, rng, s, depth, scene, leg)
+        rec["inst"] = tuple(k for k in SHADE_KERNELS if csh.launches[k] > before[k])
+        rec["out"] = _clone(out)
+        shades.append(rec)
+        return out
+
+    integ.gen_rays, integ.shade = gen, shd
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        integ.gen_rays, integ.shade = real_gen, real_shade
+    return gens, shades
+
+
+def _leaves(x) -> list:
+    """The tensors of ``x`` in order (Vec3s and tuples flattened, None kept)."""
+    if isinstance(x, tuple):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
+def _bit_diff(what: str, got, ref) -> dict:
+    """Lanes that differ between the tensors of ``got`` and ``ref``, as bit
+    patterns (a NaN counts, -0 is not +0), by leaf: {leaf: (lanes, max
+    ULP)} over the leaves that differ."""
+    out = {}
+    for i, (a, b) in enumerate(zip(_leaves(got), _leaves(ref))):
+        if a is None and b is None:
+            continue
+        if a is None or b is None or a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what}: output {i} is {a} against {b}")
+        if a.dtype == torch.float32:
+            ai, bi = a.view(torch.int32), b.view(torch.int32)
+            bad = ai != bi
+            if bad.any():
+                out[i] = (int(bad.sum()), int((ai.long() - bi.long()).abs().max()))
+        elif not torch.equal(a, b):
+            out[i] = (int((a != b).sum()), 0)
+    return out
+
+
+def _max_abs(got, ref) -> float:
+    """The largest absolute difference between the tensors of ``got`` and
+    ``ref`` over the lanes whose bit patterns differ (inf where a NaN or an
+    infinity stands against another value; 0 when bitwise equal)."""
+    worst = 0.0
+    for a, b in zip(_leaves(got), _leaves(ref)):
+        if a is None or b is None:
+            continue
+        if a.dtype == torch.float32:
+            bad = a.view(torch.int32) != b.view(torch.int32)
+            diff = torch.nan_to_num((a.double() - b.double()).abs(), nan=float("inf"))
+        else:
+            bad = a != b
+            diff = (a.long() - b.long()).abs().double()
+        if bad.any():
+            worst = max(worst, float(diff[bad].max()))
+    return worst
+
+
+class _Stop(Exception):
+    """Ends a plain shade at its shadow ray (the plain side of "K12 pre")."""
+
+
+def shade_calls_check(tag: str, gens: list, shades: list) -> dict:
+    """Every recorded K11 and K12 call held bitwise to its plain version on
+    the same inputs: ``gen_rays_plain``; ``shade_plain`` with, for a pre and
+    post pair, the kernel's shadow ray held to the plain one and the walk's
+    recorded bit handed back. Raises naming each output that differs, its
+    lanes and its largest ULP. Returns ({instance: calls checked},
+    {instance: the largest absolute difference over those calls})."""
+    checked = dict.fromkeys(SHADE_KERNELS, 0)
+    errs = dict.fromkeys(SHADE_KERNELS, 0.0)
+    for j, rec in enumerate(gens):
+        ref = csh.gen_rays_plain(*rec["args"])
+        bad = _bit_diff(f"{tag} K11 call {j}", rec["out"], ref)
+        if bad:
+            raise AssertionError(f"{tag}: K11 call {j} differs from its plain version "
+                                 f"(output: (lanes, max ULP)) {bad}")
+        checked["K11"] += 1
+        errs["K11"] = max(errs["K11"], _max_abs(rec["out"], ref))
+    for j, rec in enumerate(shades):
+        legs = iter(rec["legs"])
+
+        def plain_leg(hit_p, l_dir, t_light, casts):
+            *ray, occ = next(legs)
+            bad = _bit_diff(f"{tag} K12 pre {j}", tuple(ray), (hit_p, l_dir, t_light, casts))
+            if bad:
+                raise AssertionError(f"{tag}: K12 pre call {j} (bounce {rec['args'][5]}) "
+                                     f"differs from its plain version: {bad}")
+            errs["K12 pre"] = max(errs["K12 pre"], _max_abs(
+                tuple(ray), (hit_p, l_dir, t_light, casts)))
+            return occ
+
+        ref = csh.shade_plain(*rec["args"], rec["scene"], plain_leg)
+        bad = _bit_diff(f"{tag} K12 {j}", rec["out"], ref)
+        if bad:
+            raise AssertionError(f"{tag}: {rec['inst']} call {j} (bounce {rec['args'][5]}, "
+                                 f"{rec['args'][2].t.shape[0]} lanes) differs from its plain "
+                                 f"version (output: (lanes, max ULP)) {bad}")
+        err = _max_abs(rec["out"], ref)
+        for inst in rec["inst"]:
+            checked[inst] += 1
+            if inst != "K12 pre":  # pre's outputs are the shadow ray, held above
+                errs[inst] = max(errs[inst], err)
+    return checked, errs
+
+
+def _shade_pattern(tag: str, launched: dict, frames: int, settings: RenderSettings) -> str:
+    """A forward frame's shading launches: K11 once a sample, and K12 once
+    a bounce (fused) or "K12 pre" and "K12 post" once each; raises
+    otherwise. Returns 'fused' or 'pre/post'."""
+    samples = frames * settings.samples
+    bounces = samples * settings.max_total_depth
+    got = {k: launched.get(k, 0) for k in SHADE_KERNELS}
+    fused = {"K11": samples, "K12": bounces, "K12 pre": 0, "K12 post": 0}
+    split = {"K11": samples, "K12": 0, "K12 pre": bounces, "K12 post": bounces}
+    if got not in (fused, split):
+        raise AssertionError(f"{tag}: shading launches {got} over {frames} forward frames, "
+                             f"expected {fused} or {split}")
+    return "fused" if got == fused else "pre/post"
+
+
+def _no_shading(tag: str, launched: dict) -> None:
+    """A frame that autograd records launches neither K11 nor K12."""
+    got = {k: launched.get(k, 0) for k in SHADE_KERNELS if launched.get(k)}
+    if got:
+        raise AssertionError(f"{tag}: a frame under autograd launched {got}")
+
+
+def _shade_bytes(name: str, rec: dict) -> int:
+    """Bytes that instance ``name`` must move on the recorded call: each
+    lane input it reads and each output it writes once, and the tables it
+    gathers (face, material, light) once. "K12 pre" reads what the break,
+    the extension and the shadow ray need: no normal, and the RNG key only
+    where the extension draws (Schlick)."""
+    cfg, lanes, hit, rng = rec["args"][:4]
+    scene, m = rec["scene"], rec["scene"].materials
+    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts if t is not None)  # noqa: E731
+    n = hit.t.shape[0]
+    if name == "K12 pre":  # o, d, alive, t, face, the key, the budget; the ray and casts
+        schlick = cfg.brdf == BRDF_SCHLICK
+        fields = (m.d, m.rough) if schlick else (m.d, m.nu, m.nv)
+        tables = nb([scene.tris.mtl, *fields, *scene.lights.pos])
+        return tables + n * (24 + 1 + 4 + 4 + (8 if schlick else 0) + 4) + n * (28 + 1)
+    tables = nb([scene.tris.mtl, *scene.tris.e1, *scene.tris.e2, *_leaves(m),
+                 *_leaves(scene.lights)])
+    if cfg.pt_alpha > 0.0:
+        tables += nb([*scene.tris.v0, *scene.tris.n0, *scene.tris.n1, *scene.tris.n2,
+                      scene.flat])
+    lane_in = nb([*_leaves(lanes), hit.t, hit.face, hit.u, hit.v, rng._base])
+    occ = n if cfg.nee else 0
+    return tables + lane_in + occ + n * (60 + 2 + 8) + occ  # the state and casts out
+
+
+def _live_lanes(rec: dict) -> int:
+    _, lanes, hit = rec["args"][:3]
+    return int((lanes.alive & torch.isfinite(hit.t)).sum())
+
+
+def _shade_timing(name: str, rec: dict) -> dict:
+    """Instance ``name`` alone on a recorded call (20 launches captured in
+    a CUDA graph: the wrapper's host time exceeds the kernel's), its plain
+    version on the same inputs, and the bound."""
+    if name == "K11":
+        args = rec["args"]
+        ms = k1_sweep.graph_ms(lambda: gen_rays(*args), 20)
+        plain = _time_ms(lambda: csh.gen_rays_plain(*args), 5)
+        cam, settings, n = args[0], args[1], args[2].shape[0]
+        dof = float(cam.focus) >= 0.0  # prev_t and the lens draws only with depth of field
+        key = 8 if dof or settings.anti_aliasing != 0.0 else 0
+        bound = _bound(OPS_K11 * n, n * (4 + 4 + key + (4 if dof else 0) + 24))
+        return {"ms": ms, "plain_ms": plain, "bound": bound, "lanes": n}
+    cfg, lanes, hit, rng, s, depth = rec["args"]
+    scene = rec["scene"]
+    legs = rec["legs"]
+    occ = legs[0][-1] if legs else hit.occluded
+    h = hit if name == "K12 pre" else hit._replace(occluded=occ)
+    ms = k1_sweep.graph_ms(
+        lambda: csh.shade_launch(name, cfg, lanes, h, rng, s, depth, scene), 20)
+
+    def stop(*_):
+        raise _Stop
+
+    def plain():
+        try:  # "K12 pre": the plain shade up to its shadow ray
+            csh.shade_plain(cfg, lanes, hit, rng, s, depth, scene,
+                            stop if name == "K12 pre" else (lambda *_: occ))
+        except _Stop:
+            pass
+
+    live = _live_lanes(rec)
+    ops = OPS_K12_PRE * hit.t.shape[0] if name == "K12 pre" else OPS_K12_LIVE * live
+    return {"ms": ms, "plain_ms": _time_ms(plain, 5),
+            "bound": _bound(ops, _shade_bytes(name, rec)), "lanes": hit.t.shape[0],
+            "live": live}
+
+
+def _frame_through_plain(tag: str, pt: PathTracer, cam, seed: int) -> None:
+    """One frame through the kernels (no autograd) bitwise the same frame
+    through the plain versions (autograd records the scene's parameters
+    and the camera: the grad path, bench.py's backward step's), its colour
+    detached; the grad path launches no K11 or K12."""
+    ct = camera_to_torch(cam, pt.device)
+    run = lambda c: trace_rays(pt.scene, c, pt.settings, pt.pixel_ids, seed,  # noqa: E731
+                               max_leaf=pt.max_leaf)
+    zero_counts()
+    with torch.no_grad():
+        got = run(ct)
+    torch.cuda.synchronize()
+    launched = counts()
+    pattern = _shade_pattern(f"{tag} frame", launched, 1, pt.settings)
+    pt.scene.requires_grad_()
+    try:
+        zero_counts()
+        with torch.enable_grad():
+            ref = run(leaf_camera(ct))
+            ref = (ref.color.detach(), ref.focus_t.detach())
+        torch.cuda.synchronize()
+        _no_shading(f"{tag} grad path", counts())
+    finally:
+        pt.scene.requires_grad_(False)
+    bad = _bit_diff(f"{tag} frame", (got.color, got.focus_t), ref)
+    if bad:
+        raise AssertionError(f"{tag}: the frame through K11/K12 differs from the grad path's "
+                             f"(output: (lanes, max ULP)) {bad}")
+    phase("shade", f"{tag}: a {SIZE}² frame through K11 and K12 ({pattern}) bitwise the same "
+                   f"frame through the plain shade under autograd, detached")
+
+
+def shade_phase(dev, scene_s, cam_s) -> dict:
+    """K11 and K12 on the card (``ops/cuda_shade.py``): on each case's
+    eager 1024² frame, every K11 and K12 call recorded and held bitwise to
+    its plain version (``shade_calls_check``): Cornell (K1, fused: SA and
+    Schlick, NEE on and off, a glass material with transparency on; the
+    compacted bounces), multiroom (K3, whose shadow leg comes with the
+    search: fused), soup:100000 (K8 with its any-hit walk: pre and post,
+    the orb light) and the Phong sphere (K9 any-hit: pre and post, curved
+    normals); the frames of Cornell, multiroom, soup:100000 and the Phong
+    sphere through the kernels bitwise the grad path's
+    (``_frame_through_plain``); each instance timed on its main path's
+    bounce 0 against its plain version, with its bound."""
+    t_phase = time.perf_counter()
+    scene_c, cam_c = cornell()
+    scene_m, cam_m = multiroom()
+    scene_p, _ = scene_from_text(*cornell_sphere(), use_bvh=True, phong_tess_alpha=PHONG_ALPHA)
+    obj, mtl, li = cornell_box()
+    glass, _ = scene_from_text(obj, mtl, li, use_bvh=False)
+    d = np.asarray(glass.materials.d).copy()
+    d[-2] = 0.3  # the glossy block turns transparent
+    glass = glass._replace(materials=glass.materials._replace(d=d, Ni=np.full_like(d, 1.5)))
+    cases = (
+        ("cornell", scene_c, cam_c, {}, True),
+        ("cornell, Schlick", scene_c, cam_c, {"brdf": 0}, False),
+        ("cornell, NEE off", scene_c, cam_c, {"shadow_rays": 0}, False),
+        ("cornell, glass", glass, cam_c, {"no_transparency": False}, False),
+        ("multiroom", scene_m, cam_m, {}, True),
+        ("soup:100000", scene_s, cam_s, {}, True),
+        ("phong", scene_p, cam_c, {"phong_tessellation": PHONG_ALPHA}, True),
+    )
+    out = {"checked": {}, "times": {}, "errs": dict.fromkeys(SHADE_KERNELS, 0.0)}
+    timing = {"K11": ("cornell", "gen"), "K12": ("cornell", "shade"),
+              "K12 pre": ("soup:100000", "shade"), "K12 post": ("soup:100000", "shade")}
+    for tag, scene, cam, kw, vs_plain in cases:
+        pt = PathTracer(scene, bench_settings(SIZE, compact_schedule="auto", **kw), device=dev)
+        pt.render(cam, frame_seed=0)  # the probes and the capture
+        if "no_transparency" in kw and pt.settings.no_transparency:
+            raise AssertionError(f"{tag}: the frame skips the transmit branch")
+        gens, shades = _recorded_shading(lambda: eager_frame(pt, cam, 3))
+        checked, errs = shade_calls_check(tag, gens, shades)
+        for k, v in errs.items():
+            out["errs"][k] = max(out["errs"][k], v)
+        lanes = [r["args"][2].t.shape[0] for r in shades]
+        phase("shade", f"{tag}: {checked} calls bitwise their plain versions, the bounces' "
+                       f"lanes {lanes} (schedule {pt.settings.compact_schedule})")
+        out["checked"][tag] = checked
+        for name, (where, kind) in timing.items():
+            if where == tag and name not in out["times"]:
+                rec = gens[0] if kind == "gen" else next(
+                    r for r in shades if (name in r["inst"] or name == "K12")
+                    and (name != "K12" or r["inst"] == ("K12",)))
+                out["times"][name] = _shade_timing(name, rec)
+        del gens, shades
+        if vs_plain:
+            _frame_through_plain(tag, pt, cam, 4)
+        del pt
+        torch.cuda.empty_cache()
+    for name, row in out["times"].items():
+        phase("shade", f"{name} on {row['lanes']} lanes: {row['ms']:.4f} ms (20 launches from a "
+                       f"CUDA graph), plain {row['plain_ms']:.4f} ms, bound "
+                       f"{row['bound'][0]:.4f} ms ({row['bound'][1]})")
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("shade", f"phase took {out['seconds']:.1f} s")
+    return out
+
+
 # ----------------------------------------------------------- CUDA graphs --
 
 # The graph phase's frames: (tag, scene, settings, the kernels its frame
@@ -2867,6 +3280,7 @@ def graph_frame_check(tag: str, scene, cam, dev, kernels: tuple, **kw) -> dict:
             raise AssertionError(f"graph {tag}: frame {i} differs from the eager frame in "
                                  f"state fields {bad} ({n_px} pixels of rgb.x)")
     _expect(f"graph {tag}, eager", eager_launches, dict.fromkeys(kernels, mtd))
+    shading = _shade_pattern(f"graph {tag}", nodes, 1, pt.settings)
     if nodes != eager_launches:
         raise AssertionError(f"graph {tag}: the graph holds {nodes} of the port's kernel "
                              f"nodes, an eager frame launches {eager_launches}")
@@ -2897,7 +3311,8 @@ def graph_frame_check(tag: str, scene, cam, dev, kernels: tuple, **kw) -> dict:
                    f"{GRAPH_PROFILED} bare replays; "
                    f"ms/frame eager {', '.join(f'{x:.3f}' for x in ms['eager'])}, graphed "
                    f"{', '.join(f'{x:.3f}' for x in ms['graph'])}")
-    return {"warmup_s": warm_s, **st, "launches_a_replay": nodes, "ms_eager": ms["eager"],
+    return {"warmup_s": warm_s, **st, "launches_a_replay": nodes, "shading": shading,
+            "ms_eager": ms["eager"],
             "ms_graph": ms["graph"], "lane_order": pt.lane_order}
 
 
@@ -2936,6 +3351,11 @@ def graph_bench_check(name: str, kernels: tuple, dev, frames: int = 2) -> dict:
             raise AssertionError(f"graph bench {name}: {row['grads']} parameters")
         _expect(f"graph bench {name} {mode}", row["launches_a_replay"],
                 dict.fromkeys(kernels, depth))
+        if fwd_only:
+            _shade_pattern(f"graph bench {name} {mode}", row["launches_a_replay"], 1,
+                           bench_settings(SIZE))
+        else:  # autograd records the frame: the plain shade, no K11 or K12
+            _no_shading(f"graph bench {name} {mode}", row["launches_a_replay"])
         phase("graph", f"bench {name} {mode}: {frames} replayed frames bitwise the eager step"
                        f"{'' if fwd_only else ' (loss and all 28 gradients)'}; capture "
                        f"{row['capture_s']:.3f} s, {row['nodes']} nodes, pool "
@@ -3158,6 +3578,10 @@ def bench_phase(dev) -> dict:
                                         proc.stderr).group(1))
         # One replay of the frame's graph a frame: each kernel once a bounce.
         _expect(f"bench {tag}", launched, dict.fromkeys(kernels, iters * k * depth))
+        if "--fwd-only" in argv:  # forward frames: K11 and K12
+            _shade_pattern(f"bench {tag}", launched, iters * k, bench_settings(SIZE))
+        else:  # autograd records the frames: the plain shade
+            _no_shading(f"bench {tag}", launched)
         if f"({k} frames a step)" not in proc.stderr or \
                 "[bench] CUDA graph of one frame: captured in" not in proc.stderr:
             raise AssertionError(f"bench {tag}: no capture of the frame step in its log")
@@ -3181,11 +3605,12 @@ def bench_phase(dev) -> dict:
 # The port's kernels' names, as the profiler shows them.
 PORT_KERNELS = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "rows_kernel",
                 "packet_kernel", "chain_kernel", "slab_kernel", "walk_kernel",
-                "phong_clusters_kernel")
+                "phong_clusters_kernel", "gen_rays_kernel", "shade_kernel")
 
 
 def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
-    """Device time by kernel over one frame, or over one call of ``step``
+    """Device time by kernel over one eager frame (``eager_frame``: a
+    graph's replay loses profiler records), or over one call of ``step``
     (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3193,7 +3618,7 @@ def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         if step is None:
-            pt.render(cam, frame_seed=99)
+            eager_frame(pt, cam, 99)
         else:
             step()
         torch.cuda.synchronize()
@@ -3278,6 +3703,9 @@ def main() -> None:
           **tp["k8"]["shadow"]}
     del tp["k7"]["pt"], s10["pt"]
     torch.cuda.empty_cache()
+    sh = shade_phase(dev, scene_s, cam_s)
+    print(json.dumps({"shade": sh}), flush=True)
+    torch.cuda.empty_cache()
     print(json.dumps({"graph": graph_phase(dev, scene_s, scene_t, cam_s)}), flush=True)
 
     print(json.dumps({"bench": bench_phase(dev)}), flush=True)
@@ -3299,13 +3727,19 @@ def main() -> None:
     phong = {"K9": ph["passes"]["K9 camera"], "K10": ph["passes"]["K10 camera"],
              "K9 any-hit": ph["passes"]["K9 any-hit 0"]}
     t.update({k: (v["ms"], v["plain_ms"]) for k, v in phong.items()})
+    # K11 and K12 on their main path's bounce 0 (Cornell: K11, K12; the
+    # 'bvh' path of soup:100000: K12 pre and post), bitwise their plain
+    # versions on every call of the shade phase's frames.
+    t.update({k: (v["ms"], v["plain_ms"]) for k, v in sh["times"].items()})
     bounds = {**corn["bounds"], **mk_bounds,
               **{k: v[2] for times in (mc["times"], sk["times"], msw["times"], swk["times"])
                  for k, v in times.items() if len(v) == 3},
               **{k: (v["bound_ms"], v["bound_by"]) for k, v in tk.items()},
-              **{k: (v["bound_ms"], v["bound_by"]) for k, v in phong.items()}}
+              **{k: (v["bound_ms"], v["bound_by"]) for k, v in phong.items()},
+              **{k: v["bound"] for k, v in sh["times"].items()}}
     errs = {**k1["errs"], **mk_errs, **mc["errs"], **sk["errs"], **msw["errs"], **swk["errs"],
-            **{k: v["err"] for k, v in tk.items()}, **{k: v["err"] for k, v in phong.items()}}
+            **{k: v["err"] for k, v in tk.items()}, **{k: v["err"] for k, v in phong.items()},
+            **sh["errs"]}
     fo = tp["forest"]["launches"]
     # (instance, source, launches on its path, frames of the path's run
     # that the count covers: the timed frames, or one frame; the linear
@@ -3339,11 +3773,15 @@ def main() -> None:
         ("K9", K9_SOURCE, ph["path"]["launches"].get("K9", 0), PHONG_FRAMES),
         ("K9 any-hit", K9_SOURCE, ph["path"]["launches"].get("K9 any-hit", 0), PHONG_FRAMES),
         ("K10", K10_SOURCE, ph["path"]["launches"].get("K10", 0), PHONG_FRAMES),
+        ("K11", SHADE_SOURCE, corn["launches"]["K11"], FRAMES),
+        ("K12", SHADE_SOURCE, corn["launches"]["K12"], FRAMES),
+        ("K12 pre", SHADE_SOURCE, tp["k8"]["launches"]["K12 pre"], FRAMES),
+        ("K12 post", SHADE_SOURCE, tp["k8"]["launches"]["K12 post"], FRAMES),
     ]
-    # No one PyTorch call computes a nearest-hit search or a BVH walk:
-    # library_ms is null.
-    if len(rows) != 28:
-        raise AssertionError(f"expected 28 kernel rows, got {len(rows)}")
+    # No one PyTorch call computes a nearest-hit search, a BVH walk or a
+    # bounce's shade: library_ms is null.
+    if len(rows) != 32:
+        raise AssertionError(f"expected 32 kernel rows, got {len(rows)}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src,
         "replaces": REPLACES[name] if name in REPLACES else REPLACES[name.split()[0]],

@@ -369,10 +369,11 @@ def cmd_fit(args) -> dict:
     both are ``fit_steps``, CUDA graphs on the card. A
     search that runs out (step at most 1e-6) keeps the current albedos: no
     accepted step raises the loss. Returns ``{"losses", "final_loss",
-    "kd_err", "ms_step", "accepted", "kd"}``: the loss at the start of each
-    step, the loss at the final albedos, the largest red-albedo error, the
-    ms a step (host clock, the device synchronised), which steps moved the
-    albedos, and the final albedos (3, M)."""
+    "kd_err", "ms_step", "accepted", "kd", "settings"}``: the loss at the
+    start of each step, the loss at the final albedos, the largest
+    red-albedo error, the ms a step (host clock, the device synchronised),
+    which steps moved the albedos, the final albedos (3, M) and the
+    frames' settings."""
     from pbr_tpu_torch.utils.config import load_config
     from pbr_tpu_torch.utils.image import save_render
     from pbr_tpu_torch.utils.log import Logger, Timer
@@ -434,7 +435,7 @@ def cmd_fit(args) -> dict:
                     exposure=args.exposure)
         Logger.info(f"[fit] Wrote {args.out}")
     return {"losses": losses, "final_loss": final, "kd_err": err, "ms_step": ms_step,
-            "accepted": accepted, "kd": kd}
+            "accepted": accepted, "kd": kd, "settings": settings}
 
 
 def cmd_view(args):

@@ -2,13 +2,15 @@
 
 The counterpart of ``pbr_tpu/models/integrator.py::trace_rays``: the whole
 ray batch advances together through generate (camera rays, AA jitter,
-thin-lens DoF), intersect (``ops/traverse.py``: kernel K1, kernel K3
-over the cluster verdicts on a scene in the gated band, kernel K4 over
-the candidate lists above it, or a BVH walk, K6, K7 or K8; with Phong
+thin-lens DoF: kernel K11), intersect (``ops/traverse.py``: kernel K1,
+kernel K3 over the cluster verdicts on a scene in the gated band, kernel K4
+over the candidate lists above it, or a BVH walk, K6, K7 or K8; with Phong
 tessellation the curved-patch search of ``ops/phongtess.py``: kernel K10
-over the clusters' candidate lists or the Phong BVH walk K9), and shade (NEE,
-BRDF sample, throughput update, Russian roulette), with per-ray liveness
-as masks. Same estimator, same quirks,
+over the clusters' candidate lists or the Phong BVH walk K9), and shade
+(NEE, BRDF sample, throughput update, Russian roulette: kernel K12), with
+per-ray liveness as masks. K11 and K12 (``ops/cuda_shade.py``) run a
+forward frame on the card; on the CPU, and where autograd records the
+frame, their plain versions, the torch ops. Same estimator, same quirks,
 same counter-based RNG, so the port's frame agrees with the NumPy oracle
 pixel by pixel (up to the ULPs of transcendentals).
 
@@ -18,7 +20,7 @@ What the JAX version does only to please XLA is not ported. These
 ``remat`` and the ``PBR_TPU_CKPT_*`` / ``PBR_TPU_GATHER_VJP`` switches
 (checkpointing scopes), and the shard_map varying-axes workarounds. The
 material gather is the JAX default's select chain up to 16 materials and
-plain indexing above (``_gather_materials``): exact table values either
+plain indexing above (``cuda_shade.gather_materials``): exact table values either
 way. JAX's one-hot matmul for 17-128 materials and its opt-in matmul
 backward are TPU choices and are not ported.
 
@@ -34,44 +36,19 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from pbr_tpu_torch.ops.brdf import (
-    PI_X2,
-    fresnel,
-    refract_dir,
-    sa_eval,
-    sa_sample,
-    schlick_eval,
-    schlick_sample,
-)
-from pbr_tpu_torch.ops.intersect import INF, gather_vec3, geometric_normal, sphere
+from pbr_tpu_torch.ops.cuda_shade import Hit, Lanes, ShadeConfig, ShadeScene, gen_rays, shade
+from pbr_tpu_torch.ops.intersect import INF
 from pbr_tpu_torch.ops.phongtess import (
     face_is_flat,
     intersect_scene_phongtess,
     occluded_scene_phongtess,
-    patch_constants,
-    phongtess_normal,
 )
-from pbr_tpu_torch.ops.rng import (
-    S_AA_PHI,
-    S_AA_R,
-    S_BRDF_A,
-    S_BRDF_B,
-    S_BRDF_C,
-    S_DOF_PHI,
-    S_DOF_R,
-    S_EXTEND,
-    S_REFR,
-    S_RR,
-    S_TRANS,
-    PixelRng,
-)
+from pbr_tpu_torch.ops.rng import PixelRng
 from pbr_tpu_torch.ops.traverse import detach_tris, intersect_scene, occluded_scene
-from pbr_tpu_torch.ops.vec import Vec3, f32, jitter, safe_div, safe_sqrt, where3
-from pbr_tpu_torch.scene.camera import pixel_dim
-from pbr_tpu_torch.utils.config import BRDF_SCHLICK, RenderSettings
+from pbr_tpu_torch.ops.vec import Vec3, f32, where3
+from pbr_tpu_torch.utils.config import RenderSettings
 
 _I32 = torch.int32
-_ZERO, _ONE = torch.tensor(0.0), torch.tensor(1.0)  # 0-d: broadcast on any device
 
 
 class TraceResult(NamedTuple):
@@ -110,58 +87,6 @@ def _zeros3(like) -> Vec3:
     return Vec3(torch.zeros_like(like), torch.zeros_like(like), torch.zeros_like(like))
 
 
-def _sanitize3(v: Vec3) -> Vec3:
-    """Non-finite components -> 0: an impossible sample weighs nothing
-    (pbr_tpu.models.integrator._sanitize3)."""
-    f = lambda c: torch.where(torch.isfinite(c), c, 0.0)  # noqa: E731
-    return Vec3(f(v.x), f(v.y), f(v.z))
-
-
-def _clip01(v: Vec3) -> Vec3:
-    """``jnp.clip(c, 0, 1)``, which is ``minimum(maximum(c, 0), 1)``: a
-    component exactly at a bound gets half the gradient, as in JAX (``clamp``
-    would pass all of it). A grey material's normalised colour sits exactly
-    at 1 in every component."""
-    f = lambda c: torch.minimum(torch.maximum(c, _ZERO), _ONE)  # noqa: E731
-    return Vec3(f(v.x), f(v.y), f(v.z))
-
-
-def _norm_rgb(bc: Vec3) -> Vec3:
-    """``bc / maximum(1, max component)``, the tie splitting the gradient as
-    ``jnp.maximum`` does."""
-    return bc / torch.maximum(_ONE, bc.max_component())
-
-
-SELECT_MAX_MATERIALS = 16  # a select chain up to this many materials, indexing above
-
-
-def _gather_materials(mats, midx):
-    """All per-ray material fields; every value is a table entry verbatim.
-
-    With at most ``SELECT_MAX_MATERIALS`` materials each field is the JAX
-    default's select chain (``pbr_tpu/models/integrator.py:176-186``):
-    ``f[0] * ones``, then one ``torch.where`` per material 1..M-1. Its
-    backward is M elementwise selects and M small sums a field; plain
-    indexing's backward sorts the B indices. Above that, plain indexing."""
-    fields = (mats.d, mats.Ni, mats.rough, mats.p, mats.nu, mats.nv, mats.Rs, mats.Rd,
-              *mats.kd, *mats.ks)
-    m = int(mats.d.shape[0])
-    if m <= SELECT_MAX_MATERIALS:
-        ones = torch.ones(midx.shape, dtype=torch.float32, device=midx.device)
-        sels = [midx == i for i in range(1, m)]
-
-        def pick(f):
-            v = f[0] * ones
-            for i, sel in enumerate(sels):
-                v = torch.where(sel, f[i + 1], v)
-            return v
-
-        vals = [pick(f) for f in fields]
-    else:
-        vals = [f[midx] for f in fields]
-    return (*vals[:8], Vec3(*vals[8:11]), Vec3(*vals[11:14]))
-
-
 def _compact_rows(alive, block: int, cap: int):
     """Row-granular live compaction plan (``_compact_rows`` of the JAX
     version). Lanes group into rows of ``block``; a row is live iff any
@@ -194,48 +119,6 @@ def _compact_rows(alive, block: int, cap: int):
 def _take_rows(v, src, block: int):
     """Gather rows of ``block`` consecutive lanes: (R*block,) -> (cap*block,)."""
     return v.reshape(-1, block)[src].reshape(-1)
-
-
-def _gen_rays(cam, settings: RenderSettings, px, py, rng: PixelRng, s: int, prev_t):
-    """Primary rays: pinhole + AA jitter + thin-lens DoF (initRay,
-    pathtracing.cl:25-48; pt_utils.cl:327-373). Camera fields are 0-d
-    tensors and broadcast against the (B,) batch."""
-    w, h = settings.width, settings.height
-    pxdim = np.float32(pixel_dim(w, h, settings.fov))
-    eye, cw, cu, cv = cam.eye, cam.w, cam.u, cam.v
-
-    fx = f32(1.0 - w) + 2.0 * px
-    fy = f32(1.0 - h) + 2.0 * py
-    d = (cw + (cu * fx + cv * fy) * f32(pxdim * np.float32(0.5))).normalized()
-
-    r0 = rng.at(s, 0)
-    rnd = r0.u(S_AA_R)
-    phi = PI_X2 * r0.u(S_AA_PHI)
-    aa = jitter(d, phi, torch.sqrt(rnd), torch.sqrt(1.0 - rnd))
-    d = (d + aa * f32(pxdim * np.float32(settings.anti_aliasing))).normalized()
-
-    o = eye
-    t_obj = torch.where(torch.isfinite(prev_t), prev_t, 1000.0)
-    t_foc = torch.where(torch.isfinite(cam.focus), cam.focus, 1000.0)
-    lens = cam.focal_length / cam.aperture
-    radius = r0.u(S_DOF_R) * lens * 0.5
-    angle = PI_X2 * r0.u(S_DOF_PHI)
-    o_dof = o + cu * (radius * torch.cos(angle)) + cv * (radius * torch.sin(angle))
-    hit_focal = eye + d * t_foc
-    d_dof = (hit_focal - o_dof).normalized()
-    use_dof = (cam.focus >= 0.0) & (t_obj > 0.0)
-    return where3(use_dof, o_dof, o), where3(use_dof, d_dof, d)
-
-
-def _orb_pass(o, d, lights, t_geom):
-    """Orb-light visibility on a geometry miss (traverseLights,
-    pt_bvh.cl:54-74): the last orb hit in light order wins."""
-    orb_idx = torch.full(o.x.shape, -1, dtype=_I32, device=o.x.device)
-    for i in range(lights.count):
-        center = Vec3(lights.pos.x[i], lights.pos.y[i], lights.pos.z[i])
-        _, hit = sphere(o, d, center, lights.radius[i])
-        orb_idx = torch.where((lights.type[i] == 2) & hit, i, orb_idx)
-    return torch.where(torch.isfinite(t_geom), -1, orb_idx)
 
 
 def _shadow_occluded(tris, hit_p, l_dir, t_light, casts, mode, tables, pt_alpha=0.0,
@@ -323,11 +206,10 @@ def trace_rays(
     # The Phong searches' face table (None: a scene of flat faces alone,
     # whose searches build their own).
     pt_faces = getattr(scene, "phong_records", None)
-    mats = scene.materials
     lights = scene.lights
-    num_lights = lights.count
-    nee_enabled = bool(settings.shadow_rays) and num_lights > 0
-    sky = Vec3(*(f32(c) for c in settings.sky_light))
+    shade_cfg = ShadeConfig.of(settings, lights.count)
+    shade_scene = ShadeScene(tris, scene.materials, lights, flat)
+    nee_enabled = shade_cfg.nee
     mtd = settings.max_total_depth
 
     batch = px.shape[0]
@@ -359,7 +241,6 @@ def trace_rays(
         light_found, light_val, depth_added = c.light_found, c.light_val, c.depth_added
         final_color, secondary, focus_t = c.final_color, c.secondary, c.focus_t
         heat, heat_tests, heat_visits = c.heat, c.heat_tests, c.heat_visits
-        zero3 = _zeros3(px)
         if with_stats:
             n_path = n_path + alive.sum()
             heat = heat + alive.to(_I32)
@@ -394,147 +275,22 @@ def trace_rays(
                 heat_tests = heat_tests + torch.where(alive, tests, 0)
             if visits is not None:
                 heat_visits = heat_visits + torch.where(alive, visits, 0)
-        if num_lights:
-            orb_idx = _orb_pass(o, d, lights, t)
-        else:
-            orb_idx = torch.full(px.shape, -1, dtype=_I32, device=dev)
 
         if s == 0 and depth == 0:  # sample 0's first hit is the focus channel
             focus_t = t
 
-        finite = torch.isfinite(t)
-        hit = finite & alive
-        # ---- miss: sky or orb emission (pathtracing.cl:263-266) ------------
-        miss = alive & ~finite
-        is_orb = miss & (orb_idx >= 0)
-        orb_safe = orb_idx.clamp_min(0)
-        orb_rgb = zero3
-        for li in range(num_lights):
-            orb_rgb = where3(
-                orb_safe == li,
-                Vec3(lights.rgb.x[li], lights.rgb.y[li], lights.rgb.z[li]),
-                orb_rgb,
-            )
-        light_val = where3(miss, where3(is_orb, orb_rgb, sky), light_val)
-        light_found = light_found | miss
-        alive = alive & ~miss
+        # ---- shade: kernel K12 on a forward frame on the card --------------
+        def occlude(hit_p, l_dir, t_light, casts):
+            return _shadow_occluded(tris, hit_p, l_dir, t_light, casts, settings.intersector,
+                                    tables, pt_alpha, pt_faces)
 
-        # ---- material & geometric normal -----------------------------------
-        face_safe = face.clamp_min(0)
-        midx = tris.mtl[face_safe]
-        m_d, m_ni, m_rough, m_p, m_nu, m_nv, m_rs, m_rd, m_kd, m_ks = (
-            _gather_materials(mats, midx)
-        )
-        e1 = gather_vec3(tris.e1, face_safe)
-        e2 = gather_vec3(tris.e2, face_safe)
-        normal = geometric_normal(e1, e2)
-        if pt_u is not None:
-            # A curved winner's shading normal (getPhongTessNormal,
-            # pt_utils.cl:282-294).
-            v0 = gather_vec3(tris.v0, face_safe)
-            n1, n2, n3 = (gather_vec3(n, face_safe) for n in (tris.n0, tris.n1, tris.n2))
-            consts = patch_constants(v0, v0 + e1, v0 + e2, n1, n2, n3, pt_alpha)
-            normal = where3(flat[face_safe], normal,
-                            phongtess_normal(d, n1, n2, n3, *consts, pt_u, pt_v))
-
-        # ---- path extension decision (extendDepth, pt_utils.cl:89-96) ------
-        rb = rng.at(s, depth)
-        if settings.brdf == BRDF_SCHLICK:
-            extend = m_rough < rb.u(S_EXTEND)
-        else:
-            extend = torch.maximum(m_nu, m_nv) >= 50.0
-
-        # ---- opportunistic last-bounce break (pathtracing.cl:274-276) ------
-        is_last = depth == (settings.max_depth + depth_added - 1)
-        alive = alive & ~(hit & (m_d == 1.0) & ~extend & is_last)
-        live = hit & alive
-
-        # ---- hit point (guarded for dead lanes) ----------------------------
-        hit_p = o + d * torch.where(hit, t, 1.0)
-
-        # ---- NEE shadow ray (shadowRayTest, pathtracing.cl:188-199) --------
-        if nee_enabled:
-            l_vec = Vec3(lights.pos.x[0], lights.pos.y[0], lights.pos.z[0]) - hit_p
-            t_light = safe_sqrt(l_vec.length2())
-            l_dir = l_vec * safe_div(1.0, t_light)
-            casts = live & (m_d > 0.0)
-            occluded = occ_fused
-            if occluded is None:
-                occluded = _shadow_occluded(tris, hit_p, l_dir, t_light, casts,
-                                            settings.intersector, tables, pt_alpha, pt_faces)
-            nee_ok = casts & ~occluded
-            if with_stats:
-                n_shadow = n_shadow + casts.sum()
-
-        # ---- new direction (getNewRay, pt_brdf.cl:344-378) -----------------
-        ra, rbb, rc = rb.u(S_BRDF_A), rb.u(S_BRDF_B), rb.u(S_BRDF_C)
-        if settings.brdf == BRDF_SCHLICK:
-            new_d = schlick_sample(d, normal, m_rough, m_p, ra, rbb, rc)
-        else:
-            new_d = sa_sample(d, normal, m_d, m_nu, m_nv, ra, rbb, rc)
-        if settings.no_transparency:
-            # Every material is opaque: the transmit branch is dead, and
-            # its two draws are skipped (streams are keyed independently).
-            add_depth = extend
-        else:
-            do_trans = (m_d < 1.0) & (m_d <= rb.u(S_TRANS))
-            add_depth = extend | do_trans
-            new_d = where3(do_trans, refract_dir(d, normal, m_ni, rb.u(S_REFR)), new_d)
-        # Detached sampling: sample positions carry no gradient.
-        new_d = new_d.detach()
-
-        # ---- flip normal toward the viewer (pathtracing.cl:296-300) --------
-        n_sh = where3(normal.dot(-d) <= 0.0, -normal, normal)
-
-        # ---- throughput & NEE contribution (updateColor, pathtracing.cl) ---
-        if settings.brdf == BRDF_SCHLICK:
-            if nee_enabled:
-                brdf_l, u_l, pdf_l = schlick_eval(n_sh, d, l_dir, m_rough, m_p)
-                ok = nee_ok & (torch.abs(pdf_l) > f32(1e-5))
-                w_l = brdf_l * n_sh.dot(l_dir).clamp_min(0.0) / torch.where(ok, pdf_l, 1.0)
-                l_rgb = Vec3(lights.rgb.x[0], lights.rgb.y[0], lights.rgb.z[0])
-                contrib = color * l_rgb * m_kd * (fresnel(u_l, m_ks) * w_l * m_d + (1.0 - m_d))
-                final_color = final_color + _sanitize3(where3(ok, contrib, zero3))
-                secondary = secondary + ok.to(_I32)
-            brdf_b, u_b, pdf_b = schlick_eval(n_sh, d, new_d, m_rough, m_p)
-            pdf_bs = torch.where(live & (torch.abs(pdf_b) > f32(1e-7)), pdf_b, 1.0)
-            w_b = brdf_b * n_sh.dot(new_d).clamp_min(0.0) / pdf_bs
-            mult = _sanitize3(m_kd * (fresnel(u_b, m_ks) * w_b * m_d + (1.0 - m_d)))
-            color = where3(live, color * mult, color)
-        else:
-            if nee_enabled:
-                spec_l, diff_l, hk1_l, pdf_l = sa_eval(n_sh, d, l_dir, m_nu, m_nv)
-                ok = nee_ok & (torch.abs(pdf_l) > f32(1e-5))
-                pdf_ls = torch.where(ok, pdf_l, 1.0)
-                b_s = (spec_l / pdf_ls) * fresnel(hk1_l, m_rs)
-                b_d = (diff_l * m_rd / pdf_ls) * (1.0 - m_rs)
-                bc = (m_ks * b_s + m_kd * b_d) * m_d + (1.0 - m_d)
-                bc = _clip01(_norm_rgb(bc))
-                l_rgb = Vec3(lights.rgb.x[0], lights.rgb.y[0], lights.rgb.z[0])
-                contrib = bc * l_rgb * m_d + (1.0 - m_d)
-                final_color = final_color + _sanitize3(where3(ok, contrib, zero3))
-                secondary = secondary + ok.to(_I32)
-            spec_b, diff_b, hk1_b, pdf_b = sa_eval(n_sh, d, new_d, m_nu, m_nv)
-            pdf_bs = torch.where(live & (torch.abs(pdf_b) > f32(1e-7)), pdf_b, 1.0)
-            b_s = (spec_b / pdf_bs) * fresnel(hk1_b, m_rs)
-            b_d = (diff_b * m_rd / pdf_bs) * (1.0 - m_rs)
-            bc = (m_ks * b_s + m_kd * b_d) * m_d + (1.0 - m_d)
-            bc = _sanitize3(_clip01(_norm_rgb(bc)))
-            color = where3(live, color * bc, color)
-
-        # ---- extend the depth budget, loop bound, Russian roulette ---------
-        depth_added = depth_added + (
-            add_depth & (depth_added < settings.max_added_depth) & live
-        ).to(_I32)
-        alive = alive & ((depth + 1) < settings.max_depth + depth_added)
-        rr = (depth > 2 + depth_added) & (color.max_component() < rb.u(S_RR))
-        alive = alive & ~rr
-
-        return _Carry(
-            where3(live, hit_p, o), where3(live, new_d, d), color, alive,
-            light_found, light_val, depth_added, final_color, secondary,
-            focus_t, heat, heat_tests, heat_visits,
-        )
+        lanes, casts = shade(
+            shade_cfg, Lanes(o, d, color, alive, light_found, light_val, depth_added,
+                             final_color, secondary),
+            Hit(t, face, pt_u, pt_v, occ_fused), rng, s, depth, shade_scene, occlude)
+        if with_stats and casts is not None:
+            n_shadow = n_shadow + casts.sum()
+        return _Carry(*lanes, focus_t, heat, heat_tests, heat_visits)
 
     final_color = _zeros3(px)
     secondary = torch.ones(px.shape, dtype=_I32, device=dev)  # pathtracing.cl:249
@@ -542,7 +298,7 @@ def trace_rays(
     heat, heat_tests, heat_visits = lane_stats(px)
 
     for s in range(settings.samples):
-        o, d = _gen_rays(cam, settings, px, py, rng, s, prev_t)
+        o, d = gen_rays(cam, settings, px, py, rng, s, prev_t)  # kernel K11
         ones = torch.ones_like(px)
         carry = _Carry(
             o, d, Vec3(ones, ones.clone(), ones.clone()),

@@ -33,6 +33,10 @@ KERNELS = {
     "K9": r"phong_walk_kernel<false>",
     "K9 any-hit": r"phong_walk_kernel<true>",
     "K10": r"phong_clusters_kernel",
+    "K11": r"gen_rays_kernel",
+    "K12": r"shade_kernel<\d+, (true|false), (true|false), (true|false), 0>",
+    "K12 pre": r"shade_kernel<\d+, (true|false), (true|false), (true|false), 1>",
+    "K12 post": r"shade_kernel<\d+, (true|false), (true|false), (true|false), 2>",
 }
 
 
@@ -40,12 +44,12 @@ def _launch_tables() -> tuple:
     """(launch table, {name in ``counts()``: key in the table}) of every
     kernel wrapper module."""
     from pbr_tpu_torch.ops import (cuda_bvh, cuda_cull, cuda_gated, cuda_intersect, cuda_phong,
-                                   cuda_sweep)
+                                   cuda_shade, cuda_sweep)
 
     gated = {"K3": "nearest", "K3 any-hit": "any-hit"}
     return tuple((mod.launches, gated if mod is cuda_gated else {k: k for k in mod.launches})
                  for mod in (cuda_intersect, cuda_gated, cuda_cull, cuda_sweep, cuda_bvh,
-                             cuda_phong))
+                             cuda_phong, cuda_shade))
 
 
 def count_launch(table: dict, key: str) -> None:

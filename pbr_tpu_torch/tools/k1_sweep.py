@@ -60,6 +60,9 @@ FILE = "brute_intersect.cu"
 KERNEL = "brute_intersect_kernel"
 WARP = 32
 ITERS = 20
+# (ray, face) pairs a chunk of ``sweep_counts``: some GiB of temporaries on
+# an 80 GB card, so a million rays against 100,000 faces take 800 chunks.
+SWEEP_ELEMS = 1 << 27
 INSTANCES = (("K1", "mt", True), ("K1'", "mt", False), ("K2", "lin", True),
              ("K2'", "lin", False))
 
@@ -187,13 +190,16 @@ def sweep_counts(o: Vec3, d: Vec3, table: torch.Tensor, light: torch.Tensor) -> 
     and including the first occluder in face order (all faces where none
     is), ``shadow_uv_tests`` (``1e-5 <= t < t_light`` among them),
     ``shadow_skip_tests``; ``occluded`` rays, and ``occluded_warps`` of
-    ``warps`` (32 rays in a row, every one occluded)."""
+    ``warps`` (32 rays in a row, every one occluded). A chunk of rays holds
+    at most ``SWEEP_ELEMS`` (ray, face) pairs; the counts are summed on the
+    device and read once."""
     n, nf = o.x.shape[0], table.shape[1]
-    step = max(WARP, ci._PLAIN_ELEMS // max(nf, 1) // WARP * WARP)
+    step = max(WARP, SWEEP_ELEMS // max(nf, 1) // WARP * WARP)
     k = torch.arange(nf, device=table.device)
-    res = dict.fromkeys(("tests", "uv_tests", "skip_tests", "shadow_tests", "shadow_uv_tests",
-                         "shadow_skip_tests", "occluded", "occluded_warps"), 0)
-    res["warps"] = -(-n // WARP)
+    keys = ("uv_tests", "skip_tests", "shadow_tests", "shadow_uv_tests", "shadow_skip_tests",
+            "occluded", "occluded_warps")
+    acc = torch.zeros(len(keys), dtype=torch.int64, device=table.device)
+    tests = 0
     for lo in range(0, n, step):
         sl = slice(lo, lo + step)
         oc, dc = _cols(o, sl), _cols(d, sl)
@@ -201,9 +207,9 @@ def sweep_counts(o: Vec3, d: Vec3, table: torch.Tensor, light: torch.Tensor) -> 
         t_min = torch.where(valid, t, float("inf")).amin(dim=1)
         det, tnum = _det_tnum(oc, dc, table)
         skip = ~((torch.fmin(det, tnum) > 0.0) | (torch.fmax(det, tnum) < 0.0))
-        res["tests"] += t.numel()
-        res["uv_tests"] += int(((t >= EPS5) & (t <= t_min[:, None])).sum())
-        res["skip_tests"] += int(skip.sum())
+        tests += t.numel()
+        uv = ((t >= EPS5) & (t <= t_min[:, None])).sum()
+        n_skip = skip.sum()
         hit_p, s_dir, t_light = ci._shadow_ray(Vec3(*(a[sl] for a in o)),
                                                Vec3(*(a[sl] for a in d)), t_min, light)
         hc, sc = _cols(hit_p, slice(None)), _cols(s_dir, slice(None))
@@ -214,12 +220,13 @@ def sweep_counts(o: Vec3, d: Vec3, table: torch.Tensor, light: torch.Tensor) -> 
         det, tnum = _det_tnum(hc, sc, table)
         skip = ~((torch.fmin(det, tnum) > 0.0) | (torch.fmax(det, tnum) < 0.0))
         occ = first < nf
-        res["shadow_tests"] += int(torch.clamp(first + 1, max=nf).sum())
-        res["shadow_uv_tests"] += int((below & upto).sum())
-        res["shadow_skip_tests"] += int((skip & upto).sum())
-        res["occluded"] += int(occ.sum())
         pad = torch.ones(-occ.shape[0] % WARP, dtype=torch.bool, device=occ.device)
-        res["occluded_warps"] += int(torch.cat([occ, pad]).reshape(-1, WARP).all(dim=1).sum())
+        acc += torch.stack([
+            uv, n_skip, torch.clamp(first + 1, max=nf).sum(), (below & upto).sum(),
+            (skip & upto).sum(), occ.sum(),
+            torch.cat([occ, pad]).reshape(-1, WARP).all(dim=1).sum()]).to(torch.int64)
+    res = {"tests": tests, **dict(zip(keys, (int(v) for v in acc.tolist())))}
+    res["warps"] = -(-n // WARP)
     return res
 
 

@@ -1,5 +1,6 @@
-"""The material gather of the port's integrator
-(``pbr_tpu_torch/models/integrator.py::_gather_materials``): the JAX
+"""The material gather of the port's shade
+(``pbr_tpu_torch/ops/cuda_shade.py::gather_materials``, the plain version
+of K12's gather by index): the JAX
 default's select chain up to 16 materials, plain indexing above.
 
 Values must equal plain indexing and the JAX package's
@@ -18,7 +19,7 @@ import torch
 from pbr_tpu.models import integrator as jax_integrator
 from pbr_tpu.ops.vec import Vec3 as JVec3
 from pbr_tpu.scene.types import MaterialsSoA as JMaterials
-from pbr_tpu_torch.models import integrator
+from pbr_tpu_torch.ops import cuda_shade
 from pbr_tpu_torch.ops.vec import Vec3
 from pbr_tpu_torch.scene.types import MaterialsSoA
 
@@ -72,7 +73,7 @@ def test_values_equal_plain_indexing(m):
     tab, midx, _ = _tables(m)
     mats, _ = _torch_mats(tab)
     idx = torch.tensor(midx)
-    for got, ref in zip(_flat(integrator._gather_materials(mats, idx)), _flat(_plain(mats, idx))):
+    for got, ref in zip(_flat(cuda_shade.gather_materials(mats, idx)), _flat(_plain(mats, idx))):
         assert got.shape == (RAYS,) and torch.equal(got, ref)
 
 
@@ -86,7 +87,7 @@ def test_values_equal_the_jax_package(m):
                     kd=JVec3(*map(jnp.asarray, tab["kd"])), ks=JVec3(*map(jnp.asarray, tab["ks"])),
                     light=jnp.zeros(m, jnp.int32))
     ref = _flat(jax_integrator._gather_materials(jnp, jm, jnp.asarray(midx)))
-    got = _flat(integrator._gather_materials(mats, torch.tensor(midx)))
+    got = _flat(cuda_shade.gather_materials(mats, torch.tensor(midx)))
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.detach().numpy(), np.asarray(r))
 
@@ -94,7 +95,7 @@ def test_values_equal_the_jax_package(m):
 @pytest.mark.parametrize("m", M_CASES)
 def test_grads_match_plain_indexing(m):
     tab, midx, w = _tables(m)
-    _, got = _grads(integrator._gather_materials, tab, midx, w)
+    _, got = _grads(cuda_shade.gather_materials, tab, midx, w)
     _, ref = _grads(_plain, tab, midx, w)
     assert set(got) == set(ref)
     for k in ref:
@@ -119,7 +120,7 @@ def test_chain_backward_has_no_index_node(m, indexed):
     selects and sums, no index backward (which sorts the indices)."""
     tab, midx, _ = _tables(m)
     mats, _ = _torch_mats(tab)
-    vals = _flat(integrator._gather_materials(mats, torch.tensor(midx)))
+    vals = _flat(cuda_shade.gather_materials(mats, torch.tensor(midx)))
     names = set().union(*(_backward_nodes(v) for v in vals))
     assert any(n.startswith("Index") for n in names) == indexed, names
     assert any(n.startswith("Where") for n in names) == (not indexed), names

@@ -37,6 +37,7 @@ profiled kernels) are chip_smoke.py's graph phase; the test marked
 """
 
 import dataclasses
+import json
 import functools
 
 import jax
@@ -642,6 +643,13 @@ _KERNEL_NAMES = {
     "K9 any-hit": "void (anonymous namespace)::phong_walk_kernel<true>((anonymous "
                   "namespace)::Params)",
     "K10": "void (anonymous namespace)::phong_clusters_kernel((anonymous namespace)::Params)",
+    "K11": "void (anonymous namespace)::gen_rays_kernel((anonymous namespace)::GenArgs)",
+    "K12": "void (anonymous namespace)::shade_kernel<1, true, false, false, 0>((anonymous "
+           "namespace)::ShadeArgs)",
+    "K12 pre": "void (anonymous namespace)::shade_kernel<1, true, false, true, 1>((anonymous "
+               "namespace)::ShadeArgs)",
+    "K12 post": "void (anonymous namespace)::shade_kernel<0, true, true, false, 2>((anonymous "
+                "namespace)::ShadeArgs)",
 }
 
 
@@ -729,3 +737,37 @@ def test_a_wrapper_counts_no_launch_under_capture(monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda c=capturing: c)
         ops.count_launch(table, "K1")
     assert table == {"K1": 2}
+
+
+def test_graph_steps_digests_tell_bitwise_equal_tensors(tmp_path):
+    """tools/graph_steps.py holds two trees' sums and frames equal by their
+    bytes' digests: -0.0 is not +0.0, a NaN equals itself, and the dtype
+    counts."""
+    from pbr_tpu_torch.tools import graph_steps as gs
+
+    a = torch.tensor([0.0, 1.5, float("nan")])
+    assert gs.digest(a) == gs.digest(a.clone())
+    assert gs.digest(a) != gs.digest(torch.tensor([-0.0, 1.5, float("nan")]))
+    assert gs.digest(a) != gs.digest(a.double())
+    assert gs.digest(a[1]) == gs.digest(torch.tensor(1.5))  # a step's loss is 0-d
+    assert gs.digest(a[1]) != gs.digest(a[1:2])
+    for name, val in (("x.json", a), ("y.json", a.clone()), ("z.json", a + 1)):
+        (tmp_path / name).write_text(json.dumps({"digests": {"c fwd": {"frame": gs.digest(val)}}}))
+    assert gs.compare(tmp_path / "x.json", tmp_path / "y.json") == {"c fwd/frame": True}
+    assert gs.compare(tmp_path / "x.json", tmp_path / "z.json") == {"c fwd/frame": False}
+
+
+def test_graph_steps_phong_case_steps_like_the_eager_step():
+    """tools/graph_steps.py's ``phong`` case: the Cornell box with its
+    curved sphere under bench.py's settings at alpha ``PHONG_ALPHA``; its
+    one-frame forward step (``FrameStep``, eager on the CPU) is
+    ``bench.step``'s, bitwise."""
+    from pbr_tpu_torch.tools import graph_steps as gs
+
+    b = gs.bench_case("phong", 16, "cpu")
+    assert b.settings.phong_tessellation == gs.PHONG_ALPHA
+    assert b.scene.phong_records is not None
+    got = bench.FrameStep(b, fwd_only=True)(1, 1)
+    ref = bench.step(b.scene, b.cam, b.settings, b.pixel_ids, 1, frames=1, fwd_only=True)
+    assert torch.isfinite(ref) and float(ref) > 0.0
+    assert torch.equal(got, ref)

@@ -328,3 +328,23 @@ def test_k1_sweep_counts_match_a_sweep_in_order(form):
     pad = torch.cat([occ, torch.ones(28, dtype=torch.bool)])
     assert got["occluded_warps"] == int(pad.reshape(-1, 32).all(dim=1).sum())
     assert 0 < got["skip_tests"] < got["tests"] and 0 < got["uv_tests"] < got["tests"]
+
+
+@pytest.mark.parametrize("form", ["mt", "lin"])
+def test_k1_sweep_counts_do_not_depend_on_the_chunk(form, monkeypatch):
+    """``sweep_counts`` in chunks of 32 rays (three whole warps and a
+    ragged last chunk of 4) gives the counts of one chunk of all rays."""
+    scene, _ = scene_from_text(*multi_room(), use_bvh=False)
+    tris = to_torch(scene, "cpu").tris
+    table = ci.lin_table(tris) if form == "lin" else ci.face_table(tris)
+    rng = np.random.default_rng(6)
+    n = 100
+    o = np.stack([rng.uniform(-2.8, 2.8, n), rng.uniform(0.1, 1.9, n),
+                  rng.uniform(-4.8, 0.8, n)]).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    o, d = Vec3(*map(torch.tensor, o)), Vec3(*map(torch.tensor, d))
+    light = torch.tensor([0.0, 1.75, 0.0])
+    whole = k1_sweep.sweep_counts(o, d, table, light)
+    monkeypatch.setattr(k1_sweep, "SWEEP_ELEMS", 32 * table.shape[1])
+    assert k1_sweep.sweep_counts(o, d, table, light) == whole
