@@ -22,11 +22,14 @@ eager frame's launches and to what the device ran (torch.profiler).
    (csrc/bvh_packet.cu), K8 (csrc/bvh_walk.cu), K9 (csrc/phong_walk.cu),
    K10 (csrc/phong_clusters.cu) and K11/K12 (csrc/shade.cu) with nvcc, and
    the native BVH builder (csrc/bvh_builder.cpp) with g++, all in
-   parallel, timed. Every forward frame on the card shades in K11 (camera
-   rays, once a sample) and K12 (once a bounce, or "K12 pre" and "K12
-   post" where the shadow leg is a walk of its own); the launch checks of
-   the search kernels below leave them out and print them, and the shade
-   and graph phases hold their counts;
+   parallel, and their backward, K11 bwd and K12 bwd
+   (csrc/shade_bwd.cu), timed. Every forward frame on the card shades in
+   K11 (camera rays, once a sample) and K12 (once a bounce, or "K12 pre"
+   and "K12 post" where the shadow leg is a walk of its own), and the
+   backward of a frame that autograd records runs K12 bwd once a bounce
+   and, where the camera requires grad, K11 bwd once a sample; the launch
+   checks of the search kernels below leave them out and print them, and
+   the shade and graph phases hold their counts;
 3. Cornell box (34 faces; auto runs K1):
    - K1 and K2 (NEE, and K1', K2' nearest only) against their plain
      versions on the card, bitwise (t, face, occluded), on the path's
@@ -71,7 +74,9 @@ eager frame's launches and to what the device ran (torch.profiler).
    - path "multiroom, forward+backward": bench.py's step (loss = sum of
      the frame's colors; gradients to every material and light parameter
      and to the eye) at 1024², timed, with its peak memory and finite
-     gradients; at 64², the card's gradients against the CPU's;
+     gradients, K11, K12, K11 bwd and K12 bwd launching once a sample or a
+     bounce of each step; at 64², the card's gradients against the CPU's
+     (the plain adjoints);
    - path "linear form": K2's entry point (intersect_fused(variant='lin'),
      which no render mode selects, as in the JAX package) on the path's
      camera rays, NEE and nearest;
@@ -305,15 +310,27 @@ eager frame's launches and to what the device ran (torch.profiler).
    soup:100000 (K8: pre and post, the orb light) and the Phong sphere (K9
    any-hit: pre and post, curved normals), every K11 and K12 call recorded
    and held bitwise to its plain version (as bit patterns: a NaN counts;
-   a difference names the output, its lanes and its largest ULP); the
-   frames of Cornell, multiroom, soup:100000 and the Phong sphere through
-   the kernels bitwise the same frames through the plain versions under
-   autograd (the grad path, which launches no K11 or K12); K11, K12, K12
-   pre and K12 post each timed alone on its main path's bounce 0 (20
-   launches from a CUDA graph) against its plain version, with its bound
-   (bytes in once and out once). The graph phase holds each forward
-   frame's graph to K11 once a sample and K12 once a bounce (or pre and
-   post once each), and the bench's forward+backward graphs to neither.
+   a difference names the output, its lanes and its largest ULP); on the
+   backward step (bench.py's: every material, light and camera parameter)
+   of each case, the sphere's curved normals too, every K11 bwd and K12
+   bwd call recorded and held to its plain adjoint (``shade_vjp_terms``,
+   ``gen_rays_vjp_terms``): each lane's gradients bitwise, the table's
+   and the camera's sums within 1e-5 of the float64 sum of their terms'
+   absolute values; Cornell's bounce 0 again over 600 materials, whose
+   warp rows do not fit in shared memory (the scratch rows in global
+   memory), the same way; the frames of Cornell, multiroom, soup:100000
+   and the Phong sphere through the kernels bitwise the same frames
+   through the plain versions (the integrator's two wrappers swapped for
+   them, ``_plain_shading``: no shading kernel launches) and the frames
+   autograd records, whose forward and backward launch K11, K12, K11 bwd
+   and K12 bwd; K11, K12, K12 pre and K12
+   post each timed alone on its main path's bounce 0, and K11 bwd and K12
+   bwd on Cornell's backward step's (20 launches from a CUDA graph),
+   against its plain version, with its bound (bytes in once and out
+   once). The graph phase holds each forward frame's graph to K11 once a
+   sample and K12 once a bounce (or pre and post once each), and the
+   bench's forward+backward graphs to those and K11 bwd once a sample and
+   K12 bwd once a bounce.
 
 Every failure raises, so the exit code is not 0. The last two lines of
 standard output are the kernels' JSON record (with each kernel's bound: the
@@ -324,7 +341,9 @@ over ``frames`` frames of its path; "K1 (multiroom)" and "K1
 intersector='pallas' frames; K9's and K10's times are on the Phong path's
 1M camera rays; K11's and K12's on Cornell's bounce 0, K12 pre's and
 post's on soup:100000's (their launches: Cornell's timed frames and the
-'bvh' path's); K10's row adds the yardstick bound ``bound_jax_ms``
+'bvh' path's), K11 bwd's and K12 bwd's on Cornell's backward step's
+bounce 0 (their launches: the multiroom forward+backward path's STEPS
+steps); K10's row adds the yardstick bound ``bound_jax_ms``
 beside ``bound_ms``, the bound of the tests it runs, and its launches over
 the Phong golden's frames under the JAX package's threshold,
 ``golden_launches`` over ``golden_frames``: its ``launches`` are the main
@@ -339,6 +358,7 @@ import sys
 sys.modules["jax"] = None  # the port must run where JAX is absent ...
 sys.modules["pbr_tpu"] = None  # ... and imports nothing of the JAX package
 
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import re  # noqa: E402
 import shutil  # noqa: E402
@@ -468,6 +488,8 @@ REPLACES = {
     "K10": "pbr_tpu/ops/phongtess.py:730",  # the XLA while_loop of intersect_clusters_phongtess
     "K11": "pbr_tpu/models/integrator.py:287",  # no Pallas kernel: XLA's fusion of _gen_rays
     "K12": "pbr_tpu/models/integrator.py:579",  # no Pallas kernel: XLA's fusion of the shade
+    "K11 bwd": "pbr_tpu/models/integrator.py:287",  # XLA's fusion of jax.grad of _gen_rays
+    "K12 bwd": "pbr_tpu/models/integrator.py:579",  # XLA's fusion of jax.grad of the shade
 }
 
 
@@ -551,7 +573,8 @@ def build_phase() -> None:
 
     t0 = time.perf_counter()
     names = ("brute_intersect", "gated_intersect", "cull_intersect", "row_sweep", "bvh_packet",
-             "bvh_walk", "phong_walk", "phong_clusters", "shade", "bvh_builder", "k5 record")
+             "bvh_walk", "phong_walk", "phong_clusters", "shade", "shade_bwd", "bvh_builder",
+             "k5 record")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         done = list(pool.map(timed, names))
     for name, sec, lib in done:
@@ -1055,7 +1078,8 @@ def _grads(ts, cam_t, settings, ids, weights=None) -> tuple:
 
 
 def _grads_card_vs_cpu(tag: str, scene, cam, dev, settings: RenderSettings) -> None:
-    """The card's gradients of bench.py's step against the CPU path's
+    """The card's gradients of bench.py's step (its shade's backward K12
+    bwd, the camera's K11 bwd) against the CPU path's (the plain adjoints)
     (``_grads_agree``)."""
     _grads_agree(tag, scene, cam, (dev, settings), ("cpu", settings), "card vs CPU")
 
@@ -1107,8 +1131,9 @@ def _grads_agree(tag: str, scene, cam, run, ref, what: str) -> None:
 
 
 def multiroom_grad_phase(scene, cam, dev, pt: PathTracer, profile: bool) -> dict:
-    """Path "multiroom, forward+backward" at 1024², then the card's 64²
-    gradients against the CPU's."""
+    """Path "multiroom, forward+backward" at 1024² (K3 and K3 any-hit once
+    a bounce; K11, K12, K11 bwd and K12 bwd: ``_shade_pattern``), then the
+    card's 64² gradients against the CPU's (the plain adjoints)."""
     ts = pt.scene.requires_grad_()
     cam_t = camera_to_torch(cam, dev)
     for c in cam_t.eye:
@@ -1136,6 +1161,7 @@ def multiroom_grad_phase(scene, cam, dev, pt: PathTracer, profile: bool) -> dict
     expect = STEPS * pt.settings.max_total_depth
     if not finite or launched["K3"] != expect or launched["K3 any-hit"] != expect:
         raise AssertionError(f"fwd+bwd: finite {finite}, launches {launched}")
+    _shade_pattern("fwd+bwd", launched, STEPS, pt.settings, backward=True)
     if profile:
         profile_phase("multiroom forward+backward", pt, cam,
                       lambda: _grads(ts, cam_t, pt.settings, pt.pixel_ids))
@@ -2124,15 +2150,17 @@ def app_denoise_phase(scene, cam, dev, size: int = 128) -> None:
 def _fit_shading(tag: str, launched: dict, settings: RenderSettings, steps: int,
                  search: str) -> int:
     """``fit``'s shading launches, from its search's (``search`` once a
-    bounce on every frame): the target frame and the loss frames of the
-    line search and the end run under ``no_grad``, K11 once a sample and
-    the fused K12 once a bounce; the ``steps`` value_and_grad frames, which
-    autograd records with the albedos requiring grad, K11 and no K12.
-    Raises otherwise; returns the frames."""
+    bounce on every frame): K11 once a sample and the fused K12 once a
+    bounce of every frame (the target frame, the loss frames of the line
+    search and the end run under ``no_grad``, and the ``steps``
+    value_and_grad frames, which autograd records with the albedos
+    requiring grad), and K12 bwd once a bounce of those ``steps`` frames;
+    no K11 bwd (the camera is no variable of the fit). Raises otherwise;
+    returns the frames."""
     bounces = settings.samples * settings.max_total_depth
     frames, rest = divmod(launched.get(search, 0), bounces)
-    want = {"K11": settings.samples * frames, "K12": bounces * (frames - steps),
-            "K12 pre": 0, "K12 post": 0}
+    want = {"K11": settings.samples * frames, "K12": bounces * frames, "K12 pre": 0,
+            "K12 post": 0, "K11 bwd": 0, "K12 bwd": bounces * steps}
     got = {k: launched.get(k, 0) for k in SHADE_KERNELS}
     if rest or frames < 2 * steps + 2 or got != want:
         raise AssertionError(f"{tag}: {steps} steps launched {launched}: expected a whole "
@@ -2842,7 +2870,10 @@ def sharded_phase(dev, size: int = SIZE) -> dict:
 # ------------------------------------------------------ shading, K11/K12 --
 
 SHADE_SOURCE = "pbr_tpu_torch/csrc/shade.cu"
-SHADE_KERNELS = ("K11", "K12", "K12 pre", "K12 post")
+SHADE_BWD_SOURCE = "pbr_tpu_torch/csrc/shade_bwd.cu"
+SHADE_FWD = ("K11", "K12", "K12 pre", "K12 post")
+SHADE_BWD = ("K11 bwd", "K12 bwd")
+SHADE_KERNELS = SHADE_FWD + SHADE_BWD
 # Operations for the bounds, counted by hand from csrc/shade.cu on a lane's
 # common path (lower estimates; both kernels are bound by bytes many times
 # over): K11 a lane (the pinhole, the jitter's frame and two normalisations,
@@ -2850,6 +2881,10 @@ SHADE_KERNELS = ("K11", "K12", "K12 pre", "K12 post")
 # the BRDF sample and two evaluations, throughput and the NEE sum), and
 # "K12 pre" a lane (the hit point and shadow ray).
 OPS_K11, OPS_K12_LIVE, OPS_K12_PRE = 120, 250, 30
+# The backward's, counted the same way: K11 bwd a lane (the forward again,
+# the jitter's and three normalisations' adjoints: 400), K12 bwd a live
+# lane (the forward again and the two BRDF evaluations' adjoints: 900).
+OPS_K11_BWD, OPS_K12_BWD_LIVE = 400, 900
 
 
 def _clone(x):
@@ -2891,7 +2926,7 @@ def _recorded_shading(run) -> tuple:
 
         before = dict(csh.launches)
         out = real_shade(cfg, lanes, hit, rng, s, depth, scene, leg)
-        rec["inst"] = tuple(k for k in SHADE_KERNELS if csh.launches[k] > before[k])
+        rec["inst"] = tuple(k for k in SHADE_FWD if csh.launches[k] > before[k])
         rec["out"] = _clone(out)
         shades.append(rec)
         return out
@@ -2962,8 +2997,8 @@ def shade_calls_check(tag: str, gens: list, shades: list) -> dict:
     recorded bit handed back. Raises naming each output that differs, its
     lanes and its largest ULP. Returns ({instance: calls checked},
     {instance: the largest absolute difference over those calls})."""
-    checked = dict.fromkeys(SHADE_KERNELS, 0)
-    errs = dict.fromkeys(SHADE_KERNELS, 0.0)
+    checked = dict.fromkeys(SHADE_FWD, 0)
+    errs = dict.fromkeys(SHADE_FWD, 0.0)
     for j, rec in enumerate(gens):
         ref = csh.gen_rays_plain(*rec["args"])
         bad = _bit_diff(f"{tag} K11 call {j}", rec["out"], ref)
@@ -2999,26 +3034,49 @@ def shade_calls_check(tag: str, gens: list, shades: list) -> dict:
     return checked, errs
 
 
-def _shade_pattern(tag: str, launched: dict, frames: int, settings: RenderSettings) -> str:
-    """A forward frame's shading launches: K11 once a sample, and K12 once
-    a bounce (fused) or "K12 pre" and "K12 post" once each; raises
-    otherwise. Returns 'fused' or 'pre/post'."""
+def _shade_pattern(tag: str, launched: dict, frames: int, settings: RenderSettings,
+                   backward: bool = False, camera: bool = True) -> str:
+    """The shading launches of ``frames`` frames, forward (K11 once a
+    sample; K12 once a bounce, fused, or "K12 pre" and "K12 post" once
+    each) and, with ``backward`` (frames that autograd records), K12 bwd
+    once a bounce and, where the camera requires grad (``camera``), K11
+    bwd once a sample; flat-shaded and Phong frames alike. Raises
+    otherwise; returns 'fused' or 'pre/post'."""
     samples = frames * settings.samples
     bounces = samples * settings.max_total_depth
     got = {k: launched.get(k, 0) for k in SHADE_KERNELS}
-    fused = {"K11": samples, "K12": bounces, "K12 pre": 0, "K12 post": 0}
-    split = {"K11": samples, "K12": 0, "K12 pre": bounces, "K12 post": bounces}
+    bwd = {"K11 bwd": samples if backward and camera else 0,
+           "K12 bwd": bounces if backward else 0}
+    fused = {"K11": samples, "K12": bounces, "K12 pre": 0, "K12 post": 0, **bwd}
+    split = {"K11": samples, "K12": 0, "K12 pre": bounces, "K12 post": bounces, **bwd}
     if got not in (fused, split):
-        raise AssertionError(f"{tag}: shading launches {got} over {frames} forward frames, "
+        raise AssertionError(f"{tag}: shading launches {got} over {frames} "
+                             f"{'forward+backward' if backward else 'forward'} frames, "
                              f"expected {fused} or {split}")
     return "fused" if got == fused else "pre/post"
 
 
+@contextlib.contextmanager
+def _plain_shading():
+    """Within it the integrator's camera rays and shade are their plain
+    versions (``gen_rays_plain``, ``shade_plain``: torch ops on any
+    device), as ``_recorded_shading`` swaps them for its recorders."""
+    import pbr_tpu_torch.models.integrator as integ
+
+    real = integ.gen_rays, integ.shade
+    integ.gen_rays, integ.shade = csh.gen_rays_plain, csh.shade_plain
+    try:
+        yield
+    finally:
+        integ.gen_rays, integ.shade = real
+
+
 def _no_shading(tag: str, launched: dict) -> None:
-    """A frame that autograd records launches neither K11 nor K12."""
+    """A frame through the plain versions (``_plain_shading``) launches
+    none of the shading kernels."""
     got = {k: launched.get(k, 0) for k in SHADE_KERNELS if launched.get(k)}
     if got:
-        raise AssertionError(f"{tag}: a frame under autograd launched {got}")
+        raise AssertionError(f"{tag}: a frame through the plain versions launched {got}")
 
 
 def _shade_bytes(name: str, rec: dict) -> int:
@@ -3091,9 +3149,11 @@ def _shade_timing(name: str, rec: dict) -> dict:
 
 def _frame_through_plain(tag: str, pt: PathTracer, cam, seed: int) -> None:
     """One frame through the kernels (no autograd) bitwise the same frame
-    through the plain versions (autograd records the scene's parameters
-    and the camera: the grad path, bench.py's backward step's), its colour
-    detached; the grad path launches no K11 or K12."""
+    through the plain versions (``_plain_shading``, which launches no
+    shading kernel) and the frame that autograd records (the scene's
+    parameters and the camera requiring grad: bench.py's backward step's),
+    its colour detached; the recorded frame and its backward launch K11,
+    K12, K11 bwd and K12 bwd (``_shade_pattern``)."""
     ct = camera_to_torch(cam, pt.device)
     run = lambda c: trace_rays(pt.scene, c, pt.settings, pt.pixel_ids, seed,  # noqa: E731
                                max_leaf=pt.max_leaf)
@@ -3103,36 +3163,233 @@ def _frame_through_plain(tag: str, pt: PathTracer, cam, seed: int) -> None:
     torch.cuda.synchronize()
     launched = counts()
     pattern = _shade_pattern(f"{tag} frame", launched, 1, pt.settings)
+    zero_counts()
+    with torch.no_grad(), _plain_shading():
+        plain = run(ct)
+    torch.cuda.synchronize()
+    _no_shading(f"{tag} plain frame", counts())
     pt.scene.requires_grad_()
     try:
         zero_counts()
         with torch.enable_grad():
-            ref = run(leaf_camera(ct))
-            ref = (ref.color.detach(), ref.focus_t.detach())
+            res = run(leaf_camera(ct))
+            (res.color.x.sum() + res.color.y.sum() + res.color.z.sum()).backward()
+            rec = (res.color.detach(), res.focus_t.detach())
         torch.cuda.synchronize()
-        _no_shading(f"{tag} grad path", counts())
+        launched = counts()
+        grad_pattern = _shade_pattern(f"{tag} grad path", launched, 1, pt.settings,
+                                      backward=True)
     finally:
         pt.scene.requires_grad_(False)
-    bad = _bit_diff(f"{tag} frame", (got.color, got.focus_t), ref)
-    if bad:
-        raise AssertionError(f"{tag}: the frame through K11/K12 differs from the grad path's "
-                             f"(output: (lanes, max ULP)) {bad}")
+        pt.scene.zero_grad(set_to_none=True)
+    for what, ref in (("the plain versions'", (plain.color, plain.focus_t)),
+                      ("the grad path's", rec)):
+        bad = _bit_diff(f"{tag} frame", (got.color, got.focus_t), ref)
+        if bad:
+            raise AssertionError(f"{tag}: the frame through K11/K12 differs from {what} "
+                                 f"(output: (lanes, max ULP)) {bad}")
     phase("shade", f"{tag}: a {SIZE}² frame through K11 and K12 ({pattern}) bitwise the same "
-                   f"frame through the plain shade under autograd, detached")
+                   f"frame through the plain versions and the frame autograd records, whose "
+                   f"backward ran {grad_pattern}: "
+                   f"{ {k: launched.get(k, 0) for k in SHADE_KERNELS} }")
+
+
+def _recorded_backward(run) -> tuple:
+    """(K11 bwd calls, K12 bwd calls) of ``run()``'s backward, each with
+    copies of its inputs and outputs."""
+    gens, shades = [], []
+    real_gen, real_shade = csh.gen_rays_bwd_launch, csh.shade_bwd_launch
+
+    def gen(*args):
+        out = real_gen(*args)
+        gens.append({"args": _clone(args), "out": out.clone()})
+        return out
+
+    def shd(cfg, lanes, hit, rng, s, depth, scene, g):
+        out = real_shade(cfg, lanes, hit, rng, s, depth, scene, g)
+        shades.append({"args": _clone((cfg, lanes, hit, rng, s, depth)), "scene": scene,
+                       "g": _clone(g), "out": _clone(out)})
+        return out
+
+    csh.gen_rays_bwd_launch, csh.shade_bwd_launch = gen, shd
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        csh.gen_rays_bwd_launch, csh.shade_bwd_launch = real_gen, real_shade
+    return gens, shades
+
+
+def _sums_err(what: str, got, ref, abs_sum) -> float:
+    """Sums of the same terms in another order: each within 1e-5 of the
+    float64 sum of its terms' absolute values of ``ref``, their float64
+    sum; raises otherwise. Returns the largest absolute difference."""
+    err = (got.double() - ref).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > 1e-5 * abs_sum).any()):
+        worst = float((err / abs_sum.clamp_min(1e-30)).max())
+        raise AssertionError(f"{what}: a sum off by {worst:.3g} of its terms' absolute sum")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def shade_bwd_check(tag: str, gens: list, shades: list) -> tuple:
+    """Every recorded K12 bwd call against its plain adjoint on the same
+    inputs (``shade_vjp_terms``): each lane's gradients bitwise (as bit
+    patterns), the table's within 1e-5 of the float64 sum of its terms'
+    absolute values of their float64 sum (the plain adjoint's float32 sum,
+    ``table_sum``, carries its own rounding: its error is printed beside);
+    every K11 bwd call's camera gradients the same way
+    (``gen_rays_vjp_terms``). Raises naming what differs. Returns
+    ({instance: calls checked}, {instance: the largest absolute
+    difference})."""
+    checked = dict.fromkeys(SHADE_BWD, 0)
+    errs = dict.fromkeys(SHADE_BWD, 0.0)
+    plain = 0.0  # the plain adjoint's float32 sums against the float64 ones
+    for j, rec in enumerate(gens):
+        terms = csh.gen_rays_vjp_terms(*rec["args"]).double()
+        errs["K11 bwd"] = max(errs["K11 bwd"], _sums_err(
+            f"{tag} K11 bwd call {j}", rec["out"], terms.sum(dim=1), terms.abs().sum(dim=1)))
+        checked["K11 bwd"] += 1
+    for j, rec in enumerate(shades):
+        scene = rec["scene"]
+        lane, g_t, terms = csh.shade_vjp_terms(*rec["args"], scene, rec["g"])
+        bad = _bit_diff(f"{tag} K12 bwd {j}", rec["out"][:2], (lane, g_t))
+        if bad:
+            raise AssertionError(f"{tag}: K12 bwd call {j} (bounce {rec['args'][5]}, "
+                                 f"{rec['args'][2].t.shape[0]} lanes) differs from its plain "
+                                 f"adjoint (output: (lanes, max ULP)) {bad}")
+        m, nl = int(scene.materials.d.shape[0]), scene.lights.count
+        ref = csh.table_sum(terms, m, nl, torch.float64)
+        t64 = terms._replace(mat=terms.mat.abs(), pos=terms.pos.abs(), rgb=terms.rgb.abs())
+        err = _sums_err(f"{tag} K12 bwd call {j} table", rec["out"][2], ref,
+                        csh.table_sum(t64, m, nl, torch.float64))
+        plain = max(plain, float((csh.table_sum(terms, m, nl).double() - ref).abs().max()))
+        errs["K12 bwd"] = max(errs["K12 bwd"], err, _max_abs(rec["out"][:2], (lane, g_t)))
+        checked["K12 bwd"] += 1
+        del lane, g_t, terms
+    phase("shade", f"{tag}: the largest difference from the float64 sums: K12 bwd's table "
+                   f"{errs['K12 bwd']:.3g}, K11 bwd's camera {errs['K11 bwd']:.3g}; the plain "
+                   f"adjoint's float32 table {plain:.3g}")
+    return checked, errs
+
+
+def _bwd_timing(name: str, rec: dict) -> dict:
+    """K11 bwd or K12 bwd alone on a recorded call (20 launches captured in
+    a CUDA graph), its plain adjoint on the same inputs, and the bound:
+    each input read once (the lanes' state the forward read, the outputs'
+    gradients, the tables) and each output written once (the inputs'
+    gradients but the final colour's, which is its upstream gradient
+    itself: 13 a lane; the table); the operations of OPS_K11_BWD a lane
+    and OPS_K12_BWD_LIVE a live lane."""
+    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts if t is not None)  # noqa: E731
+    if name == "K11 bwd":
+        args = rec["args"]
+        ms = k1_sweep.graph_ms(lambda: csh.gen_rays_bwd_launch(*args), 20)
+        plain = _time_ms(lambda: csh.gen_rays_vjp_plain(*args), 5)
+        cam, settings, px, py, rng, s, prev_t, g_o, g_d = args
+        n = px.shape[0]
+        dof = float(cam.focus) >= 0.0
+        lane_in = nb([px, py, rng._base, *g_o, *g_d]) + (nb([prev_t]) if dof else 0)
+        bound = _bound(OPS_K11_BWD * n, lane_in + 15 * 4)
+        return {"ms": ms, "plain_ms": plain, "bound": bound, "lanes": n}
+    cfg, lanes, hit, rng, s, depth = rec["args"]
+    scene, g = rec["scene"], rec["g"]
+    args = (cfg, lanes, hit, rng, s, depth, scene, g)
+    ms = k1_sweep.graph_ms(lambda: csh.shade_bwd_launch(*args), 20)
+    plain = _time_ms(lambda: csh.shade_vjp_plain(*args), 5)
+    n = hit.t.shape[0]
+    phong = cfg.pt_alpha > 0.0
+    tables = nb([scene.tris.mtl, *scene.tris.e1, *scene.tris.e2, *_leaves(scene.materials),
+                 *_leaves(scene.lights)])
+    if phong:
+        tables += nb([*scene.tris.v0, *scene.tris.n0, *scene.tris.n1, *scene.tris.n2,
+                      scene.flat])
+    lane_in = nb([*lanes.o, *lanes.d, *lanes.color, lanes.alive, lanes.depth_added, hit.t,
+                  hit.face, hit.u if phong else None, hit.v if phong else None,
+                  hit.occluded if cfg.nee else None, rng._base, *_leaves(g)])
+    rows = 14 * int(scene.materials.d.shape[0]) + 6 * scene.lights.count
+    live = _live_lanes(rec)
+    bound = _bound(OPS_K12_BWD_LIVE * live, tables + lane_in + n * 13 * 4 + rows * 4)
+    return {"ms": ms, "plain_ms": plain, "bound": bound, "lanes": n, "live": live}
+
+
+WIDE_MATERIALS = 600  # 14 x 600 + 6 table rows: a block's 8 warp rows need 269 KB
+
+
+def wide_table_check(tag: str, rec: dict) -> dict:
+    """K12 bwd on a recorded call over a table of WIDE_MATERIALS materials
+    (the scene's, repeated with each copy's colours scaled, and the faces'
+    materials drawn at random), whose warp rows do not fit in a block's
+    shared memory: the lanes' gradients bitwise the plain adjoint's, the
+    table's sums within 1e-5 of their terms' absolute sums, a second launch
+    bitwise the first. Returns the largest difference of a sum."""
+    cfg, lanes, hit, rng, s, depth = rec["args"]
+    scene = rec["scene"]
+    mats, m0 = scene.materials, int(scene.materials.d.shape[0])
+    reps = -(-WIDE_MATERIALS // m0)
+    dev = hit.t.device
+    k = torch.arange(reps * m0, device=dev)[:WIDE_MATERIALS] // m0
+    rep = lambda f: f.repeat(reps)[:WIDE_MATERIALS].contiguous()  # noqa: E731
+    tint = lambda v: Vec3(*(rep(c) * (1.0 - 0.0005 * k) for c in v))  # noqa: E731
+    wide = mats._replace(**{f: rep(getattr(mats, f)) for f in
+                            ("d", "Ni", "rough", "p", "nu", "nv", "Rs", "Rd", "light")},
+                         kd=tint(mats.kd), ks=tint(mats.ks))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    mtl = torch.randint(0, WIDE_MATERIALS, scene.tris.mtl.shape, device=dev, generator=gen,
+                        dtype=torch.int32)
+    sc = scene._replace(tris=scene.tris._replace(mtl=mtl), materials=wide)
+    args = (cfg, lanes, hit, rng, s, depth, sc, rec["g"])
+    got = csh.shade_bwd_launch(*args)
+    again = csh.shade_bwd_launch(*args)
+    lane, g_t, terms = csh.shade_vjp_terms(*args)
+    bad = _bit_diff(f"{tag} K12 bwd, {WIDE_MATERIALS} materials", got[:2], (lane, g_t))
+    bad.update({f"again {k}": v for k, v in _bit_diff(f"{tag} K12 bwd again", again, got).items()})
+    if bad:
+        raise AssertionError(f"{tag}: K12 bwd over {WIDE_MATERIALS} materials differs from its "
+                             f"plain adjoint or from itself (output: (lanes, max ULP)) {bad}")
+    nl = sc.lights.count
+    t64 = terms._replace(mat=terms.mat.abs(), pos=terms.pos.abs(), rgb=terms.rgb.abs())
+    err = _sums_err(f"{tag} K12 bwd table, {WIDE_MATERIALS} materials", got[2],
+                    csh.table_sum(terms, WIDE_MATERIALS, nl, torch.float64),
+                    csh.table_sum(t64, WIDE_MATERIALS, nl, torch.float64))
+    used = int(torch.unique(terms.midx[terms.mat.abs().sum(dim=0) > 0]).numel())
+    phase("shade", f"{tag}: K12 bwd over {WIDE_MATERIALS} materials ({used} with terms; the "
+                   f"warp rows in global memory) bitwise its plain adjoint on "
+                   f"{hit.t.shape[0]} lanes, repeats bitwise, the table within {err:.3g}")
+    return {"materials": WIDE_MATERIALS, "with_terms": used, "max_abs_err": err}
+
+
+def _backward_step(pt: PathTracer, cam, seed: int):
+    """bench.py's backward step on one frame of ``pt`` (every material,
+    light and camera parameter requiring grad), eager."""
+    ct = leaf_camera(camera_to_torch(cam, pt.device))
+    pt.scene.requires_grad_()
+    try:
+        params = list(render_params(pt.scene, ct).values())
+        res = trace_rays(pt.scene, ct, pt.settings, pt.pixel_ids, seed, max_leaf=pt.max_leaf)
+        loss = res.color.x.sum() + res.color.y.sum() + res.color.z.sum()
+        torch.autograd.grad(loss, params, allow_unused=True)
+    finally:
+        pt.scene.requires_grad_(False)
 
 
 def shade_phase(dev, scene_s, cam_s) -> dict:
-    """K11 and K12 on the card (``ops/cuda_shade.py``): on each case's
-    eager 1024² frame, every K11 and K12 call recorded and held bitwise to
-    its plain version (``shade_calls_check``): Cornell (K1, fused: SA and
-    Schlick, NEE on and off, a glass material with transparency on; the
-    compacted bounces), multiroom (K3, whose shadow leg comes with the
-    search: fused), soup:100000 (K8 with its any-hit walk: pre and post,
-    the orb light) and the Phong sphere (K9 any-hit: pre and post, curved
-    normals); the frames of Cornell, multiroom, soup:100000 and the Phong
-    sphere through the kernels bitwise the grad path's
-    (``_frame_through_plain``); each instance timed on its main path's
-    bounce 0 against its plain version, with its bound."""
+    """K11 and K12 and their backward on the card (``ops/cuda_shade.py``):
+    on each case's eager 1024² frame, every K11 and K12 call recorded and
+    held bitwise to its plain version (``shade_calls_check``): Cornell (K1,
+    fused: SA and Schlick, NEE on and off, a glass material with
+    transparency on; the compacted bounces), multiroom (K3, whose shadow
+    leg comes with the search: fused), soup:100000 (K8 with its any-hit
+    walk: pre and post, the orb light) and the Phong sphere (K9 any-hit:
+    pre and post, curved normals); on each case's backward step
+    (bench.py's: every material, light and camera parameter), every K11
+    bwd and K12 bwd call recorded and held to its plain adjoint
+    (``shade_bwd_check``: the lanes' gradients bitwise, the sums within
+    1e-5 of their terms' absolute sums), and Cornell's bounce 0 over 600
+    materials (``wide_table_check``); the frames of Cornell, multiroom,
+    soup:100000 and the Phong sphere through the kernels bitwise the plain
+    versions' and the grad path's (``_frame_through_plain``); each
+    instance timed on its main path's bounce 0 against its plain version,
+    with its bound."""
     t_phase = time.perf_counter()
     scene_c, cam_c = cornell()
     scene_m, cam_m = multiroom()
@@ -3151,7 +3408,8 @@ def shade_phase(dev, scene_s, cam_s) -> dict:
         ("soup:100000", scene_s, cam_s, {}, True),
         ("phong", scene_p, cam_c, {"phong_tessellation": PHONG_ALPHA}, True),
     )
-    out = {"checked": {}, "times": {}, "errs": dict.fromkeys(SHADE_KERNELS, 0.0)}
+    out = {"checked": {}, "checked_bwd": {}, "times": {},
+           "errs": dict.fromkeys(SHADE_KERNELS, 0.0)}
     timing = {"K11": ("cornell", "gen"), "K12": ("cornell", "shade"),
               "K12 pre": ("soup:100000", "shade"), "K12 post": ("soup:100000", "shade")}
     for tag, scene, cam, kw, vs_plain in cases:
@@ -3173,6 +3431,27 @@ def shade_phase(dev, scene_s, cam_s) -> dict:
                     r for r in shades if (name in r["inst"] or name == "K12")
                     and (name != "K12" or r["inst"] == ("K12",)))
                 out["times"][name] = _shade_timing(name, rec)
+        del gens, shades
+        gens, shades = _recorded_backward(lambda: _backward_step(pt, cam, 5))
+        checked, errs = shade_bwd_check(tag, gens, shades)
+        want = {"K11 bwd": pt.settings.samples,
+                "K12 bwd": pt.settings.samples * pt.settings.max_total_depth}
+        if checked != want:
+            raise AssertionError(f"{tag}: the backward step ran {checked}, expected {want}")
+        for k, v in errs.items():
+            out["errs"][k] = max(out["errs"][k], v)
+        phase("shade", f"{tag}: the backward step's {checked} calls held to their plain "
+                       f"adjoints (the lanes' gradients bitwise; the largest difference "
+                       f"of a sum {errs})")
+        out["checked_bwd"][tag] = checked
+        if tag == "cornell":
+            bounce0 = next(r for r in shades if r["args"][5] == 0)
+            out["times"]["K11 bwd"] = _bwd_timing("K11 bwd", gens[0])
+            out["times"]["K12 bwd"] = _bwd_timing("K12 bwd", bounce0)
+            out["wide_table"] = wide_table_check(tag, bounce0)
+        elif tag == "phong":
+            out["times"]["K12 bwd (Phong)"] = _bwd_timing(
+                "K12 bwd", next(r for r in shades if r["args"][5] == 0))
         del gens, shades
         if vs_plain:
             _frame_through_plain(tag, pt, cam, 4)
@@ -3351,11 +3630,9 @@ def graph_bench_check(name: str, kernels: tuple, dev, frames: int = 2) -> dict:
             raise AssertionError(f"graph bench {name}: {row['grads']} parameters")
         _expect(f"graph bench {name} {mode}", row["launches_a_replay"],
                 dict.fromkeys(kernels, depth))
-        if fwd_only:
-            _shade_pattern(f"graph bench {name} {mode}", row["launches_a_replay"], 1,
-                           bench_settings(SIZE))
-        else:  # autograd records the frame: the plain shade, no K11 or K12
-            _no_shading(f"graph bench {name} {mode}", row["launches_a_replay"])
+        # A forward frame, or one that autograd records: the backward too.
+        _shade_pattern(f"graph bench {name} {mode}", row["launches_a_replay"], 1,
+                       bench_settings(SIZE), backward=not fwd_only)
         phase("graph", f"bench {name} {mode}: {frames} replayed frames bitwise the eager step"
                        f"{'' if fwd_only else ' (loss and all 28 gradients)'}; capture "
                        f"{row['capture_s']:.3f} s, {row['nodes']} nodes, pool "
@@ -3482,9 +3759,10 @@ def bench_step_check(name: str, kernels: tuple, dev) -> dict:
     both with the card's settings and over the pixels whose colours agree
     within 1e-3 in every frame (at least 99%; ``_grads_agree``'s mask):
     the loss within 1e-4 of its magnitude and every parameter within 1e-3
-    of its largest magnitude, as ``_grads_agree`` holds them. The card's
-    step launches ``kernels``, each once a bounce of each frame, and no
-    other."""
+    of its largest magnitude, as ``_grads_agree`` holds them (the CPU's
+    through the plain adjoints). The card's step launches ``kernels``, each
+    once a bounce of each frame, no other search, and the shading kernels
+    with their backward (``_shade_pattern``)."""
     tag = f"bench step {name}"
     size, frames = BENCH_STEP_SIZE, BENCH_STEP_FRAMES
     card = bench.differentiable(bench.bench_scene(name, size, dev))
@@ -3509,6 +3787,7 @@ def bench_step_check(name: str, kernels: tuple, dev) -> dict:
     torch.cuda.synchronize()
     launched = {k: v for k, v in counts().items() if v}
     _expect(tag, launched, dict.fromkeys(kernels, frames * card.settings.max_total_depth))
+    _shade_pattern(tag, launched, frames, card.settings, backward=True)
     loss_h, g_h = bench.step_grads(host.scene, host.cam, host.settings, host.pixel_ids, 1,
                                    frames=frames, weights=w)
     loss_c, loss_h = float(loss_c), float(loss_h)
@@ -3578,10 +3857,10 @@ def bench_phase(dev) -> dict:
                                         proc.stderr).group(1))
         # One replay of the frame's graph a frame: each kernel once a bounce.
         _expect(f"bench {tag}", launched, dict.fromkeys(kernels, iters * k * depth))
-        if "--fwd-only" in argv:  # forward frames: K11 and K12
-            _shade_pattern(f"bench {tag}", launched, iters * k, bench_settings(SIZE))
-        else:  # autograd records the frames: the plain shade
-            _no_shading(f"bench {tag}", launched)
+        # Forward frames: K11 and K12; frames that autograd records: their
+        # backward too.
+        _shade_pattern(f"bench {tag}", launched, iters * k, bench_settings(SIZE),
+                       backward="--fwd-only" not in argv)
         if f"({k} frames a step)" not in proc.stderr or \
                 "[bench] CUDA graph of one frame: captured in" not in proc.stderr:
             raise AssertionError(f"bench {tag}: no capture of the frame step in its log")
@@ -3605,7 +3884,8 @@ def bench_phase(dev) -> dict:
 # The port's kernels' names, as the profiler shows them.
 PORT_KERNELS = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "rows_kernel",
                 "packet_kernel", "chain_kernel", "slab_kernel", "walk_kernel",
-                "phong_clusters_kernel", "gen_rays_kernel", "shade_kernel")
+                "phong_clusters_kernel", "gen_rays_kernel", "shade_kernel",
+                "gen_rays_bwd_kernel", "shade_bwd_kernel")
 
 
 def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
@@ -3729,7 +4009,9 @@ def main() -> None:
     t.update({k: (v["ms"], v["plain_ms"]) for k, v in phong.items()})
     # K11 and K12 on their main path's bounce 0 (Cornell: K11, K12; the
     # 'bvh' path of soup:100000: K12 pre and post), bitwise their plain
-    # versions on every call of the shade phase's frames.
+    # versions on every call of the shade phase's frames; K11 bwd and K12
+    # bwd on Cornell's backward step (bounce 0), their launches those of
+    # the multiroom forward+backward path's STEPS steps.
     t.update({k: (v["ms"], v["plain_ms"]) for k, v in sh["times"].items()})
     bounds = {**corn["bounds"], **mk_bounds,
               **{k: v[2] for times in (mc["times"], sk["times"], msw["times"], swk["times"])
@@ -3777,11 +4059,13 @@ def main() -> None:
         ("K12", SHADE_SOURCE, corn["launches"]["K12"], FRAMES),
         ("K12 pre", SHADE_SOURCE, tp["k8"]["launches"]["K12 pre"], FRAMES),
         ("K12 post", SHADE_SOURCE, tp["k8"]["launches"]["K12 post"], FRAMES),
+        ("K11 bwd", SHADE_BWD_SOURCE, grad["launches"]["K11 bwd"], STEPS),
+        ("K12 bwd", SHADE_BWD_SOURCE, grad["launches"]["K12 bwd"], STEPS),
     ]
     # No one PyTorch call computes a nearest-hit search, a BVH walk or a
     # bounce's shade: library_ms is null.
-    if len(rows) != 32:
-        raise AssertionError(f"expected 32 kernel rows, got {len(rows)}")
+    if len(rows) != 34:
+        raise AssertionError(f"expected 34 kernel rows, got {len(rows)}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src,
         "replaces": REPLACES[name] if name in REPLACES else REPLACES[name.split()[0]],

@@ -1,6 +1,7 @@
 // The BRDF library of ops/brdf.py as device functions, for the shading
-// kernel K12 (shade.cu): Schlick and Shirley-Ashikhmin eval and sample,
-// Fresnel and refraction.
+// kernels K12 (shade.cu) and K12 bwd (shade_bwd.cu): Schlick and
+// Shirley-Ashikhmin eval and sample, Fresnel and refraction, the shade's
+// colour helpers and the Phong shading normal.
 //
 // Op for op the plain version's: the same guards, the same operation order
 // (left to right, as the Python expressions evaluate), and the library
@@ -190,6 +191,51 @@ __device__ __forceinline__ V3 refract_dir(V3 d, V3 normal, float ni, float rand_
     return add(scale(d, m), scale(nl, m * cos_i - sqrt_cos_t));
   }
   return refl_dir;
+}
+
+// ------------------------------------------------ the shade's colours --
+
+// _sanitize3: non-finite components to 0.
+__device__ __forceinline__ float fin(float c) { return isfinite(c) ? c : 0.0f; }
+__device__ __forceinline__ V3 sanitize3(V3 v) { return V3{fin(v.x), fin(v.y), fin(v.z)}; }
+
+// _clip01(_norm_rgb(bc)): bc / max(1, max component), clipped to [0, 1].
+__device__ __forceinline__ V3 norm_clip(V3 bc) {
+  const float m = tmax(1.0f, max_component(bc));
+  const V3 q{bc.x / m, bc.y / m, bc.z / m};
+  return V3{tmin(tmax(q.x, 0.0f), 1.0f), tmin(tmax(q.y, 0.0f), 1.0f), tmin(tmax(q.z, 0.0f), 1.0f)};
+}
+
+// A lane's material, as the shade kernels gather it.
+struct Mat {
+  float d, ni, rough, p, nu, nv, rs, rd;
+  V3 kd, ks;
+};
+
+// ----------------------------------------------------- the Phong normal --
+
+// ops/phongtess.py::patch_constants and phongtess_normal (getPhongTessNormal,
+// pt_utils.cl:282-294): the shading normal of a curved face (corner P1,
+// edges e1 and e2, vertex normals N1-N3, tessellation alpha) at the
+// winner's (u, v), seen along d. K12 bwd reads it as a constant: the face
+// and (u, v) carry no gradient, and d only picks one of two normals.
+__device__ __forceinline__ V3 phong_normal(V3 P1, V3 e1, V3 e2, V3 N1, V3 N2, V3 N3,
+                                           float alpha, V3 d, float u, float v) {
+  const V3 P2 = add(P1, e1);
+  const V3 P3 = add(P1, e2);
+  const V3 E01 = sub(P2, P1);
+  const V3 E12 = sub(P3, P2);
+  const V3 E20 = sub(P1, P3);
+  const V3 C1 = scale(sub(scale(N2, dot(N2, E01)), scale(N1, dot(N1, E01))), alpha);
+  const V3 C2 = scale(sub(scale(N3, dot(N3, E12)), scale(N2, dot(N2, E12))), alpha);
+  const V3 C3 = scale(sub(scale(N1, dot(N1, E20)), scale(N3, dot(N3, E20))), alpha);
+  const float w = 1.0f - u - v;
+  const V3 du = add(add(scale(C3, w - u), scale(sub(C1, C2), v)), E20);
+  const V3 dv = sub(add(scale(C2, w - v), scale(sub(C1, C3), u)), E12);
+  const V3 ns = safe_normalized(cross(du, dv));
+  const V3 npn = safe_normalized(add(add(scale(N1, u), scale(N2, v)), scale(N3, w)));
+  const V3 r = sub(d, scale(npn, 2.0f * dot(npn, d)));
+  return dot(ns, r) < 0.0f ? ns : npn;
 }
 
 }  // namespace shade

@@ -37,6 +37,8 @@ KERNELS = {
     "K12": r"shade_kernel<\d+, (true|false), (true|false), (true|false), 0>",
     "K12 pre": r"shade_kernel<\d+, (true|false), (true|false), (true|false), 1>",
     "K12 post": r"shade_kernel<\d+, (true|false), (true|false), (true|false), 2>",
+    "K11 bwd": r"gen_rays_bwd_kernel",
+    "K12 bwd": r"shade_bwd_kernel<\d+, (true|false), (true|false), (true|false)>",
 }
 
 

@@ -21,12 +21,15 @@ from pbr_tpu_torch.ops.vec import (
     bisect,
     f32,
     jitter,
+    max_weight,
     reflect,
     safe_arccos,
     safe_div,
     safe_normalized,
+    safe_normalized_vjp,
     safe_pow,
     safe_sqrt,
+    sum3,
     where3,
 )
 
@@ -230,3 +233,190 @@ def refract_dir(d: Vec3, normal: Vec3, ni, rand_choice) -> Vec3:
     refl_dir = reflect(d, nl)
     out = where3(reflectance < rand_choice, transmit_dir, refl_dir)
     return where3(tir, refl_dir, out)
+
+
+# ---------------------------------------------------------------------------
+# Adjoints of the evaluations (the sampling is detached: it has none), the
+# plain versions of csrc/shade_bwd.cu's device functions, op for op
+# (ops/vec.py's adjoint section says the conventions).
+# ---------------------------------------------------------------------------
+
+FOUR_PI = f32(4.0 * np.pi)  # 4 * PI, exact: the evaluations' 4.0 * PI * x
+
+
+def fresnel_vjp(u, c, g):
+    """``fresnel(u, c)``'s adjoint ``(g_u, g_c)``; for a Vec3 ``c`` and
+    ``g`` the channels' terms of ``g_u`` summed x, y, z."""
+    v = 1.0 - u
+    v4 = v * v * v * v
+    g_c = g * (1.0 - v * v * v * v * v)
+    g_v5 = g * (1.0 - c)
+    if isinstance(g_v5, Vec3):
+        g_v5 = sum3(g_v5)
+    return -(g_v5 * (5.0 * v4)), g_c
+
+
+def _guarded_vjp(den, zero_if, q, g):
+    """``q = _guarded_div(num, den, zero_if)``'s adjoint ``(g_num, g_den)``:
+    zero where guarded."""
+    safe = torch.where(zero_if, 1.0, den)
+    return torch.where(zero_if, 0.0, g / safe), torch.where(zero_if, 0.0, -(g * q) / safe)
+
+
+def _schlick_G_vjp(v, r, g):
+    """(g_v, g_r) of ``_schlick_G``."""
+    x = r - r * v + v
+    zero = x == 0.0
+    q = _guarded_div(v, x, zero)
+    g_v, g_x = _guarded_vjp(x, zero, q, g)
+    return g_v + g_x * (1.0 - r), g_x * (1.0 - v)
+
+
+def _schlick_D_vjp(t, v_out, v_in, w, r, p, g):
+    """(g_t, g_v_out, g_v_in, g_w, g_r, g_p) of ``_schlick_D``."""
+    b = 4.0 * r * (1.0 - r)
+    r_lt = r < 0.5
+    one_b = 1.0 - b
+    dd = 4.0 * PI * v_out * v_in
+    gv1, gv2 = _schlick_G(v_out, r), _schlick_G(v_in, r)
+    gp = gv1 * gv2
+    z = _schlick_Z(t, r)
+    a_ = _schlick_A(w, p)
+    m1 = gp * z
+    b2 = m1 * a_ + (1.0 - gp)
+    q_zero = (b == 0.0) | (dd == 0.0)
+    q = _guarded_div(b, dd, q_zero)
+    f_zero = v_in == 0.0
+    fres = _guarded_div(torch.where(r_lt, one_b, 0.0), v_in, f_zero)
+    # D = a / pi + q * b2 + c / v_in
+    g_a = g * M_1_PI
+    g_q = g * b2
+    g_b2 = g * q
+    g_c, g_vi = _guarded_vjp(v_in, f_zero, fres, g)
+    g_b, g_dd = _guarded_vjp(dd, q_zero, q, g_q)
+    g_b = g_b - torch.where(r_lt, g_c, g_a)  # a and c are 1 - b on either side
+    g_m1 = g_b2 * a_
+    g_a_ = g_b2 * m1
+    g_gp = g_m1 * z - g_b2
+    g_z = g_m1 * gp
+    g_vo = g_dd * v_in * FOUR_PI
+    g_vi = g_vi + g_dd * (FOUR_PI * v_out)
+    g_r = g_b * (1.0 - r) * 4.0 - g_b * (4.0 * r)
+    # Z(t, r) = r / x^2, x = 1 + r t t - t t
+    x = 1.0 + r * t * t - t * t
+    xx = x * x
+    zz = x == 0.0
+    g_rz, g_xx = _guarded_vjp(xx, zz, z, g_z)
+    g_x = g_xx * x * 2.0
+    g_r = g_r + g_rz + g_x * (t * t)
+    g_t = g_x * (r * t * 2.0 - t * 2.0)
+    # A(w, p) = safe_sqrt(p / x), x = p2 - p2 w2 + w2
+    p2, w2 = p * p, w * w
+    xa = p2 - p2 * w2 + w2
+    za = xa == 0.0
+    y = _guarded_div(p, xa, za)
+    g_y = torch.where(y > 0.0, g_a_ / (2.0 * a_), 0.0)
+    g_p, g_xa = _guarded_vjp(xa, za, y, g_y)
+    g_p = g_p + g_xa * (1.0 - w2) * p * 2.0
+    g_w = g_xa * (1.0 - p2) * w * 2.0
+    # G(v_out, r) G(v_in, r)
+    g_vo1, g_r1 = _schlick_G_vjp(v_out, r, g_gp * gv2)
+    g_vi2, g_r2 = _schlick_G_vjp(v_in, r, g_gp * gv1)
+    return g_t, g_vo + g_vo1, g_vi + g_vi2, g_w, g_r + g_r1 + g_r2, g_p
+
+
+def schlick_eval_vjp(normal: Vec3, d_out: Vec3, d_in: Vec3, rough, p, g_brdf, g_u, g_pdf):
+    """``schlick_eval``'s adjoint: ``(g_d_out, g_d_in, g_rough, g_p)``
+    (``normal`` is the detached geometry's)."""
+    vo = -d_out
+    un = safe_normalized(normal.yzx().cross(normal))
+    hs = vo + d_in
+    h = safe_normalized(hs)
+    t = h.dot(normal)
+    v_in = d_in.dot(normal)
+    v_out = vo.dot(normal)
+    c1 = h.cross(normal)
+    c2 = c1.cross(normal)
+    hp = safe_normalized(c2)
+    w = un.dot(hp)
+    den = FOUR_PI * h.dot(vo)
+    pok = torch.abs(den) > 1e-12
+    pdf = torch.where(pok, t / torch.where(pok, den, 1.0), 0.0)
+    g_t, g_vo_s, g_vi_s, g_w, g_r, g_p = _schlick_D_vjp(t, v_out, v_in, w, rough, p, g_brdf)
+    g_tp, g_den = _guarded_vjp(den, ~pok, pdf, g_pdf)
+    g_t = g_t + g_tp
+    g_hvo = g_u + g_den * FOUR_PI  # u and the pdf's denominator are h . vo
+    g_c2 = safe_normalized_vjp(c2, un * g_w)
+    g_c1 = normal.cross(g_c2)  # c2 = c1 x normal
+    g_h = normal.cross(g_c1) + normal * g_t + vo * g_hvo  # c1 = h x normal
+    g_hs = safe_normalized_vjp(hs, g_h)
+    g_vo = h * g_hvo + normal * g_vo_s + g_hs
+    g_din = g_hs + normal * g_vi_s
+    return -g_vo, g_din, g_r, g_p
+
+
+def sa_eval_vjp(normal: Vec3, d_out: Vec3, d_in: Vec3, nu, nv, g_spec, g_diff, g_hk1, g_pdf):
+    """``sa_eval``'s adjoint: ``(g_d_out, g_d_in, g_nu, g_nv)``. The
+    exponent's term of ``safe_pow`` is x^e ln x."""
+    un = safe_normalized(normal.yzx().cross(normal))
+    vn = safe_normalized(normal.cross(un))
+    k1 = d_in
+    k2 = -d_out
+    hs = k1 + k2
+    h = safe_normalized(hs)
+    dot_hu = h.dot(un)
+    dot_hv = h.dot(vn)
+    dot_hn = h.dot(normal)
+    dot_nk1 = normal.dot(k1)
+    dot_nk2 = normal.dot(k2)
+    dot_hk1 = h.dot(k1)
+    ps_e_num = nu * dot_hu * dot_hu + nv * dot_hv * dot_hv
+    e_zero = dot_hn == 1.0
+    den_e = 1.0 - dot_hn * dot_hn
+    ps_e = _guarded_div(ps_e_num, den_e, e_zero)
+    s0 = (nu + 1.0) * (nv + 1.0)
+    sq = torch.sqrt(s0)
+    ps0 = sq * 0.125 * M_1_PI
+    pos = dot_hn > 0.0
+    hn_s = torch.where(pos, dot_hn, 1.0)
+    ps1_num = torch.where(pos, torch.pow(hn_s, ps_e), 0.0)
+    mx = torch.maximum(dot_nk1, dot_nk2)
+    den1 = dot_hk1 * mx
+    ok1 = torch.abs(den1) > 1e-12
+    ps1 = torch.where(ok1, ps1_num / torch.where(ok1, den1, 1.0), 0.0)
+    a = 1.0 - dot_nk1 * 0.5
+    b = 1.0 - dot_nk2 * 0.5
+    pd1 = _SA_PD * (1.0 - a * a * a * a * a)
+    okh = torch.abs(dot_hk1) > 1e-12
+    q = ps0 * ps1_num
+    pdf = torch.where(okh, q / torch.where(okh, dot_hk1, 1.0), 0.0)
+    # spec = ps0 ps1, pdf = safe_div(ps0 ps1_num, hk1), diff = pd1 (1 - b^5)
+    g_q, g_h1 = _guarded_vjp(dot_hk1, ~okh, pdf, g_pdf)
+    g_hk1 = g_hk1 + g_h1
+    g_ps0 = g_spec * ps1 + g_q * ps1_num
+    g_ps1 = g_spec * ps0
+    g_p = g_q * ps0
+    g_pd1 = g_diff * (1.0 - b * b * b * b * b)
+    g_b = -(g_diff * pd1) * (5.0 * (b * b * b * b))
+    g_a = -(g_pd1 * _SA_PD) * (5.0 * (a * a * a * a))
+    g_p1, g_den1 = _guarded_vjp(den1, ~ok1, ps1, g_ps1)
+    g_p = g_p + g_p1
+    g_hk1 = g_hk1 + g_den1 * mx
+    g_mx = g_den1 * dot_hk1
+    g_nk1 = g_mx * max_weight(dot_nk1, dot_nk2) - g_a * 0.5
+    g_nk2 = g_mx * max_weight(dot_nk2, dot_nk1) - g_b * 0.5
+    # ps1_num = safe_pow(hn, e): e hn^(e - 1) and hn^e ln hn
+    g_hn = torch.where(pos, g_p * (ps_e * torch.pow(hn_s, ps_e - 1.0)), 0.0)
+    g_e = torch.where(pos, g_p * (ps1_num * torch.log(hn_s)), 0.0)
+    g_s0 = g_ps0 * M_1_PI * 0.125 / (2.0 * sq)
+    g_num, g_den_e = _guarded_vjp(den_e, e_zero, ps_e, g_e)
+    g_hn = g_hn - g_den_e * dot_hn * 2.0
+    g_nu = g_s0 * (nv + 1.0) + g_num * dot_hu * dot_hu
+    g_nv = g_s0 * (nu + 1.0) + g_num * dot_hv * dot_hv
+    g_hu = g_num * nu * dot_hu * 2.0
+    g_hv = g_num * nv * dot_hv * 2.0
+    g_h = un * g_hu + vn * g_hv + normal * g_hn + k1 * g_hk1
+    g_hs = safe_normalized_vjp(hs, g_h)
+    g_k1 = normal * g_nk1 + h * g_hk1 + g_hs
+    g_k2 = normal * g_nk2 + g_hs
+    return -g_k2, g_k1, g_nu, g_nv

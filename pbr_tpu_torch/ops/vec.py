@@ -199,3 +199,65 @@ def jitter(nl: Vec3, phi, sina, cosa) -> Vec3:
     u, v = orthonormal(nl)
     azim = (u * torch.cos(phi) + v * torch.sin(phi)).normalized()
     return (azim * sina + nl * cosa).normalized()
+
+
+# ---------------------------------------------------------------------------
+# Adjoints written out by hand (vector-Jacobian products): the plain
+# versions of the backward kernels' device functions (csrc/shade_bwd.cu),
+# op for op. Each takes a forward function's inputs and the gradient of its
+# output and returns its inputs' gradients, with autograd's conventions at
+# the guards: zero where a safe_* function guards, half to each side of a
+# tie of ``maximum`` / ``minimum``, all of it where ``clamp_min`` sits at
+# its bound.
+# ---------------------------------------------------------------------------
+
+
+def sum3(v: Vec3):
+    """x + y + z, in that order."""
+    return v.x + v.y + v.z
+
+
+def max_weight(a, b):
+    """d maximum(a, b) / d a as autograd takes it: 1 where a > b, 1/2 at a
+    tie, 0 below (``max_weight(b, a)`` is minimum(a, b)'s)."""
+    return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def normalized_vjp(v: Vec3, g: Vec3) -> Vec3:
+    """``Vec3.normalized``'s adjoint: (g - n (g . n)) / |v|, n = v / |v|."""
+    inv = 1.0 / torch.sqrt(v.length2())
+    n = v * inv
+    return (g - n * g.dot(n)) * inv
+
+
+def safe_normalized_vjp(v: Vec3, g: Vec3, eps=1e-20) -> Vec3:
+    """``safe_normalized``'s adjoint: zero where it guards."""
+    l2 = v.length2()
+    ok = l2 > eps
+    inv = torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, l2, 1.0)), 0.0)
+    n = v * inv
+    return (g - n * g.dot(n)) * inv
+
+
+def jitter_vjp(nl: Vec3, phi, sina, cosa, g: Vec3) -> Vec3:
+    """``jitter``'s adjoint with respect to ``nl`` (the angles are drawn:
+    no gradient)."""
+    y = nl.yzx()
+    a = y.cross(nl)
+    u = safe_normalized(a)
+    b = nl.cross(u)
+    v = safe_normalized(b)
+    cp, sp = torch.cos(phi), torch.sin(phi)
+    az0 = u * cp + v * sp
+    az = az0.normalized()
+    r0 = az * sina + nl * cosa
+    g_r0 = normalized_vjp(r0, g)
+    g_az0 = normalized_vjp(az0, g_r0 * sina)
+    g_nl = g_r0 * cosa
+    g_b = safe_normalized_vjp(b, g_az0 * sp)
+    g_u = g_az0 * cp + g_b.cross(nl)  # b = nl x u
+    g_nl = g_nl + u.cross(g_b)
+    g_a = safe_normalized_vjp(a, g_u)
+    g_y = nl.cross(g_a)  # a = y x nl
+    g_nl = g_nl + g_a.cross(y)
+    return Vec3(g_nl.x + g_y.z, g_nl.y + g_y.x, g_nl.z + g_y.y)  # y = (nl.y, nl.z, nl.x)

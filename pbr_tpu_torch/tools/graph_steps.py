@@ -3,7 +3,7 @@
     python3 -m pbr_tpu_torch.tools.graph_steps [--size 1024] [--frames 8]
         [--rounds 3] [--scenes cornell,multiroom,soup:100000,phong]
         [--out out/graph_steps.json]
-    python3 -m pbr_tpu_torch.tools.graph_steps --compare A.json B.json
+    python3 -m pbr_tpu_torch.tools.graph_steps --compare A.json B.json [--tol 1e-3]
 
 For each scene of ``--scenes`` (``bench.load_scene``'s names, and
 ``phong``: the Cornell box with a smooth sphere, ``cornell_sphere``, at
@@ -24,10 +24,14 @@ frame), the capture's seconds, nodes and pool bytes, the port's kernel
 nodes of the graph (its launches a replay, by instance; held equal to the
 eager step's launches over ``--frames`` frames), the port's kernels that
 the device ran over ``--frames`` bare replays (torch.profiler; held to
-``--frames`` times the graph's), peak memory; and ``digests``: the SHA-256
+``--frames`` times the graph's), peak memory; ``digests``: the SHA-256
 of the eager step's sums (the loss, and each gradient of the backward
-step) and, forward, of one frame's colours (seed 7), which ``--compare``
-holds equal tensor by tensor between two records (bitwise equal tensors).
+step) and, forward, of one frame's colours (seed 7); and ``values``: the
+backward step's gradients. ``--compare`` holds two records' digests equal
+tensor by tensor (bitwise equal tensors); with ``--tol`` a gradient may
+instead lie within ``tol`` of its largest magnitude in the second record
+(two trees whose backward sums the same terms in other orders), while
+forward frames and losses stay bitwise.
 
 The file imports of the port only what every tree has had since its
 frames were captured, so run as a script with another checkout's root on
@@ -47,6 +51,7 @@ import time
 from collections import Counter
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from pbr_tpu_torch import bench
@@ -92,14 +97,25 @@ def digest(t: torch.Tensor) -> str:
                           + t.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
 
 
-def compare(a: str, b: str) -> dict:
+def compare(a: str, b: str, tol=None) -> dict:
     """{configuration/tensor: True where the two records' digests are
-    equal}: every value True when the two trees' sums and frames are
-    bitwise equal."""
-    x, y = (json.loads(Path(p).read_text())["digests"] for p in (a, b))
-    return {f"{row}/{k}": x.get(row, {}).get(k) == y.get(row, {}).get(k)
-            for row in sorted(set(x) | set(y))
-            for k in sorted(set(x.get(row, {})) | set(y.get(row, {})))}
+    equal, or, with ``tol``, for a gradient of the backward step, where
+    each entry of the first lies within ``tol`` of the second's largest
+    magnitude}: every value True when the two trees' frames and losses are
+    bitwise equal and their gradients equal (or within ``tol``)."""
+    x, y = (json.loads(Path(p).read_text()) for p in (a, b))
+    out = {}
+    for row in sorted(set(x["digests"]) | set(y["digests"])):
+        dx, dy = x["digests"].get(row, {}), y["digests"].get(row, {})
+        vx, vy = x.get("values", {}).get(row, {}), y.get("values", {}).get(row, {})
+        for k in sorted(set(dx) | set(dy)):
+            same = dx.get(k) == dy.get(k)
+            if not same and tol is not None and k in vx and k in vy:
+                u, v = np.asarray(vx[k], np.float64), np.asarray(vy[k], np.float64)
+                same = u.shape == v.shape and bool(
+                    np.all(np.abs(u - v) <= tol * (np.abs(v).max() if v.size else 0.0)))
+            out[f"{row}/{k}"] = same
+    return out
 
 
 def bench_case(name: str, size: int, dev) -> "bench.Bench":
@@ -175,6 +191,8 @@ def measure(name: str, fwd_only: bool, size: int, frames: int, rounds: int, dev,
         sums = {"loss": digest(ref), "frame": digest(torch.stack(list(c)))}
     else:
         sums = {"loss": digest(ref[0]), **{k: digest(g) for k, g in ref[1].items()}}
+    values = {} if fwd_only else {k: g.detach().cpu().reshape(-1).tolist()
+                                  for k, g in ref[1].items()}
     torch.cuda.reset_peak_memory_stats()
     ms = {"eager": [], "graph": []}
     for r in range(rounds):
@@ -199,7 +217,7 @@ def measure(name: str, fwd_only: bool, size: int, frames: int, rounds: int, dev,
             "kernels_eager": sum(eager_kernels.values()) / frames,
             "top_eager": [{"kernel": k[:160], "ms": eager_ms[k] / frames,
                            "launches": eager_kernels[k] / frames} for k in heavy],
-            "digests": sums,
+            "digests": sums, "values": values,
             "capture_s": st["capture_s"], "nodes": st["nodes"], "pool_bytes": st["pool_bytes"],
             "launches_a_replay": per_replay, "device_launches": ran,
             "grads": None if fwd_only else len(ref[1]),
@@ -216,9 +234,12 @@ def main(argv=None) -> None:
     ap.add_argument("--scenes", default="cornell,multiroom,soup:100000,phong")
     ap.add_argument("--out", default="out/graph_steps.json")
     ap.add_argument("--compare", nargs=2, metavar=("A.json", "B.json"))
+    ap.add_argument("--tol", type=float, default=None,
+                    help="with --compare: the gradients' tolerance, a share of the largest "
+                         "magnitude")
     a = ap.parse_args(argv)
     if a.compare:
-        print(json.dumps(compare(*a.compare)))
+        print(json.dumps(compare(*a.compare, tol=a.tol)))
         return
     if not torch.cuda.is_available():
         raise SystemExit("graph_steps: needs a CUDA card")
@@ -229,13 +250,14 @@ def main(argv=None) -> None:
     card = bench.card_line()
     print(card, flush=True)
     res = {"card": card, "size": a.size, "frames": a.frames, "rounds": a.rounds, "rows": {},
-           "digests": {}}
+           "digests": {}, "values": {}}
     t0 = time.perf_counter()
     for name in a.scenes.split(","):
         for fwd_only in (True, False):
             key = f"{name} {'fwd' if fwd_only else 'fwd+bwd'}"
             row = measure(name, fwd_only, a.size, a.frames, a.rounds, dev, TOP)
             res["digests"][key] = row.pop("digests")
+            res["values"][key] = row.pop("values")
             res["rows"][key] = row
             fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)  # noqa: E731
             print(f"{key}: {row['rays']} rays a frame; ms/frame eager [{fmt(row['ms_eager'])}], "

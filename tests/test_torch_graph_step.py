@@ -650,6 +650,10 @@ _KERNEL_NAMES = {
                "namespace)::ShadeArgs)",
     "K12 post": "void (anonymous namespace)::shade_kernel<0, true, true, false, 2>((anonymous "
                 "namespace)::ShadeArgs)",
+    "K11 bwd": "void (anonymous namespace)::gen_rays_bwd_kernel((anonymous "
+               "namespace)::GenBwdArgs)",
+    "K12 bwd": "void (anonymous namespace)::shade_bwd_kernel<1, true, false, true>((anonymous "
+               "namespace)::BwdArgs)",
 }
 
 
@@ -697,6 +701,8 @@ def test_kernel_table_names_every_kernel_function_of_the_sources():
     (b"_ZN12_GLOBAL__N_114slotted_kernelILi64ELb0EEEvNS_4RaysEPK6float4iPKiS6_PKfS6_i", "K4"),
     (b"_ZN12_GLOBAL__N_113packet_kernelILi1EEEvNS_6ParamsE", "K6 NEE"),
     (b"_ZN12_GLOBAL__N_111walk_kernelILb1EEEvNS_6ParamsE", "K8 any-hit"),
+    (b"_ZN45_GLOBAL__N__bbf69a31_12_shade_bwd_cu_4872029216shade_bwd_kernelILi1ELb0ELb0ELb1EEEv"
+     b"NS_7BwdArgsE", "K12 bwd"),
 ])
 def test_driver_names_demangle_to_their_instances(mangled, inst):
     """A mangled name, as ``cuFuncGetName`` gives it, demangles to the
@@ -755,6 +761,32 @@ def test_graph_steps_digests_tell_bitwise_equal_tensors(tmp_path):
         (tmp_path / name).write_text(json.dumps({"digests": {"c fwd": {"frame": gs.digest(val)}}}))
     assert gs.compare(tmp_path / "x.json", tmp_path / "y.json") == {"c fwd/frame": True}
     assert gs.compare(tmp_path / "x.json", tmp_path / "z.json") == {"c fwd/frame": False}
+
+
+def test_graph_steps_compare_holds_gradients_to_a_tolerance(tmp_path):
+    """With ``tol``, tools/graph_steps.py's comparison takes a backward
+    step's gradient within ``tol`` of its largest magnitude (two trees that
+    sum the same terms in other orders); forward frames and losses stay
+    bitwise, and without ``tol`` everything is."""
+    from pbr_tpu_torch.tools import graph_steps as gs
+
+    def record(name, frame, loss, grad):
+        (tmp_path / name).write_text(json.dumps({
+            "digests": {"c fwd": {"frame": gs.digest(frame)},
+                        "c fwd+bwd": {"loss": gs.digest(loss), "g": gs.digest(grad)}},
+            "values": {"c fwd": {}, "c fwd+bwd": {"g": grad.tolist()}}}))
+
+    frame, loss, grad = torch.tensor([0.5, 2.0]), torch.tensor(3.0), torch.tensor([4.0, -8.0])
+    record("a.json", frame, loss, grad)
+    record("b.json", frame, loss, grad + torch.tensor([0.0, 0.007]))  # 0.0009 of 8
+    record("c.json", frame, loss, grad + torch.tensor([0.0, 0.009]))  # 0.0011 of 8
+    record("d.json", frame, loss + 1e-6, grad)
+    record("e.json", frame + 1e-6, loss, grad)
+    cmp = lambda b, tol=None: gs.compare(tmp_path / "a.json", tmp_path / b, tol)  # noqa: E731
+    assert all(cmp("b.json", 1e-3).values()) and not cmp("b.json")["c fwd+bwd/g"]
+    assert cmp("c.json", 1e-3)["c fwd+bwd/g"] is False
+    assert cmp("d.json", 1e-3)["c fwd+bwd/loss"] is False
+    assert cmp("e.json", 1e-3)["c fwd/frame"] is False
 
 
 def test_graph_steps_phong_case_steps_like_the_eager_step():

@@ -23,10 +23,12 @@ run their plain versions, against the JAX package.
   is itself 1.4-2.1% of pixels off that oracle, the port 0.2-0.4%
   (24² and 32², 2 samples).
 - Under autograd, with parameters that require grad, the frame is
-  bitwise the frame without it (both the plain version on the CPU) and
-  the gradients are finite: tests/test_torch_grad.py holds them to
-  ``jax.grad``.
-- K12's pointer slots in ``csrc/shade.cu`` are the wrapper's, in order.
+  bitwise the frame without it (on the CPU the plain version either way:
+  under autograd through the autograd Functions, whose backward is the
+  plain adjoint, tests/test_torch_shade_grad.py) and the gradients are
+  finite: tests/test_torch_grad.py holds them to ``jax.grad``.
+- The pointer slots of K11, K12 (``csrc/shade.cu``) and of their backward
+  (``csrc/shade_bwd.cu``) are the wrappers', in order.
 
 The kernels themselves run only on a card: tests/test_torch_shade_card.py.
 """
@@ -240,8 +242,14 @@ def test_grad_path_gives_the_same_frame(monkeypatch):
     assert float(grads[0].abs().sum()) > 0
 
 
+def _source(enum: str) -> str:
+    """The source that defines ``enum``: the backward's in shade_bwd.cu."""
+    name = "shade_bwd.cu" if enum in ("BwdPtr", "GenBwdPtr") else "shade.cu"
+    return (Path(cuda_shade.__file__).resolve().parents[1] / "csrc" / name).read_text()
+
+
 def _enum(name: str) -> tuple:
-    src = (Path(cuda_shade.__file__).resolve().parents[1] / "csrc" / "shade.cu").read_text()
+    src = _source(name)
     body = re.search(rf"enum {name} \{{(.*?)\}};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     return tuple(w for w in re.findall(r"\b[A-Z][A-Z0-9_]*\b", body))
@@ -250,16 +258,17 @@ def _enum(name: str) -> tuple:
 @pytest.mark.parametrize("enum, names, total", [
     ("ShadePtr", cuda_shade.SHADE_PTRS, "kShadePtrs"),
     ("GenPtr", cuda_shade.GEN_PTRS, "kGenPtrs"),
+    ("BwdPtr", cuda_shade.SHADE_BWD_PTRS, "kBwdPtrs"),
+    ("GenBwdPtr", cuda_shade.GEN_BWD_PTRS, "kGenBwdPtrs"),
 ])
 def test_pointer_slots_match_the_kernel_source(enum, names, total):
     """The wrappers fill the kernels' pointer arrays in the order of the
     source's enums (a slot out of place would hand a kernel the wrong
     tensor)."""
     found = _enum(enum)
-    assert re.search(rf"\b{total}\b", (Path(cuda_shade.__file__).resolve().parents[1] / "csrc"
-                                         / "shade.cu").read_text())
+    assert re.search(rf"\b{total}\b", _source(enum))
     assert found == names
 
 
 def test_shade_launch_counts_are_counted():
-    assert {"K11", "K12", "K12 pre", "K12 post"} <= set(counts())
+    assert {"K11", "K12", "K12 pre", "K12 post", "K11 bwd", "K12 bwd"} <= set(counts())
