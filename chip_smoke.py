@@ -20,16 +20,19 @@ eager frame's launches and to what the device ran (torch.profiler).
 2. build: K1/K2 (csrc/brute_intersect.cu), K3 (csrc/gated_intersect.cu),
    K4/K4m (csrc/cull_intersect.cu), K5/K5m (csrc/row_sweep.cu), K6/K7
    (csrc/bvh_packet.cu), K8 (csrc/bvh_walk.cu), K9 (csrc/phong_walk.cu),
-   K10 (csrc/phong_clusters.cu) and K11/K12 (csrc/shade.cu) with nvcc, and
-   the native BVH builder (csrc/bvh_builder.cpp) with g++, all in
-   parallel, and their backward, K11 bwd and K12 bwd
-   (csrc/shade_bwd.cu), timed. Every forward frame on the card shades in
+   K10 (csrc/phong_clusters.cu), K11/K12 (csrc/shade.cu), their backward,
+   K11 bwd and K12 bwd (csrc/shade_bwd.cu), and compaction's K13/K14 with
+   their backward (csrc/compact.cu) with nvcc, and the native BVH builder
+   (csrc/bvh_builder.cpp) with g++, all in parallel, timed. Every forward frame on the card shades in
    K11 (camera rays, once a sample) and K12 (once a bounce, or "K12 pre"
    and "K12 post" where the shadow leg is a walk of its own), and the
    backward of a frame that autograd records runs K12 bwd once a bounce
-   and, where the camera requires grad, K11 bwd once a sample; the launch
-   checks of the search kernels below leave them out and print them, and
-   the shade and graph phases hold their counts;
+   and, where the camera requires grad, K11 bwd once a sample; a frame
+   with a compaction schedule gathers each stage's rows by K13 and folds
+   them back by K14, once a stage each, and its backward runs K13 bwd and
+   K14 bwd as often; the launch checks of the search kernels below leave
+   them out and print the shading's, and the paths, the shade and the
+   graph phases hold their counts;
 3. Cornell box (34 faces; auto runs K1):
    - K1 and K2 (NEE, and K1', K2' nearest only) against their plain
      versions on the card, bitwise (t, face, occluded), on the path's
@@ -327,7 +330,14 @@ eager frame's launches and to what the device ran (torch.profiler).
    post each timed alone on its main path's bounce 0, and K11 bwd and K12
    bwd on Cornell's backward step's (20 launches from a CUDA graph),
    against its plain version, with its bound (bytes in once and out
-   once). The graph phase holds each forward frame's graph to K11 once a
+   once); on the backward steps of Cornell and the Phong sphere, every
+   K13, K13 bwd, K14 and K14 bwd call (each stage's, ``compact_phase``)
+   recorded and held bitwise to its plain version, each instance timed on
+   Cornell's first stage, each launch after a read that flushes the L2
+   cache (and warm, 20 in a row), against its plain version and one
+   PyTorch call a field (``index_select`` for K13 and K14 bwd, ``index_put`` with
+   accumulate, the old gathers' backward, for K13 bwd and K14), with its
+   bound. The graph phase holds each forward frame's graph to K11 once a
    sample and K12 once a bounce (or pre and post once each), and the
    bench's forward+backward graphs to those and K11 bwd once a sample and
    K12 bwd once a bounce.
@@ -343,7 +353,10 @@ intersector='pallas' frames; K9's and K10's times are on the Phong path's
 post's on soup:100000's (their launches: Cornell's timed frames and the
 'bvh' path's), K11 bwd's and K12 bwd's on Cornell's backward step's
 bounce 0 (their launches: the multiroom forward+backward path's STEPS
-steps); K10's row adds the yardstick bound ``bound_jax_ms``
+steps); K13's, K14's and their backward's on Cornell's backward step's
+first stage (their launches: Cornell's timed frames, K13 and K14, and
+the multiroom forward+backward path's, K13 bwd and K14 bwd), with
+``library_ms``; K10's row adds the yardstick bound ``bound_jax_ms``
 beside ``bound_ms``, the bound of the tests it runs, and its launches over
 the Phong golden's frames under the JAX package's threshold,
 ``golden_launches`` over ``golden_frames``: its ``launches`` are the main
@@ -382,6 +395,7 @@ from pbr_tpu_torch.models.pathtracer import (  # noqa: E402
 )
 from pbr_tpu_torch.ops import counts, kernel_counts, zero_counts  # noqa: E402
 from pbr_tpu_torch.ops import cuda_bvh as cb  # noqa: E402
+from pbr_tpu_torch.ops import cuda_compact as ccp  # noqa: E402
 from pbr_tpu_torch.ops import cuda_cull as cc  # noqa: E402
 from pbr_tpu_torch.ops import cuda_gated as cg  # noqa: E402
 from pbr_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
@@ -490,6 +504,10 @@ REPLACES = {
     "K12": "pbr_tpu/models/integrator.py:579",  # no Pallas kernel: XLA's fusion of the shade
     "K11 bwd": "pbr_tpu/models/integrator.py:287",  # XLA's fusion of jax.grad of _gen_rays
     "K12 bwd": "pbr_tpu/models/integrator.py:579",  # XLA's fusion of jax.grad of the shade
+    "K13": "pbr_tpu/models/integrator.py:863",  # no Pallas kernel: XLA's stage row gathers
+    "K13 bwd": "pbr_tpu/models/integrator.py:863",  # their transposes under jax.grad
+    "K14": "pbr_tpu/models/integrator.py:905",  # no Pallas kernel: XLA's gathers of the fold
+    "K14 bwd": "pbr_tpu/models/integrator.py:905",  # their transposes under jax.grad
 }
 
 
@@ -573,8 +591,8 @@ def build_phase() -> None:
 
     t0 = time.perf_counter()
     names = ("brute_intersect", "gated_intersect", "cull_intersect", "row_sweep", "bvh_packet",
-             "bvh_walk", "phong_walk", "phong_clusters", "shade", "shade_bwd", "bvh_builder",
-             "k5 record")
+             "bvh_walk", "phong_walk", "phong_clusters", "shade", "shade_bwd", "compact",
+             "bvh_builder", "k5 record")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         done = list(pool.map(timed, names))
     for name, sec, lib in done:
@@ -826,6 +844,7 @@ def cornell_path_phase(scene, cam, dev, k1: dict, profile: bool) -> dict:
     if launched["K1"] != expect or sum(_searches(launched).values()) != expect:
         raise AssertionError(f"cornell: expected {expect} K1 launches and no other, got {launched}")
     _shade_pattern("cornell", launched, FRAMES, pt.settings)
+    _compact_pattern("cornell", launched, FRAMES, pt.settings)
     t, o, d, light = k1["tris"], k1["o"], k1["d"], k1["light"]
     table = ci.face_table(t)
     light3 = torch.stack(list(light))
@@ -1162,6 +1181,7 @@ def multiroom_grad_phase(scene, cam, dev, pt: PathTracer, profile: bool) -> dict
     if not finite or launched["K3"] != expect or launched["K3 any-hit"] != expect:
         raise AssertionError(f"fwd+bwd: finite {finite}, launches {launched}")
     _shade_pattern("fwd+bwd", launched, STEPS, pt.settings, backward=True)
+    _compact_pattern("fwd+bwd", launched, STEPS, pt.settings, backward=True)
     if profile:
         profile_phase("multiroom forward+backward", pt, cam,
                       lambda: _grads(ts, cam_t, pt.settings, pt.pixel_ids))
@@ -1764,19 +1784,21 @@ def eager_frame(pt: PathTracer, cam, seed: int):
 
 
 def _searches(launched: dict) -> dict:
-    """The launches of ``launched`` other than the shading kernels K11 and
-    K12, which every forward frame on the card launches (``shade_phase``
-    and the graph phase hold their counts)."""
-    return {k: v for k, v in launched.items() if v and k not in SHADE_KERNELS}
+    """The launches of ``launched`` other than the frame's kernels: the
+    shading (K11, K12), which every forward frame on the card launches,
+    and compaction (K13, K14), which every frame with a schedule launches,
+    with their backward (``shade_phase``, the paths and the graph phase
+    hold their counts)."""
+    return {k: v for k, v in launched.items() if v and k not in FRAME_KERNELS}
 
 
 def _expect(tag: str, launched: dict, expect: dict) -> None:
-    """``launched`` is ``expect`` and no other; where ``expect`` names no
-    shading kernel, its search kernels are, and the shading launches (K11,
-    K12) are printed."""
-    shading = {k: launched[k] for k in SHADE_KERNELS if launched.get(k)}
+    """``launched`` is ``expect`` and no other; where ``expect`` names none
+    of the frame's kernels, its search kernels are, and the shading and
+    compaction launches are printed."""
+    shading = {k: launched[k] for k in FRAME_KERNELS if launched.get(k)}
     got = {k: v for k, v in launched.items() if v}
-    if not any(k in SHADE_KERNELS for k in expect):
+    if not any(k in FRAME_KERNELS for k in expect):
         phase(tag, f"shading launches: {shading or 'none'}")
         got = _searches(got)
     if got != expect:
@@ -2874,6 +2896,11 @@ SHADE_BWD_SOURCE = "pbr_tpu_torch/csrc/shade_bwd.cu"
 SHADE_FWD = ("K11", "K12", "K12 pre", "K12 post")
 SHADE_BWD = ("K11 bwd", "K12 bwd")
 SHADE_KERNELS = SHADE_FWD + SHADE_BWD
+COMPACT_SOURCE = "pbr_tpu_torch/csrc/compact.cu"
+COMPACT_KERNELS = ("K13", "K13 bwd", "K14", "K14 bwd")
+# The kernels of every frame, whatever its search: the shading, and
+# compaction where the frame has a schedule.
+FRAME_KERNELS = SHADE_KERNELS + COMPACT_KERNELS
 # Operations for the bounds, counted by hand from csrc/shade.cu on a lane's
 # common path (lower estimates; both kernels are bound by bytes many times
 # over): K11 a lane (the pinhole, the jitter's frame and two normalisations,
@@ -3163,6 +3190,7 @@ def _frame_through_plain(tag: str, pt: PathTracer, cam, seed: int) -> None:
     torch.cuda.synchronize()
     launched = counts()
     pattern = _shade_pattern(f"{tag} frame", launched, 1, pt.settings)
+    _compact_pattern(f"{tag} frame", launched, 1, pt.settings)
     zero_counts()
     with torch.no_grad(), _plain_shading():
         plain = run(ct)
@@ -3179,6 +3207,7 @@ def _frame_through_plain(tag: str, pt: PathTracer, cam, seed: int) -> None:
         launched = counts()
         grad_pattern = _shade_pattern(f"{tag} grad path", launched, 1, pt.settings,
                                       backward=True)
+        _compact_pattern(f"{tag} grad path", launched, 1, pt.settings, backward=True)
     finally:
         pt.scene.requires_grad_(False)
         pt.scene.zero_grad(set_to_none=True)
@@ -3191,7 +3220,7 @@ def _frame_through_plain(tag: str, pt: PathTracer, cam, seed: int) -> None:
     phase("shade", f"{tag}: a {SIZE}² frame through K11 and K12 ({pattern}) bitwise the same "
                    f"frame through the plain versions and the frame autograd records, whose "
                    f"backward ran {grad_pattern}: "
-                   f"{ {k: launched.get(k, 0) for k in SHADE_KERNELS} }")
+                   f"{ {k: launched.get(k, 0) for k in FRAME_KERNELS} }")
 
 
 def _recorded_backward(run) -> tuple:
@@ -3389,7 +3418,10 @@ def shade_phase(dev, scene_s, cam_s) -> dict:
     soup:100000 and the Phong sphere through the kernels bitwise the plain
     versions' and the grad path's (``_frame_through_plain``); each
     instance timed on its main path's bounce 0 against its plain version,
-    with its bound."""
+    with its bound; on Cornell's and the sphere's backward steps every
+    compaction call, K13, K14 and their backward, bitwise its plain
+    version (``compact_phase``), each instance timed on Cornell's first
+    stage."""
     t_phase = time.perf_counter()
     scene_c, cam_c = cornell()
     scene_m, cam_m = multiroom()
@@ -3408,8 +3440,8 @@ def shade_phase(dev, scene_s, cam_s) -> dict:
         ("soup:100000", scene_s, cam_s, {}, True),
         ("phong", scene_p, cam_c, {"phong_tessellation": PHONG_ALPHA}, True),
     )
-    out = {"checked": {}, "checked_bwd": {}, "times": {},
-           "errs": dict.fromkeys(SHADE_KERNELS, 0.0)}
+    out = {"checked": {}, "checked_bwd": {}, "checked_compact": {}, "times": {},
+           "errs": dict.fromkeys(FRAME_KERNELS, 0.0)}
     timing = {"K11": ("cornell", "gen"), "K12": ("cornell", "shade"),
               "K12 pre": ("soup:100000", "shade"), "K12 post": ("soup:100000", "shade")}
     for tag, scene, cam, kw, vs_plain in cases:
@@ -3432,7 +3464,17 @@ def shade_phase(dev, scene_s, cam_s) -> dict:
                     and (name != "K12" or r["inst"] == ("K12",)))
                 out["times"][name] = _shade_timing(name, rec)
         del gens, shades
-        gens, shades = _recorded_backward(lambda: _backward_step(pt, cam, 5))
+        comp = []  # Cornell's and the sphere's compaction calls (K13, K14, their backward)
+        with _recorded_compaction(comp) if tag in ("cornell", "phong") else \
+                contextlib.nullcontext():
+            gens, shades = _recorded_backward(lambda: _backward_step(pt, cam, 5))
+        if comp:
+            checked, errs, times = compact_phase(tag, pt, comp, timed=tag == "cornell")
+            out["checked_compact"][tag] = checked
+            out["times"].update(times)
+            for k, v in errs.items():
+                out["errs"][k] = max(out["errs"][k], v)
+        del comp
         checked, errs = shade_bwd_check(tag, gens, shades)
         want = {"K11 bwd": pt.settings.samples,
                 "K12 bwd": pt.settings.samples * pt.settings.max_total_depth}
@@ -3458,12 +3500,190 @@ def shade_phase(dev, scene_s, cam_s) -> dict:
         del pt
         torch.cuda.empty_cache()
     for name, row in out["times"].items():
-        phase("shade", f"{name} on {row['lanes']} lanes: {row['ms']:.4f} ms (20 launches from a "
-                       f"CUDA graph), plain {row['plain_ms']:.4f} ms, bound "
+        lib, where = "", f"{row['lanes']} lanes"
+        how = "20 launches from a CUDA graph"
+        if "library_ms" in row:
+            lib = (f", one PyTorch call a field {row['library_ms']:.4f} ms (warm "
+                   f"{row['library_ms_warm']:.4f})")
+            where = (f"a stage of {row['cap']} of {row['rows']} rows ({row['n_ok']} live), "
+                     f"{row['fields']} fields")
+            how += f", each after an L2 flush; warm {row['ms_warm']:.4f} ms"
+        phase("shade", f"{name} on {where}: {row['ms']:.4f} ms ({how}), plain "
+                       f"{row['plain_ms']:.4f} ms{lib}, bound "
                        f"{row['bound'][0]:.4f} ms ({row['bound'][1]})")
     out["seconds"] = time.perf_counter() - t_phase
     phase("shade", f"phase took {out['seconds']:.1f} s")
     return out
+
+
+# ------------------------------------------------------ compaction, K13/K14 --
+
+
+def _stages(settings: RenderSettings, batch: int) -> int:
+    """The schedule stages of a sample of ``batch`` lanes under
+    ``settings``, by the integrator's own rule."""
+    import pbr_tpu_torch.models.integrator as integ
+
+    return len(integ.stage_plan(settings, batch)[1])
+
+
+def _compact_pattern(tag: str, launched: dict, frames: int, settings=None,
+                     backward: bool = False, batch: int = SIZE * SIZE) -> int:
+    """Compaction's launches over ``frames`` frames of ``batch`` lanes: K13
+    and K14 once a stage of each sample of ``settings``' schedule, and with
+    ``backward`` (frames that autograd records) K13 bwd and K14 bwd as
+    often; without ``settings`` (a schedule probed out of sight), the four
+    counts alike and whole frames of them. Raises otherwise; returns the
+    stages a frame."""
+    got = {k: launched.get(k, 0) for k in COMPACT_KERNELS}
+    n = got["K13"] if settings is None else frames * settings.samples * _stages(settings, batch)
+    want = {"K13": n, "K14": n, "K13 bwd": n if backward else 0,
+            "K14 bwd": n if backward else 0}
+    if got != want or n % frames:
+        raise AssertionError(f"{tag}: compaction launches {got} over {frames} "
+                             f"{'forward+backward' if backward else 'forward'} frames, "
+                             f"expected {want}")
+    return n // frames
+
+
+@contextlib.contextmanager
+def _recorded_compaction(calls: list):
+    """Within it every launch of K13, K13 bwd, K14 and K14 bwd
+    (``cuda_compact.compact_launch``, which the wrappers and the autograd
+    Functions call) is recorded into ``calls``: the instance, copies of
+    its plan and inputs, and copies of its outputs."""
+    real = ccp.compact_launch
+
+    def rec(name, plan, ins, prevs=None, live=False):
+        out = real(name, plan, ins, prevs=prevs, live=live)
+        calls.append({"name": name, "plan": _clone(plan), "ins": _clone(tuple(ins)),
+                      "prevs": None if prevs is None else _clone(tuple(prevs)), "live": live,
+                      "out": _clone(tuple(out))})
+        return out
+
+    ccp.compact_launch = rec
+    try:
+        yield
+    finally:
+        ccp.compact_launch = real
+
+
+def _compact_plain(rec: dict) -> tuple:
+    """A recorded call's outputs by its instance's plain version."""
+    return tuple(ccp.plain_launch(rec["name"], rec["plan"], list(rec["ins"]),
+                                  prevs=None if rec["prevs"] is None else list(rec["prevs"])))
+
+
+def compact_calls_check(tag: str, calls: list) -> tuple:
+    """Every recorded compaction call held bitwise to its plain version on
+    the same inputs (as bit patterns: -0.0 is not +0.0). Raises naming each
+    output that differs, its lanes and its largest ULP. Returns
+    ({instance: calls checked}, {instance: the largest absolute
+    difference})."""
+    checked = dict.fromkeys(COMPACT_KERNELS, 0)
+    errs = dict.fromkeys(COMPACT_KERNELS, 0.0)
+    for j, rec in enumerate(calls):
+        name, plan = rec["name"], rec["plan"]
+        ref = _compact_plain(rec)
+        bad = _bit_diff(f"{tag} {name} call {j}", rec["out"], ref)
+        if bad:
+            raise AssertionError(f"{tag}: {name} call {j} (cap {plan.cap} of "
+                                 f"{plan.slot.shape[0]} rows, {len(rec['ins'])} fields) differs "
+                                 f"from its plain version (output: (lanes, max ULP)) {bad}")
+        checked[name] += 1
+        errs[name] = max(errs[name], _max_abs(rec["out"], ref))
+    return checked, errs
+
+
+def _compact_library(rec: dict) -> list:
+    """One PyTorch call a field that computes the recorded call's function
+    (the yardstick, used nowhere in the port): ``index_select`` through
+    ``src`` on the (R, block) view for K13 and K14 bwd; ``index_put`` with
+    accumulate through ``src`` (the old gathers' backward, which sorts the
+    indices) for K13 bwd (into zeros) and K14 (into the outer stage's
+    field)."""
+    name, plan, ins = rec["name"], rec["plan"], rec["ins"]
+    b, rows = plan.block, plan.slot.shape[0]
+    src = plan.src.long()
+    if name in ("K13", "K14 bwd"):
+        return [lambda v=v: v.view(-1, b).index_select(0, src) for v in ins]
+    if name == "K13 bwd":
+        return [lambda g=g: torch.zeros((rows, b), dtype=g.dtype, device=g.device).index_put_(
+            (src,), g.view(-1, b), accumulate=True) for g in ins]
+    return [lambda p=p, c=c: p.view(-1, b).index_put((src,), c.view(-1, b), accumulate=True)
+            for p, c in zip(rec["prevs"], ins)]
+
+
+def _compact_bytes(rec: dict) -> int:
+    """Bytes the recorded call's function must move: the rows each field's
+    output reads (the n_ok live slots' rows of a gathered field; K14 also
+    the outer stage's field whole), its output written once, the index
+    map and n_ok."""
+    name, plan, ins = rec["name"], rec["plan"], rec["ins"]
+    n_ok, b, rows = int(plan.n_ok), plan.block, plan.slot.shape[0]
+    out_rows = plan.cap if name in ("K13", "K14 bwd") else rows
+    idx = 4 * (plan.cap if name in ("K13", "K14 bwd") else rows) + 4
+    per = sum(x.element_size() * b * (n_ok + out_rows + (rows if name == "K14" else 0))
+              for x in ins)
+    return per + idx
+
+
+L2_FLUSH_FLOATS = 16 << 20  # 64 MB read between timed calls: more than the H100's 50 MB L2
+
+
+def _cold_ms(fn, flush) -> tuple:
+    """``(cold, warm)`` ms a call of ``fn``: 20 calls captured in a CUDA
+    graph, each after a read of ``flush`` (more than the L2 cache holds, so
+    the call finds its inputs in device memory, as the frame's call does),
+    less 20 such reads alone; and 20 calls in a row, the inputs in L2
+    after the first (a stage's tensors fit in it)."""
+    read = lambda: flush.sum()  # noqa: E731
+    both = k1_sweep.graph_ms(lambda: (read(), fn()), 20)
+    return both - k1_sweep.graph_ms(read, 20), k1_sweep.graph_ms(fn, 20)
+
+
+def _compact_timing(rec: dict) -> dict:
+    """A recorded call's instance alone and the library calls
+    (``_compact_library``, a field each), both cold and warm
+    (``_cold_ms``), its plain version, and the bound (bytes; K14's adds
+    are its only operations)."""
+    name, plan, ins, prevs = rec["name"], rec["plan"], list(rec["ins"]), rec["prevs"]
+    flush = torch.ones(L2_FLUSH_FLOATS, device=ins[0].device)
+    ms, warm = _cold_ms(lambda: ccp.compact_launch(
+        name, plan, ins, prevs=None if prevs is None else list(prevs), live=rec["live"]), flush)
+    library = _compact_library(rec)
+    lib_ms, lib_warm = _cold_ms(lambda: [f() for f in library], flush)
+    ops = len(ins) * plan.slot.shape[0] * plan.block if name == "K14" else 0
+    return {"ms": ms, "ms_warm": warm, "plain_ms": _time_ms(lambda: _compact_plain(rec), 5),
+            "library_ms": lib_ms, "library_ms_warm": lib_warm,
+            "bound": _bound(ops, _compact_bytes(rec)),
+            "lanes": ins[0].shape[0], "fields": len(ins), "n_ok": int(plan.n_ok),
+            "cap": plan.cap, "rows": plan.slot.shape[0]}
+
+
+def compact_phase(tag: str, pt: PathTracer, calls: list, timed: bool) -> tuple:
+    """The compaction calls recorded over one backward step of ``pt``:
+    each instance once a stage of its schedule, every call bitwise its
+    plain version (``compact_calls_check``); with ``timed``, each
+    instance timed on the first stage's call (the widest). Returns
+    ({instance: calls checked}, {instance: largest difference},
+    {instance: timing})."""
+    stages = _stages(pt.settings, pt.pixel_ids.shape[0])
+    checked, errs = compact_calls_check(tag, calls)
+    if stages < 1 or checked != dict.fromkeys(COMPACT_KERNELS, stages):
+        raise AssertionError(f"{tag}: the backward step ran compaction {checked}, expected "
+                             f"each of {COMPACT_KERNELS} once a stage of "
+                             f"{pt.settings.compact_schedule}")
+    times = {}
+    if timed:
+        for name in COMPACT_KERNELS:
+            times[name] = _compact_timing(max((r for r in calls if r["name"] == name),
+                                              key=lambda r: r["plan"].cap))
+    phase("shade", f"{tag}: the backward step's compaction {checked} bitwise their plain "
+                   f"versions (schedule {pt.settings.compact_schedule}; the stages' live rows "
+                   f"{[int(r['plan'].n_ok) for r in calls if r['name'] == 'K13']} of "
+                   f"{[r['plan'].cap for r in calls if r['name'] == 'K13']})")
+    return checked, errs, times
 
 
 # ----------------------------------------------------------- CUDA graphs --
@@ -3560,6 +3780,7 @@ def graph_frame_check(tag: str, scene, cam, dev, kernels: tuple, **kw) -> dict:
                                  f"state fields {bad} ({n_px} pixels of rgb.x)")
     _expect(f"graph {tag}, eager", eager_launches, dict.fromkeys(kernels, mtd))
     shading = _shade_pattern(f"graph {tag}", nodes, 1, pt.settings)
+    _compact_pattern(f"graph {tag}", nodes, 1, pt.settings)
     if nodes != eager_launches:
         raise AssertionError(f"graph {tag}: the graph holds {nodes} of the port's kernel "
                              f"nodes, an eager frame launches {eager_launches}")
@@ -3633,6 +3854,8 @@ def graph_bench_check(name: str, kernels: tuple, dev, frames: int = 2) -> dict:
         # A forward frame, or one that autograd records: the backward too.
         _shade_pattern(f"graph bench {name} {mode}", row["launches_a_replay"], 1,
                        bench_settings(SIZE), backward=not fwd_only)
+        _compact_pattern(f"graph bench {name} {mode}", row["launches_a_replay"], 1,
+                         backward=not fwd_only)
         phase("graph", f"bench {name} {mode}: {frames} replayed frames bitwise the eager step"
                        f"{'' if fwd_only else ' (loss and all 28 gradients)'}; capture "
                        f"{row['capture_s']:.3f} s, {row['nodes']} nodes, pool "
@@ -3788,6 +4011,8 @@ def bench_step_check(name: str, kernels: tuple, dev) -> dict:
     launched = {k: v for k, v in counts().items() if v}
     _expect(tag, launched, dict.fromkeys(kernels, frames * card.settings.max_total_depth))
     _shade_pattern(tag, launched, frames, card.settings, backward=True)
+    _compact_pattern(tag, launched, frames, card.settings, backward=True,
+                     batch=card.pixel_ids.shape[0])
     loss_h, g_h = bench.step_grads(host.scene, host.cam, host.settings, host.pixel_ids, 1,
                                    frames=frames, weights=w)
     loss_c, loss_h = float(loss_c), float(loss_h)
@@ -3861,6 +4086,7 @@ def bench_phase(dev) -> dict:
         # backward too.
         _shade_pattern(f"bench {tag}", launched, iters * k, bench_settings(SIZE),
                        backward="--fwd-only" not in argv)
+        _compact_pattern(f"bench {tag}", launched, iters * k, backward="--fwd-only" not in argv)
         if f"({k} frames a step)" not in proc.stderr or \
                 "[bench] CUDA graph of one frame: captured in" not in proc.stderr:
             raise AssertionError(f"bench {tag}: no capture of the frame step in its log")
@@ -3885,7 +4111,7 @@ def bench_phase(dev) -> dict:
 PORT_KERNELS = ("intersect", "gated_kernel", "slotted_kernel", "masked_kernel", "rows_kernel",
                 "packet_kernel", "chain_kernel", "slab_kernel", "walk_kernel",
                 "phong_clusters_kernel", "gen_rays_kernel", "shade_kernel",
-                "gen_rays_bwd_kernel", "shade_bwd_kernel")
+                "gen_rays_bwd_kernel", "shade_bwd_kernel", "row_gather_kernel")
 
 
 def profile_phase(tag: str, pt: PathTracer, cam, step=None) -> None:
@@ -4061,18 +4287,27 @@ def main() -> None:
         ("K12 post", SHADE_SOURCE, tp["k8"]["launches"]["K12 post"], FRAMES),
         ("K11 bwd", SHADE_BWD_SOURCE, grad["launches"]["K11 bwd"], STEPS),
         ("K12 bwd", SHADE_BWD_SOURCE, grad["launches"]["K12 bwd"], STEPS),
+        ("K13", COMPACT_SOURCE, corn["launches"]["K13"], FRAMES),
+        ("K14", COMPACT_SOURCE, corn["launches"]["K14"], FRAMES),
+        ("K13 bwd", COMPACT_SOURCE, grad["launches"]["K13 bwd"], STEPS),
+        ("K14 bwd", COMPACT_SOURCE, grad["launches"]["K14 bwd"], STEPS),
     ]
     # No one PyTorch call computes a nearest-hit search, a BVH walk or a
-    # bounce's shade: library_ms is null.
-    if len(rows) != 34:
-        raise AssertionError(f"expected 34 kernel rows, got {len(rows)}")
+    # bounce's shade: library_ms is null but for compaction's (one call a
+    # field, ``_compact_library``).
+    if len(rows) != 38:
+        raise AssertionError(f"expected 38 kernel rows, got {len(rows)}")
+    idle = [name for name, _, n, _ in rows if name in COMPACT_KERNELS and not n]
+    if idle:
+        raise AssertionError(f"{idle} launched no time on their main paths")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src,
         "replaces": REPLACES[name] if name in REPLACES else REPLACES[name.split()[0]],
         "launches": n, "frames": frames, "launches_per_frame": n / frames,
         "max_abs_err": errs[name],
         "ms": t[name][0], "plain_ms": t[name][1],
-        "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": sh["times"].get(name, {}).get("library_ms"),
         # K10 beside its row: the yardstick bound, and its launches in
         # the Phong golden's frames under PHONG_OLD_MIN_RAYS, where it runs
         # whatever the band.

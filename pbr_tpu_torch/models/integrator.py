@@ -9,8 +9,11 @@ tessellation the curved-patch search of ``ops/phongtess.py``: kernel K10
 over the clusters' candidate lists or the Phong BVH walk K9), and shade
 (NEE, BRDF sample, throughput update, Russian roulette: kernel K12), with
 per-ray liveness as masks. K11 and K12 (``ops/cuda_shade.py``) run a
-forward frame on the card; on the CPU, and where autograd records the
-frame, their plain versions, the torch ops. Same estimator, same quirks,
+frame on the card, their plain versions (the torch ops) on the CPU. A
+compaction schedule gathers each stage's rows by kernel K13 and folds them
+back by K14 (``ops/cuda_compact.py``); where autograd records the frame,
+the backward of all four runs K11 bwd, K12 bwd, K13 bwd and K14 bwd on the
+card. Same estimator, same quirks,
 same counter-based RNG, so the port's frame agrees with the NumPy oracle
 pixel by pixel (up to the ULPs of transcendentals).
 
@@ -36,6 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pbr_tpu_torch.ops.cuda_compact import Plan, fold, take_rows
 from pbr_tpu_torch.ops.cuda_shade import Hit, Lanes, ShadeConfig, ShadeScene, gen_rays, shade
 from pbr_tpu_torch.ops.intersect import INF
 from pbr_tpu_torch.ops.phongtess import (
@@ -116,11 +120,6 @@ def _compact_rows(alive, block: int, cap: int):
     return src, slot, n_ok, n_drop
 
 
-def _take_rows(v, src, block: int):
-    """Gather rows of ``block`` consecutive lanes: (R*block,) -> (cap*block,)."""
-    return v.reshape(-1, block)[src].reshape(-1)
-
-
 def _shadow_occluded(tris, hit_p, l_dir, t_light, casts, mode, tables, pt_alpha=0.0,
                      pt_faces=None):
     """Any-hit shadow test (traverseShadows, pt_bvh.cl:133-177): occluded
@@ -160,6 +159,16 @@ def _stage_capacities(settings: RenderSettings, rows_total: int, block: int):
             schedule.append((kb, cap))
             prev_cap, prev_kb = cap, kb
     return schedule
+
+
+def stage_plan(settings: RenderSettings, batch: int) -> tuple:
+    """``(block, schedule)`` of a sample of ``batch`` lanes: the row width
+    (``compact_block`` halved until it divides the batch) and
+    ``_stage_capacities``' schedule over those rows."""
+    block = max(1, int(settings.compact_block))
+    while block > 1 and batch % block:
+        block //= 2
+    return block, _stage_capacities(settings, batch // block, block)
 
 
 def trace_rays(
@@ -212,12 +221,8 @@ def trace_rays(
     nee_enabled = shade_cfg.nee
     mtd = settings.max_total_depth
 
-    batch = px.shape[0]
-    block = max(1, int(settings.compact_block))
-    while block > 1 and batch % block:
-        block //= 2
-    rows_total = batch // block
-    schedule = _stage_capacities(settings, rows_total, block)
+    block, schedule = stage_plan(settings, px.shape[0])
+    rows_total = px.shape[0] // block
 
     def zero_count():
         return torch.zeros((), dtype=torch.int64, device=dev)
@@ -325,18 +330,20 @@ def trace_rays(
                 focus_t = carry.focus_t  # only the full-width stage sets focus
             src, slot, n_ok, n_drop = _compact_rows(carry.alive, block, cap)
             n_drop_total = n_drop_total + n_drop
-            folds.append((slot, cap, fc, carry.secondary,
-                          (carry.heat, carry.heat_tests, carry.heat_visits), _zeros3(stage_px)))
-            tr = lambda v: _take_rows(v, src, block)  # noqa: E731
-            g3 = lambda v: Vec3(tr(v.x), tr(v.y), tr(v.z))  # noqa: E731
-            stage_px = tr(stage_px)
-            stage_rng = stage_rng.gather_rows(src, block)
-            # Slots past the live count hold row 0's data: mask them dead.
-            valid_row = torch.arange(cap, dtype=_I32, device=dev) < n_ok
-            alive_s = tr(carry.alive) & valid_row[:, None].expand(cap, block).reshape(-1)
+            plan = Plan(src, slot, n_ok, cap, block)
+            folds.append((plan, fc, carry.secondary,
+                          (carry.heat, carry.heat_tests, carry.heat_visits)))
+            # Kernel K13: every field the next stage takes, gathered by rows
+            # in one launch; slots past the live count hold row 0's data
+            # and are masked dead.
+            taken, alive_s = take_rows(
+                plan, [*carry.o, *carry.d, *carry.color, carry.depth_added, stage_px,
+                       stage_rng._base], carry.alive)
+            stage_px = taken[10]
+            stage_rng = stage_rng.gather_rows(src, block, base=taken[11])
             carry = _Carry(
-                g3(carry.o), g3(carry.d), g3(carry.color), alive_s,
-                torch.zeros_like(alive_s), _zeros3(stage_px), tr(carry.depth_added),
+                Vec3(*taken[0:3]), Vec3(*taken[3:6]), Vec3(*taken[6:9]), alive_s,
+                torch.zeros_like(alive_s), _zeros3(stage_px), taken[9],
                 _zeros3(stage_px), torch.zeros(stage_px.shape, dtype=_I32, device=dev),
                 torch.zeros_like(stage_px), *lane_stats(stage_px),
             )
@@ -349,17 +356,14 @@ def trace_rays(
         sec_s, stats_s = carry.secondary, (carry.heat, carry.heat_tests, carry.heat_visits)
         if not schedule:
             focus_t = carry.focus_t
-        for slot, cap, fc_prev, sec_prev, stats_prev, zero3_prev in reversed(folds):
-            ok_row = slot < cap
-            sc = slot.clamp_max(cap - 1)
-            tk = lambda v: _take_rows(v, sc, block)  # noqa: E731
-            ok_lane = ok_row[:, None].expand(ok_row.shape[0], block).reshape(-1)
-            fc_s = fc_prev + where3(ok_lane, Vec3(tk(fc_s.x), tk(fc_s.y), tk(fc_s.z)),
-                                    zero3_prev)
-            sec_s = sec_prev + torch.where(ok_lane, tk(sec_s), 0)
+        # Kernel K14: each stage's rows added back into the outer stage's
+        # lanes, one launch a fold.
+        for plan, fc_prev, sec_prev, stats_prev in reversed(folds):
+            out = fold(plan, [*fc_prev, sec_prev, *(stats_prev if with_stats else ())],
+                       [*fc_s, sec_s, *(stats_s if with_stats else ())])
+            fc_s, sec_s = Vec3(*out[:3]), out[3]
             if with_stats:
-                stats_s = tuple(prev + torch.where(ok_lane, tk(cur), 0)
-                                for prev, cur in zip(stats_prev, stats_s))
+                stats_s = tuple(out[4:])
         final_color, secondary = fc_s, sec_s
         heat, heat_tests, heat_visits = stats_s
 

@@ -39,19 +39,23 @@ KERNELS = {
     "K12 post": r"shade_kernel<\d+, (true|false), (true|false), (true|false), 2>",
     "K11 bwd": r"gen_rays_bwd_kernel",
     "K12 bwd": r"shade_bwd_kernel<\d+, (true|false), (true|false), (true|false)>",
+    "K13": r"row_gather_kernel<0, \d+>",
+    "K13 bwd": r"row_gather_kernel<1, \d+>",
+    "K14": r"row_gather_kernel<2, \d+>",
+    "K14 bwd": r"row_gather_kernel<3, \d+>",
 }
 
 
 def _launch_tables() -> tuple:
     """(launch table, {name in ``counts()``: key in the table}) of every
     kernel wrapper module."""
-    from pbr_tpu_torch.ops import (cuda_bvh, cuda_cull, cuda_gated, cuda_intersect, cuda_phong,
-                                   cuda_shade, cuda_sweep)
+    from pbr_tpu_torch.ops import (cuda_bvh, cuda_compact, cuda_cull, cuda_gated, cuda_intersect,
+                                   cuda_phong, cuda_shade, cuda_sweep)
 
     gated = {"K3": "nearest", "K3 any-hit": "any-hit"}
     return tuple((mod.launches, gated if mod is cuda_gated else {k: k for k in mod.launches})
                  for mod in (cuda_intersect, cuda_gated, cuda_cull, cuda_sweep, cuda_bvh,
-                             cuda_phong, cuda_shade))
+                             cuda_phong, cuda_shade, cuda_compact))
 
 
 def count_launch(table: dict, key: str) -> None:

@@ -118,9 +118,12 @@ class PixelRng:
         bounce's draws (bitwise-identical uniforms)."""
         return BounceRng(fold(fold(self._base, _as_u32(sample)), _as_u32(bounce)))
 
-    def gather_rows(self, src, block: int) -> "PixelRng":
+    def gather_rows(self, src, block: int, base=None) -> "PixelRng":
         """A PixelRng for a row-compacted sub-batch: rows of ``block``
-        consecutive lanes gathered by row index ``src``."""
+        consecutive lanes gathered by row index ``src``. ``base``: those
+        rows' keys already gathered (the integrator's stage gather, kernel
+        K13 on the card, takes them with the stage's other fields); None
+        gathers them here."""
         r = object.__new__(PixelRng)
-        r._base = self._base.reshape(-1, block)[src].reshape(-1)
+        r._base = self._base.reshape(-1, block)[src].reshape(-1) if base is None else base
         return r

@@ -654,6 +654,14 @@ _KERNEL_NAMES = {
                "namespace)::GenBwdArgs)",
     "K12 bwd": "void (anonymous namespace)::shade_bwd_kernel<1, true, false, true>((anonymous "
                "namespace)::BwdArgs)",
+    "K13": "void (anonymous namespace)::row_gather_kernel<0, 4>((anonymous "
+           "namespace)::CompactArgs)",
+    "K13 bwd": "void (anonymous namespace)::row_gather_kernel<1, 4>((anonymous "
+               "namespace)::CompactArgs)",
+    "K14": "void (anonymous namespace)::row_gather_kernel<2, 1>((anonymous "
+           "namespace)::CompactArgs)",
+    "K14 bwd": "void (anonymous namespace)::row_gather_kernel<3, 4>((anonymous "
+               "namespace)::CompactArgs)",
 }
 
 
@@ -787,6 +795,52 @@ def test_graph_steps_compare_holds_gradients_to_a_tolerance(tmp_path):
     assert cmp("c.json", 1e-3)["c fwd+bwd/g"] is False
     assert cmp("d.json", 1e-3)["c fwd+bwd/loss"] is False
     assert cmp("e.json", 1e-3)["c fwd/frame"] is False
+
+
+_K1, _K3 = _KERNEL_NAMES["K1"], _KERNEL_NAMES["K3 any-hit"]
+_TORCH = "void at::native::vectorized_elementwise_kernel<4>(int)"
+
+
+@pytest.mark.parametrize("windows, want, used", [
+    # every record in the first window
+    ([{_K1: 16, _K3: 4, _TORCH: 9}], {"K1": 16, "K3 any-hit": 4}, 1),
+    # records lost in each window, each instance whole in one of them
+    ([{_K1: 12, _K3: 4}, {_K1: 15, _K3: 3}, {_K1: 16, _K3: 1}],
+     {"K1": 16, "K3 any-hit": 4}, 3),
+    # a node that does not run is short in every window
+    ([{_K1: 16, _K3: 2}] * 8, {"K1": 16, "K3 any-hit": 2}, 8),
+    # a window over the graph's count is returned as it is
+    ([{_K1: 12, _K3: 4}, {_K1: 17, _K3: 4}, {_K1: 16, _K3: 4}],
+     {"K1": 17, "K3 any-hit": 4}, 2),
+    ([{_K1: 16, _K3: 4, _KERNEL_NAMES["K5"]: 1}],
+     {"K1": 16, "K3 any-hit": 4, "K5": 1}, 1),
+])
+def test_graph_steps_profiled_replays_takes_each_kernels_most_over_windows(
+        monkeypatch, windows, want, used):
+    """tools/graph_steps.py's ``profiled_replays`` (the device's kernels
+    over a graph's bare replays, by torch.profiler, which loses records)
+    takes windows of ``n`` replays until each of the port's instances has
+    shown its full count in one, at most ``tries``, and returns each
+    instance's most; a window over the graph's count ends it as it is."""
+    from pbr_tpu_torch.tools import graph_steps as gs
+
+    class _Step:
+        kernels = {_K1: 8, _K3: 2, _TORCH: 5}
+        replays = 0
+
+        def __call__(self):
+            self.replays += 1
+
+    seen = iter(windows)
+
+    def profiled(fn):
+        fn()
+        return 0.0, next(seen), {}
+
+    monkeypatch.setattr(gs, "profiled", profiled)
+    step = _Step()
+    assert gs.profiled_replays(step, 2) == want
+    assert step.replays == 2 * used
 
 
 def test_graph_steps_phong_case_steps_like_the_eager_step():

@@ -65,6 +65,7 @@ def _run(code: str) -> str:
     "pbr_tpu_torch.tools.graph_steps",
     "pbr_tpu_torch.tools.phong_bands",
     "pbr_tpu_torch.ops.cuda_shade",
+    "pbr_tpu_torch.ops.cuda_compact",
 ])
 def test_import_leaves_jax_out(module):
     out = _run(f"import sys, {module}; print('jax' in sys.modules, 'pbr_tpu' in sys.modules)")
